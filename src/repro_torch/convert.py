@@ -1,0 +1,75 @@
+"""Reference state (numpy arrays) -> the port's tensors.
+
+The reference's pytrees are handed over as numpy arrays (``np.asarray`` of
+each leaf, done by the caller); nothing here imports JAX. Layouts:
+
+- ResNet parameters: the reference's convolution weights are HWIO, the
+  port's OIHW; every other leaf keeps its shape.
+- Client data ``{"x": (N, M, H, W, 1), "y": (N, M)}`` and the test set
+  keep the reference's NHWC layout (the port's public model functions take
+  NHWC); labels become int64 for indexing.
+- Optimizer state: moment trees convert like parameters; ``t`` stays a
+  0-d CPU int32 tensor.
+"""
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core.clients import _FIELDS, ClientPopulation
+from repro_torch.device import DeviceLike, resolve_device
+
+_POP_DTYPES = {"category": torch.int32, "network": torch.int32,
+               "explored": torch.bool, "last_round": torch.int32,
+               "times_selected": torch.int32, "dropped": torch.bool,
+               "n_samples": torch.int32}
+
+
+def tensor(x, device: DeviceLike = None, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(np.array(x), dtype=dtype,
+                           device=resolve_device(device))
+
+
+def key(x, device: DeviceLike = None) -> torch.Tensor:
+    """A reference key (uint32 pair) as the port's int64 ``(..., 2)``."""
+    return tensor(np.asarray(x).astype(np.int64), device)
+
+
+def resnet_params(tree: Any, device: DeviceLike = None) -> Any:
+    """HWIO convolution weights -> OIHW; other leaves unchanged."""
+    if isinstance(tree, Mapping):
+        return {k: resnet_params(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [resnet_params(v, device) for v in tree]
+    t = tensor(tree, device, torch.float32)
+    return t.permute(3, 2, 0, 1).contiguous() if t.ndim == 4 else t
+
+
+def population(src: Any, device: DeviceLike = None) -> ClientPopulation:
+    """A ``ClientPopulation`` from a mapping or object of (N,) arrays."""
+    get = (src.__getitem__ if isinstance(src, Mapping)
+           else lambda f: getattr(src, f))
+    return ClientPopulation(**{
+        f: tensor(get(f), device, _POP_DTYPES.get(f, torch.float32))
+        for f in _FIELDS})
+
+
+def dataset(data: Mapping, device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Client data or a test set: ``x`` float32 (NHWC), ``y`` int64."""
+    return {"x": tensor(data["x"], device, torch.float32),
+            "y": tensor(data["y"], device, torch.int64)}
+
+
+def optimizer_state(state: Mapping, device: DeviceLike = None) -> Dict:
+    """Server optimizer state ``{"m", "v", "t"}`` (or ``{"mu"}``, or
+    ``{}``): moment trees like parameters, ``t`` a 0-d CPU int32."""
+    out = {}
+    for name, v in state.items():
+        if name == "t":
+            out[name] = torch.as_tensor(np.array(v), dtype=torch.int32)
+        else:
+            out[name] = resnet_params(v, device)
+    return out

@@ -1,0 +1,30 @@
+"""Float32 arithmetic shared by the port's exact-parity paths.
+
+The reference runs under XLA's CPU compiler, which contracts ``x * y + z``
+into one fused multiply-add (a single rounding). PyTorch has no
+elementwise FMA, so :func:`fma` evaluates it in float64: the float32
+product ``x * y`` is exact there (48 significant bits), and the sum is
+rounded once more to float32. That is the FMA's result except in a double
+rounding tie, which needs the float64 sum to land exactly on a float32
+midpoint (about one case in 2**28 when the exact sum needs more than 53
+bits). The CUDA kernel evaluates the same float64 expression, so kernel
+and plain version agree bit for bit.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def f32(x, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d float32 tensor on ``like``'s device: a Python float rounded
+    once to float32, as JAX rounds a weakly-typed scalar."""
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def fma(x, y, z) -> torch.Tensor:
+    """``x * y + z`` with one float32 rounding (see module docstring).
+    A Python ``x`` is first rounded to float32, like any weak scalar."""
+    d = torch.float64
+    if not torch.is_tensor(x):
+        x = f32(x, y)
+    return (x.to(d) * y.to(d) + z.to(d)).to(torch.float32)

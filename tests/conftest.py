@@ -9,3 +9,8 @@ jax.config.update("jax_platform_name", "cpu")
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (skips with a reason elsewhere)")
