@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) once on one GPU.
 
-    python3 chip_smoke.py              # needs one CUDA device
+    python3 chip_smoke.py [--seed N]   # needs one CUDA device
 
 Phases (any mismatch exits non-zero; nothing is caught and swallowed):
 
-1. Device: the card's name and power limit; build the Hopper kernels from
-   the sources in this checkout and time the build.
+1. Device: the card's name and power limit; build the three Hopper kernels
+   from the sources in this checkout, one ``nvcc`` each, all at once, and
+   time the build.
 2. Each kernel against its plain PyTorch version on the card, on the same
    synthetic inputs: indices equal, values bitwise. The shapes include
    those the later phases give the kernel (N=200, k=10; N=10,000, k=100;
@@ -22,10 +23,37 @@ Phases (any mismatch exits non-zero; nothing is caught and swallowed):
    on the card.
 6. Timing, on the inputs that phases 5 and 3 gave the kernel.
 
-In phases 3 to 5 every call of the kernel's wrapper is recorded, inputs
-and outputs, and its outputs are held against the plain version on the
-same inputs. The last two lines of standard output are the kernels' JSON
-summary and ``{"ok": true, "device": {...}}``.
+In phases 3 to 5 every call of the top-k kernel's wrapper is recorded,
+inputs and outputs, and its outputs are held against the plain version on
+the same inputs.
+
+The LM serving path (zamba2-1.2b, full width, random weights from
+``--seed``):
+
+7. ``flash_attention`` against its plain version: (B, S, H, KH, hd) in
+   ``ATTN_SHAPES`` (the serve prompt's, the prefill's, a ragged S with
+   hd=128, and GQA), bf16 and f32, causal and not; bf16 outputs also
+   against the f32 attention of the same bf16 inputs (the tight check of
+   the tensor-core kernel); bf16 rows that are not 16-byte aligned are
+   rejected.
+8. ``ssd_chunk`` against its plain version (the sequential recurrence):
+   S in {32, 64, 128, 4096} at nh=64, hd=64, ds=64, bf16 and f32.
+9. The main path of these kernels: ``make_prefill_step(CONFIG)`` on
+   2 x 4096 tokens (a cut of ``prefill_32k``'s 32 x 32,768, for chip time
+   and the plain route's memory). One forward must launch the attention
+   kernel 6 times and the SSD kernel 38 times; the first call of each is
+   held against its plain version (attention also by the tight check),
+   and the logits against the same forward on the plain route on the
+   card.
+10. Serving: ``launch/serve.py::generate`` at the reference's defaults
+   (batch 4, prompt 32, gen 16); the replay's last prompt logits against
+   one kernel-route forward over the prompt; tokens in range.
+11. Timing of both kernels on the inputs the prefill gave them, beside
+   their plain versions, their bounds and (attention) one
+   ``scaled_dot_product_attention`` call.
+
+The last two lines of standard output are the kernels' JSON summary and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -37,12 +65,14 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+SEED = 0                           # default --seed of the LM phases
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12             # float32 outside the tensor cores
@@ -371,7 +401,410 @@ def phase_training_scale(torch, ref, dev, cfg):
     return launches, err, calls[-1]
 
 
+# ------------------------------------------------- LM kernels (phases 7-11)
+BF16_FLOP_PER_S = 989e12           # H100 SXM data sheet, dense tensor cores
+ATTN_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+ATTN_REPLACES = "src/repro/kernels/flash_attention.py:26"
+SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_chunk.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_chunk.py:27"
+# kernel vs plain: the JAX package's own tolerances (tests/test_kernels.py),
+# TF32 off; atol and rtol alike
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SSD_TOL = {"float32": 5e-4, "bfloat16": 1e-1}
+# The tight check of the bf16 (tensor-core) attention kernel: its output's
+# relative L2 distance from the f32 attention of the same bf16 inputs. The
+# elementwise 2e-2 above is loose against outputs of ~0.03 at S=4096; this
+# one scales with the output. On an H100 the sound kernel reads 1.7e-3 to
+# 2.3e-3 (P and the output rounded to bf16 once each); planted faults
+# (chip_faults.py) read 4.1e-3 (accumulator kept in bf16) to 0.67.
+ATTN_BF16_REL_L2 = 3e-3
+# Full-width zamba2 logits (magnitude ~5). In f32 (TF32 off) the kernel
+# route and the plain route agree to 2e-2 abs, the reference's own
+# tolerance for decode vs forward (tests/test_decode_consistency.py). In
+# bf16 a 38-layer random-weight model amplifies rounding: bf16 logits lie
+# at a relative L2 distance of about 0.34 from f32, and two bf16 routes
+# about 0.24 from each other. The two bf16 limits below are sanity checks
+# of the whole path only: of five faults planted in the attention kernel
+# (chip_faults.py) they caught one. The tight check above holds the kernel.
+F32_LOGIT_ATOL = 2e-2
+BF16_ROUTE_RATIO = 1.25
+BF16_REPLAY_REL_L2 = 0.6
+PREFILL_BATCH, PREFILL_LEN = 2, 4096   # cut of prefill_32k (32 x 32,768)
+
+
+def dtype_name(dt):
+    return str(dt).replace("torch.", "")
+
+
+def close(torch, got, exp, tol, what):
+    """``|got - exp| <= tol + tol * |exp|`` elementwise (float32); returns
+    the max abs difference."""
+    got, exp = got.float(), exp.float()
+    check(bool(torch.isfinite(got).all()), f"non-finite kernel output: {what}")
+    err = (got - exp).abs()
+    bad = err > tol + tol * exp.abs()
+    check(not bool(bad.any()),
+          f"kernel != plain beyond {tol}: {what} (max abs {float(err.max())})")
+    return float(err.max())
+
+
+def attn_rel_l2(torch, ref, out, q, k, v, causal):
+    """Relative L2 distance of ``out`` from the f32 plain attention of the
+    same inputs (TF32 off)."""
+    exact = ref.flash_attention(q.float(), k.float(), v.float(),
+                                causal=causal)
+    return float((out.float() - exact).norm() / exact.norm())
+
+
+def tight(torch, ref, out, q, k, v, causal, what):
+    """The tight check of a bf16 attention output; returns its reading."""
+    err = attn_rel_l2(torch, ref, out, q, k, v, causal)
+    check(err <= ATTN_BF16_REL_L2,
+          f"bf16 attention lies {err} (relative L2) from the f32 attention "
+          f"of its inputs, limit {ATTN_BF16_REL_L2}: {what}")
+    return err
+
+
+def attn_inputs(torch, B, S, H, KH, D, dtype, dev, seed, pad=0):
+    """``pad`` > 0: rows start ``pad`` elements into a wider buffer, so
+    they are not 16-byte aligned."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(B, S, h, D + pad, generator=g).to(dtype).to(dev)
+            [..., pad:] for h in (H, KH, KH)]
+
+
+def ssd_inputs(torch, B, S, nh, hd, ds, dtype, dev, seed):
+    """Bm and Cm are slices of one packed tensor, as in the model."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(B, S, nh, hd, generator=g).to(dtype).to(dev)
+    bc = torch.randn(B, S, 2 * ds, generator=g).to(dtype).to(dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, nh, generator=g)).to(dev)
+    A = -torch.exp(torch.randn(nh, generator=g)).to(dev)
+    return [x, bc[..., :ds], bc[..., ds:], dt, A]
+
+
+# B, S, H, KH, hd, pad (4: unaligned rows; the kernel rejects them in bf16)
+ATTN_SHAPES = [(1, 32, 32, 32, 64, 0), (2, 4096, 32, 32, 64, 0),
+               (1, 1000, 4, 4, 128, 0), (2, 256, 8, 2, 64, 0),
+               (2, 256, 8, 2, 64, 4)]
+SSD_SHAPES = [(1, 32, 64, 64, 64), (2, 64, 64, 64, 64),
+              (1, 128, 64, 64, 64), (2, 4096, 64, 64, 64)]  # B, S, nh, hd, ds
+
+
+def phase_attn_vs_plain(torch, ops, ref, dev):
+    errs, shapes, rel = {}, [], {}
+    for i, (B, S, H, KH, D, pad) in enumerate(ATTN_SHAPES):
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = attn_inputs(torch, B, S, H, KH, D, dt, dev, i, pad)
+            name = dtype_name(dt)
+            if pad and dt == torch.bfloat16:
+                try:
+                    ops.flash_attention(q, k, v)
+                except ValueError:
+                    continue
+                raise SmokeFailure("unaligned bf16 rows were not rejected")
+            for causal in (True, False):
+                what = f"attention B={B} S={S} H={H} KH={KH} hd={D} pad=" \
+                       f"{pad} {name} causal={causal}"
+                out = ops.flash_attention(q, k, v, causal=causal)
+                err = close(torch, out,
+                            ref.flash_attention(q, k, v, causal=causal),
+                            ATTN_TOL[name], what)
+                errs[name] = max(errs.get(name, 0.0), err)
+                if dt == torch.bfloat16:
+                    rel[f"{B}x{S}x{H}x{KH}x{D} causal={causal}"] = tight(
+                        torch, ref, out, q, k, v, causal, what)
+                shapes.append([B, S, H, KH, D, pad, name, causal])
+                del out
+            del q, k, v
+    torch.cuda.synchronize()
+    log(f"phase 7: flash_attention kernel == plain on {len(shapes)} cases "
+        f"(B,S,H,KH,hd,pad) in {ATTN_SHAPES}, bf16 (tensor cores; pad=4 "
+        f"rejected) and f32, causal and not: max abs err {errs} (tol "
+        f"{ATTN_TOL}, TF32 off); bf16 vs the f32 attention of its inputs, "
+        f"relative L2 {rel} (limit {ATTN_BF16_REL_L2})")
+    return errs, shapes, max(rel.values())
+
+
+def phase_ssd_vs_plain(torch, ops, ref, dev):
+    errs, shapes = {}, []
+    for i, (B, S, nh, hd, ds) in enumerate(SSD_SHAPES):
+        for dt in (torch.bfloat16, torch.float32):
+            args = ssd_inputs(torch, B, S, nh, hd, ds, dt, dev, 100 + i)
+            name = dtype_name(dt)
+            what = f"ssd B={B} S={S} nh={nh} hd={hd} ds={ds} {name}"
+            err = close(torch, ops.ssd_chunk(*args), ref.ssd_chunk(*args),
+                        SSD_TOL[name], what)
+            errs[name] = max(errs.get(name, 0.0), err)
+            shapes.append([B, S, nh, hd, ds, name])
+    torch.cuda.synchronize()
+    log(f"phase 8: ssd_chunk kernel == plain (sequential recurrence) on "
+        f"{len(shapes)} cases (B,S,nh,hd,ds) in {SSD_SHAPES}, bf16 and f32, "
+        f"B and C strided: max abs err {errs} (tol {SSD_TOL})")
+    return errs, shapes
+
+
+@contextlib.contextmanager
+def first_calls(ops, names):
+    """Keep a copy of the inputs (and the output) of the first call of each
+    wrapper in ``names`` while the block runs; the launch counters stay
+    the wrappers' own."""
+    seen = {}
+    saved = {n: getattr(ops, n) for n in names}
+
+    def spy(name):
+        wrapper = saved[name]
+
+        def call(*args, **kw):
+            out = wrapper(*args, **kw)
+            if name not in seen:
+                seen[name] = (tuple(a.clone() for a in args), dict(kw),
+                              out.clone())
+            return out
+        return call
+
+    for n in names:
+        setattr(ops, n, spy(n))
+    try:
+        yield seen
+    finally:
+        for n, w in saved.items():
+            setattr(ops, n, w)
+
+
+def logit_diff(torch, got, exp, what):
+    """Relative L2 distance, max abs difference and argmax agreement of
+    two logit tensors (float32); fails on a non-finite value."""
+    got, exp = got.float(), exp.float()
+    check(bool(torch.isfinite(got).all()), f"non-finite logits: {what}")
+    return {"rel_l2": float((got - exp).norm() / exp.norm()),
+            "max_abs": float((got - exp).abs().max()),
+            "argmax_agree": float((got.argmax(-1) == exp.argmax(-1))
+                                  .float().mean())}
+
+
+def phase_prefill(torch, ops, ref, dev, cfg, params, seed):
+    """The main path of the LM kernels: ``make_prefill_step(CONFIG)`` on
+    2 x 4096 tokens. One warm-up forward, then the counted one (counters
+    set to 0 just before, read just after), then the plain route on the
+    card for comparison."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.transformer import forward_logits
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN),
+                           generator=g).to(dev)
+    batch = {"tokens": tokens}
+    step = make_prefill_step(cfg, device=dev)
+    step(params, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with first_calls(ops, ("flash_attention", "ssd_chunk")) as seen:
+        for name in ("flash_attention", "ssd_chunk"):
+            ops.LAUNCHES[name] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {n: ops.LAUNCHES[n] for n in ("flash_attention",
+                                                  "ssd_chunk")}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(launches == {"flash_attention": 6, "ssd_chunk": 38},
+          f"one zamba2-1.2b prefill launched {launches}; expected 6 "
+          f"attention and 38 SSD launches")
+    check(logits.shape == (PREFILL_BATCH, PREFILL_LEN, cfg.vocab_size),
+          f"logits shape {tuple(logits.shape)}")
+    # the recorded first call of each kernel against its plain version
+    errs = {}
+    (q, k, v), kw, out = seen["flash_attention"]
+    errs["flash_attention"] = close(torch, out, ref.flash_attention(
+        q, k, v, **kw), ATTN_TOL[dtype_name(q.dtype)],
+        "prefill's first attention call")
+    check(q.dtype == torch.bfloat16, f"prefill attention in {q.dtype}")
+    rel_l2 = tight(torch, ref, out, q, k, v, kw.get("causal", True),
+                   "prefill's first attention call")
+    args, _, out = seen["ssd_chunk"]
+    errs["ssd_chunk"] = close(torch, out, ref.ssd_chunk(*args),
+                              SSD_TOL[dtype_name(args[0].dtype)],
+                              "prefill's first SSD call")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = forward_logits(cfg, params, batch, device=dev, use_kernel=False)
+    torch.cuda.synchronize()
+    plain_secs = time.perf_counter() - t0
+    cfg32 = cfg.with_(compute_dtype=torch.float32)
+    exact = forward_logits(cfg32, params, batch, device=dev, use_kernel=False)
+    kern32 = forward_logits(cfg32, params, batch, device=dev, use_kernel=True)
+    agree = {"f32_kernel_vs_plain": logit_diff(torch, kern32, exact, "f32"),
+             "bf16_kernel_vs_f32": logit_diff(torch, logits, exact, "bf16"),
+             "bf16_plain_vs_f32": logit_diff(torch, plain, exact, "bf16"),
+             "bf16_kernel_vs_plain": logit_diff(torch, logits, plain, "bf16")}
+    del plain, exact, kern32
+    check(agree["f32_kernel_vs_plain"]["max_abs"] <= F32_LOGIT_ATOL,
+          f"f32 prefill, kernel vs plain route: {agree['f32_kernel_vs_plain']}"
+          f" (limit {F32_LOGIT_ATOL} abs)")
+    check(agree["bf16_kernel_vs_f32"]["rel_l2"] <= BF16_ROUTE_RATIO
+          * agree["bf16_plain_vs_f32"]["rel_l2"],
+          f"bf16 prefill: the kernel route lies further from f32 than "
+          f"{BF16_ROUTE_RATIO} x the plain route: {agree}")
+    tok_s = PREFILL_BATCH * PREFILL_LEN / secs
+    log(f"phase 9: zamba2-1.2b full width ({cfg.param_count():,} params) "
+        f"prefill of {PREFILL_BATCH} x {PREFILL_LEN} tokens (a cut of "
+        f"prefill_32k's 32 x 32,768): {secs:.4f} s ({tok_s:.0f} tokens/s), "
+        f"launches {launches}, peak memory {peak:.2f} GiB; the plain route "
+        f"on the card {plain_secs:.4f} s; logits {agree}; first recorded "
+        f"calls == plain, max abs err {errs}; the attention call vs the f32 "
+        f"attention of its inputs, relative L2 {rel_l2} (limit "
+        f"{ATTN_BF16_REL_L2})")
+    return {"secs": secs, "plain_secs": plain_secs, "launches": launches,
+            "peak_gib": peak, "agree": agree, "errs": errs,
+            "attn_rel_l2": rel_l2, "tokens_per_s": tok_s}, seen
+
+
+def phase_serve(torch, ops, dev, cfg, params, seed):
+    """``launch/serve.py::generate`` at the reference's defaults (batch 4,
+    prompt 32, gen 16) on the full config; the replay's last prompt logits
+    against one kernel-route forward over the prompt. Then the card's twin
+    of tests/test_decode_consistency.py: in f32 with an f32 cache, every
+    step of the replay against the kernel-route forward."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.transformer import forward_logits, init_cache
+
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 32), generator=g).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    out = generate(cfg, params, prompt, 16, device=dev)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    toks = out.tokens
+    check(toks.shape == (4, 16), f"generated {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "generated tokens out of range")
+    before = dict(ops.LAUNCHES)
+    full = forward_logits(cfg, params, {"tokens": prompt}, device=dev)
+    fwd_launches = {n: ops.LAUNCHES[n] - before[n]
+                    for n in ("flash_attention", "ssd_chunk")}
+    check(fwd_launches == {"flash_attention": 6, "ssd_chunk": 38},
+          f"the prompt forward launched {fwd_launches}")
+    agree = {"bf16_replay_vs_forward": logit_diff(
+        torch, out.prompt_logits, full[:, -1:], "replay")}
+    check(agree["bf16_replay_vs_forward"]["rel_l2"] <= BF16_REPLAY_REL_L2,
+          f"bf16 replay vs forward at the last prompt position: {agree} "
+          f"(limit {BF16_REPLAY_REL_L2} relative L2)")
+    cfg32 = cfg.with_(compute_dtype=torch.float32)
+    P = prompt.shape[1]
+    cache = init_cache(cfg32, prompt.shape[0], P, torch.float32, device=dev)
+    step = make_serve_step(cfg32, ring=False, device=dev)
+    steps = []
+    for t in range(P):
+        logits, cache = step(params, {"tokens": prompt[:, t:t + 1]}, cache, t)
+        steps.append(logits)
+    full32 = forward_logits(cfg32, params, {"tokens": prompt}, device=dev)
+    agree["f32_replay_vs_forward"] = logit_diff(
+        torch, torch.cat(steps, dim=1), full32, "f32 replay")
+    check(agree["f32_replay_vs_forward"]["max_abs"] <= F32_LOGIT_ATOL,
+          f"f32 replay vs forward, all {P} positions: {agree} (limit "
+          f"{F32_LOGIT_ATOL} abs)")
+    tok_s = toks.numel() / out.decode_s
+    log(f"phase 10: serve generate on zamba2-1.2b full width, batch 4, "
+        f"prompt 32, gen 16: replay {out.prefill_s:.4f} s, decode "
+        f"{out.decode_s:.4f} s ({tok_s:.1f} tokens/s), peak memory "
+        f"{peak:.2f} GiB; logits {agree}; tokens[0] {toks[0].tolist()}")
+    return {"replay_s": out.prefill_s, "decode_s": out.decode_s,
+            "decode_tokens_per_s": tok_s, "peak_gib": peak, "agree": agree,
+            "prompt_forward_launches": fwd_launches}
+
+
+def attn_bound(q, k, v, causal=True):
+    """Least time: q, k, v read and o written once at the HBM rate; the
+    products over the pairs the mask keeps, 2 * 2 * hd FLOP a pair, at the
+    peak rate of the dtype (bf16 tensor cores, else f32 without them)."""
+    B, S, H, D = q.shape
+    nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4 * D * pairs * B * H
+    rate = BF16_FLOP_PER_S if q.element_size() == 2 else F32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def ssd_bound(x, Bm, Cm, dt, A, chunk=64):
+    """Least time: every input read and y written once at the HBM rate;
+    the chunked form's four products a chunk (C B^T, att x, C h, B^T x) at
+    the peak rate of the dtype."""
+    B, S, nh, hd = x.shape
+    ds = Bm.shape[-1]
+    nbytes = 2 * x.nbytes + Bm.nbytes + Cm.nbytes + dt.nbytes + A.nbytes
+    n_chunks = -(-S // chunk)
+    flops = 2 * chunk * (chunk * ds + chunk * hd + 2 * ds * hd) \
+        * n_chunks * B * nh
+    rate = BF16_FLOP_PER_S if x.element_size() == 2 else F32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_lm_timing(torch, ops, ref, seen, l2_bytes):
+    """Each LM kernel on the inputs the prefill gave it: kernel, plain
+    version and (attention) one ``scaled_dot_product_attention`` call, in
+    turns. The sequential SSD plain version takes about a second a call and
+    is timed with 1 call a trial instead of 20."""
+    F = torch.nn.functional
+    rows = {}
+    (q, k, v), kw, _ = seen["flash_attention"]
+    sets, cold = copies((q, k, v), l2_bytes)
+    bhsd = [tuple(t.transpose(1, 2).contiguous() for t in s) for s in sets]
+    runs = {"ms": [], "plain_ms": [], "library_ms": []}
+    for _ in range(2):
+        runs["ms"].append(cuda_ms(
+            torch, lambda *a: ops.flash_attention(*a, **kw), sets))
+        runs["plain_ms"].append(cuda_ms(
+            torch, lambda *a: ref.flash_attention(*a, **kw), sets, reps=5,
+            trials=3))
+        runs["library_ms"].append(cuda_ms(
+            torch, lambda *a: F.scaled_dot_product_attention(
+                *a, is_causal=kw.get("causal", True)), bhsd))
+    row = {key: statistics.median(val) for key, val in runs.items()}
+    row["bound_ms"], row["bound_by"] = attn_bound(q, k, v,
+                                                  kw.get("causal", True))
+    row.update(shape=list(q.shape), kv_heads=int(k.shape[2]),
+               dtype=dtype_name(q.dtype), l2_cold=cold)
+    rows["flash_attention"] = row
+    log(f"phase 11: flash_attention at the prefill shape {row['shape']} "
+        f"{row['dtype']} causal: kernel {row['ms']:.5f} ms, plain "
+        f"{row['plain_ms']:.5f} ms, scaled_dot_product_attention "
+        f"{row['library_ms']:.5f} ms, bound {row['bound_ms']:.6f} ms "
+        f"({row['bound_by']})")
+
+    args, _, _ = seen["ssd_chunk"]
+    sets, cold = copies(args, l2_bytes)
+    runs = {"ms": [], "plain_ms": []}
+    for _ in range(2):
+        runs["ms"].append(cuda_ms(torch, ops.ssd_chunk, sets))
+        runs["plain_ms"].append(cuda_ms(torch, ref.ssd_chunk, sets, reps=1,
+                                        trials=3))
+    row = {key: statistics.median(val) for key, val in runs.items()}
+    row["library_ms"] = None   # no single PyTorch call computes the scan
+    row["bound_ms"], row["bound_by"] = ssd_bound(*args)
+    row.update(shape=list(args[0].shape), ds=int(args[1].shape[-1]),
+               dtype=dtype_name(args[0].dtype), l2_cold=cold)
+    rows["ssd_chunk"] = row
+    log(f"phase 11: ssd_chunk at the prefill shape {row['shape']} ds="
+        f"{row['ds']} {row['dtype']}: kernel {row['ms']:.5f} ms, plain "
+        f"(sequential) {row['plain_ms']:.5f} ms, no single PyTorch call "
+        f"computes it, bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+    return rows
+
+
 def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--seed", type=int, default=SEED,
+                    help="weights and tokens of the LM phases")
+    seed = ap.parse_args(argv).seed
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -396,9 +829,13 @@ def main(argv=None) -> int:
     log("phase 1: TF32 off for cuDNN convolutions and matmuls "
         "(parity phases compare float32 with the CPU)")
     t0 = time.perf_counter()
-    lib_path = ops.build_library("topk_select")
-    ops.load_library("topk_select")
-    log(f"phase 1: built {lib_path.name} from {KERNEL_SOURCE} in "
+    names = ("topk_select", "flash_attention", "ssd_chunk")
+    with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
+        paths = list(pool.map(ops.build_library, names))
+    for name in names:
+        ops.load_library(name)
+    log(f"phase 1: built {', '.join(p.name for p in paths)} from "
+        f"src/repro_torch/kernels/csrc/ in parallel in "
         f"{time.perf_counter() - t0:.2f} s")
 
     phase_kernel_vs_plain(torch, ops, ref, dev,
@@ -419,6 +856,19 @@ def main(argv=None) -> int:
     main = phase_timing(torch, ops, ref, main_call, "phase 5", l2)
     fleet = phase_timing(torch, ops, ref, fleet_call, "phase 3", l2)
 
+    attn_errs, attn_shapes, attn_rel = phase_attn_vs_plain(
+        torch, ops, ref, dev)
+    ssd_errs, ssd_shapes = phase_ssd_vs_plain(torch, ops, ref, dev)
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    cfg = get_config("zamba2-1.2b")
+    params = init_params(seed, cfg, device=dev)
+    # the LM kernels' main path: counts set to 0 just before, read after
+    prefill, seen = phase_prefill(torch, ops, ref, dev, cfg, params, seed)
+    serve = phase_serve(torch, ops, dev, cfg, params, seed)
+    lm_rows = phase_lm_timing(torch, ops, ref, seen, l2)
+    del params, seen
+
     summary = {"kernels": [{
         "name": "topk_reward", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "checked": True,
@@ -433,6 +883,29 @@ def main(argv=None) -> int:
                               "run_fl_parity": par_launches,
                               "run_fl_10k": launches},
     }]}
+    for name, source, replaces, errs, shapes in (
+            ("flash_attention", ATTN_SOURCE, ATTN_REPLACES, attn_errs,
+             attn_shapes),
+            ("ssd_chunk", SSD_SOURCE, SSD_REPLACES, ssd_errs, ssd_shapes)):
+        row = lm_rows[name]
+        summary["kernels"].append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "checked": True,
+            "launches": prefill["launches"][name],
+            "max_abs_err": max(max(errs.values()), prefill["errs"][name]),
+            "max_abs_err_by_dtype": errs,
+            "ms": row["ms"], "kernel_ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": row, "checked_shapes": shapes,
+            "launches_by_phase": {
+                "prefill_2x4096": prefill["launches"][name],
+                "serve_prompt_forward": serve["prompt_forward_launches"][name]},
+        })
+    summary["kernels"][1]["bf16_rel_l2_vs_f32"] = {
+        "phase7_max": attn_rel, "prefill_call": prefill["attn_rel_l2"],
+        "limit": ATTN_BF16_REL_L2}
+    summary["zamba2_1_2b"] = {"prefill": prefill, "serve": serve}
     log(card)
     log(json.dumps(summary))
     log(json.dumps({"ok": True, "device": {

@@ -10,6 +10,11 @@ each leaf, done by the caller); nothing here imports JAX. Layouts:
   NHWC); labels become int64 for indexing.
 - Optimizer state: moment trees convert like parameters; ``t`` stays a
   0-d CPU int32 tensor.
+- LM parameters and caches (``repro.models.transformer``): every leaf
+  keeps its shape and dtype (bf16 leaves, which numpy holds as
+  ``ml_dtypes.bfloat16``, go through float32 exactly); the stacked
+  ``(n, ...)`` leaves of each run of layers are unstacked into a list of
+  ``n`` per-layer dicts, the layout the port's layer loop walks.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.clients import _FIELDS, ClientPopulation
+from repro_torch.models.transformer import build_stages
 from repro_torch.device import DeviceLike, resolve_device
 
 _POP_DTYPES = {"category": torch.int32, "network": torch.int32,
@@ -73,3 +79,51 @@ def optimizer_state(state: Mapping, device: DeviceLike = None) -> Dict:
         else:
             out[name] = resnet_params(v, device)
     return out
+
+
+def _leaf(x, device: DeviceLike) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return tensor(a.astype(np.float32), device).to(torch.bfloat16)
+    return tensor(a, device)
+
+
+def _tree(tree: Any, device: DeviceLike) -> Any:
+    if tree is None:
+        return None
+    if isinstance(tree, Mapping):
+        return {k: _tree(v, device) for k, v in tree.items()}
+    return _leaf(tree, device)
+
+
+def _unstack(tree: Any, n: int, device: DeviceLike) -> list:
+    """A stacked tree (leaves ``(n, ...)``) as ``n`` per-layer trees."""
+    flat = _tree(tree, device)
+
+    def take(t, i):
+        if isinstance(t, dict):
+            return {k: take(v, i) for k, v in t.items()}
+        return t[i].clone()
+    return [take(flat, i) for i in range(n)]
+
+
+def lm_params(tree: Mapping, cfg, device: DeviceLike = None) -> Dict:
+    """The reference's LM parameter tree (``embed``, ``stages``: a list of
+    stacked dicts with ``None`` for ``shared_attn``, ``shared_attn``,
+    ``final_norm``, ``lm_head``) as the port's."""
+    device = resolve_device(device)
+    out = {k: _tree(v, device) for k, v in tree.items() if k != "stages"}
+    out["stages"] = [None if kind == "shared_attn" else
+                     _unstack(st, n, device)
+                     for (kind, n), st in zip(build_stages(cfg),
+                                              tree["stages"])]
+    return out
+
+
+def lm_cache(caches: list, cfg, device: DeviceLike = None) -> list:
+    """A cache from the reference's ``init_cache`` / ``decode_step`` (one
+    entry per stage; runs of layers stacked) as the port's."""
+    device = resolve_device(device)
+    return [_tree(c, device) if kind == "shared_attn" else
+            _unstack(c, n, device)
+            for (kind, n), c in zip(build_stages(cfg), caches)]

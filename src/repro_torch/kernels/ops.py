@@ -8,8 +8,10 @@ main path went through the kernel.
 
 The CUDA sources under ``csrc/`` are compiled at first use with ``nvcc``
 into ``build/`` at the repository root, one shared library per source
-with a plain C interface, loaded with ``ctypes``. The library name carries
-a hash of the source and the flags, so an edited source is rebuilt.
+with a plain C interface, loaded with ``ctypes``. Each library has its own
+flags (``NVCC_FLAGS`` plus its entry in ``EXTRA_FLAGS``); the library name
+carries a hash of the source and of those flags, so an edited source or a
+changed flag is rebuilt.
 """
 from __future__ import annotations
 
@@ -19,21 +21,30 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_chunk as _sc
 from repro_torch.kernels import topk_select as _tk
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+# topk_select reproduces the reference's one fused multiply-add bit for bit
+# and must not let nvcc contract anything else; the other kernels only have
+# to agree within a tolerance and keep FMA contraction
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
+    "topk_select": ("-fmad=false",), "flash_attention": (), "ssd_chunk": ()}
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
-LAUNCHES: Dict[str, int] = {"topk_reward": 0}
-_BINDERS = {"topk_select": _tk.bind}   # declares each library's C signatures
+LAUNCHES: Dict[str, int] = {"topk_reward": 0, "flash_attention": 0,
+                            "ssd_chunk": 0}
+_BINDERS = {"topk_select": _tk.bind,   # declares each library's C signatures
+            "flash_attention": _fa.bind, "ssd_chunk": _sc.bind}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -47,18 +58,31 @@ def _nvcc() -> str:
     return found
 
 
-def build_library(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` into ``build/lib<name>-<hash>.so`` unless
-    that file exists already; returns its path. Raises on a failed build."""
+def nvcc_flags(name: str) -> Tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS[name]
+
+
+def library_path(name: str) -> Path:
+    """``build/lib<name>-<hash>.so``, the hash over the source and the
+    library's own flags."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+                            + " ".join(nvcc_flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build_library(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` into :func:`library_path` unless that file
+    exists already; returns its path. Raises on a failed build. Safe to
+    call for several libraries at once from threads (each runs its own
+    ``nvcc`` and renames its output into place)."""
+    out = library_path(name)
     if out.exists():
         return out
+    src = CSRC / f"{name}.cu"
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *nvcc_flags(name), "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
@@ -99,4 +123,31 @@ def topk_reward(a: torch.Tensor, b: torch.Tensor, valid: torch.Tensor, *,
                      ucb=None if ucb is None else ucb.contiguous(),
                      mode=mode, index_offset=index_offset)
     LAUNCHES["topk_reward"] += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Softmax attention forward in the model's layout: q ``(B, S, H, hd)``,
+    k and v ``(B, S, KH, hd)`` with ``H % KH == 0``; returns
+    ``(B, S, H, hd)`` in q's dtype. Scale ``hd**-0.5``, causal mask
+    ``-1e30``. CPU tensors take the plain version; CUDA tensors the Hopper
+    kernel (f32 softmax and accumulation)."""
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal)
+    out = _fa.launch(load_library("flash_attention"), q, k, v, causal=causal)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def ssd_chunk(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+              dt: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """Mamba2 SSD scan: x ``(B, S, nh, hd)``, Bm/Cm ``(B, S, ds)``, dt
+    ``(B, S, nh)`` (after softplus), A ``(nh,)`` negative; returns y
+    ``(B, S, nh, hd)`` in x's dtype, with no D skip. CPU tensors take the
+    plain (sequential) version; CUDA tensors the Hopper kernel."""
+    if x.device.type == "cpu":
+        return ref.ssd_chunk(x, Bm, Cm, dt, A)
+    out = _sc.launch(load_library("ssd_chunk"), x, Bm, Cm, dt, A)
+    LAUNCHES["ssd_chunk"] += 1
     return out

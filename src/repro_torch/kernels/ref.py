@@ -1,5 +1,9 @@
 """Plain PyTorch versions of the port's kernels (the correctness ground
-truth, and the path a wrapper takes for tensors on the CPU)."""
+truth, and the path a wrapper takes for tensors on the CPU).
+
+``flash_attention`` and ``ssd_chunk`` are the reference's oracles
+(``repro/kernels/ref.py``: ``flash_attention_ref``, ``ssd_chunk_ref``)
+with their casts, taken to the model's layouts."""
 from __future__ import annotations
 
 import torch
@@ -41,3 +45,46 @@ def topk_reward(a: torch.Tensor, b: torch.Tensor, valid: torch.Tensor, *,
     top = torch.sort(score, descending=True, stable=True)
     idx = top.indices[:k].to(torch.int32) + int(index_offset)
     return top.values[:k], idx
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Plain softmax attention. q: ``(B, S, H, hd)``; k, v:
+    ``(B, S, KH, hd)``, query head ``h`` reading KV head ``h // (H // KH)``.
+
+    As ``flash_attention_ref``: scores in the input dtype, then f32 times
+    ``hd**-0.5``, causal mask ``-1e30``, f32 softmax, weights cast back to
+    the input dtype before the product with v."""
+    S, H, hd = q.shape[1], q.shape[2], q.shape[3]
+    G = H // k.shape[2]
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * hd ** -0.5
+    if causal:
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        scores = torch.where(mask, scores, f32(-1e30, scores))
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+
+def ssd_chunk(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+              dt: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """Mamba2 / SSD as the sequential recurrence of ``ssd_chunk_ref``, in
+    f32: ``h_t = exp(dt_t A) h_{t-1} + dt_t B_t (x) x_t``, ``y_t = C_t .
+    h_t``. x: ``(B, S, nh, hd)``; Bm, Cm: ``(B, S, ds)``; dt: ``(B, S, nh)``;
+    A: ``(nh,)``. Returns ``(B, S, nh, hd)`` in x's dtype."""
+    Bsz, S, nh, hd = x.shape
+    out_dtype = x.dtype
+    x, Bm, Cm, dt = (t.float() for t in (x, Bm, Cm, dt))
+    A = A.float()
+    h = torch.zeros(Bsz, nh, Bm.shape[-1], hd, dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(S):
+        da = torch.exp(dt[:, t] * A)                              # (B, nh)
+        upd = (dt[:, t, :, None, None] * Bm[:, t, None, :, None]
+               * x[:, t, :, None, :])                             # (B,nh,ds,hd)
+        h = da[..., None, None] * h + upd
+        ys.append(torch.einsum("bhsd,bs->bhd", h, Cm[:, t]))
+    return torch.stack(ys, dim=1).to(out_dtype)

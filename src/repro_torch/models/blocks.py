@@ -1,0 +1,105 @@
+"""Per-layer blocks: init / forward / decode, dispatched by block kind.
+
+Block kinds ported so far:
+  dense       GQA attention + dense FFN
+  ssm         Mamba2 (``cfg.ssm_variant == "mamba2"``)
+  shared_attn the Zamba2 weight-shared attention+MLP block (the same code
+              as ``dense``; its one weight set is reused at every call)
+``moe``, MLA attention and Mamba1 raise ``NotImplementedError`` (ROADMAP.md
+queue 1 item 16 and queue 2 item 4).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models import mamba
+from repro_torch.models.common import apply_norm, ffn_apply, ffn_init, init_norm
+
+Params = Dict[str, Any]
+
+
+def _check_kind(cfg, kind: str) -> None:
+    if kind not in ("dense", "moe", "shared_attn", "ssm"):
+        raise ValueError(kind)
+    if kind == "moe":
+        raise NotImplementedError(
+            "moe blocks are not ported yet (ROADMAP.md queue 1 item 16)")
+    if kind != "ssm" and cfg.attn_kind == "mla":
+        raise NotImplementedError(
+            "MLA attention is not ported yet (ROADMAP.md queue 1 item 16)")
+
+
+# ------------------------------------------------------------------ init
+def init_block(gen: torch.Generator, cfg, kind: str) -> Params:
+    _check_kind(cfg, kind)
+    p: Params = {}
+    if kind == "ssm":
+        n = init_norm(cfg, cfg.d_model, gen.device)
+        if n is not None:
+            p["norm"] = n
+        if cfg.ssm_variant == "mamba1":
+            p["ssm"] = mamba.init_mamba1(gen, cfg)
+        else:
+            p["ssm"] = mamba.init_mamba2(gen, cfg)
+        return p
+    p["attn"] = attn.init_gqa(gen, cfg)
+    n = init_norm(cfg, cfg.d_model, gen.device)
+    if n is not None:
+        p["norm_attn"] = n
+        p["norm_ffn"] = init_norm(cfg, cfg.d_model, gen.device)
+    p["ffn"] = ffn_init(gen, cfg, cfg.d_model, cfg.d_ff)
+    return p
+
+
+# --------------------------------------------------------------- forward
+def block_forward(cfg, kind: str, p: Params, x, positions,
+                  want_kv: bool = False, use_kernel: Optional[bool] = None):
+    """Returns (x_out, kv_or_None). The reference also returns the MoE
+    router's aux loss, which comes with the ``moe`` kind."""
+    _check_kind(cfg, kind)
+    if kind == "ssm":
+        h = apply_norm(cfg, p, x, "norm")
+        if cfg.ssm_variant == "mamba1":
+            return x + mamba.mamba1_forward(cfg, p["ssm"], h), None
+        return x + mamba.mamba2_forward(cfg, p["ssm"], h,
+                                        use_kernel=use_kernel), None
+
+    h = apply_norm(cfg, p, x, "norm_attn")
+    a, kv = attn.gqa_forward(cfg, p["attn"], h, positions, return_kv=want_kv,
+                             use_kernel=use_kernel)
+    x = x + a
+    h = apply_norm(cfg, p, x, "norm_ffn")
+    return x + ffn_apply(cfg, p["ffn"], h), kv
+
+
+# ---------------------------------------------------------------- decode
+def init_block_cache(cfg, kind: str, batch: int, cache_len: int, dtype,
+                     device=None):
+    _check_kind(cfg, kind)
+    if kind == "ssm":
+        if cfg.ssm_variant == "mamba1":
+            return mamba.init_mamba1_cache(cfg, batch, dtype, device)
+        return mamba.init_mamba2_cache(cfg, batch, dtype, device)
+    return attn.init_gqa_cache(cfg, batch, cache_len, dtype, device)
+
+
+def block_decode(cfg, kind: str, p: Params, x, cache, cache_index: int,
+                 ring: bool):
+    """Returns (x_out, new_cache). x: (B,1,D)."""
+    _check_kind(cfg, kind)
+    if kind == "ssm":
+        h = apply_norm(cfg, p, x, "norm")
+        if cfg.ssm_variant == "mamba1":
+            out, new_cache = mamba.mamba1_decode(cfg, p["ssm"], h, cache)
+        else:
+            out, new_cache = mamba.mamba2_decode(cfg, p["ssm"], h, cache)
+        return x + out, new_cache
+
+    h = apply_norm(cfg, p, x, "norm_attn")
+    a, new_cache = attn.gqa_decode(cfg, p["attn"], h, cache, cache_index, ring)
+    x = x + a
+    h = apply_norm(cfg, p, x, "norm_ffn")
+    return x + ffn_apply(cfg, p["ffn"], h), new_cache

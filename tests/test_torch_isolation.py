@@ -1,7 +1,7 @@
 """The port stands alone: no JAX, no reference package, no silent CPU.
 
-An AST scan of every ``src/repro_torch/**/*.py`` and ``chip_smoke.py``
-fails on any import of ``jax``/``jaxlib`` or of ``repro`` other than
+An AST scan of every ``src/repro_torch/**/*.py``, ``chip_smoke.py`` and
+``chip_faults.py`` fails on any import of ``jax``/``jaxlib`` or of ``repro`` other than
 ``repro_torch``. Entry points called without ``device=`` raise when no
 CUDA device is present."""
 import ast
@@ -13,7 +13,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "chip_faults.py"]
 
 
 def _imported(path: Path):
@@ -62,13 +62,55 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
     assert resolve_device("cpu").type == "cpu"
 
 
-def _chip_smoke():
+def test_lm_entry_points_need_cuda_or_an_explicit_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card")
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import (decode_step, forward_logits, init_cache,
+                                    init_params)
+    cfg = get_reduced("zamba2-1.2b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(0, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--gen", "1", "--prompt-len", "2"])
+    params = init_params(0, cfg, device="cpu")
+    tokens = {"tokens": torch.zeros((1, 4), dtype=torch.int64)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        forward_logits(cfg, params, tokens)
+    cache = init_cache(cfg, 1, 4, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        decode_step(cfg, params, {"tokens": tokens["tokens"][:, :1]}, cache,
+                    0)
+    assert forward_logits(cfg, params, tokens, device="cpu").shape == \
+        (1, 4, cfg.vocab_size)
+
+
+def test_scan_covers_the_lm_slice():
+    pkg = ROOT / "src" / "repro_torch"
+    names = {p.relative_to(pkg).as_posix() for p in FILES
+             if pkg in p.parents}
+    assert {"configs/base.py", "configs/zamba2_1_2b.py", "models/common.py",
+            "models/rope.py", "models/attention.py", "models/mamba.py",
+            "models/blocks.py", "models/transformer.py", "launch/steps.py",
+            "launch/serve.py", "kernels/flash_attention.py",
+            "kernels/ssd_chunk.py"} <= names
+
+
+def _load(name):
     import importlib.util
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
+    import sys
+    spec = importlib.util.spec_from_file_location(name, ROOT / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod    # chip_faults imports chip_smoke by name
     spec.loader.exec_module(mod)
     return mod
+
+
+def _chip_smoke():
+    return _load("chip_smoke")
 
 
 def test_chip_smoke_refuses_without_cuda(capsys):
@@ -111,3 +153,82 @@ def test_chip_smoke_bound_counts_each_byte_once(with_ucb, per_client):
     ms, by = smoke.bound(x, x, mask, x if with_ucb else None, k, "eafl")
     assert by == "bytes"
     assert ms == pytest.approx((per_client * n + 8 * k) / 3.35e12 * 1e3)
+
+
+def test_chip_smoke_lm_bounds():
+    """The bounds chip_smoke prints for the LM kernels at the prefill
+    shape: attention is bound by operations (137.5 GFLOP of bf16 over the
+    causal pairs), the SSD scan by bytes (138 MB)."""
+    smoke = _chip_smoke()
+    bf = dict(dtype=torch.bfloat16, device="meta")
+    q = torch.empty(2, 4096, 32, 64, **bf)
+    ms, by = smoke.attn_bound(q, q, q, causal=True)
+    flops = 4 * 64 * (4096 * 4097 // 2) * 2 * 32
+    assert by == "operations" and ms == pytest.approx(flops / 989e12 * 1e3)
+    assert smoke.attn_bound(q, q, q, causal=False)[0] > ms
+    x = torch.empty(2, 4096, 64, 64, **bf)
+    bc = torch.empty(2, 4096, 64, **bf)
+    dt = torch.empty(2, 4096, 64, dtype=torch.float32, device="meta")
+    A = torch.empty(64, dtype=torch.float32, device="meta")
+    ms, by = smoke.ssd_bound(x, bc, bc, dt, A)
+    nbytes = 2 * x.nbytes + 2 * bc.nbytes + dt.nbytes + A.nbytes
+    assert by == "bytes" and ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+
+
+def test_chip_smoke_keeps_the_first_call_of_each_lm_kernel():
+    smoke = _chip_smoke()
+    from repro_torch.kernels import ops
+    saved = ops.flash_attention
+    q = torch.randn(1, 8, 2, 64)
+    with smoke.first_calls(ops, ("flash_attention",)) as seen:
+        out = ops.flash_attention(q, q, q, causal=True)
+        ops.flash_attention(q + 1, q, q, causal=False)
+    assert ops.flash_attention is saved
+    (q0, _, _), kw, o = seen["flash_attention"]
+    assert torch.equal(q0, q) and kw == {"causal": True}
+    assert torch.equal(o, out)
+    d = smoke.logit_diff(torch, out, out, "same")
+    assert d["rel_l2"] == 0.0 and d["argmax_agree"] == 1.0
+
+
+def test_chip_smoke_tight_attention_check():
+    """The tight check of the bf16 attention kernel scales with the output:
+    the f32 attention rounded to bf16 passes it, the same output 5% too
+    large fails."""
+    smoke = _chip_smoke()
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 256, 2, 64, generator=g).bfloat16()
+               for _ in range(3))
+    out = ref.flash_attention(q.float(), k.float(), v.float(),
+                              causal=True).bfloat16()
+    assert smoke.tight(torch, ref, out, q, k, v, True, "plain") \
+        <= smoke.ATTN_BF16_REL_L2
+    with pytest.raises(smoke.SmokeFailure, match="relative L2"):
+        smoke.tight(torch, ref, out * 1.05, q, k, v, True, "scaled")
+
+
+def test_chip_faults_refuses_without_cuda(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _chip_smoke()
+    assert _load("chip_faults").main([]) != 0
+    assert '"ok"' not in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("fault", ["output_scaled_1.05",
+                                   "first_k_tile_skipped", "diagonal_masked",
+                                   "accumulator_not_rescaled",
+                                   "accumulator_in_bf16"])
+def test_chip_faults_plant_into_the_tensor_core_kernel(fault):
+    """Each planted fault edits text that occurs once in the kernel source,
+    inside ``flash_fwd_mma``, so an edit of the kernel cannot silently
+    leave a fault unplanted."""
+    _chip_smoke()
+    faults = _load("chip_faults").FAULTS
+    assert fault in faults
+    old, new = faults[fault]
+    src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" /
+           "flash_attention.cu").read_text()
+    assert src.count(old) == 1 and old != new
+    assert src.index(old) > src.index("flash_fwd_mma(")

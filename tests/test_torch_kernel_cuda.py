@@ -1,12 +1,14 @@
-"""The Hopper ``topk_reward`` kernel against its plain version, on the
-card. Skips with a reason where no CUDA device is present (the kernel has
-no CPU or interpret mode); ``python3 chip_smoke.py`` runs the full matrix.
+"""The Hopper kernels (``topk_reward``, ``flash_attention``, ``ssd_chunk``)
+against their plain versions, on the card. Skips with a reason where no
+CUDA device is present (the kernels have no CPU or interpret mode);
+``python3 chip_smoke.py`` runs the full matrix.
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernel_cuda.py
 """
 import pytest
 
 torch = pytest.importorskip("torch")
+F = torch.nn.functional
 
 from repro_torch.kernels import ops, ref  # noqa: E402
 
@@ -45,3 +47,153 @@ def test_kernel_rejects_what_it_does_not_take():
         ops.topk_reward(a, a, valid, f=0.25, k=101)
     with pytest.raises(TypeError):
         ops.topk_reward(a.double(), a, valid, f=0.25, k=5)
+
+
+# ------------------------------------------------------------ attention
+# tolerances of the JAX package's own kernel tests (tests/test_kernels.py):
+# the kernel keeps the softmax weights in f32, the plain version casts them
+# to the input dtype before the product with v, as the reference does
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# bf16 (the tensor-core kernel) also against the f32 attention of the same
+# bf16 inputs, by relative L2 distance (chip_smoke.py's ATTN_BF16_REL_L2)
+ATTN_BF16_REL_L2 = 3e-3
+SSD_TOL = {torch.float32: 5e-4, torch.bfloat16: 1e-1}
+
+
+def _attn_inputs(B, S, H, KH, D, dtype, dev, seed, layout="dense"):
+    """``packed``: q, k, v as strided views of one projection, as a model
+    may hold them; ``unaligned``: rows that start 4 elements into a wider
+    buffer, so they are not 16-byte aligned."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    if layout == "packed":
+        qkv = torch.randn(B, S, (H + 2 * KH) * D, generator=g)
+        qkv = qkv.to(dtype).to(dev)
+        q = qkv[..., :H * D].view(B, S, H, D)
+        k = qkv[..., H * D:(H + KH) * D].view(B, S, KH, D)
+        v = qkv[..., (H + KH) * D:].view(B, S, KH, D)
+        return q, k, v
+    pad = 4 if layout == "unaligned" else 0
+    return [torch.randn(B, S, h, D + pad, generator=g).to(dtype).to(dev)
+            [..., pad:] for h in (H, KH, KH)]
+
+
+ATTN_CASES = [(1, 32, 32, 32, 64, "dense"), (2, 256, 8, 2, 64, "dense"),
+              (1, 1000, 4, 4, 128, "dense"), (2, 300, 4, 4, 64, "packed")]
+UNALIGNED = [(2, 200, 4, 2, 64, "unaligned"), (1, 100, 2, 2, 128, "unaligned")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KH,D,layout,dtype", [
+    c + (dt,) for c in ATTN_CASES for dt in (torch.float32, torch.bfloat16)]
+    + [c + (torch.float32,) for c in UNALIGNED])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_equals_plain(B, S, H, KH, D, layout, dtype,
+                                             causal):
+    """bf16 inputs run on the tensor cores, f32 (any row alignment) on
+    scalar FMAs."""
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _attn_inputs(B, S, H, KH, D, dtype, dev, S + H, layout)
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal)
+    exp = ref.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == dtype and out.shape == (B, S, H, D)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        exact = ref.flash_attention(q.float(), k.float(), v.float(),
+                                    causal=causal)
+        assert float((out.float() - exact).norm() / exact.norm()) \
+            <= ATTN_BF16_REL_L2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KH,D,layout", UNALIGNED)
+def test_flash_attention_rejects_unaligned_bf16(B, S, H, KH, D, layout):
+    dev = _card()
+    q, k, v = _attn_inputs(B, S, H, KH, D, torch.bfloat16, dev, 0, layout)
+    before = ops.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.flash_attention(q, k, v)
+    assert ops.LAUNCHES["flash_attention"] == before
+
+
+# ------------------------------------------------------------------ SSD
+def _ssd_inputs(B, S, nh, hd, ds, dtype, dev, seed):
+    """Bm and Cm are slices of one packed tensor, as in the model."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(B, S, nh, hd, generator=g).to(dtype).to(dev)
+    bc = torch.randn(B, S, 2 * ds, generator=g).to(dtype).to(dev)
+    dt = F.softplus(torch.randn(B, S, nh, generator=g)).to(dev)
+    A = -torch.exp(torch.randn(nh, generator=g)).to(dev)
+    return x, bc[..., :ds], bc[..., ds:], dt, A
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,nh,hd,ds", [
+    (1, 64, 4, 64, 16), (2, 200, 8, 64, 64), (1, 128, 2, 64, 128),
+    (2, 32, 64, 64, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_equals_plain(B, S, nh, hd, ds, dtype):
+    dev = _card()
+    x, Bm, Cm, dt, A = _ssd_inputs(B, S, nh, hd, ds, dtype, dev, S + nh)
+    before = ops.LAUNCHES["ssd_chunk"]
+    out = ops.ssd_chunk(x, Bm, Cm, dt, A)
+    exp = ref.ssd_chunk(x, Bm, Cm, dt, A)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_chunk"] == before + 1
+    assert out.dtype == dtype and out.shape == (B, S, nh, hd)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_new_kernels_reject_what_they_do_not_take():
+    dev = _card()
+    q = torch.randn(1, 16, 2, 32, device=dev)
+    with pytest.raises(ValueError, match="head size"):
+        ops.flash_attention(q, q, q)
+    q = torch.randn(1, 16, 2, 64, device=dev)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, q.bfloat16(), q)
+    x, Bm, Cm, dt, A = _ssd_inputs(1, 16, 2, 64, 16, torch.float32, dev, 0)
+    with pytest.raises(TypeError):
+        ops.ssd_chunk(x, Bm.bfloat16(), Cm, dt, A)
+    with pytest.raises(ValueError, match="not built"):
+        ops.ssd_chunk(x[..., :32], Bm, Cm, dt, A)
+
+
+# ------------------------------------------- the CPU-side checks and build
+@pytest.mark.parametrize("dtype,pad,raises", [
+    (torch.bfloat16, 0, False), (torch.bfloat16, 4, True),
+    (torch.float32, 4, False)])
+def test_flash_attention_input_check_of_row_alignment(dtype, pad, raises):
+    """The tensor-core kernel loads bf16 rows 16 bytes at a time, so the
+    wrapper rejects bf16 rows that are not 16-byte aligned; f32 rows (the
+    scalar kernel) may start anywhere."""
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.zeros(2, 8, 4, 64 + pad, dtype=dtype)[..., pad:]
+    if raises:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa.check_inputs(q, q, q)
+    else:
+        fa.check_inputs(q, q, q)
+
+def test_each_library_builds_with_its_own_flags(monkeypatch):
+    """Only the top-k library keeps -fmad=false (its bitwise FMA); each
+    library's cached build follows its own source and flags alone."""
+    assert "-fmad=false" in ops.nvcc_flags("topk_select")
+    for name in ("flash_attention", "ssd_chunk"):
+        assert "-fmad=false" not in ops.nvcc_flags(name)
+        assert "arch=compute_90a,code=sm_90a" in ops.nvcc_flags(name)
+    before = {n: ops.library_path(n) for n in ops.EXTRA_FLAGS}
+    assert len(set(before.values())) == len(before)
+    monkeypatch.setitem(ops.EXTRA_FLAGS, "ssd_chunk", ("-lineinfo",))
+    after = {n: ops.library_path(n) for n in ops.EXTRA_FLAGS}
+    assert after["ssd_chunk"] != before["ssd_chunk"]
+    assert after["topk_select"] == before["topk_select"]
+    assert after["flash_attention"] == before["flash_attention"]
+    assert set(ops.LAUNCHES) == {"topk_reward", "flash_attention",
+                                 "ssd_chunk"}
