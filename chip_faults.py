@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
-"""Plant faults in the tensor-core attention kernel and read what
-``chip_smoke.py``'s checks make of them, on one GPU.
+"""Plant faults in the tensor-core attention kernel and in both scan
+kernels, and read what ``chip_smoke.py``'s checks make of them, on one GPU.
 
     python3 chip_faults.py [--seed N]   # needs one CUDA device
 
-Each fault in ``FAULTS`` is one edit of ``flash_fwd_mma`` in
-``src/repro_torch/kernels/csrc/flash_attention.cu``, built with the
-library's own flags into a temporary directory (the checkout is left as
-it is). For the sound kernel and for each fault it prints one JSON line:
+Each fault is one edit of a kernel source under
+``src/repro_torch/kernels/csrc/``, built with the library's own flags into
+a temporary directory (the checkout is left as it is): ``FAULTS`` edit
+``flash_fwd_mma`` in ``flash_attention.cu``, ``SSD_FAULTS`` ``ssd_fwd`` in
+``ssd_chunk.cu`` and ``SCAN_FAULTS`` ``scan_fwd`` in
+``selective_scan.cu``.
+
+For the sound attention kernel and for each of its faults it prints one
+JSON line:
 
 - ``tight``: the tight check of ``chip_smoke.py`` (phases 7 and 9), the
   relative L2 distance of the bf16 output from the f32 attention of the
@@ -21,7 +26,15 @@ it is). For the sound kernel and for each fault it prints one JSON line:
   prompt (batch 4, 32 tokens) at its last position against the decode
   loop's replay, against ``BF16_REPLAY_REL_L2``.
 
-Exits 1 unless the sound kernel passes the tight check and every fault
+For the two scan kernels, sound and faulty, it prints the tight check of
+``chip_smoke.py`` (phases 8-9 and 12-13): the relative L2 distance of the
+bf16 output from the f32 scan of the same bf16 inputs, at the prefill
+shape (phase 8's and phase 12's cases there, with fast and slow decay)
+and on the first call of a full-width prefill (zamba2-1.2b's SSD,
+falcon-mamba-7b's selective scan), against ``SSD_BF16_REL_L2`` and
+``SCAN_BF16_REL_L2``.
+
+Exits 1 unless each sound kernel passes its tight check and every fault
 fails it. The last line is one JSON object with all the readings.
 """
 from __future__ import annotations
@@ -36,7 +49,7 @@ from pathlib import Path
 
 import chip_smoke as cs
 
-# name: (text in flash_fwd_mma, its replacement); each text occurs once
+# name: (text in the kernel, its replacement); each text occurs once
 FAULTS = {
     "output_scaled_1.05": (
         "const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);",
@@ -62,22 +75,95 @@ FAULTS = {
         "        acc[n][e] = __bfloat162float(__float2bfloat16_rn(\n"
         "            acc[n][e] * (e < 2 ? corr0 : corr1)));\n"),
 }
+SSD_FAULTS = {
+    "carried_state_dropped": (
+        "*p = fmaf(decay, *p, acc[i][j]);", "*p = acc[i][j];"),
+    "chunk_decay_not_applied": (
+        "const float decay = expf(send[0]);", "const float decay = 1.f;"),
+    "output_scaled_1.05": (
+        "store(yrow + cg + 16 * j, fmaf(e, inter[i][j], acc[i][j]));",
+        "store(yrow + cg + 16 * j,\n"
+        "                1.05f * fmaf(e, inter[i][j], acc[i][j]));"),
+}
+SCAN_FAULTS = {
+    "d_skip_dropped": (
+        "if (q == 0) sy[r][ch] = fmaf(dd, xt, acc);",
+        "if (q == 0) sy[r][ch] = acc;"),
+    "state_reset_each_tile": (
+        "    __syncthreads();  // the last tile's readers of the shared tiles "
+        "are done",
+        "#pragma unroll\n    for (int j = 0; j < SPL; ++j) h[j] = 0.f;\n"
+        "    __syncthreads();"),
+    "decay_without_dt": (
+        "const float da = expf(dtt * a[j]);",
+        "const float da = expf(a[j]);"),
+    "state_in_bf16": (
+        "h[j] = fmaf(da, h[j], dx * sb[r][n]);",
+        "h[j] = __bfloat162float(__float2bfloat16_rn(\n"
+        "            fmaf(da, h[j], dx * sb[r][n])));"),
+    # the last tile's y is the one before it (not left unwritten, which
+    # could read back a sound output from reused memory)
+    "last_tile_skipped": (
+        "    for (int r = 0; r < kT; ++r) {",
+        "    for (int r = 0;\n"
+        "         r < (tile + 1 == n_tiles && n_tiles > 1 ? 0 : kT); ++r) {"),
+}
+# library: (its faults, the kernel function they edit)
+KERNEL_FAULTS = {"flash_attention": (FAULTS, "flash_fwd_mma("),
+                 "ssd_chunk": (SSD_FAULTS, "ssd_fwd("),
+                 "selective_scan": (SCAN_FAULTS, "scan_fwd(")}
 
 
-def build_fault(ops, name, old, new, tmp):
-    """Compile the library with one fault planted; returns its path."""
-    src = (ops.CSRC / "flash_attention.cu").read_text()
+def build_fault(ops, lib, name, old, new, tmp):
+    """Compile library ``lib`` with one fault planted; returns its path."""
+    src = (ops.CSRC / f"{lib}.cu").read_text()
     cs.check(src.count(old) == 1, f"fault {name}: its text occurs "
-             f"{src.count(old)} times in flash_attention.cu, not once")
-    cu = Path(tmp) / f"{name}.cu"
+             f"{src.count(old)} times in {lib}.cu, not once")
+    cu = Path(tmp) / f"{lib}-{name}.cu"
     cu.write_text(src.replace(old, new))
-    out = Path(tmp) / f"lib{name}.so"
-    proc = subprocess.run([ops._nvcc(), *ops.nvcc_flags("flash_attention"),
+    out = Path(tmp) / f"lib{lib}-{name}.so"
+    proc = subprocess.run([ops._nvcc(), *ops.nvcc_flags(lib),
                            "-o", str(out), str(cu)],
                           capture_output=True, text=True)
     cs.check(proc.returncode == 0, f"nvcc failed for fault {name}:\n"
              f"{proc.stderr}")
     return out
+
+
+def fails(tight, limit):
+    """A tight check's readings fail it (a NaN fails)."""
+    return not all(v <= limit for v in tight.values())
+
+
+def build_all(ops, tmp):
+    """The sound libraries and every fault, one nvcc each, all at once;
+    returns ``{lib: {"sound" or fault name: bound library}}``."""
+    jobs = sum(len(faults) + 1 for faults, _ in KERNEL_FAULTS.values())
+    with ThreadPoolExecutor(jobs) as pool:
+        sound = {lib: pool.submit(ops.build_library, lib)
+                 for lib in KERNEL_FAULTS}
+        built = {lib: {n: pool.submit(build_fault, ops, lib, n, o, w, tmp)
+                       for n, (o, w) in faults.items()}
+                 for lib, (faults, _) in KERNEL_FAULTS.items()}
+        libs = {}
+        for lib in KERNEL_FAULTS:
+            sound[lib].result()
+            libs[lib] = {"sound": ops.load_library(lib)}
+            libs[lib].update({n: ops._BINDERS[lib](ctypes.CDLL(str(
+                f.result()))) for n, f in built[lib].items()})
+    return libs
+
+
+def scan_readings(torch, libs, launch, inputs, limit, label):
+    """The tight check of each library on each named input set; ``inputs``
+    maps a name to (args, the f32 scan of them)."""
+    readings = {}
+    for name, lib in libs.items():
+        tight = {where: cs.rel_l2(torch, launch(lib, *args), exact)
+                 for where, (args, exact) in inputs.items()}
+        readings[name] = {"tight": tight, "tight_fails": fails(tight, limit)}
+        cs.log(json.dumps({label: {name: readings[name]}}))
+    return readings
 
 
 def main(argv=None) -> int:
@@ -94,6 +180,8 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.launch.serve import generate
     from repro_torch.models.transformer import forward_logits, init_params
 
@@ -104,71 +192,108 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"],
                          capture_output=True, text=True)
     cs.log(f"card {smi.stdout.strip()}")
+    bf16 = torch.bfloat16
+
+    def tokens_for(cfg):
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        return {"tokens": torch.randint(
+            0, cfg.vocab_size, (cs.PREFILL_BATCH, cs.PREFILL_LEN),
+            generator=g).to(dev)}
 
     with tempfile.TemporaryDirectory() as tmp:
-        with ThreadPoolExecutor(len(FAULTS) + 1) as pool:
-            sound = pool.submit(ops.build_library, "flash_attention")
-            built = {n: pool.submit(build_fault, ops, n, o, w, tmp)
-                     for n, (o, w) in FAULTS.items()}
-            sound.result()
-            libs = {"sound": ops.load_library("flash_attention")}
-            libs.update({n: fa.bind(ctypes.CDLL(str(f.result())))
-                         for n, f in built.items()})
+        all_libs = build_all(ops, tmp)
+    libs = all_libs["flash_attention"]
 
-        # inputs: phase 7's at the prefill shape, the prefill's first call
-        synth = cs.attn_inputs(torch, 2, 4096, 32, 32, 64, torch.bfloat16,
-                               dev, 1)
-        cfg = get_config("zamba2-1.2b")
-        params = init_params(seed, cfg, device=dev)
-        g = torch.Generator(device="cpu").manual_seed(seed)
-        tokens = torch.randint(0, cfg.vocab_size,
-                               (cs.PREFILL_BATCH, cs.PREFILL_LEN),
-                               generator=g).to(dev)
-        batch = {"tokens": tokens}
-        with cs.first_calls(ops, ("flash_attention",)) as seen:
-            forward_logits(cfg, params, batch, device=dev)
-        call = seen["flash_attention"][0]
-        cfg32 = cfg.with_(compute_dtype=torch.float32)
-        exact = forward_logits(cfg32, params, batch, device=dev,
-                               use_kernel=False)
-        plain = forward_logits(cfg, params, batch, device=dev,
-                               use_kernel=False)
-        plain_d = cs.logit_diff(torch, plain, exact, "plain")["rel_l2"]
-        del plain
-        g = torch.Generator(device="cpu").manual_seed(seed + 1)
-        prompt = torch.randint(0, cfg.vocab_size, (4, 32),
-                               generator=g).to(dev)
-        replay = generate(cfg, params, prompt, 16,
-                          device=dev).prompt_logits
+    # inputs: phase 7's at the prefill shape, the prefill's first call
+    synth = cs.attn_inputs(torch, 2, 4096, 32, 32, 64, bf16, dev, 1)
+    cfg = get_config("zamba2-1.2b")
+    params = init_params(seed, cfg, device=dev)
+    batch = tokens_for(cfg)
+    with cs.first_calls(ops, ("flash_attention", "ssd_chunk")) as seen:
+        forward_logits(cfg, params, batch, device=dev)
+    call = seen["flash_attention"][0]
+    cfg32 = cfg.with_(compute_dtype=torch.float32)
+    exact = forward_logits(cfg32, params, batch, device=dev,
+                           use_kernel=False)
+    plain = forward_logits(cfg, params, batch, device=dev, use_kernel=False)
+    plain_d = cs.logit_diff(torch, plain, exact, "plain")["rel_l2"]
+    del plain
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 32), generator=g).to(dev)
+    replay = generate(cfg, params, prompt, 16, device=dev).prompt_logits
 
-        readings = {}
-        for name, lib in libs.items():
-            ops._LIBS["flash_attention"] = lib
-            tight = {"prefill_shape": cs.attn_rel_l2(
-                         torch, ref, fa.launch(lib, *synth), *synth, True),
-                     "prefill_call": cs.attn_rel_l2(
-                         torch, ref, fa.launch(lib, *call), *call, True)}
-            logits = forward_logits(cfg, params, batch, device=dev)
-            route = cs.logit_diff(torch, logits, exact, name)["rel_l2"]
-            del logits
-            fwd = forward_logits(cfg, params, {"tokens": prompt}, device=dev)
-            r = {"tight": tight,
-                 "tight_fails": max(tight.values()) > cs.ATTN_BF16_REL_L2,
-                 "route_ratio": route / plain_d,
-                 "route_fails": route / plain_d > cs.BF16_ROUTE_RATIO,
-                 "replay_rel_l2": cs.logit_diff(   # as phase 10 reads it
-                     torch, replay, fwd[:, -1:], name)["rel_l2"]}
-            r["replay_fails"] = r["replay_rel_l2"] > cs.BF16_REPLAY_REL_L2
-            readings[name] = r
-            cs.log(json.dumps({name: r}))
-        ops._LIBS["flash_attention"] = libs["sound"]
-        del libs
+    attn = {}
+    for name, lib in libs.items():
+        ops._LIBS["flash_attention"] = lib
+        tight = {"prefill_shape": cs.attn_rel_l2(
+                     torch, ref, fa.launch(lib, *synth), *synth, True),
+                 "prefill_call": cs.attn_rel_l2(
+                     torch, ref, fa.launch(lib, *call), *call, True)}
+        logits = forward_logits(cfg, params, batch, device=dev)
+        route = cs.logit_diff(torch, logits, exact, name)["rel_l2"]
+        del logits
+        fwd = forward_logits(cfg, params, {"tokens": prompt}, device=dev)
+        r = {"tight": tight,
+             "tight_fails": fails(tight, cs.ATTN_BF16_REL_L2),
+             "route_ratio": route / plain_d,
+             "route_fails": route / plain_d > cs.BF16_ROUTE_RATIO,
+             "replay_rel_l2": cs.logit_diff(   # as phase 10 reads it
+                 torch, replay, fwd[:, -1:], name)["rel_l2"]}
+        r["replay_fails"] = r["replay_rel_l2"] > cs.BF16_REPLAY_REL_L2
+        attn[name] = r
+        cs.log(json.dumps({"flash_attention": {name: r}}))
+    ops._LIBS["flash_attention"] = libs["sound"]
+    del params, exact, replay, synth, call
 
-    limits = {"tight": cs.ATTN_BF16_REL_L2,
-              "route_ratio": cs.BF16_ROUTE_RATIO,
-              "replay_rel_l2": cs.BF16_REPLAY_REL_L2}
-    ok = not readings["sound"]["tight_fails"] and all(
-        r["tight_fails"] for n, r in readings.items() if n != "sound")
+    # SSD: phase 8's cases at the prefill shape (dt about 0.7 and about
+    # 0.02) and the zamba2 prefill's first SSD call
+    ssd_in = {}
+    for where, args in [
+            (f"prefill_shape dt shift {c[-1]}",
+             cs.ssd_inputs(torch, *c[:5], bf16, dev, 100 + i, c[-1]))
+            for i, c in enumerate(cs.SSD_SHAPES) if c[:2] == (2, 4096)] + [
+            ("prefill_call", seen["ssd_chunk"][0])]:
+        x, Bm, Cm, dt, A = args
+        ssd_in[where] = (args, ref.ssd_chunk(x.float(), Bm.float(),
+                                             Cm.float(), dt, A))
+    del seen
+    ssd = scan_readings(torch, all_libs["ssd_chunk"], sc.launch, ssd_in,
+                        cs.SSD_BF16_REL_L2, "ssd_chunk")
+    del ssd_in
+    torch.cuda.empty_cache()
+
+    # selective scan: phase 12's cases at the prefill shape and
+    # falcon-mamba-7b's first call
+    cfg = get_config("falcon-mamba-7b")
+    params = init_params(seed, cfg, device=dev)
+    with cs.first_calls(ops, ("selective_scan",)) as seen:
+        forward_logits(cfg, params, tokens_for(cfg), device=dev)
+    del params
+    torch.cuda.empty_cache()
+    scan_in = {}
+    for where, args in [
+            (f"prefill_shape dt shift {c[-1]}",
+             cs.scan_inputs(torch, *c[:4], bf16, dev, 200 + i, c[-1]))
+            for i, c in enumerate(cs.SCAN_SHAPES)
+            if c[:4] == (2, 4096, 8192, 16)] + [
+            ("prefill_call", seen["selective_scan"][0])]:
+        scan_in[where] = (args, ref.selective_scan(
+            *(t.float() for t in args)))
+    del seen
+    scan = scan_readings(torch, all_libs["selective_scan"], ss.launch,
+                         scan_in, cs.SCAN_BF16_REL_L2, "selective_scan")
+    del scan_in, all_libs, libs
+
+    readings = {"flash_attention": attn, "ssd_chunk": ssd,
+                "selective_scan": scan}
+    limits = {"flash_attention": {"tight": cs.ATTN_BF16_REL_L2,
+                                  "route_ratio": cs.BF16_ROUTE_RATIO,
+                                  "replay_rel_l2": cs.BF16_REPLAY_REL_L2},
+              "ssd_chunk": {"tight": cs.SSD_BF16_REL_L2},
+              "selective_scan": {"tight": cs.SCAN_BF16_REL_L2}}
+    ok = all(not r["sound"]["tight_fails"] and all(
+        v["tight_fails"] for n, v in r.items() if n != "sound")
+        for r in readings.values())
     cs.log(json.dumps({"ok": ok, "limits": limits, "readings": readings}))
     return 0 if ok else 1
 

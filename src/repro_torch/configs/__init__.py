@@ -16,7 +16,8 @@ ARCH_IDS = ("phi3-mini-3.8b", "phi4-mini-3.8b", "zamba2-1.2b",
             "deepseek-v2-236b", "olmo-1b", "llama4-scout-17b-a16e",
             "falcon-mamba-7b", "internvl2-2b", "minicpm3-4b",
             "musicgen-large")
-_PORTED = {"zamba2-1.2b": "zamba2_1_2b"}
+_PORTED = {"zamba2-1.2b": "zamba2_1_2b",
+           "falcon-mamba-7b": "falcon_mamba_7b"}
 
 
 def _module(arch_id: str):

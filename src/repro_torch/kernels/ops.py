@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import selective_scan as _ss
 from repro_torch.kernels import ssd_chunk as _sc
 from repro_torch.kernels import topk_select as _tk
 
@@ -37,14 +38,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # and must not let nvcc contract anything else; the other kernels only have
 # to agree within a tolerance and keep FMA contraction
 EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
-    "topk_select": ("-fmad=false",), "flash_attention": (), "ssd_chunk": ()}
+    "topk_select": ("-fmad=false",), "flash_attention": (), "ssd_chunk": (),
+    "selective_scan": ()}
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
 LAUNCHES: Dict[str, int] = {"topk_reward": 0, "flash_attention": 0,
-                            "ssd_chunk": 0}
+                            "ssd_chunk": 0, "selective_scan": 0}
 _BINDERS = {"topk_select": _tk.bind,   # declares each library's C signatures
-            "flash_attention": _fa.bind, "ssd_chunk": _sc.bind}
+            "flash_attention": _fa.bind, "ssd_chunk": _sc.bind,
+            "selective_scan": _ss.bind}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -150,4 +153,18 @@ def ssd_chunk(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
         return ref.ssd_chunk(x, Bm, Cm, dt, A)
     out = _sc.launch(load_library("ssd_chunk"), x, Bm, Cm, dt, A)
     LAUNCHES["ssd_chunk"] += 1
+    return out
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
+                   Cm: torch.Tensor, A: torch.Tensor,
+                   D: torch.Tensor) -> torch.Tensor:
+    """Mamba1 selective scan: x, dt ``(B, S, di)`` (dt after softplus), Bm/Cm
+    ``(B, S, ds)``, A ``(di, ds)`` negative, D ``(di,)``; returns y
+    ``(B, S, di)`` in x's dtype, with the D skip. CPU tensors take the plain
+    (sequential) version; CUDA tensors the Hopper kernel."""
+    if x.device.type == "cpu":
+        return ref.selective_scan(x, dt, Bm, Cm, A, D)
+    out = _ss.launch(load_library("selective_scan"), x, dt, Bm, Cm, A, D)
+    LAUNCHES["selective_scan"] += 1
     return out

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the port's kernels (the correctness ground
 truth, and the path a wrapper takes for tensors on the CPU).
 
-``flash_attention`` and ``ssd_chunk`` are the reference's oracles
-(``repro/kernels/ref.py``: ``flash_attention_ref``, ``ssd_chunk_ref``)
-with their casts, taken to the model's layouts."""
+``flash_attention``, ``ssd_chunk`` and ``selective_scan`` are the
+reference's oracles (``repro/kernels/ref.py``: ``flash_attention_ref``,
+``ssd_chunk_ref``, ``selective_scan_ref``) with their casts, taken to the
+model's layouts."""
 from __future__ import annotations
 
 import torch
@@ -88,3 +89,26 @@ def ssd_chunk(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
         h = da[..., None, None] * h + upd
         ys.append(torch.einsum("bhsd,bs->bhd", h, Cm[:, t]))
     return torch.stack(ys, dim=1).to(out_dtype)
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
+                   Cm: torch.Tensor, A: torch.Tensor,
+                   D: torch.Tensor) -> torch.Tensor:
+    """Mamba1 selective scan as the sequential recurrence of
+    ``selective_scan_ref``, in f32: ``h_t = exp(dt_t A) h_{t-1} + (dt_t x_t)
+    B_t``, ``y_t = C_t . h_t + D x_t``. x, dt: ``(B, S, di)``; Bm, Cm:
+    ``(B, S, ds)``; A: ``(di, ds)``; D: ``(di,)``. Returns ``(B, S, di)``
+    in x's dtype, rounded once."""
+    Bsz, S, di = x.shape
+    out_dtype = x.dtype
+    x, dt, Bm, Cm, A, D = (t.float() for t in (x, dt, Bm, Cm, A, D))
+    dx = dt * x
+    h = torch.zeros(Bsz, di, Bm.shape[-1], dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(S):
+        da = torch.exp(dt[:, t, :, None] * A)                     # (B,di,ds)
+        h = da * h + dx[:, t, :, None] * Bm[:, t, None, :]
+        ys.append(torch.einsum("bds,bs->bd", h, Cm[:, t]))
+    y = torch.stack(ys, dim=1) + x * D
+    return y.to(out_dtype)

@@ -10,9 +10,9 @@ does) with random weights from ``--seed``, on the CUDA card unless
 The prefill replays the prompt through ``decode_step`` token by token, as
 the reference's ``serve.py`` does (a production prefill runs
 ``forward_logits``, ``make_prefill_step``). :func:`generate` holds the loop
-so that other callers run it on any config. ``--arch`` defaults to
-zamba2-1.2b, the one architecture ported so far (the reference defaults to
-phi3-mini-3.8b).
+so that other callers run it on any config. ``--arch`` takes the ported
+architectures (zamba2-1.2b, falcon-mamba-7b) and defaults to zamba2-1.2b
+(the reference defaults to phi3-mini-3.8b, not ported yet).
 """
 from __future__ import annotations
 

@@ -2,11 +2,12 @@
 
 Block kinds ported so far:
   dense       GQA attention + dense FFN
-  ssm         Mamba2 (``cfg.ssm_variant == "mamba2"``)
+  ssm         Mamba1 or Mamba2, by ``cfg.ssm_variant``
   shared_attn the Zamba2 weight-shared attention+MLP block (the same code
               as ``dense``; its one weight set is reused at every call)
-``moe``, MLA attention and Mamba1 raise ``NotImplementedError`` (ROADMAP.md
-queue 1 item 16 and queue 2 item 4).
+``moe`` and MLA attention raise ``NotImplementedError`` (ROADMAP.md queue 1
+item 16). ``use_kernel`` reaches every block's prefill (attention, Mamba1
+and Mamba2 alike).
 """
 from __future__ import annotations
 
@@ -63,7 +64,8 @@ def block_forward(cfg, kind: str, p: Params, x, positions,
     if kind == "ssm":
         h = apply_norm(cfg, p, x, "norm")
         if cfg.ssm_variant == "mamba1":
-            return x + mamba.mamba1_forward(cfg, p["ssm"], h), None
+            return x + mamba.mamba1_forward(cfg, p["ssm"], h,
+                                            use_kernel=use_kernel), None
         return x + mamba.mamba2_forward(cfg, p["ssm"], h,
                                         use_kernel=use_kernel), None
 

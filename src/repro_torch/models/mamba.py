@@ -1,20 +1,28 @@
-"""Mamba2 (SSD) blocks, prefill + single-step decode.
+"""Mamba1 selective scan & Mamba2 (SSD) blocks, prefill + single-step decode.
 
-The port's ``repro/models/mamba.py``, Mamba2 half. On a CUDA tensor the
-prefill scan runs the Hopper kernel
-(:func:`repro_torch.kernels.ops.ssd_chunk`, the port of the reference's
-Pallas ``ssd_chunk``) in place of the reference's chunked SSD lines
-(``mamba2_forward``, ``:172-210``). Elsewhere it runs that chunked form
-(``SSD_CHUNK`` steps a chunk). ``use_kernel`` overrides the choice by
-device, so the plain route can also run on the card.
+The port's ``repro/models/mamba.py``. On a CUDA tensor each prefill scan
+runs a Hopper kernel in place of the reference's plain lines:
 
-The two routes compute the same scan but round differently in bf16: the
-plain route, like the reference, casts the intra-chunk weights and the
-chunk states to the compute dtype before their products; the kernel keeps
-all of it in f32 and rounds y once.
+- Mamba1 (falcon-mamba-7b): :func:`repro_torch.kernels.ops.selective_scan`
+  (the port of the reference's Pallas ``selective_scan``, D skip included)
+  in place of ``mamba1_forward``'s ``lax.scan`` (``:93-104``). Elsewhere
+  it runs that recurrence as a loop over time.
+- Mamba2 (zamba2): :func:`repro_torch.kernels.ops.ssd_chunk` (the port of
+  the Pallas ``ssd_chunk``) in place of ``mamba2_forward``'s chunked SSD
+  lines (``:172-210``). Elsewhere it runs that chunked form
+  (``SSD_CHUNK`` steps a chunk).
 
-Mamba1 (falcon-mamba-7b, the Pallas ``selective_scan``) is the next slice
-(ROADMAP.md queue 2 item 4); its functions raise.
+``use_kernel`` overrides the choice by device, so the plain routes can
+also run on the card. Decoding has no kernel in the reference and stays
+plain tensor code; it returns a new cache and leaves the given one as it
+is.
+
+The two routes compute the same scans but round differently in bf16. The
+plain Mamba1 route, like the reference, forms ``dt * x`` in the compute
+dtype, casts y to it at every step and adds the D skip in it; the kernel
+keeps all of it in f32 and rounds y once. The plain Mamba2 route casts the
+intra-chunk weights and the chunk states to the compute dtype before their
+products; the kernel keeps all of it in f32 and rounds y once.
 """
 from __future__ import annotations
 
@@ -29,9 +37,6 @@ from repro_torch.models.common import dense_init, normal_init, rms_norm
 Params = Dict[str, torch.Tensor]
 
 SSD_CHUNK = 128
-
-_MAMBA1 = ("Mamba1 (falcon-mamba-7b, selective_scan) is the next port slice "
-           "(ROADMAP.md queue 2 item 4)")
 
 
 # ---------------------------------------------------------------- conv utils
@@ -54,20 +59,106 @@ def conv_step(conv_state, x_new, w, b):
 
 
 # ------------------------------------------------------------------- mamba1
-def init_mamba1(gen, cfg):
-    raise NotImplementedError(_MAMBA1)
+def init_mamba1(gen: torch.Generator, cfg) -> Params:
+    D, di, ds = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    dtr = cfg.resolved_dt_rank
+    dev = gen.device
+    f32 = torch.float32
+    A = torch.arange(1, ds + 1, dtype=f32, device=dev).expand(di, ds)
+    return {
+        "in_proj": dense_init(gen, D, 2 * di, cfg.param_dtype),
+        "conv_w": normal_init(gen, (di, cfg.ssm_conv), 0.5, f32),
+        "conv_b": torch.zeros((di,), dtype=f32, device=dev),
+        "x_proj": dense_init(gen, di, dtr + 2 * ds, cfg.param_dtype),
+        "dt_proj": dense_init(gen, dtr, di, cfg.param_dtype),
+        "dt_bias": normal_init(gen, (di,), 0.5, f32),
+        "A_log": torch.log(A.contiguous()),
+        "D": torch.ones((di,), dtype=f32, device=dev),
+        "out_proj": dense_init(gen, di, D, cfg.param_dtype),
+    }
 
 
-def mamba1_forward(cfg, p, x):
-    raise NotImplementedError(_MAMBA1)
+def _mamba1_inputs(cfg, p, x):
+    """x (..., D) -> the scan's input xs and the gate z, (..., di) each."""
+    xs, z = torch.chunk(x @ p["in_proj"].to(cfg.compute_dtype), 2, dim=-1)
+    return xs, z
 
 
-def init_mamba1_cache(cfg, batch, dtype, device=None):
-    raise NotImplementedError(_MAMBA1)
+def _mamba1_ssm_params(cfg, p, xs):
+    """xs: post-conv activations (..., di) -> dt (..., di), B, C (..., ds);
+    B and C are slices of one projection (strided views, no copy)."""
+    cd = cfg.compute_dtype
+    ds, dtr = cfg.ssm_state, cfg.resolved_dt_rank
+    dbc = xs @ p["x_proj"].to(cd)
+    dt, Bm, Cm = torch.split(dbc, [dtr, ds, ds], dim=-1)
+    dt = F.softplus(dt @ p["dt_proj"].to(cd) + p["dt_bias"].to(cd))
+    return dt, Bm, Cm
 
 
-def mamba1_decode(cfg, p, x, cache):
-    raise NotImplementedError(_MAMBA1)
+def _mamba1_scan(cfg, xs, dt, Bm, Cm, A, D):
+    """The reference's recurrence (``mamba1_forward``, ``:93-104``) with its
+    casts: ``dt * x`` in the compute dtype, then f32; y cast to the compute
+    dtype every step; the D skip added in the compute dtype."""
+    cd = cfg.compute_dtype
+    B, S, di = xs.shape
+    dx = (dt * xs).float()
+    dtf, Bf, Cf = dt.float(), Bm.float(), Cm.float()
+    h = torch.zeros(B, di, Bm.shape[-1], dtype=torch.float32,
+                    device=xs.device)
+    ys = []
+    for t in range(S):
+        da = torch.exp(dtf[:, t, :, None] * A)                    # (B,di,ds)
+        h = da * h + dx[:, t, :, None] * Bf[:, t, None, :]
+        ys.append(torch.einsum("bds,bs->bd", h, Cf[:, t]).to(cd))
+    return torch.stack(ys, dim=1) + xs * D.to(cd)
+
+
+def mamba1_forward(cfg, p: Params, x, use_kernel: Optional[bool] = None):
+    """Selective scan over a full sequence. x: (B,S,D) -> (B,S,D).
+
+    ``use_kernel`` (default: whether x is on CUDA) picks the Hopper kernel
+    over the plain loop over time."""
+    cd = cfg.compute_dtype
+    if use_kernel is None:
+        use_kernel = x.is_cuda
+    xs, z = _mamba1_inputs(cfg, p, x)
+    xs = F.silu(causal_conv(xs, p["conv_w"].to(cd), p["conv_b"].to(cd)))
+    dt, Bm, Cm = _mamba1_ssm_params(cfg, p, xs)
+    A = -torch.exp(p["A_log"])                                    # (di, ds)
+    if use_kernel:
+        y = ops.selective_scan(xs, dt, Bm, Cm, A, p["D"])
+    else:
+        y = _mamba1_scan(cfg, xs, dt, Bm, Cm, A, p["D"])
+    y = y * F.silu(z)
+    return y @ p["out_proj"].to(cd)
+
+
+def init_mamba1_cache(cfg, batch: int, dtype, device=None) -> Params:
+    return {
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner),
+                            dtype=dtype, device=device),
+        "ssm": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def mamba1_decode(cfg, p: Params, x, cache):
+    """One-token decode. x: (B,1,D). Returns (out (B,1,D), new cache)."""
+    cd = cfg.compute_dtype
+    xs, z = _mamba1_inputs(cfg, p, x[:, 0])
+    xs, conv_state = conv_step(cache["conv"], xs,
+                               p["conv_w"].to(cd), p["conv_b"].to(cd))
+    xs = F.silu(xs)
+    dt, Bm, Cm = _mamba1_ssm_params(cfg, p, xs)
+    A = -torch.exp(p["A_log"])
+    da = torch.exp(dt.float()[..., None] * A)
+    h = da * cache["ssm"] + (dt * xs).float()[..., None] \
+        * Bm.float()[:, None, :]
+    y = torch.einsum("bds,bs->bd", h, Cm.float()).to(cd)
+    y = y + xs * p["D"].to(cd)
+    y = y * F.silu(z)
+    out = (y @ p["out_proj"].to(cd))[:, None, :]
+    return out, {"conv": conv_state.to(cache["conv"].dtype), "ssm": h}
 
 
 # ------------------------------------------------------------------- mamba2

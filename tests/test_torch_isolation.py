@@ -67,25 +67,29 @@ def test_lm_entry_points_need_cuda_or_an_explicit_cpu():
         pytest.skip("a CUDA device is present: the default is the card")
     from repro_torch.configs import get_reduced
     from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import (decode_step, forward_logits, init_cache,
                                     init_params)
-    cfg = get_reduced("zamba2-1.2b")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        init_params(0, cfg)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        init_cache(cfg, 1, 4)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        serve.main(["--gen", "1", "--prompt-len", "2"])
-    params = init_params(0, cfg, device="cpu")
-    tokens = {"tokens": torch.zeros((1, 4), dtype=torch.int64)}
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        forward_logits(cfg, params, tokens)
-    cache = init_cache(cfg, 1, 4, device="cpu")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        decode_step(cfg, params, {"tokens": tokens["tokens"][:, :1]}, cache,
-                    0)
-    assert forward_logits(cfg, params, tokens, device="cpu").shape == \
-        (1, 4, cfg.vocab_size)
+    for arch in ("zamba2-1.2b", "falcon-mamba-7b"):
+        cfg = get_reduced(arch)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init_params(0, cfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init_cache(cfg, 1, 4)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve.main(["--arch", arch, "--gen", "1", "--prompt-len", "2"])
+        params = init_params(0, cfg, device="cpu")
+        tokens = {"tokens": torch.zeros((1, 4), dtype=torch.int64)}
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            forward_logits(cfg, params, tokens)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_prefill_step(cfg)(params, tokens)
+        cache = init_cache(cfg, 1, 4, device="cpu")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            decode_step(cfg, params, {"tokens": tokens["tokens"][:, :1]},
+                        cache, 0)
+        assert forward_logits(cfg, params, tokens, device="cpu").shape == \
+            (1, 4, cfg.vocab_size)
 
 
 def test_scan_covers_the_lm_slice():
@@ -96,7 +100,8 @@ def test_scan_covers_the_lm_slice():
             "models/rope.py", "models/attention.py", "models/mamba.py",
             "models/blocks.py", "models/transformer.py", "launch/steps.py",
             "launch/serve.py", "kernels/flash_attention.py",
-            "kernels/ssd_chunk.py"} <= names
+            "kernels/ssd_chunk.py", "configs/falcon_mamba_7b.py",
+            "kernels/selective_scan.py"} <= names
 
 
 def _load(name):
@@ -175,6 +180,71 @@ def test_chip_smoke_lm_bounds():
     assert by == "bytes" and ms == pytest.approx(nbytes / 3.35e12 * 1e3)
 
 
+def test_chip_smoke_scan_bound():
+    """The selective scan at the falcon-mamba-7b prefill shape is bound by
+    its 1,073,741,824 exponentials on the special-function units (16 a
+    clock per SM), not by its 403,734,528 bytes; B and C are counted at
+    their own size, not the packed projection's."""
+    smoke = _chip_smoke()
+    bf = dict(dtype=torch.bfloat16, device="meta")
+    x = torch.empty(2, 4096, 8192, **bf)
+    packed = torch.empty(2, 4096, 288, **bf)
+    A = torch.empty(8192, 16, device="meta")
+    D = torch.empty(8192, device="meta")
+    Bm, Cm = packed[..., 256:272], packed[..., 272:]
+    ms, by = smoke.scan_bound(x, x, Bm, Cm, A, D, 132, 1.98e9)
+    assert by == "operations"
+    assert ms == pytest.approx(2 * 4096 * 8192 * 16 / (16 * 132 * 1.98e9)
+                               * 1e3)
+    assert 3 * x.nbytes + Bm.nbytes + Cm.nbytes + A.nbytes + D.nbytes \
+        == 403_734_528
+    ms_bytes = 403_734_528 / 3.35e12 * 1e3
+    assert ms > ms_bytes
+    assert smoke.scan_bound(x, x, Bm, Cm, A, D, 132, 1e12) == (
+        pytest.approx(ms_bytes), "bytes")
+
+
+def test_chip_smoke_copies_keep_strides():
+    """The timing copies and the recorded first calls keep a strided
+    slice strided, as the model hands it to the kernel."""
+    smoke = _chip_smoke()
+    packed = torch.randn(2, 5, 11)
+    Bm = packed[..., 3:7]
+    c = smoke.clone_strided(Bm)
+    assert c.stride() == Bm.stride() and torch.equal(c, Bm)
+    assert c.data_ptr() != Bm.data_ptr()
+    (sets, _) = smoke.copies((Bm, None), 50 * 2**20, most=2)
+    assert len(sets) == 2 and sets[0][0].stride() == Bm.stride()
+
+
+@pytest.mark.parametrize("kernel", ["ssd_chunk", "selective_scan"])
+def test_chip_smoke_tight_scan_checks(kernel):
+    """The tight check of each scan kernel: the f32 scan of bf16 inputs
+    rounded to bf16 passes it, the same output 5% too large fails, and a
+    NaN fails."""
+    smoke = _chip_smoke()
+    from repro_torch.kernels import ref
+    dev = torch.device("cpu")
+    if kernel == "ssd_chunk":
+        args = smoke.ssd_inputs(torch, 1, 64, 2, 64, 16, torch.bfloat16,
+                                dev, 0)
+        out = ref.ssd_chunk(*(t.float() for t in args[:3]), *args[3:])
+        read, limit = smoke.ssd_rel_l2, smoke.SSD_BF16_REL_L2
+    else:
+        args = smoke.scan_inputs(torch, 2, 40, 96, 16, torch.bfloat16, dev,
+                                 0)
+        out = ref.selective_scan(*(t.float() for t in args))
+        read, limit = smoke.scan_rel_l2, smoke.SCAN_BF16_REL_L2
+    out = out.bfloat16()
+    ok = read(torch, ref, out, *args)
+    assert smoke.held({"plain": ok}, limit, kernel) == ok
+    with pytest.raises(smoke.SmokeFailure, match="relative L2"):
+        smoke.held({"scaled": read(torch, ref, out * 1.05, *args)}, limit,
+                   kernel)
+    with pytest.raises(smoke.SmokeFailure, match="relative L2"):
+        smoke.held({"plain": ok, "nan": float("nan")}, limit, kernel)
+
+
 def test_chip_smoke_keeps_the_first_call_of_each_lm_kernel():
     smoke = _chip_smoke()
     from repro_torch.kernels import ops
@@ -214,6 +284,27 @@ def test_chip_faults_refuses_without_cuda(capsys):
     _chip_smoke()
     assert _load("chip_faults").main([]) != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("lib,fault", [
+    ("ssd_chunk", "carried_state_dropped"),
+    ("ssd_chunk", "chunk_decay_not_applied"),
+    ("ssd_chunk", "output_scaled_1.05"),
+    ("selective_scan", "d_skip_dropped"),
+    ("selective_scan", "state_reset_each_tile"),
+    ("selective_scan", "decay_without_dt"),
+    ("selective_scan", "state_in_bf16"),
+    ("selective_scan", "last_tile_skipped")])
+def test_chip_faults_plant_into_the_scan_kernels(lib, fault):
+    """Each planted scan fault edits text that occurs once in its kernel
+    source, inside the kernel function."""
+    _chip_smoke()
+    faults, fn = _load("chip_faults").KERNEL_FAULTS[lib]
+    old, new = faults[fault]
+    src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" /
+           f"{lib}.cu").read_text()
+    assert src.count(old) == 1 and old != new
+    assert src.index(old) > src.index(fn)
 
 
 @pytest.mark.parametrize("fault", ["output_scaled_1.05",

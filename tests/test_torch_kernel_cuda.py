@@ -1,9 +1,12 @@
-"""The Hopper kernels (``topk_reward``, ``flash_attention``, ``ssd_chunk``)
-against their plain versions, on the card. Skips with a reason where no
-CUDA device is present (the kernels have no CPU or interpret mode);
-``python3 chip_smoke.py`` runs the full matrix.
+"""The Hopper kernels (``topk_reward``, ``flash_attention``, ``ssd_chunk``,
+``selective_scan``) against their plain versions, on the card. Skips with
+a reason where no CUDA device is present (the kernels have no CPU or
+interpret mode); ``python3 chip_smoke.py`` runs the full matrix.
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernel_cuda.py
+
+(``--noconftest`` where JAX is not installed: tests/conftest.py imports
+it.)
 """
 import pytest
 
@@ -165,6 +168,68 @@ def test_new_kernels_reject_what_they_do_not_take():
         ops.ssd_chunk(x[..., :32], Bm, Cm, dt, A)
 
 
+# ------------------------------------------------------- selective scan
+# the JAX package's tolerances (tests/test_kernels.py); bf16 also against
+# the f32 scan of the same bf16 inputs by relative L2 distance, 3e-3: above
+# chip_smoke.py's SCAN_BF16_REL_L2 (2.2e-3), since one rounding's relative
+# L2 varies more over outputs as small as 64 values
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+SCAN_BF16_REL_L2 = 3e-3
+
+
+def _scan_inputs(B, S, di, ds, dtype, dev, seed):
+    """B and C are slices of one packed tensor (after 3 other columns), as
+    in the model."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(B, S, di, generator=g).to(dtype).to(dev)
+    dt = F.softplus(torch.randn(B, S, di, generator=g)).to(dtype).to(dev)
+    packed = torch.randn(B, S, 3 + 2 * ds, generator=g).to(dtype).to(dev)
+    A = -torch.exp(torch.randn(di, ds, generator=g)).to(dev)
+    D = torch.randn(di, generator=g).to(dev)
+    return x, dt, packed[..., 3:3 + ds], packed[..., 3 + ds:], A, D
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,di,ds", [
+    (1, 1, 64, 16), (2, 7, 96, 16), (1, 64, 512, 8), (2, 100, 200, 16),
+    (4, 32, 1024, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_kernel_equals_plain(B, S, di, ds, dtype):
+    """Ragged S (not a multiple of the 32-step tile) and di (not a multiple
+    of the CTA's 64 channels), S = 1, strided B and C."""
+    dev = _card()
+    args = _scan_inputs(B, S, di, ds, dtype, dev, S + di)
+    before = ops.LAUNCHES["selective_scan"]
+    out = ops.selective_scan(*args)
+    exp = ref.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["selective_scan"] == before + 1
+    assert out.dtype == dtype and out.shape == (B, S, di)
+    tol = SCAN_TOL[dtype]
+    torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        exact = ref.selective_scan(*(t.float() for t in args))
+        assert float((out.float() - exact).norm() / exact.norm()) \
+            <= SCAN_BF16_REL_L2
+
+
+@pytest.mark.gpu
+def test_selective_scan_rejects_what_it_does_not_take():
+    dev = _card()
+    x, dt, Bm, Cm, A, D = _scan_inputs(1, 16, 64, 16, torch.float32, dev, 0)
+    before = ops.LAUNCHES["selective_scan"]
+    with pytest.raises(TypeError):
+        ops.selective_scan(x, dt.bfloat16(), Bm, Cm, A, D)
+    with pytest.raises(ValueError, match="not built"):
+        ops.selective_scan(x, dt, Bm[..., :4], Cm[..., :4], A[:, :4], D)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.selective_scan(x.transpose(1, 2).contiguous().transpose(1, 2),
+                           dt, Bm, Cm, A, D)
+    with pytest.raises(ValueError, match="A must be"):
+        ops.selective_scan(x, dt, Bm, Cm, A[:32], D)
+    assert ops.LAUNCHES["selective_scan"] == before
+
+
 # ------------------------------------------- the CPU-side checks and build
 @pytest.mark.parametrize("dtype,pad,raises", [
     (torch.bfloat16, 0, False), (torch.bfloat16, 4, True),
@@ -181,11 +246,12 @@ def test_flash_attention_input_check_of_row_alignment(dtype, pad, raises):
     else:
         fa.check_inputs(q, q, q)
 
+
 def test_each_library_builds_with_its_own_flags(monkeypatch):
     """Only the top-k library keeps -fmad=false (its bitwise FMA); each
     library's cached build follows its own source and flags alone."""
     assert "-fmad=false" in ops.nvcc_flags("topk_select")
-    for name in ("flash_attention", "ssd_chunk"):
+    for name in ("flash_attention", "ssd_chunk", "selective_scan"):
         assert "-fmad=false" not in ops.nvcc_flags(name)
         assert "arch=compute_90a,code=sm_90a" in ops.nvcc_flags(name)
     before = {n: ops.library_path(n) for n in ops.EXTRA_FLAGS}
@@ -195,5 +261,6 @@ def test_each_library_builds_with_its_own_flags(monkeypatch):
     assert after["ssd_chunk"] != before["ssd_chunk"]
     assert after["topk_select"] == before["topk_select"]
     assert after["flash_attention"] == before["flash_attention"]
+    assert after["selective_scan"] == before["selective_scan"]
     assert set(ops.LAUNCHES) == {"topk_reward", "flash_attention",
-                                 "ssd_chunk"}
+                                 "ssd_chunk", "selective_scan"}

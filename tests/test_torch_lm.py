@@ -1,9 +1,14 @@
-"""The port's zamba2 serving path against the reference's, on the CPU.
+"""The port's LM serving paths against the reference's, on the CPU.
 
-Reduced zamba2-1.2b (2 Mamba2 layers + the shared attention block, d_model
-256), the reference's ``init_params`` carried across with
-``convert.lm_params``, tokens from numpy with a seed. At (2, 256) the
-forward runs 2 SSD chunks of 128 and one ``shared_attn`` call.
+Each ported architecture at its reduced config, the reference's
+``init_params`` carried across with ``convert.lm_params``, tokens from
+numpy with a seed:
+
+- zamba2-1.2b: 2 Mamba2 layers + the shared attention block, d_model 256;
+  at (2, 256) the forward runs 2 SSD chunks of 128 and one
+  ``shared_attn`` call.
+- falcon-mamba-7b: 2 Mamba1 layers, d_model 256, ds 8; at (2, 256) the
+  forward runs the selective scan over 256 steps in each layer.
 
 Tolerances: f32 logits within 2e-4 (abs and rel; sums run in another order,
 measured max 7e-5 on logits of magnitude ~5); f32 decode steps and caches
@@ -34,44 +39,55 @@ from repro_torch.launch.steps import make_prefill_step  # noqa: E402
 from repro_torch.models import (decode_step, forward_logits,  # noqa: E402
                                 init_cache, init_params)
 
-ARCH = "zamba2-1.2b"
+ARCHS = ("zamba2-1.2b", "falcon-mamba-7b")
+PARAM_COUNTS = {"zamba2-1.2b": 1_104_535_296,
+                "falcon-mamba-7b": 7_005_536_256}
+# cache leaves of the reduced configs: 2 per ssm layer, 2 per attention call
+CACHE_LEAVES = {"zamba2-1.2b": 2 * 2 + 2, "falcon-mamba-7b": 2 * 2}
 B, S = 2, 256
 
 
-def _cfgs(compute):
+@pytest.fixture(scope="module", params=ARCHS)
+def arch(request):
+    return request.param
+
+
+def _cfgs(arch, compute):
     jd, td = {"f32": (jnp.float32, torch.float32),
               "bf16": (jnp.bfloat16, torch.bfloat16)}[compute]
-    return (jget_reduced(ARCH).with_(compute_dtype=jd),
-            get_reduced(ARCH).with_(compute_dtype=td))
+    return (jget_reduced(arch).with_(compute_dtype=jd),
+            get_reduced(arch).with_(compute_dtype=td))
 
 
 @pytest.fixture(scope="module")
-def weights():
+def weights(arch):
     """The reference's parameters (f32 in either compute dtype) and the
     port's copy of them."""
-    jcfg, tcfg = _cfgs("f32")
+    jcfg, tcfg = _cfgs(arch, "f32")
     jp = jinit_params(jax.random.PRNGKey(1), jcfg)
     return jp, convert.lm_params(jax.tree.map(np.asarray, jp), tcfg, "cpu")
 
 
 @pytest.fixture(scope="module")
-def tokens():
+def tokens(arch):
     rs = np.random.RandomState(0)
-    return rs.randint(0, get_reduced(ARCH).vocab_size, (B, S)).astype(np.int32)
+    return rs.randint(0, get_reduced(arch).vocab_size, (B, S)).astype(np.int32)
 
 
-def test_config_matches_reference():
-    for mine, ref in ((get_config(ARCH), jget_config(ARCH)),
-                      (get_reduced(ARCH), jget_reduced(ARCH))):
+def test_config_matches_reference(arch):
+    for mine, ref in ((get_config(arch), jget_config(arch)),
+                      (get_reduced(arch), jget_reduced(arch))):
         a, b = dataclasses.asdict(mine), dataclasses.asdict(ref)
         for k in ("param_dtype", "compute_dtype"):   # torch vs jnp dtypes
             assert str(a.pop(k)) == f"torch.{np.dtype(b.pop(k)).name}"
         assert a == b
         assert mine.param_count() == ref.param_count()
-        assert (mine.d_inner, mine.ssm_n_heads, mine.resolved_head_dim) == \
-            (ref.d_inner, ref.ssm_n_heads, ref.resolved_head_dim)
-    assert get_config(ARCH).param_count() == 1_104_535_296
-    assert get_config(ARCH).compute_dtype == torch.bfloat16
+        assert (mine.d_inner, mine.ssm_n_heads, mine.resolved_head_dim,
+                mine.resolved_dt_rank) == (ref.d_inner, ref.ssm_n_heads,
+                                           ref.resolved_head_dim,
+                                           ref.resolved_dt_rank)
+    assert get_config(arch).param_count() == PARAM_COUNTS[arch]
+    assert get_config(arch).compute_dtype == torch.bfloat16
     assert len(ARCH_IDS) == 10
     with pytest.raises(NotImplementedError, match="queue 1 item 16"):
         get_config("phi3-mini-3.8b")
@@ -80,10 +96,10 @@ def test_config_matches_reference():
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])
-def test_forward_logits_matches_reference(weights, tokens, use_kernel):
-    """Both routes: the plain chunked one, and the kernel route (on the
-    CPU the kernels' plain versions)."""
-    jcfg, tcfg = _cfgs("f32")
+def test_forward_logits_matches_reference(arch, weights, tokens, use_kernel):
+    """Both routes: the plain one (chunked SSD, or the Mamba1 loop over
+    time), and the kernel route (on the CPU the kernels' plain versions)."""
+    jcfg, tcfg = _cfgs(arch, "f32")
     jp, tp = weights
     exp = np.asarray(jax.jit(lambda p, t: jforward(jcfg, p, {"tokens": t}))(
         jp, jnp.asarray(tokens)))
@@ -98,8 +114,8 @@ def test_forward_logits_matches_reference(weights, tokens, use_kernel):
             got.numpy())
 
 
-def test_forward_logits_bf16_matches_reference(weights, tokens):
-    jcfg, tcfg = _cfgs("bf16")
+def test_forward_logits_bf16_matches_reference(arch, weights, tokens):
+    jcfg, tcfg = _cfgs(arch, "bf16")
     jp, tp = weights
     exp = np.asarray(jax.jit(lambda p, t: jforward(jcfg, p, {"tokens": t}))(
         jp, jnp.asarray(tokens)), np.float32)
@@ -111,10 +127,12 @@ def test_forward_logits_bf16_matches_reference(weights, tokens):
 
 
 @pytest.mark.parametrize("ring,cache_len", [(False, 16), (True, 8)])
-def test_decode_sequence_matches_reference(weights, tokens, ring, cache_len):
+def test_decode_sequence_matches_reference(arch, weights, tokens, ring,
+                                          cache_len):
     """16 one-token steps; with ``ring=True`` an 8-slot sliding-window
-    cache wraps twice. Logits at every step and the final caches agree."""
-    jcfg, tcfg = _cfgs("f32")
+    cache wraps twice (zamba2's attention; falcon's cache has no slots).
+    Logits at every step and the final caches agree."""
+    jcfg, tcfg = _cfgs(arch, "f32")
     jp, tp = weights
     jc = jinit_cache(jcfg, B, cache_len=cache_len, dtype=jnp.float32)
     tc = init_cache(tcfg, B, cache_len, torch.float32, device="cpu")
@@ -130,17 +148,17 @@ def test_decode_sequence_matches_reference(weights, tokens, ring, cache_len):
     theirs = jax.tree.leaves(jax.tree.map(
         lambda t: t.numpy(), convert.lm_cache(jax.tree.map(np.asarray, jc),
                                               tcfg, "cpu")))
-    assert len(mine) == len(theirs) == 2 * 2 + 2   # 2 ssm layers, 1 attn
+    assert len(mine) == len(theirs) == CACHE_LEAVES[arch]
     for a, b in zip(mine, theirs):
         np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
 
 
-def test_generate_replay_matches_forward():
+def test_generate_replay_matches_forward(arch):
     """The serve loop's prompt replay ends on the same logits as one
     forward over the prompt (the CPU twin of the card's check, in bf16 with
     the serve loop's bf16 cache, so at the bf16 tolerance), and greedy
     decoding yields in-range tokens."""
-    _, tcfg = _cfgs("bf16")
+    _, tcfg = _cfgs(arch, "bf16")
     params = init_params(3, tcfg, device="cpu")
     prompt = torch.randint(0, tcfg.vocab_size, (3, 20),
                            generator=torch.Generator().manual_seed(4))
@@ -153,12 +171,12 @@ def test_generate_replay_matches_forward():
 
 
 @pytest.mark.parametrize("ring,cache_len", [(False, 8), (True, 4)])
-def test_decode_leaves_the_given_cache_unchanged(weights, tokens, ring,
+def test_decode_leaves_the_given_cache_unchanged(arch, weights, tokens, ring,
                                                  cache_len):
     """decode_step is functional, as the reference's: a caller that keeps
     an earlier cache (a snapshot to roll back to) can step from it again
     and gets the same logits and the same new cache."""
-    _, tcfg = _cfgs("f32")
+    _, tcfg = _cfgs(arch, "f32")
     _, tp = weights
     cache = init_cache(tcfg, B, cache_len, torch.float32, device="cpu")
     for t in range(5):
