@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Plant faults in the tensor-core attention kernel and in both scan
+"""Plant faults in the top-k, tensor-core attention and both scan
 kernels, and read what ``chip_smoke.py``'s checks make of them, on one GPU.
 
     python3 chip_faults.py [--seed N]   # needs one CUDA device
 
 Each fault is one edit of a kernel source under
 ``src/repro_torch/kernels/csrc/``, built with the library's own flags into
-a temporary directory (the checkout is left as it is): ``FAULTS`` edit
-``flash_fwd_mma`` in ``flash_attention.cu``, ``SSD_FAULTS`` ``ssd_fwd`` in
-``ssd_chunk.cu`` and ``SCAN_FAULTS`` ``scan_fwd`` in
-``selective_scan.cu``.
+a temporary directory (the checkout is left as it is): ``TOPK_FAULTS``
+edit ``topk_select`` in ``topk_select.cu`` (2), ``FAULTS``
+``flash_fwd_wgmma`` in ``flash_attention.cu`` (5), ``SSD_FAULTS``
+``ssd_fwd`` in ``ssd_chunk.cu`` (3) and ``SCAN_FAULTS`` ``scan_fwd`` in
+``selective_scan.cu`` (5).
+
+For the sound top-k kernel and each of its faults it runs phase 2 of
+``chip_smoke.py`` (the 105-case matrix and the edge cases, indices exact,
+values bitwise) and prints whether it failed.
 
 For the sound attention kernel and for each of its faults it prints one
 JSON line:
@@ -34,8 +39,9 @@ and on the first call of a full-width prefill (zamba2-1.2b's SSD,
 falcon-mamba-7b's selective scan), against ``SSD_BF16_REL_L2`` and
 ``SCAN_BF16_REL_L2``.
 
-Exits 1 unless each sound kernel passes its tight check and every fault
-fails it. The last line is one JSON object with all the readings.
+Exits 1 unless each sound kernel passes its check (bitwise for top-k, the
+tight check for the others) and every fault fails it. The last line is
+one JSON object with all the readings.
 """
 from __future__ import annotations
 
@@ -50,30 +56,42 @@ from pathlib import Path
 import chip_smoke as cs
 
 # name: (text in the kernel, its replacement); each text occurs once
+_RESCALE = ("        oacc[4 * j] *= corr0;\n"
+            "        oacc[4 * j + 1] *= corr0;\n"
+            "        oacc[4 * j + 2] *= corr1;\n"
+            "        oacc[4 * j + 3] *= corr1;\n")
 FAULTS = {
     "output_scaled_1.05": (
         "const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);",
         "const float d0 = 1.05f * fmaxf(l0, 1e-30f),\n"
-        "              d1 = 1.05f * fmaxf(l1, 1e-30f);"),
+        "                d1 = 1.05f * fmaxf(l1, 1e-30f);"),
+    # the skipped tile's barriers are still waited for and released, so
+    # the copies go on
     "first_k_tile_skipped": (
-        "    __syncthreads();  // every warp is done with the last K/V tile",
-        "    if (kt == 0 && n_tiles > 1) continue;\n"
-        "    __syncthreads();  // every warp is done with the last K/V tile"),
+        "      mbar_wait(full_k(st), ph);\n",
+        "      mbar_wait(full_k(st), ph);\n"
+        "      if (kt == 0 && n_tiles > 1) {\n"
+        "        mbar_wait(full_v(st), ph);\n"
+        "        if (lane == 0) mbar_arrive(empty(st));\n"
+        "        continue;\n"
+        "      }\n"),
     "diagonal_masked": (
-        "if (col >= S || (causal && col > row0)) x0 = kNegInf;\n"
-        "        if (col >= S || (causal && col > row1)) x1 = kNegInf;",
-        "if (col >= S || (causal && col >= row0)) x0 = kNegInf;\n"
-        "        if (col >= S || (causal && col >= row1)) x1 = kNegInf;"),
-    "accumulator_not_rescaled": (
-        "      acc[n][0] *= corr0;\n      acc[n][1] *= corr0;\n"
-        "      acc[n][2] *= corr1;\n      acc[n][3] *= corr1;\n",
-        ""),
+        "if (col >= S || (causal && col > row)) s[4 * j + e] = kNegInf;",
+        "if (col >= S || (causal && col >= row)) s[4 * j + e] = kNegInf;"),
+    "accumulator_not_rescaled": (_RESCALE, ""),
     "accumulator_in_bf16": (
-        "      acc[n][0] *= corr0;\n      acc[n][1] *= corr0;\n"
-        "      acc[n][2] *= corr1;\n      acc[n][3] *= corr1;\n",
-        "#pragma unroll\n      for (int e = 0; e < 4; ++e)\n"
-        "        acc[n][e] = __bfloat162float(__float2bfloat16_rn(\n"
-        "            acc[n][e] * (e < 2 ? corr0 : corr1)));\n"),
+        _RESCALE,
+        "#pragma unroll\n        for (int e = 0; e < 4; ++e)\n"
+        "          oacc[4 * j + e] = __bfloat162float(__float2bfloat16_rn(\n"
+        "              oacc[4 * j + e] * (e < 2 ? corr0 : corr1)));\n"),
+}
+TOPK_FAULTS = {
+    "ties_highest_index_first": (
+        "constexpr uint32_t kTieFlip = 0xffffffffu;",
+        "constexpr uint32_t kTieFlip = 0u;"),
+    "last_radix_pass_skipped": (
+        "for (int pass = 0; pass < 4; ++pass)",
+        "for (int pass = 0; pass < 3; ++pass)"),
 }
 SSD_FAULTS = {
     "carried_state_dropped": (
@@ -109,7 +127,8 @@ SCAN_FAULTS = {
         "         r < (tile + 1 == n_tiles && n_tiles > 1 ? 0 : kT); ++r) {"),
 }
 # library: (its faults, the kernel function they edit)
-KERNEL_FAULTS = {"flash_attention": (FAULTS, "flash_fwd_mma("),
+KERNEL_FAULTS = {"topk_select": (TOPK_FAULTS, "topk_select("),
+                 "flash_attention": (FAULTS, "flash_fwd_wgmma("),
                  "ssd_chunk": (SSD_FAULTS, "ssd_fwd("),
                  "selective_scan": (SCAN_FAULTS, "scan_fwd(")}
 
@@ -128,6 +147,16 @@ def build_fault(ops, lib, name, old, new, tmp):
     cs.check(proc.returncode == 0, f"nvcc failed for fault {name}:\n"
              f"{proc.stderr}")
     return out
+
+
+def logit_rel_l2(torch, got, exact):
+    """Phase 9's and 10's relative L2 reading of two logit tensors; NaN
+    where ``got`` holds a non-finite value (which chip_smoke.py fails
+    outright)."""
+    try:
+        return cs.logit_diff(torch, got, exact, "")["rel_l2"]
+    except cs.SmokeFailure:
+        return float("nan")
 
 
 def fails(tight, limit):
@@ -202,6 +231,20 @@ def main(argv=None) -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         all_libs = build_all(ops, tmp)
+
+    # top-k: phase 2 of chip_smoke.py (the 105-case matrix and the edge
+    # cases, indices exact and values bitwise) on each library
+    topk = {}
+    for name, lib in all_libs["topk_select"].items():
+        ops._LIBS["topk_select"] = lib
+        try:
+            cs.phase_kernel_vs_plain(torch, ops, ref, dev, cs.TOPK_SIZES)
+            topk[name] = {"bitwise_fails": False}
+        except cs.SmokeFailure as err:
+            topk[name] = {"bitwise_fails": True,
+                          "first_failure": str(err)[:300]}
+        cs.log(json.dumps({"topk_reward": {name: topk[name]}}))
+    ops._LIBS["topk_select"] = all_libs["topk_select"]["sound"]
     libs = all_libs["flash_attention"]
 
     # inputs: phase 7's at the prefill shape, the prefill's first call
@@ -230,16 +273,16 @@ def main(argv=None) -> int:
                  "prefill_call": cs.attn_rel_l2(
                      torch, ref, fa.launch(lib, *call), *call, True)}
         logits = forward_logits(cfg, params, batch, device=dev)
-        route = cs.logit_diff(torch, logits, exact, name)["rel_l2"]
+        route = logit_rel_l2(torch, logits, exact)
         del logits
         fwd = forward_logits(cfg, params, {"tokens": prompt}, device=dev)
         r = {"tight": tight,
              "tight_fails": fails(tight, cs.ATTN_BF16_REL_L2),
              "route_ratio": route / plain_d,
-             "route_fails": route / plain_d > cs.BF16_ROUTE_RATIO,
-             "replay_rel_l2": cs.logit_diff(   # as phase 10 reads it
-                 torch, replay, fwd[:, -1:], name)["rel_l2"]}
-        r["replay_fails"] = r["replay_rel_l2"] > cs.BF16_REPLAY_REL_L2
+             "route_fails": not route / plain_d <= cs.BF16_ROUTE_RATIO,
+             # as phase 10 reads it
+             "replay_rel_l2": logit_rel_l2(torch, replay, fwd[:, -1:])}
+        r["replay_fails"] = not r["replay_rel_l2"] <= cs.BF16_REPLAY_REL_L2
         attn[name] = r
         cs.log(json.dumps({"flash_attention": {name: r}}))
     ops._LIBS["flash_attention"] = libs["sound"]
@@ -284,16 +327,18 @@ def main(argv=None) -> int:
                          scan_in, cs.SCAN_BF16_REL_L2, "selective_scan")
     del scan_in, all_libs, libs
 
-    readings = {"flash_attention": attn, "ssd_chunk": ssd,
-                "selective_scan": scan}
-    limits = {"flash_attention": {"tight": cs.ATTN_BF16_REL_L2,
+    readings = {"topk_reward": topk, "flash_attention": attn,
+                "ssd_chunk": ssd, "selective_scan": scan}
+    limits = {"topk_reward": {"bitwise": "indices exact, values bitwise"},
+              "flash_attention": {"tight": cs.ATTN_BF16_REL_L2,
                                   "route_ratio": cs.BF16_ROUTE_RATIO,
                                   "replay_rel_l2": cs.BF16_REPLAY_REL_L2},
               "ssd_chunk": {"tight": cs.SSD_BF16_REL_L2},
               "selective_scan": {"tight": cs.SCAN_BF16_REL_L2}}
-    ok = all(not r["sound"]["tight_fails"] and all(
-        v["tight_fails"] for n, v in r.items() if n != "sound")
-        for r in readings.values())
+    fail_key = {"topk_reward": "bitwise_fails"}
+    ok = all(not r["sound"][fail_key.get(k, "tight_fails")] and all(
+        v[fail_key.get(k, "tight_fails")] for n, v in r.items()
+        if n != "sound") for k, r in readings.items())
     cs.log(json.dumps({"ok": ok, "limits": limits, "readings": readings}))
     return 0 if ok else 1
 

@@ -8,10 +8,13 @@ Phases (any mismatch exits non-zero; nothing is caught and swallowed):
 1. Device: the card's name, power limit and maximum SM clock; build the
    four Hopper kernels from the sources in this checkout, one ``nvcc``
    each, all at once, and time the build.
-2. Each kernel against its plain PyTorch version on the card, on the same
-   synthetic inputs: indices equal, values bitwise. The shapes include
-   those the later phases give the kernel (N=200, k=10; N=10,000, k=100;
-   N=1,048,576, k=100).
+2. The top-k kernel against its plain PyTorch version on the card, on
+   the same synthetic inputs: indices equal, values bitwise. The 105-case
+   matrix includes the shapes the later phases give the kernel (N=200,
+   k=10; N=10,000, k=100; N=1,048,576, k=100); ``TOPK_EDGES`` add ±0 and
+   ±NaN scores, an all-SENTINEL population, flat ties, k in {1, 100,
+   8192} at N around the kernel's tiles and at 4M clients, and
+   index_offset.
 3. Selection at fleet scale: 1,048,576 clients, ``eafl``, k=100, three
    rounds of select + simulate_round; the kernel launches once a round,
    and the indices equal the same rounds run on the CPU (plain version).
@@ -21,7 +24,10 @@ Phases (any mismatch exits non-zero; nothing is caught and swallowed):
    the affine-folded exploit route, the card with the kernel.
 5. Training at scale, the main path: 10,000 clients, k=100, three rounds
    on the card.
-6. Timing, on the inputs that phases 5 and 3 gave the kernel.
+6. Timing, on the inputs that phases 5 and 3 gave the kernel: kernel,
+   plain version and one ``torch.topk`` in turns, the kernel at k=1, the
+   host microseconds of one wrapper call (no synchronise), and the
+   card's name and power limit.
 
 In phases 3 to 5 every call of the top-k kernel's wrapper is recorded,
 inputs and outputs, and its outputs are held against the plain version on
@@ -51,7 +57,8 @@ The LM serving path (zamba2-1.2b, full width, random weights from
    one kernel-route forward over the prompt; tokens in range.
 11. Timing of both kernels on the inputs the prefill gave them, beside
    their plain versions, their bounds and (attention) one
-   ``scaled_dot_product_attention`` call.
+   ``scaled_dot_product_attention`` call, with the card's name and power
+   limit.
 
 The Mamba1 serving path (falcon-mamba-7b, full width, random weights from
 ``--seed``; zamba2's weights are freed first):
@@ -118,19 +125,60 @@ def log(msg):
 
 
 # ------------------------------------------------------------------ phase 2
-def topk_inputs(torch, n, seed, dev, *, ties=False, valid_frac=0.8):
+def topk_inputs(torch, n, seed, dev, *, ties=False, valid_frac=0.8,
+                specials=False):
+    """``ties``: every third client a copy of the first, or ``"flat"``:
+    every a and b equal; ``specials``: half of ``a`` drawn from ±0, ±NaN
+    and ±inf among values of both signs (``oort`` without ucb scores ``a``
+    itself)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     a = torch.rand(n, generator=g)
     b = torch.rand(n, generator=g)
-    if ties:
+    if ties == "flat":
+        a.fill_(0.5)
+        b.fill_(0.5)
+    elif ties:
         a[::3] = a[0]
         b[::3] = b[0]
+    if specials:
+        nan = float("nan")
+        pool = torch.tensor([0.0, -0.0, nan, -nan, float("inf"),
+                             -float("inf")])
+        a = a - 0.5
+        pick = torch.rand(n, generator=g) < 0.5
+        a[pick] = pool[torch.randint(0, len(pool), (int(pick.sum()),),
+                                     generator=g)]
     valid = torch.rand(n, generator=g) < valid_frac
     ucb = torch.rand(n, generator=g) * 0.3
     return [t.to(dev) for t in (a, b, valid, ucb)]
 
 
-def phase_kernel_vs_plain(torch, ops, ref, dev, sizes):
+TOPK_SIZES = (200, 4096, 10_000, 1_000_003, 1_048_576)   # phase 2's N
+# the edge cases of the radix-select kernel: ±0 and ±NaN scores, an
+# all-SENTINEL population, flat ties, k in {1, 100, 8192} at N on both
+# sides of one and two 8192-client tiles and at 4M clients (two merge
+# levels at k = 100), and index_offset on one and on several tiles
+TOPK_EDGES = (
+    [dict(n=20_000, k=300, mode="oort", ucb=False, specials=True,
+          valid_frac=1.0),
+     dict(n=9000, k=4500, mode="oort", ucb=False, specials=True,
+          valid_frac=0.9),
+     dict(n=1_048_576, k=100, mode="oort", ucb=False, specials=True,
+          valid_frac=1.0),
+     dict(n=50_000, k=1000, mode="eafl", ucb=True, valid_frac=0.0),
+     dict(n=5000, k=100, mode="eafl", ucb=False, valid_frac=0.0),
+     dict(n=100_000, k=1000, mode="oort", ucb=False, ties="flat",
+          valid_frac=0.5),
+     dict(n=1_048_576, k=100, mode="eafl", ucb=True, index_offset=1000),
+     dict(n=5000, k=10, mode="eafl", ucb=True, index_offset=7)]
+    + [dict(n=n, k=k, mode="eafl", ucb=True)
+       for n in (8191, 8193, 10_000, 4 * 2**20) for k in (1, 100, 8192)
+       if k <= n])
+
+
+def topk_cases(sizes):
+    """The 105 cases of the synthetic matrix (every N in ``sizes``), then
+    ``TOPK_EDGES``."""
     cases = []
     for n in sizes:
         for k in (1, 10, 100):
@@ -141,18 +189,29 @@ def phase_kernel_vs_plain(torch, ops, ref, dev, sizes):
         cases.append(dict(n=n, k=100, mode="eafl", ucb=True, ties=True))
         cases.append(dict(n=n, k=100, mode="oort", ucb=False,
                           valid_frac=50.0 / n))
-    for i, c in enumerate(cases):
+    return cases, list(TOPK_EDGES)
+
+
+def phase_kernel_vs_plain(torch, ops, ref, dev, sizes):
+    cases, edges = topk_cases(sizes)
+    for i, c in enumerate(cases + edges):
         a, b, valid, ucb = topk_inputs(
             torch, c["n"], i, dev, ties=c.get("ties", False),
-            valid_frac=c.get("valid_frac", 0.8))
+            valid_frac=c.get("valid_frac", 0.8),
+            specials=c.get("specials", False))
         if c["mode"] == "eafl-epj":
             b = b * 0.01
         kw = dict(f=0.3, k=c["k"], mode=c["mode"],
-                  ucb=ucb if c["ucb"] else None)
-        check_same(torch, ops.topk_reward(a, b, valid, **kw),
+                  ucb=ucb if c["ucb"] else None,
+                  index_offset=c.get("index_offset", 0))
+        block = {"block_n": 8192} if c["k"] > 4096 else {}
+        check_same(torch, ops.topk_reward(a, b, valid, **kw, **block),
                    ref.topk_reward(a, b, valid, **kw), c)
     log(f"phase 2: topk_reward kernel == plain on {len(cases)} cases, N in "
-        f"{sorted(sizes)} (indices exact, values bitwise)")
+        f"{sorted(sizes)}, and {len(edges)} edge cases (±0 and ±NaN, all "
+        f"SENTINEL, flat ties, k in (1, 100, 8192) at N in (8191, 8193, "
+        f"10000, 4194304), index_offset): indices exact, values bitwise")
+    return len(cases), len(edges)
 
 
 def check_same(torch, kernel_out, plain_out, what):
@@ -252,10 +311,33 @@ def bound(a, b, valid, ucb, k, mode):
         "operations"
 
 
+def card_name_power():
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
+        "nvidia-smi unavailable"
+
+
+def host_us(torch, fn, args_list, calls=300):
+    """Host microseconds per call of ``fn``: wall time of ``calls`` calls
+    issued back to back with no synchronise (the device may lag behind),
+    divided by ``calls``; the queue is drained before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in range(calls):
+        fn(*args_list[r % len(args_list)])
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / calls * 1e6
+
+
 def phase_timing(torch, ops, ref, call, label, l2_bytes):
     """Time kernel, plain version and one ``torch.topk`` over the
-    materialised score on a recorded call's inputs; also the kernel at
-    k=1, whose difference to k bounds the cost of the argmax rounds."""
+    materialised score on a recorded call's inputs, in turns; also the
+    kernel at k=1, and the host time of one call of the kernel's
+    wrapper."""
     (a, b, valid), kw, _ = call
     ucb, k, mode = kw.get("ucb"), kw["k"], kw.get("mode", "eafl")
     extra = {key: v for key, v in kw.items() if key not in ("ucb",)}
@@ -285,12 +367,14 @@ def phase_timing(torch, ops, ref, call, label, l2_bytes):
             cuda_ms(torch, lambda *s: kern(*s, k=1), sets))
     row.update({key: statistics.median(v) for key, v in runs.items()})
     row["bound_ms"], row["bound_by"] = bound(a, b, valid, ucb, k, mode)
-    row["per_round_us"] = (row["ms"] - row["k1_ms"]) / max(k - 1, 1) * 1e3
+    row["host_us"] = host_us(torch, kern, sets)
+    row["card"] = card_name_power()
     log(f"phase 6: topk_reward on {label}'s inputs, N={row['n']} k={k} "
         f"{mode}{'+ucb' if row['ucb'] else ''}, {len(sets)} input copies "
-        f"({'beyond' if cold else 'inside'} the L2 cache): kernel "
-        f"{row['ms']:.5f} ms (k=1: {row['k1_ms']:.5f} ms, so "
-        f"{row['per_round_us']:.3f} us per further argmax round), plain "
+        f"({'beyond' if cold else 'inside'} the L2 cache), on "
+        f"{row['card']}: kernel {row['ms']:.5f} ms (k=1: "
+        f"{row['k1_ms']:.5f} ms; host {row['host_us']:.2f} us a wrapper "
+        f"call), plain "
         f"{row['plain_ms']:.5f} ms, torch.topk {row['library_ms']:.5f} ms, "
         f"bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
     return row
@@ -444,7 +528,9 @@ SSD_TOL = {"float32": 5e-4, "bfloat16": 1e-1}
 # elementwise 2e-2 above is loose against outputs of ~0.03 at S=4096; this
 # one scales with the output. On an H100 the sound kernel reads 1.7e-3 to
 # 2.3e-3 (P and the output rounded to bf16 once each); planted faults
-# (chip_faults.py) read 4.1e-3 (accumulator kept in bf16) to 0.67.
+# (chip_faults.py) read from 3.2e-3 (accumulator kept in bf16, at the
+# prefill shape) to 0.73, or NaN (the diagonal masked: row 0 then has no
+# key).
 ATTN_BF16_REL_L2 = 3e-3
 # Full-width zamba2 logits (magnitude ~5). In f32 (TF32 off) the kernel
 # route and the plain route agree to 2e-2 abs, the reference's own
@@ -902,9 +988,11 @@ def phase_lm_timing(torch, ops, ref, seen, l2_bytes):
                                                   kw.get("causal", True))
     row.update(shape=list(q.shape), kv_heads=int(k.shape[2]),
                dtype=dtype_name(q.dtype), l2_cold=cold)
+    row["card"] = card_name_power()
     rows["flash_attention"] = row
     log(f"phase 11: flash_attention at the prefill shape {row['shape']} "
-        f"{row['dtype']} causal: kernel {row['ms']:.5f} ms, plain "
+        f"{row['dtype']} causal on {row['card']}: kernel {row['ms']:.5f} "
+        f"ms, plain "
         f"{row['plain_ms']:.5f} ms, scaled_dot_product_attention "
         f"{row['library_ms']:.5f} ms, bound {row['bound_ms']:.6f} ms "
         f"({row['bound_by']})")
@@ -921,8 +1009,10 @@ def phase_lm_timing(torch, ops, ref, seen, l2_bytes):
     row["bound_ms"], row["bound_by"] = ssd_bound(*args)
     row.update(shape=list(args[0].shape), ds=int(args[1].shape[-1]),
                dtype=dtype_name(args[0].dtype), l2_cold=cold)
+    row["card"] = card_name_power()
     rows["ssd_chunk"] = row
-    log(f"phase 11: ssd_chunk at the prefill shape {row['shape']} ds="
+    log(f"phase 11: ssd_chunk on {row['card']} at the prefill shape "
+        f"{row['shape']} ds="
         f"{row['ds']} {row['dtype']}: kernel {row['ms']:.5f} ms, plain "
         f"(sequential) {row['plain_ms']:.5f} ms, no single PyTorch call "
         f"computes it, bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
@@ -1138,11 +1228,7 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True)
-    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
-        "nvidia-smi unavailable"
+    card = card_name_power()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock_hz = max_sm_clock_hz(torch, dev)
     log(f"phase 1: card {card}, {sms} SMs, max SM clock "
@@ -1163,8 +1249,8 @@ def main(argv=None) -> int:
         f"src/repro_torch/kernels/csrc/ in parallel in "
         f"{walls['phase 1']:.2f} s")
 
-    timed("phase 2", phase_kernel_vs_plain, torch, ops, ref, dev,
-          (200, 4096, 10_000, 1_000_003, 1_048_576))
+    topk_cases_run = timed("phase 2", phase_kernel_vs_plain, torch, ops,
+                           ref, dev, TOPK_SIZES)
     sel_launches, sel_err, fleet_call = timed(
         "phase 3", phase_selection, torch, ref, dev, 1_048_576, 3)
     par_launches, par_err = timed("phase 4", phase_training_parity, torch,
@@ -1234,6 +1320,8 @@ def main(argv=None) -> int:
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "shape": {key: main[key] for key in ("n", "k", "mode", "ucb")},
         "timing": main, "fleet_shape": fleet,
+        "phase2_cases": {"matrix": topk_cases_run[0],
+                         "edges": topk_cases_run[1]},
         "launches_by_phase": {"selection_1M": sel_launches,
                               "run_fl_parity": par_launches,
                               "run_fl_10k": launches},

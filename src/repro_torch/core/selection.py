@@ -36,7 +36,7 @@ from repro_torch import prng
 from repro_torch.core import rewards
 from repro_torch.core.clients import ClientPopulation
 from repro_torch.kernels import ops
-from repro_torch.numerics import f32, fma
+from repro_torch.numerics import f32, fma, orderable_key
 
 
 @dataclass(frozen=True)
@@ -87,8 +87,11 @@ def _rank_bits(key: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _top_k_idx(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the ``k`` largest entries, ties lowest index first."""
-    return torch.sort(x, descending=True, stable=True).indices[:k]
+    """Indices of the ``k`` largest float32 entries in ``lax.top_k``'s
+    total order (+0 above -0, +NaN first, -NaN last), ties lowest index
+    first."""
+    return torch.sort(orderable_key(x), descending=True,
+                      stable=True).indices[:k]
 
 
 def ucb_bonus(staleness: torch.Tensor, t, c: float) -> torch.Tensor:

@@ -20,3 +20,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "repro_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain PyTorch path")
     return torch.device("cuda")
+
+
+def stream_handle(device: torch.device) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``
+    (a CUDA device with an index), for a kernel launched through ctypes.
+    ``torch.cuda.current_stream(device).cuda_stream`` is the same handle,
+    but it builds a Stream object first, which takes a small kernel's
+    launch more host time than the kernel itself."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

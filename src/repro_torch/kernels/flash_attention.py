@@ -11,10 +11,11 @@ plain C interface with ``ctypes``.
 It takes the model's layout: q ``(B, S, H, hd)``, k and v ``(B, S, KH, hd)``
 with ``H % KH == 0``, read through their strides (last dimension
 contiguous; bf16 rows 16-byte aligned, as every fresh or packed
-projection's are), and returns a contiguous ``(B, S, H, hd)`` tensor in q's
-dtype. The reference's wrapper takes ``(B, H, S, D)``; the math is the
-same: scale ``hd**-0.5``, causal mask ``-1e30``, f32 accumulation,
-denominator clamped at ``1e-30``.
+projection's are: the bf16 kernel copies tiles by TMA through tensor maps
+that its launch function builds from these strides), and returns a
+contiguous ``(B, S, H, hd)`` tensor in q's dtype. The reference's wrapper
+takes ``(B, H, S, D)``; the math is the same: scale ``hd**-0.5``, causal
+mask ``-1e30``, f32 accumulation, denominator clamped at ``1e-30``.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import ctypes
 
 import torch
 
+from repro_torch.device import stream_handle
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)     # the head sizes the library is built for
 MAX_GRID_Y = 65535        # one CTA row per (batch, head)
@@ -62,7 +64,8 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.stride(3) != 1:
             raise ValueError(f"{name}'s last dimension must be contiguous")
-        # the tensor-core kernel loads bf16 rows 16 bytes at a time
+        # the tensor-core kernel copies bf16 tiles by TMA: base address and
+        # byte strides multiples of 16
         if t.dtype == torch.bfloat16 and (
                 t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
             raise ValueError(f"{name}'s bf16 rows must be 16-byte aligned "
@@ -80,7 +83,7 @@ def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
     B, S, H, D = q.shape
     KH = k.shape[2]
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = stream_handle(q.device)
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
         KH, D, DTYPES[q.dtype], int(bool(causal)), D ** -0.5,

@@ -107,9 +107,11 @@ def topk_reward(a: torch.Tensor, b: torch.Tensor, valid: torch.Tensor, *,
     ``a``/``b``: (N,) float32 score inputs (normalised by the caller for
     ``eafl``); ``valid``: (N,) mask, bool or uint8 as the kernel reads it
     (any other dtype is compared with 0 first); ``ucb``: optional (N,)
-    float32 bonus. Values are descending with ties lowest index first; masked
-    clients score ``SENTINEL``. ``k`` must lie in ``[1, min(block_n, N)]``
-    on both devices (beyond it the reference kernel re-emits index 0).
+    float32 bonus. Values are descending in ``lax.top_k``'s total order
+    (+0 above -0, +NaN first, -NaN last) with ties lowest index first;
+    masked clients score ``SENTINEL``. ``k`` must lie in ``[1, min(block_n,
+    N)]`` on both devices (beyond it the reference kernel re-emits index
+    0).
     CPU tensors take the plain version; CUDA tensors the Hopper kernel."""
     bn = min(int(block_n), int(a.shape[0]))
     if not 1 <= k <= bn:

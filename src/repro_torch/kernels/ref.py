@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.numerics import f32, fma
+from repro_torch.numerics import f32, fma, orderable_key
 
 SENTINEL = -3e38          # masked-entry score: below any real reward, > -inf
 MODES = ("eafl", "oort", "eafl-epj")
@@ -39,13 +39,14 @@ def topk_reward(a: torch.Tensor, b: torch.Tensor, valid: torch.Tensor, *,
                 index_offset: int = 0):
     """Score + top-k: ``(values (k,) f32, indices (k,) int32)``.
 
-    The order is a stable descending sort of the scores, so ties go lowest
-    index first, as ``lax.top_k`` and the blocked reference kernel order
-    them. ``index_offset`` shifts the returned indices."""
+    The order is ``lax.top_k``'s: a stable descending sort of the scores'
+    :func:`~repro_torch.numerics.orderable_key` (+0 above -0, +NaN first,
+    -NaN last), so ties go lowest index first, as the blocked reference
+    kernel orders them. ``index_offset`` shifts the returned indices."""
     score = reward_score(a, b, valid, f=f, ucb=ucb, mode=mode)
-    top = torch.sort(score, descending=True, stable=True)
-    idx = top.indices[:k].to(torch.int32) + int(index_offset)
-    return top.values[:k], idx
+    top = torch.sort(orderable_key(score), descending=True,
+                     stable=True).indices[:k]
+    return score[top], top.to(torch.int32) + int(index_offset)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -23,6 +23,7 @@ import ctypes
 
 import torch
 
+from repro_torch.device import stream_handle
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 STATE_DIMS = (8, 16)        # ds the library is built for
 MAX_GRID_Y = 65535          # one CTA row per batch element
@@ -79,7 +80,7 @@ def launch(lib: ctypes.CDLL, x: torch.Tensor, dt: torch.Tensor,
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s last dimension must be contiguous")
     y = torch.empty((B, S, DI), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = stream_handle(x.device)
     err = lib.selective_scan_launch(
         x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         A.data_ptr(), D.data_ptr(), y.data_ptr(), B, S, DI, DS,

@@ -21,6 +21,7 @@ import ctypes
 
 import torch
 
+from repro_torch.device import stream_handle
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64,)          # hd the library is built for
 STATE_DIMS = (16, 64, 128)  # ds the library is built for
@@ -71,7 +72,7 @@ def launch(lib: ctypes.CDLL, x: torch.Tensor, Bm: torch.Tensor,
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s last dimension must be contiguous")
     y = torch.empty((B, S, NH, HD), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = stream_handle(x.device)
     err = lib.ssd_chunk_launch(
         x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(),
         A.data_ptr(), y.data_ptr(), B, S, NH, HD, DS, DTYPES[x.dtype],

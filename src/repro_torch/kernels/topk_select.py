@@ -2,14 +2,17 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/topk_select.py``
 (``_topk_kernel`` / ``topk_reward``). The kernel is CUDA C++ in
-``csrc/topk_select.cu`` (its header comment holds the design and the bound:
-13 bytes read per client, about 4.1 us at 1,048,576 clients on an H100 SXM
-at 3.35 TB/s), compiled by :func:`repro_torch.kernels.ops.build_library`
-and called here through its plain C interface with ``ctypes``.
+``csrc/topk_select.cu`` (its header comment holds the design, a radix
+select in shared memory over tiles of clients and then over their
+candidate lists, and the bound: 13 bytes read per client, about 4.1 us at
+1,048,576 clients on an H100 SXM at 3.35 TB/s), compiled by
+:func:`repro_torch.kernels.ops.build_library` and called here through its
+plain C interface with ``ctypes``.
 
 What it computes is the reference's function, not its blocks carried over:
 a global stable top-k of ``where(valid, mix(a, b) * (1 + ucb), SENTINEL)``
-(values descending, ties lowest index first). The reference's final
+in ``lax.top_k``'s total order (values descending, +0 above -0, +NaN
+first, -NaN last; ties lowest index first). The reference's final
 ``lax.top_k`` over block candidates has exactly that order.
 """
 from __future__ import annotations
@@ -18,16 +21,18 @@ import ctypes
 
 import torch
 
+from repro_torch.device import stream_handle
 from repro_torch.kernels.ref import MODES, SENTINEL
 
 DEFAULT_BLOCK_N = 4096
-MAX_BLOCK_N = 8192        # pass 1 holds 8 bytes of shared memory per client
+MAX_BLOCK_N = 8192        # the kernel sorts at most 8192 winners
+TILE = 8192               # clients a CTA of the first pass (kTile in the .cu)
 MASK_DTYPES = (torch.bool, torch.uint8)   # the kernel reads one byte a client
 
-_READY = set()            # devices whose shared-memory limits are raised
+_READY = set()   # (library, device) pairs with raised shared-memory limits
 
-__all__ = ["DEFAULT_BLOCK_N", "MAX_BLOCK_N", "MODES", "SENTINEL", "launch",
-           "bind"]
+__all__ = ["DEFAULT_BLOCK_N", "MAX_BLOCK_N", "MODES", "SENTINEL", "TILE",
+           "bind", "launch", "scratch_words"]
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -35,14 +40,20 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     so ctypes never truncates them to 32 bits)."""
     p, i32, i64, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_float)
-    lib.topk_reward_init.argtypes = [i32]
+    lib.topk_reward_init.argtypes = []
     lib.topk_reward_init.restype = i32
-    lib.topk_reward_scratch_len.argtypes = [i64, i32, i32]
-    lib.topk_reward_scratch_len.restype = i64
     lib.topk_reward_launch.argtypes = [p, p, p, p, i64, i32, f, f, i32, i32,
-                                       i32, p, p, p, p, p]
+                                       p, i64, p, p, p]
     lib.topk_reward_launch.restype = i32
     return lib
+
+
+def scratch_words(n: int, k: int) -> int:
+    """32-bit scratch words of a launch: two halves of (key, index) for
+    each first-pass tile's k candidates, none when one tile holds all N
+    (``topk_reward_scratch_words`` in the .cu, which checks it)."""
+    tiles = max(1, n // TILE)
+    return 4 * tiles * k if tiles > 1 else 0
 
 
 def _check(name: str, t: torch.Tensor, n: int, dtypes, device) -> None:
@@ -63,7 +74,8 @@ def launch(lib: ctypes.CDLL, a: torch.Tensor, b: torch.Tensor,
     """Launch the kernel on PyTorch's current stream (no synchronise).
 
     ``a``/``b``/``ucb``: (N,) float32 CUDA tensors; ``valid``: (N,) bool
-    or uint8.
+    or uint8. ``block_n`` only bounds ``k`` (as the reference's blocks do):
+    the kernel's tiles are its own.
     Returns ``(values (k,) f32, indices (k,) int32)``. Raises on anything
     the kernel does not take and on a launch error."""
     if mode not in MODES:
@@ -82,28 +94,28 @@ def launch(lib: ctypes.CDLL, a: torch.Tensor, b: torch.Tensor,
     _check("valid", valid, n, MASK_DTYPES, dev)
     if ucb is not None:
         _check("ucb", ucb, n, (torch.float32,), dev)
-    if dev.index not in _READY:
+    if (lib._name, dev.index) not in _READY:
         with torch.cuda.device(dev):
-            err = lib.topk_reward_init(MAX_BLOCK_N)
+            err = lib.topk_reward_init()
         if err != 0:
             raise RuntimeError(f"topk_reward kernel set-up failed: CUDA "
                                f"error {err}")
-        _READY.add(dev.index)
-    # one allocation holds both scratch halves and the outputs; the scratch
-    # may be freed as soon as this returns: PyTorch's caching allocator
-    # hands it only to work queued after the kernel on this stream
-    half = lib.topk_reward_scratch_len(n, k, block_n)
-    buf = torch.empty(4 * half + 2 * k, dtype=torch.int32, device=dev)
-    scratch_i = buf[:2 * half]
-    scratch_v = buf[2 * half:4 * half].view(torch.float32)
-    out_i = buf[4 * half:4 * half + k]
-    out_v = buf[4 * half + k:].view(torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+        _READY.add((lib._name, dev.index))
+    # the scratch may be freed as soon as this returns: PyTorch's caching
+    # allocator hands it only to work queued after the kernel on this
+    # stream. Separate allocations cost the host less than views of one.
+    words = scratch_words(n, k)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev) if words \
+        else None
+    out_v = torch.empty(k, dtype=torch.float32, device=dev)
+    out_i = torch.empty(k, dtype=torch.int32, device=dev)
     err = lib.topk_reward_launch(
         a.data_ptr(), b.data_ptr(), None if ucb is None else ucb.data_ptr(),
         valid.data_ptr(), n, MODES.index(mode), float(f), 1.0 - float(f),
-        k, block_n, int(index_offset), scratch_v.data_ptr(),
-        scratch_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), stream)
+        k, int(index_offset), None if scratch is None else scratch.data_ptr(),
+        words, out_v.data_ptr(), out_i.data_ptr(),
+        stream_handle(dev))
     if err != 0:
-        raise RuntimeError(f"topk_reward kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"topk_reward kernel launch failed: CUDA error "
+                           f"{err}")
     return out_v, out_i

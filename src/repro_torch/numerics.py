@@ -28,3 +28,16 @@ def fma(x, y, z) -> torch.Tensor:
     if not torch.is_tensor(x):
         x = f32(x, y)
     return (x.to(d) * y.to(d) + z.to(d)).to(torch.float32)
+
+
+def orderable_key(x: torch.Tensor) -> torch.Tensor:
+    """The float32 ``x``'s 32 bits mapped so that unsigned order is
+    ``lax.top_k``'s total order: ``bits ^ (sign ? 0xFFFFFFFF :
+    0x80000000)``, returned as int64 in ``[0, 2**32)``. -NaN < -inf < ...
+    < -0 < +0 < ... < +inf < +NaN (NaNs further by payload). The CUDA
+    top-k kernel radix-selects on the same key."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"orderable_key takes float32, got {x.dtype}")
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    flip = torch.where(bits >= 0x80000000, 0xFFFFFFFF, 0x80000000)
+    return bits ^ flip

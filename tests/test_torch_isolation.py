@@ -313,13 +313,39 @@ def test_chip_faults_plant_into_the_scan_kernels(lib, fault):
                                    "accumulator_in_bf16"])
 def test_chip_faults_plant_into_the_tensor_core_kernel(fault):
     """Each planted fault edits text that occurs once in the kernel source,
-    inside ``flash_fwd_mma``, so an edit of the kernel cannot silently
-    leave a fault unplanted."""
+    inside the tensor-core kernel (``flash_fwd_wgmma``), so an edit of the
+    kernel cannot silently leave a fault unplanted."""
     _chip_smoke()
-    faults = _load("chip_faults").FAULTS
-    assert fault in faults
+    faults, fn = _load("chip_faults").KERNEL_FAULTS["flash_attention"]
+    assert fault in faults and fn == "flash_fwd_wgmma("
     old, new = faults[fault]
     src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" /
            "flash_attention.cu").read_text()
     assert src.count(old) == 1 and old != new
-    assert src.index(old) > src.index("flash_fwd_mma(")
+    assert src.index(old) > src.index(fn)
+
+
+@pytest.mark.parametrize("fault", ["ties_highest_index_first",
+                                   "last_radix_pass_skipped"])
+def test_chip_faults_plant_into_the_topk_kernel(fault):
+    """Each planted top-k fault edits text that occurs once in
+    ``topk_select.cu``; phase 2's bitwise check must catch it on the card."""
+    _chip_smoke()
+    faults, fn = _load("chip_faults").KERNEL_FAULTS["topk_select"]
+    old, new = faults[fault]
+    src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" /
+           "topk_select.cu").read_text()
+    assert src.count(old) == 1 and old != new
+    assert fn in src
+
+
+def test_chip_smoke_topk_cases():
+    """Phase 2 keeps its 105-case matrix and adds the radix select's edge
+    cases, each a valid call of the wrapper (1 <= k <= min(block_n, N))."""
+    cases, edges = _chip_smoke().topk_cases(_chip_smoke().TOPK_SIZES)
+    assert len(cases) == 105
+    assert {(c["n"], c["k"]) for c in edges} >= {
+        (8191, 1), (8193, 8192), (4 * 2**20, 100), (4 * 2**20, 8192)}
+    assert any(c.get("specials") for c in edges)
+    assert any(c.get("valid_frac") == 0.0 for c in edges)
+    assert all(1 <= c["k"] <= min(8192, c["n"]) for c in cases + edges)

@@ -52,6 +52,86 @@ def test_kernel_rejects_what_it_does_not_take():
         ops.topk_reward(a.double(), a, valid, f=0.25, k=5)
 
 
+def _topk_same(a, b, valid, **kw):
+    """One kernel launch against the plain version: indices exactly, values
+    bitwise (the plain version takes no block_n)."""
+    before = ops.LAUNCHES["topk_reward"]
+    kv, ki = ops.topk_reward(a, b, valid, block_n=8192, **kw)
+    pv, pi = ref.topk_reward(a, b, valid, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["topk_reward"] == before + 1
+    assert torch.equal(ki, pi)
+    assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+    return kv, ki
+
+
+def _specials(n, seed):
+    """Half the scores from ±0, ±NaN and ±inf among values of both signs."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    nan = float("nan")
+    pool = torch.tensor([0.0, -0.0, nan, -nan, float("inf"), -float("inf")])
+    a = torch.rand(n, generator=g) - 0.5
+    pick = torch.rand(n, generator=g) < 0.5
+    a[pick] = pool[torch.randint(0, len(pool), (int(pick.sum()),),
+                                 generator=g)]
+    return a
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", [
+    (n, k) for n in (8191, 8193, 10_000, 4 * 2**20) for k in (1, 100, 8192)
+    if k <= n])
+def test_topk_tiles_and_merge_levels(n, k):
+    """N on both sides of one and two 8192-client tiles (one launch below
+    16384), and 4M clients: two merge levels at k = 100, twelve at 8192."""
+    dev = _card()
+    g = torch.Generator(device="cpu").manual_seed(n + k)
+    a, b, u = (torch.rand(n, generator=g).to(dev) for _ in range(3))
+    valid = (torch.rand(n, generator=g) < 0.8).to(dev)
+    _topk_same(a, b, valid, f=0.3, k=k, ucb=u)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", [(4, 4), (9000, 4500), (20_000, 300),
+                                  (1_048_576, 100)])
+def test_topk_signed_zero_and_nan_order(n, k):
+    """``oort`` without ucb scores ``a`` itself: +NaN first, +0 above -0,
+    -NaN last, ties lowest index first, as lax.top_k."""
+    dev = _card()
+    a = (torch.tensor([0.1, -0.0, 0.5, 0.0]) if n == 4 else
+         _specials(n, n)).to(dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    _, ki = _topk_same(a, a, valid, f=0.3, k=k, mode="oort")
+    if n == 4:
+        assert ki.tolist() == [2, 0, 3, 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", [(5000, 100), (50_000, 1000)])
+def test_topk_all_sentinel(n, k):
+    """No valid client: the first k indices, every value SENTINEL."""
+    dev = _card()
+    a = torch.rand(n, device=dev)
+    valid = torch.zeros(n, dtype=torch.bool, device=dev)
+    kv, ki = _topk_same(a, a, valid, f=0.3, k=k, ucb=a)
+    assert ki.tolist() == list(range(k))
+    assert bool((kv == ref.SENTINEL).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [5000, 1_048_576])
+def test_topk_index_offset(n):
+    """The offset shifts the final list only, on one tile and after a
+    merge."""
+    dev = _card()
+    g = torch.Generator(device="cpu").manual_seed(n)
+    a, b = (torch.rand(n, generator=g).to(dev) for _ in range(2))
+    valid = torch.ones(n, dtype=torch.uint8, device=dev)
+    _, ki = _topk_same(a, b, valid, f=0.3, k=100, index_offset=1000)
+    _, k0 = ops.topk_reward(a, b, valid, f=0.3, k=100)
+    assert torch.equal(ki, k0 + 1000)
+
+
 # ------------------------------------------------------------ attention
 # tolerances of the JAX package's own kernel tests (tests/test_kernels.py):
 # the kernel keeps the softmax weights in f32, the plain version casts them
@@ -110,6 +190,36 @@ def test_flash_attention_kernel_equals_plain(B, S, H, KH, D, layout, dtype,
                                     causal=causal)
         assert float((out.float() - exact).norm() / exact.norm()) \
             <= ATTN_BF16_REL_L2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KH,D,layout", [
+    (1, 32, 32, 32, 64, "dense"), (2, 100, 8, 2, 128, "dense"),
+    (1, 385, 4, 2, 64, "dense"), (1, 4096, 8, 2, 64, "dense"),
+    (1, 4096, 4, 1, 128, "dense"),
+    (2, 100, 16, 4, 64, "packed"), (1, 32, 8, 2, 128, "packed"),
+    (1, 4096, 8, 2, 128, "packed")])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_attention_shapes(B, S, H, KH, D, layout, causal):
+    """The TMA + wgmma kernel: head sizes 64 and 128, S below one 128-row
+    tile, ragged (385: the diagonal of a 192-row query tile crosses two
+    128-key tiles) and at the prefill's length, GQA (H = 4 KH) and q, k, v
+    as strided views of one projection."""
+    dev = _card()
+    q, k, v = _attn_inputs(B, S, H, KH, D, torch.bfloat16, dev, S + D,
+                           layout)
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal)
+    exp = ref.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert out.shape == (B, S, H, D) and out.is_contiguous()
+    tol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
+    exact = ref.flash_attention(q.float(), k.float(), v.float(),
+                                causal=causal)
+    assert float((out.float() - exact).norm() / exact.norm()) \
+        <= ATTN_BF16_REL_L2
 
 
 @pytest.mark.gpu
@@ -235,9 +345,9 @@ def test_selective_scan_rejects_what_it_does_not_take():
     (torch.bfloat16, 0, False), (torch.bfloat16, 4, True),
     (torch.float32, 4, False)])
 def test_flash_attention_input_check_of_row_alignment(dtype, pad, raises):
-    """The tensor-core kernel loads bf16 rows 16 bytes at a time, so the
-    wrapper rejects bf16 rows that are not 16-byte aligned; f32 rows (the
-    scalar kernel) may start anywhere."""
+    """The tensor-core kernel copies bf16 tiles by TMA, which needs 16-byte
+    aligned rows, so the wrapper rejects bf16 rows that are not; f32 rows
+    (the scalar kernel) may start anywhere."""
     from repro_torch.kernels import flash_attention as fa
     q = torch.zeros(2, 8, 4, 64 + pad, dtype=dtype)[..., pad:]
     if raises:

@@ -138,3 +138,20 @@ def test_select_facade_trims_to_chosen():
     assert idx.dtype == np.int64
     np.testing.assert_array_equal(ij, idx)
     assert int(state.round) == 1
+
+
+@pytest.mark.parametrize("n,k", [(12, 12), (200, 17)])
+def test_top_k_idx_orders_signed_zero_and_nan_as_lax_top_k(n, k):
+    """The selector's top-k over scores with -0/+0 and -NaN/+NaN equals
+    lax.top_k: indices exactly, the picked values bitwise."""
+    rs = np.random.RandomState(n)
+    nan = np.float32("nan")
+    pool = np.array([0.0, -0.0, nan, -nan, -np.inf, np.inf], np.float32)
+    x = rs.rand(n).astype(np.float32) - np.float32(0.5)
+    pick = rs.rand(n) < 0.6
+    x[pick] = pool[rs.randint(0, len(pool), int(pick.sum()))]
+    jv, ji = jax.lax.top_k(jnp.asarray(x), k)
+    ti = tsel._top_k_idx(torch.from_numpy(x), k)
+    np.testing.assert_array_equal(np.asarray(ji), ti.numpy())
+    np.testing.assert_array_equal(np.asarray(jv).view(np.int32),
+                                  x[ti.numpy()].view(np.int32))

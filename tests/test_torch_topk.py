@@ -16,6 +16,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import topk_select as jtk  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.numerics import orderable_key  # noqa: E402
 
 
 def _inputs(seed, n, ties=False, valid_frac=0.8, mode="eafl"):
@@ -129,3 +130,72 @@ def test_wrapper_takes_any_mask_dtype(mask_dtype):
                               ucb=T(ucb))
     assert torch.equal(ti, pi)
     assert torch.equal(tv.view(torch.int32), pv.view(torch.int32))
+
+
+# ------------------------------------------- the total order of ±0 and NaN
+def _specials(seed, n):
+    """Scores with -0/+0 and -NaN/+NaN mixed among ordinary values."""
+    rs = np.random.RandomState(seed)
+    nan = np.float32("nan")
+    pool = np.array([0.0, -0.0, nan, -nan, np.inf, -np.inf, 1.0, -1.0],
+                    np.float32)
+    a = rs.rand(n).astype(np.float32) - np.float32(0.5)
+    pick = rs.rand(n) < 0.5
+    a[pick] = pool[rs.randint(0, len(pool), int(pick.sum()))]
+    return a
+
+
+def test_key_order_is_lax_top_k_order():
+    """Unsigned order of the key equals lax.top_k's order of a sorted list
+    of specials (listed from the top down)."""
+    import jax
+    nan = np.float32("nan")
+    down = np.array([nan, np.inf, 1.0, 1e-38, 1e-45, 0.0, -0.0, -1e-45,
+                     -1.0, -3e38, -np.inf, -nan], np.float32)
+    rs = np.random.RandomState(0)
+    x = down[rs.permutation(len(down))]
+    _, ji = jax.lax.top_k(jnp.asarray(x), len(x))
+    key = orderable_key(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(np.argsort(-key, kind="stable"),
+                                  np.asarray(ji))
+    np.testing.assert_array_equal(x[np.asarray(ji)].view(np.int32),
+                                  down.view(np.int32))
+
+
+@pytest.mark.parametrize("n,k", [(4, 4), (64, 10), (300, 300)])
+def test_signed_zero_and_nan_match_lax_top_k(n, k):
+    """The plain top-k of scores with ±0 and ±NaN (``oort`` without ucb
+    scores ``a`` itself) against lax.top_k: indices exactly, values
+    bitwise."""
+    import jax
+    a = np.array([0.1, -0.0, 0.5, 0.0], np.float32) if n == 4 else \
+        _specials(n + k, n)
+    valid = np.ones(n, np.int32)
+    jv, ji = jax.lax.top_k(jnp.asarray(a), k)
+    T = torch.from_numpy
+    tv, ti = tops.topk_reward(T(a), T(a), T(valid), f=0.3, k=k, mode="oort",
+                              block_n=max(k, 8))
+    np.testing.assert_array_equal(np.asarray(ji), ti.numpy())
+    np.testing.assert_array_equal(np.asarray(jv).view(np.int32),
+                                  tv.numpy().view(np.int32))
+    if n == 4:
+        np.testing.assert_array_equal(ti.numpy(), [2, 0, 3, 1])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_signed_zeros_match_reference_kernel(seed):
+    """Where k takes in every tied zero, the reference kernel (interpret
+    mode) orders them as lax.top_k does, and so does the plain version."""
+    a = np.array([0.1, -0.0, 0.5, 0.3, 0.2, 0.9, 0.0, 0.4], np.float32)
+    if seed:
+        rs = np.random.RandomState(seed)
+        a = rs.rand(40).astype(np.float32) - np.float32(0.5)
+        a[rs.rand(40) < 0.3] = 0.0
+        a[rs.rand(40) < 0.3] = -0.0
+    valid = np.ones(len(a), np.int32)
+    # every zero and two negatives below them
+    k = len(a) if seed == 0 else int((a >= 0).sum()) + 2
+    _, ti = _check(a, a, valid, None, f=0.3, k=k, mode="oort",
+                   block_n=8 if seed == 0 else 64)
+    if seed == 0:
+        np.testing.assert_array_equal(ti.numpy(), [5, 2, 7, 3, 4, 0, 6, 1])
