@@ -8,9 +8,9 @@ Each fault is one edit of a kernel source under
 ``src/repro_torch/kernels/csrc/``, built with the library's own flags into
 a temporary directory (the checkout is left as it is): ``TOPK_FAULTS``
 edit ``topk_select`` in ``topk_select.cu`` (2), ``FAULTS``
-``flash_fwd_wgmma`` in ``flash_attention.cu`` (5), ``SSD_FAULTS``
-``ssd_fwd`` in ``ssd_chunk.cu`` (3) and ``SCAN_FAULTS`` ``scan_fwd`` in
-``selective_scan.cu`` (5).
+``flash_fwd_wgmma`` in ``flash_attention.cu`` (5), ``SSD_FAULTS`` the
+tensor-core ``ssd_fwd_mma`` in ``ssd_chunk.cu`` (4) and ``SCAN_FAULTS``
+``scan_fwd`` in ``selective_scan.cu`` (6).
 
 For the sound top-k kernel and each of its faults it runs phase 2 of
 ``chip_smoke.py`` (the 105-case matrix and the edge cases, indices exact,
@@ -95,41 +95,52 @@ TOPK_FAULTS = {
 }
 SSD_FAULTS = {
     "carried_state_dropped": (
-        "*p = fmaf(decay, *p, acc[i][j]);", "*p = acc[i][j];"),
+        "for (int e = 0; e < 4; ++e) hr[i][e] *= decay;",
+        "for (int e = 0; e < 4; ++e) hr[i][e] = 0.f;"),
     "chunk_decay_not_applied": (
-        "const float decay = expf(send[0]);", "const float decay = 1.f;"),
+        "const float decay = expf(lend);", "const float decay = 1.f;"),
     "output_scaled_1.05": (
-        "store(yrow + cg + 16 * j, fmaf(e, inter[i][j], acc[i][j]));",
-        "store(yrow + cg + 16 * j,\n"
-        "                1.05f * fmaf(e, inter[i][j], acc[i][j]));"),
+        "__floats2bfloat162_rn(yacc[j][2 * half], yacc[j][2 * half + 1]);",
+        "__floats2bfloat162_rn(1.05f * yacc[j][2 * half],\n"
+        "                                    1.05f * yacc[j][2 * half + 1]);"),
+    # the chunk computed from the stage the copies are filling for the
+    # next chunk (on chunk 0, a stage nothing has written yet)
+    "prefetched_chunk_from_stale_stage": (
+        "const uint8_t* stage = dsm + st * L::STAGE;",
+        "const uint8_t* stage = dsm + (st ^ 1) * L::STAGE;"),
 }
 SCAN_FAULTS = {
     "d_skip_dropped": (
-        "if (q == 0) sy[r][ch] = fmaf(dd, xt, acc);",
-        "if (q == 0) sy[r][ch] = acc;"),
+        "*yk = from_f32<T>(sy[r][lc] + sd[r][lc]);",
+        "*yk = from_f32<T>(sy[r][lc]);"),
     "state_reset_each_tile": (
         "    __syncthreads();  // the last tile's readers of the shared tiles "
         "are done",
         "#pragma unroll\n    for (int j = 0; j < SPL; ++j) h[j] = 0.f;\n"
         "    __syncthreads();"),
     "decay_without_dt": (
-        "const float da = expf(dtt * a[j]);",
-        "const float da = expf(a[j]);"),
+        "da = ex2(fmaf(v.x, a2hi[j], v.x * a2lo[j]));",
+        "da = ex2(a2hi[j] + a2lo[j]);"),
     "state_in_bf16": (
-        "h[j] = fmaf(da, h[j], dx * sb[r][n]);",
+        "h[j] = fmaf(da, h[j], v.y * bv[j]);",
         "h[j] = __bfloat162float(__float2bfloat16_rn(\n"
-        "            fmaf(da, h[j], dx * sb[r][n])));"),
+        "              fmaf(da, h[j], v.y * bv[j])));"),
     # the last tile's y is the one before it (not left unwritten, which
     # could read back a sound output from reused memory)
     "last_tile_skipped": (
-        "    for (int r = 0; r < kT; ++r) {",
-        "    for (int r = 0;\n"
-        "         r < (tile + 1 == n_tiles && n_tiles > 1 ? 0 : kT); ++r) {"),
+        "    for (int r0 = 0; r0 < kT; r0 += kLanes) {",
+        "    for (int r0 = 0;\n"
+        "         r0 < (tile + 1 == n_tiles && n_tiles > 1 ? 0 : kT);\n"
+        "         r0 += kLanes) {"),
+    # the cheap decay's argument in base e: 2^(dt A) for exp(dt A)
+    "decay_without_log2e": (
+        "const double a2 = (double)aj * kLog2e;",
+        "const double a2 = (double)aj;"),
 }
 # library: (its faults, the kernel function they edit)
 KERNEL_FAULTS = {"topk_select": (TOPK_FAULTS, "topk_select("),
                  "flash_attention": (FAULTS, "flash_fwd_wgmma("),
-                 "ssd_chunk": (SSD_FAULTS, "ssd_fwd("),
+                 "ssd_chunk": (SSD_FAULTS, "ssd_fwd_mma("),
                  "selective_scan": (SCAN_FAULTS, "scan_fwd(")}
 
 
@@ -195,6 +206,47 @@ def scan_readings(torch, libs, launch, inputs, limit, label):
     return readings
 
 
+def prefill_tokens(torch, cfg, seed, dev):
+    """The tokens of chip_smoke.py's prefill (phases 9 and 13)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return {"tokens": torch.randint(
+        0, cfg.vocab_size, (cs.PREFILL_BATCH, cs.PREFILL_LEN),
+        generator=g).to(dev)}
+
+
+def ssd_cases(torch, ref, dev, prefill_call):
+    """Phase 8's bf16 cases at the prefill shape (dt about 0.7 and about
+    0.02) and the zamba2 prefill's first SSD call, each with the f32 scan
+    of its inputs: ``{name: (args, exact)}``."""
+    cases = {}
+    for where, args in [
+            (f"prefill_shape dt shift {c[-1]}",
+             cs.ssd_inputs(torch, *c[:5], torch.bfloat16, dev, 100 + i,
+                           c[-1]))
+            for i, c in enumerate(cs.SSD_SHAPES) if c[:2] == (2, 4096)] + [
+            ("prefill_call", prefill_call)]:
+        x, Bm, Cm, dt, A = args
+        cases[where] = (args, ref.ssd_chunk(x.float(), Bm.float(),
+                                            Cm.float(), dt, A))
+    return cases
+
+
+def scan_cases(torch, ref, dev, prefill_call):
+    """Phase 12's bf16 cases at the prefill shape (dt about 0.7 and about
+    0.02) and falcon-mamba-7b's first scan call, each with the f32 scan of
+    its inputs: ``{name: (args, exact)}``."""
+    cases = {}
+    for where, args in [
+            (f"prefill_shape dt shift {c[-1]}",
+             cs.scan_inputs(torch, *c[:4], torch.bfloat16, dev, 200 + i,
+                            c[-1]))
+            for i, c in enumerate(cs.SCAN_SHAPES)
+            if c[:4] == (2, 4096, 8192, 16)] + [
+            ("prefill_call", prefill_call)]:
+        cases[where] = (args, ref.selective_scan(*(t.float() for t in args)))
+    return cases
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser()
@@ -223,12 +275,6 @@ def main(argv=None) -> int:
     cs.log(f"card {smi.stdout.strip()}")
     bf16 = torch.bfloat16
 
-    def tokens_for(cfg):
-        g = torch.Generator(device="cpu").manual_seed(seed)
-        return {"tokens": torch.randint(
-            0, cfg.vocab_size, (cs.PREFILL_BATCH, cs.PREFILL_LEN),
-            generator=g).to(dev)}
-
     with tempfile.TemporaryDirectory() as tmp:
         all_libs = build_all(ops, tmp)
 
@@ -251,7 +297,7 @@ def main(argv=None) -> int:
     synth = cs.attn_inputs(torch, 2, 4096, 32, 32, 64, bf16, dev, 1)
     cfg = get_config("zamba2-1.2b")
     params = init_params(seed, cfg, device=dev)
-    batch = tokens_for(cfg)
+    batch = prefill_tokens(torch, cfg, seed, dev)
     with cs.first_calls(ops, ("flash_attention", "ssd_chunk")) as seen:
         forward_logits(cfg, params, batch, device=dev)
     call = seen["flash_attention"][0]
@@ -290,15 +336,7 @@ def main(argv=None) -> int:
 
     # SSD: phase 8's cases at the prefill shape (dt about 0.7 and about
     # 0.02) and the zamba2 prefill's first SSD call
-    ssd_in = {}
-    for where, args in [
-            (f"prefill_shape dt shift {c[-1]}",
-             cs.ssd_inputs(torch, *c[:5], bf16, dev, 100 + i, c[-1]))
-            for i, c in enumerate(cs.SSD_SHAPES) if c[:2] == (2, 4096)] + [
-            ("prefill_call", seen["ssd_chunk"][0])]:
-        x, Bm, Cm, dt, A = args
-        ssd_in[where] = (args, ref.ssd_chunk(x.float(), Bm.float(),
-                                             Cm.float(), dt, A))
+    ssd_in = ssd_cases(torch, ref, dev, seen["ssd_chunk"][0])
     del seen
     ssd = scan_readings(torch, all_libs["ssd_chunk"], sc.launch, ssd_in,
                         cs.SSD_BF16_REL_L2, "ssd_chunk")
@@ -310,18 +348,11 @@ def main(argv=None) -> int:
     cfg = get_config("falcon-mamba-7b")
     params = init_params(seed, cfg, device=dev)
     with cs.first_calls(ops, ("selective_scan",)) as seen:
-        forward_logits(cfg, params, tokens_for(cfg), device=dev)
+        forward_logits(cfg, params, prefill_tokens(torch, cfg, seed, dev),
+                       device=dev)
     del params
     torch.cuda.empty_cache()
-    scan_in = {}
-    for where, args in [
-            (f"prefill_shape dt shift {c[-1]}",
-             cs.scan_inputs(torch, *c[:4], bf16, dev, 200 + i, c[-1]))
-            for i, c in enumerate(cs.SCAN_SHAPES)
-            if c[:4] == (2, 4096, 8192, 16)] + [
-            ("prefill_call", seen["selective_scan"][0])]:
-        scan_in[where] = (args, ref.selective_scan(
-            *(t.float() for t in args)))
+    scan_in = scan_cases(torch, ref, dev, seen["selective_scan"][0])
     del seen
     scan = scan_readings(torch, all_libs["selective_scan"], ss.launch,
                          scan_in, cs.SCAN_BF16_REL_L2, "selective_scan")

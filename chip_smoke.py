@@ -7,7 +7,9 @@ Phases (any mismatch exits non-zero; nothing is caught and swallowed):
 
 1. Device: the card's name, power limit and maximum SM clock; build the
    four Hopper kernels from the sources in this checkout, one ``nvcc``
-   each, all at once, and time the build.
+   each, all at once, and time the build; log each main-path kernel's
+   registers a thread and spill bytes from ptxas's report of the build,
+   and the SASS loop counts of both scan kernels.
 2. The top-k kernel against its plain PyTorch version on the card, on
    the same synthetic inputs: indices equal, values bitwise. The 105-case
    matrix includes the shapes the later phases give the kernel (N=200,
@@ -43,9 +45,10 @@ The LM serving path (zamba2-1.2b, full width, random weights from
    the tensor-core kernel); bf16 rows that are not 16-byte aligned are
    rejected.
 8. ``ssd_chunk`` against its plain version (the sequential recurrence):
-   S in {32, 64, 128, 4096} at nh=64, hd=64, ds=64, and the prefill's
-   shape with slow decay, bf16 and f32; bf16 outputs also against the f32
-   scan of the same bf16 inputs (the tight check).
+   S in {32, 64, 128, 4096, 4000 (a ragged last chunk)} at nh=64, hd=64,
+   ds=64, and the prefill's shape with slow decay, bf16 (tensor cores) and
+   f32; bf16 outputs also against the f32 scan of the same bf16 inputs
+   (the tight check).
 9. The main path of these kernels: ``make_prefill_step(CONFIG)`` on
    2 x 4096 tokens (a cut of ``prefill_32k``'s 32 x 32,768, for chip time
    and the plain route's memory). One forward must launch the attention
@@ -64,9 +67,9 @@ The Mamba1 serving path (falcon-mamba-7b, full width, random weights from
 ``--seed``; zamba2's weights are freed first):
 
 12. ``selective_scan`` against its plain version on ``SCAN_SHAPES`` (S in
-   {1, 7, 32, 64, 4096}, di in {96, 512, 8192}, ds in {8, 16}, and the
-   prefill's shape with slow decay), bf16 and f32, B and C strided; bf16
-   outputs also by the tight check.
+   {1, 7, 32, 64, 4095, 4096}, di in {96, 512, 8192}, ds in {8, 16}, and
+   the prefill's shape with slow decay), bf16 and f32, B and C strided;
+   bf16 outputs also by the tight check.
 13. The main path: ``make_prefill_step(CONFIG)`` on 2 x 4096 tokens. One
    forward must launch the scan 64 times; its first call is held against
    its plain version and by the tight check.
@@ -89,10 +92,12 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -582,13 +587,15 @@ SFU_PER_CLOCK_PER_SM = 16
 SCAN_FLOPS_PER_EXP = 6
 # B, S, di, ds, dt shift: the serve prompt's and the prefill's shapes,
 # S = 1, ragged S (7) and di (96, not a multiple of the kernel's 64
-# channels), ds 8 and 16 (the reduced and the full config), and the
-# prefill's shape with slow decay (dt about 0.02)
+# channels), ds 8 and 16 (the reduced and the full config), the
+# prefill's shape with slow decay (dt about 0.02), and full width with a
+# ragged last tile (4095)
 SCAN_SHAPES = [(1, 1, 8192, 16, 0.0), (2, 7, 96, 16, 0.0),
                (4, 32, 8192, 16, 0.0), (1, 64, 512, 8, 0.0),
                (2, 64, 96, 8, 0.0), (1, 4096, 96, 16, 0.0),
                (2, 4096, 512, 8, 0.0), (2, 4096, 8192, 16, 0.0),
-               (2, 4096, 8192, 16, SLOW_DT_SHIFT)]
+               (2, 4096, 8192, 16, SLOW_DT_SHIFT),
+               (2, 4095, 8192, 16, 0.0)]
 
 
 def dtype_name(dt):
@@ -686,10 +693,12 @@ def scan_inputs(torch, B, S, di, ds, dtype, dev, seed, dt_shift=0.0):
 ATTN_SHAPES = [(1, 32, 32, 32, 64, 0), (2, 4096, 32, 32, 64, 0),
                (1, 1000, 4, 4, 128, 0), (2, 256, 8, 2, 64, 0),
                (2, 256, 8, 2, 64, 4)]
-# B, S, nh, hd, ds, dt shift
+# B, S, nh, hd, ds, dt shift: the last, full width with a ragged last
+# chunk (4000 = 62 x 64 + 32)
 SSD_SHAPES = [(1, 32, 64, 64, 64, 0.0), (2, 64, 64, 64, 64, 0.0),
               (1, 128, 64, 64, 64, 0.0), (2, 4096, 64, 64, 64, 0.0),
-              (2, 4096, 64, 64, 64, SLOW_DT_SHIFT)]
+              (2, 4096, 64, 64, 64, SLOW_DT_SHIFT),
+              (2, 4000, 64, 64, 64, 0.0)]
 
 
 def phase_attn_vs_plain(torch, ops, ref, dev):
@@ -1144,6 +1153,116 @@ def phase_mamba1_routes(torch, ops, dev, cfg, params, tokens):
     return {"agree": agree, "bf16_route_ratio": ratio, "secs": secs}
 
 
+# The kernel each library runs on the main paths, as a fragment of its
+# mangled name in ptxas's report (the SSD's at 32 columns a slice, ds 64,
+# aligned rows)
+MAIN_ENTRIES = {"topk_select": "topk_select",
+                "flash_attention": "flash_fwd_wgmma",
+                "ssd_chunk": "ssd_fwd_mmaILi32ELi64ELb1E",
+                "selective_scan": "scan_fwdI13__nv_bfloat16Li16E"}
+
+
+def ptxas_usage(text):
+    """ptxas's ``-v`` report -> ``{entry: {"registers": n, "spill_stores":
+    bytes, "spill_loads": bytes}}``, entries by mangled name."""
+    usage, entry = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            usage[entry] = {"registers": None, "spill_stores": 0,
+                            "spill_loads": 0}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage[entry]["spill_stores"] = int(m.group(1))
+            usage[entry]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[entry]["registers"] = int(m.group(1))
+    return usage
+
+
+def entry_usage(usage, fragment):
+    """The entries of ``usage`` whose names hold ``fragment``: how many,
+    their most registers a thread and most spill bytes (stores and loads).
+    Fails if there is none."""
+    hits = [u for name, u in usage.items() if fragment in name]
+    check(bool(hits), f"no kernel like {fragment!r} in the build's report")
+    return {"entries": len(hits),
+            "registers": max(h["registers"] for h in hits),
+            "spill_bytes": max(h["spill_stores"] + h["spill_loads"]
+                               for h in hits)}
+
+
+def sass_loops(sass, fragment):
+    """The loops (backward branches) of the first function in ``cuobjdump
+    -sass`` text whose name holds ``fragment``, shortest first: each one's
+    static instruction count and count by opcode (modifiers dropped)."""
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        if fragment not in func.split("\n", 1)[0]:
+            continue
+        ins = []
+        for line in func.splitlines():
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                          r"([A-Z][A-Z0-9_]*)[.\w]*(.*?);", line)
+            if m:
+                ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+        loops = []
+        for addr, op, rest in ins:
+            target = re.search(r"0x([0-9a-f]+)", rest)
+            if op == "BRA" and target and int(target.group(1), 16) < addr:
+                top = int(target.group(1), 16)
+                body = [o for a, o, _ in ins if top <= a <= addr]
+                loops.append({"instructions": len(body),
+                              "ops": dict(Counter(body))})
+        return sorted(loops, key=lambda loop: loop["instructions"])
+    raise SmokeFailure(f"no function like {fragment!r} in the SASS")
+
+
+def scan_loop_counts(sass):
+    """The bf16 selective scan's inner loop at ds 16 (its shortest loop
+    with an exponential): instructions, exponentials (MUFU) and
+    instructions a state-step (one exponential each)."""
+    loop = next(lp for lp in sass_loops(sass, MAIN_ENTRIES["selective_scan"])
+                if "MUFU" in lp["ops"])
+    return {"instructions": loop["instructions"],
+            "mufu": loop["ops"]["MUFU"],
+            "per_state_step": loop["instructions"] / loop["ops"]["MUFU"]}
+
+
+def ssd_loop_counts(sass, fragment=MAIN_ENTRIES["ssd_chunk"]):
+    """The chunk loop (the longest loop with a barrier) of the SSD kernel
+    named by ``fragment``: static instructions, tensor-core products
+    (HMMA), scalar FMAs (FFMA) and exponentials (MUFU)."""
+    loop = [lp for lp in sass_loops(sass, fragment) if "BAR" in lp["ops"]][-1]
+    return {"kernel": fragment, "instructions": loop["instructions"],
+            **{op: loop["ops"].get(op, 0) for op in ("HMMA", "FFMA", "MUFU")}}
+
+
+def loop_counts(ops, paths, ssd_entry=MAIN_ENTRIES["ssd_chunk"]):
+    """Phase 1's SASS counts of the SSD (its kernel ``ssd_entry``) and scan
+    kernels, from ``cuobjdump -sass`` (the toolkit's, beside nvcc) of the
+    libraries at ``paths`` (``{name: path}``); "no cuobjdump" where the
+    toolkit has none."""
+    tool = Path(ops._nvcc()).parent / "cuobjdump"
+    out = {}
+    for name, count in (
+            ("ssd_chunk", lambda text: ssd_loop_counts(text, ssd_entry)),
+            ("selective_scan", scan_loop_counts)):
+        if not tool.exists():
+            out[name] = "no cuobjdump"
+            continue
+        proc = subprocess.run([str(tool), "-sass", str(paths[name])],
+                              capture_output=True, text=True)
+        check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr}")
+        out[name] = count(proc.stdout)
+    return out
+
+
 def max_sm_clock_hz(torch, dev):
     """The card's maximum SM clock: ``nvidia-smi``'s ``clocks.max.sm``, else
     the device properties' ``clock_rate`` (kHz)."""
@@ -1192,7 +1311,9 @@ def phase_scan_timing(torch, ops, ref, seen, l2_bytes, sms, clock_hz):
     row.update(shape=list(args[0].shape), ds=int(args[2].shape[-1]),
                dtype=dtype_name(args[0].dtype), l2_cold=cold,
                sms=sms, max_sm_clock_mhz=clock_hz / 1e6)
-    log(f"phase 16: selective_scan at the prefill shape {row['shape']} ds="
+    row["card"] = card_name_power()
+    log(f"phase 16: selective_scan on {row['card']} at the prefill shape "
+        f"{row['shape']} ds="
         f"{row['ds']} {row['dtype']}: kernel {row['ms']:.5f} ms, plain "
         f"(sequential) {row['plain_ms']:.5f} ms, no single PyTorch call "
         f"computes it, bound {row['bound_ms']:.6f} ms ({row['bound_by']}; "
@@ -1248,6 +1369,17 @@ def main(argv=None) -> int:
     log(f"phase 1: built {', '.join(p.name for p in paths)} from "
         f"src/repro_torch/kernels/csrc/ in parallel in "
         f"{walls['phase 1']:.2f} s")
+    regs = {}
+    for name in names:
+        log_path = ops.ptxas_log(name)
+        check(log_path.exists(), f"no build report {log_path}")
+        regs[name] = entry_usage(ptxas_usage(log_path.read_text()),
+                                 MAIN_ENTRIES[name])
+    log(f"phase 1: each library's main-path kernel (ptxas): entries, most "
+        f"registers a thread and spill bytes: {regs}")
+    sass = loop_counts(ops, dict(zip(names, paths)))
+    log(f"phase 1: SASS of the main-path SSD kernel's chunk loop (static "
+        f"counts) and of the scan's inner loop: {sass}")
 
     topk_cases_run = timed("phase 2", phase_kernel_vs_plain, torch, ops,
                            ref, dev, TOPK_SIZES)
@@ -1319,6 +1451,7 @@ def main(argv=None) -> int:
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "shape": {key: main[key] for key in ("n", "k", "mode", "ucb")},
+        "build": regs["topk_select"],
         "timing": main, "fleet_shape": fleet,
         "phase2_cases": {"matrix": topk_cases_run[0],
                          "edges": topk_cases_run[1]},
@@ -1362,7 +1495,9 @@ def main(argv=None) -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row, "checked_shapes": shapes,
             "launches_by_phase": by_phase, "bf16_rel_l2_vs_f32": rel,
+            "build": regs[name],
         })
+    summary["sass"] = sass
     summary["zamba2_1_2b"] = {"prefill": prefill, "serve": serve}
     summary["falcon_mamba_7b"] = {"prefill": falcon_prefill,
                                   "routes": routes, "serve": falcon_serve}

@@ -32,8 +32,10 @@ from repro_torch.kernels import ssd_chunk as _sc
 from repro_torch.kernels import topk_select as _tk
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+# -Xptxas -v: ptxas reports each kernel's registers and spills, kept
+# beside the library (:func:`ptxas_log`)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # topk_select reproduces the reference's one fused multiply-add bit for bit
 # and must not let nvcc contract anything else; the other kernels only have
 # to agree within a tolerance and keep FMA contraction
@@ -74,11 +76,19 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
+def ptxas_log(name: str) -> Path:
+    """What the build of library ``name`` printed (ptxas's report of each
+    kernel's registers and spills), beside :func:`library_path`."""
+    out = library_path(name)
+    return out.with_name(f"{out.name}.log")
+
+
 def build_library(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` into :func:`library_path` unless that file
-    exists already; returns its path. Raises on a failed build. Safe to
-    call for several libraries at once from threads (each runs its own
-    ``nvcc`` and renames its output into place)."""
+    exists already, and keep nvcc's report in :func:`ptxas_log`; returns
+    the library's path. Raises on a failed build. Safe to call for several
+    libraries at once from threads (each runs its own ``nvcc`` and renames
+    its outputs into place)."""
     out = library_path(name)
     if out.exists():
         return out
@@ -89,6 +99,10 @@ def build_library(name: str) -> Path:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+    log = ptxas_log(name)
+    log_tmp = log.with_name(f"{log.name}.{os.getpid()}.tmp")
+    log_tmp.write_text(proc.stderr)
+    os.replace(log_tmp, log)
     os.replace(tmp, out)
     return out
 

@@ -4,7 +4,8 @@ Replaces the Pallas TPU kernel ``repro/kernels/ssd_chunk.py``
 (``_ssd_kernel`` / ``ssd_chunk``). The kernel is CUDA C++ in
 ``csrc/ssd_chunk.cu`` (its header holds the design and the bound: about
 138 MB moved at B=2, S=4096, nh=64, hd=64, ds=64 in bf16, 0.041 ms at an
-H100 SXM's 3.35 TB/s), compiled by
+H100 SXM's 3.35 TB/s): bf16 runs on the tensor cores with hd cut into two
+column slices, one CTA each; f32 on scalar FMAs. It is compiled by
 :func:`repro_torch.kernels.ops.build_library` and called through its plain
 C interface with ``ctypes``.
 
@@ -25,7 +26,7 @@ from repro_torch.device import stream_handle
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64,)          # hd the library is built for
 STATE_DIMS = (16, 64, 128)  # ds the library is built for
-MAX_GRID_Y = 65535          # one CTA row per batch element
+MAX_GRID_Z = 65535          # the batch is the grid's z axis
 
 __all__ = ["DTYPES", "HEAD_DIMS", "STATE_DIMS", "bind", "launch"]
 
@@ -59,8 +60,8 @@ def launch(lib: ctypes.CDLL, x: torch.Tensor, Bm: torch.Tensor,
     if HD not in HEAD_DIMS or DS not in STATE_DIMS:
         raise ValueError(f"(hd, ds)=({HD}, {DS}) not built; built: hd in "
                          f"{HEAD_DIMS}, ds in {STATE_DIMS}")
-    if B > MAX_GRID_Y:
-        raise ValueError(f"batch {B} exceeds the grid's {MAX_GRID_Y}")
+    if B > MAX_GRID_Z:
+        raise ValueError(f"batch {B} exceeds the grid's {MAX_GRID_Z}")
     if x.dtype not in DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm), ("dt", dt), ("A", A)):

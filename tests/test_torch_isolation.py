@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no reference package, no silent CPU.
 
-An AST scan of every ``src/repro_torch/**/*.py``, ``chip_smoke.py`` and
-``chip_faults.py`` fails on any import of ``jax``/``jaxlib`` or of ``repro`` other than
+An AST scan of every ``src/repro_torch/**/*.py``, ``chip_smoke.py``,
+``chip_faults.py`` and ``chip_probes.py`` fails on any import of
+``jax``/``jaxlib`` or of ``repro`` other than
 ``repro_torch``. Entry points called without ``device=`` raise when no
 CUDA device is present."""
 import ast
@@ -13,7 +14,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "chip_faults.py"]
+    [ROOT / f"{name}.py" for name in ("chip_smoke", "chip_faults",
+                                      "chip_probes")]
 
 
 def _imported(path: Path):
@@ -286,25 +288,53 @@ def test_chip_faults_refuses_without_cuda(capsys):
     assert '"ok"' not in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("lib,fault", [
+SCAN_KERNEL_FAULTS = [
     ("ssd_chunk", "carried_state_dropped"),
     ("ssd_chunk", "chunk_decay_not_applied"),
     ("ssd_chunk", "output_scaled_1.05"),
+    ("ssd_chunk", "prefetched_chunk_from_stale_stage"),
     ("selective_scan", "d_skip_dropped"),
     ("selective_scan", "state_reset_each_tile"),
     ("selective_scan", "decay_without_dt"),
     ("selective_scan", "state_in_bf16"),
-    ("selective_scan", "last_tile_skipped")])
+    ("selective_scan", "last_tile_skipped"),
+    ("selective_scan", "decay_without_log2e")]
+
+
+def _kernel_body(src, fn):
+    """The text of kernel ``fn`` (``"name("``) from its definition (the
+    line after ``__global__``) to the next ``__global__`` or the end."""
+    start = src.index(fn, src.index("__global__"))
+    while not src[:start].rstrip().endswith(")"):
+        start = src.index(fn, start + 1)    # skip mentions in comments
+    end = src.find("__global__", start)
+    return src[start:end if end >= 0 else len(src)]
+
+
+@pytest.mark.parametrize("lib,fault", SCAN_KERNEL_FAULTS)
 def test_chip_faults_plant_into_the_scan_kernels(lib, fault):
     """Each planted scan fault edits text that occurs once in its kernel
-    source, inside the kernel function."""
+    source, inside the bf16 kernel function that KERNEL_FAULTS names (the
+    tensor-core ``ssd_fwd_mma``, the selective scan's ``scan_fwd``)."""
     _chip_smoke()
     faults, fn = _load("chip_faults").KERNEL_FAULTS[lib]
+    assert fn == {"ssd_chunk": "ssd_fwd_mma(",
+                  "selective_scan": "scan_fwd("}[lib]
     old, new = faults[fault]
     src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" /
            f"{lib}.cu").read_text()
     assert src.count(old) == 1 and old != new
-    assert src.index(old) > src.index(fn)
+    assert old in _kernel_body(src, fn)
+
+
+def test_chip_faults_scan_fault_list():
+    """Every planted scan fault has its case above, and the list holds the
+    ones aimed at the new designs."""
+    _chip_smoke()
+    cf = _load("chip_faults")
+    planted = {(lib, name) for lib in ("ssd_chunk", "selective_scan")
+               for name in cf.KERNEL_FAULTS[lib][0]}
+    assert planted == set(SCAN_KERNEL_FAULTS)
 
 
 @pytest.mark.parametrize("fault", ["output_scaled_1.05",
@@ -349,3 +379,134 @@ def test_chip_smoke_topk_cases():
     assert any(c.get("specials") for c in edges)
     assert any(c.get("valid_frac") == 0.0 for c in edges)
     assert all(1 <= c["k"] <= min(8192, c["n"]) for c in cases + edges)
+
+
+PTXAS_REPORT = """\
+ptxas info    : Compiling entry function '_ZN1a11ssd_fwd_mmaILi32ELi64ELb1EEEvPK' for 'sm_90a'
+ptxas info    : Function properties for _ZN1a11ssd_fwd_mmaILi32ELi64ELb1EEEvPK
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN1a11ssd_fwd_mmaILi32ELi64ELb0EEEvPK' for 'sm_90a'
+ptxas info    : Function properties for _ZN1a11ssd_fwd_mmaILi32ELi64ELb0EEEvPK
+    16 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers
+"""
+
+
+def test_chip_smoke_reads_registers_and_spills_from_the_build():
+    """Phase 1 logs each main-path kernel's registers and spills from
+    ptxas's report; a kernel missing from the report fails the run."""
+    smoke = _chip_smoke()
+    usage = smoke.ptxas_usage(PTXAS_REPORT)
+    assert len(usage) == 2
+    main = smoke.MAIN_ENTRIES["ssd_chunk"]
+    assert smoke.entry_usage(usage, main) == {
+        "entries": 1, "registers": 128, "spill_bytes": 0}
+    assert smoke.entry_usage(usage, "ssd_fwd_mma") == {
+        "entries": 2, "registers": 128, "spill_bytes": 20}
+    with pytest.raises(smoke.SmokeFailure, match="no kernel like"):
+        smoke.entry_usage(usage, "scan_fwd")
+
+
+def test_build_keeps_ptxas_report_beside_the_library():
+    from repro_torch.kernels import ops
+    for name in ops.EXTRA_FLAGS:
+        flags = ops.nvcc_flags(name)
+        assert flags[flags.index("-Xptxas") + 1] == "-v"
+        log = ops.ptxas_log(name)
+        assert log.parent == ops.library_path(name).parent
+        assert log.name.startswith(ops.library_path(name).name)
+
+
+def test_chip_probes_refuses_without_cuda(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _chip_smoke()
+    _load("chip_faults")
+    assert _load("chip_probes").main([]) != 0
+    assert '"readings"' not in capsys.readouterr().out
+
+
+def test_chip_probes_builds_another_checkouts_kernels(monkeypatch, tmp_path):
+    """``--parent DIR`` builds DIR's SSD and scan sources with this
+    checkout's flags and launches them through DIR's own launchers (here
+    this checkout, so a CPU tensor reaches the launcher and is refused)."""
+    _chip_smoke()
+    _load("chip_faults")
+    probes = _load("chip_probes")
+    from repro_torch.kernels import ops
+    built = []
+
+    def fake_run(cmd, **kw):
+        built.append(cmd)
+        return type("Done", (), {"returncode": 0, "stderr": ""})()
+
+    class FakeLib:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(probes.subprocess, "run", fake_run)
+    monkeypatch.setattr(probes.ctypes, "CDLL", lambda path: FakeLib())
+    monkeypatch.setattr(ops, "_nvcc", lambda: "nvcc")
+    fns, paths = probes.load_parent(ops, ROOT, tmp_path)
+    assert set(fns) == set(paths) == {"ssd_chunk", "selective_scan"}
+    assert all(p.parent == tmp_path for p in paths.values())
+    srcs = sorted(Path(c[-1]).name for c in built)
+    assert srcs == ["selective_scan.cu", "ssd_chunk.cu"]
+    assert all(c[1:1 + len(ops.NVCC_FLAGS)] == list(ops.NVCC_FLAGS)
+               for c in built)
+    x = torch.zeros(1, 4, 2, 64)
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        fns["ssd_chunk"](x, x[..., 0, :16], x[..., 0, :16], x[..., 0],
+                         torch.ones(2))
+
+
+def test_chip_smoke_checks_ragged_full_width_scans():
+    """Phases 8 and 12 hold each scan kernel at full width with a ragged
+    last chunk or tile, beside the prefill's own shape."""
+    smoke = _chip_smoke()
+    assert (2, 4000, 64, 64, 64, 0.0) in smoke.SSD_SHAPES
+    assert (2, 4095, 8192, 16, 0.0) in smoke.SCAN_SHAPES
+    assert (2, 4096, 64, 64, 64, 0.0) in smoke.SSD_SHAPES
+    assert (2, 4096, 8192, 16, 0.0) in smoke.SCAN_SHAPES
+
+
+SASS = """\
+        code for sm_90a
+        Function : _ZN1a8scan_fwdI13__nv_bfloat16Li16EEEvPK
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   LDS.128 R4, [R2] ;
+        /*0020*/                   MUFU.EX2 R5, R4 ;
+        /*0030*/                   FFMA R6, R5, R6, R7 ;
+        /*0040*/                   MUFU.EX2 R8, R4 ;
+        /*0050*/               @P1 BRA 0x10 ;
+        /*0060*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0070*/               @P2 BRA 0x0 ;
+        /*0080*/                   EXIT ;
+        Function : _ZN1a11ssd_fwd_mmaILi32ELi64ELb1EEEvPK
+        /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0010*/                   MUFU.EX2 R5, R4 ;
+        /*0020*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0030*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0040*/               @P0 BRA 0x0 ;
+        /*0050*/                   EXIT ;
+"""
+
+
+def test_chip_smoke_counts_the_scan_kernels_loops_in_sass():
+    """Phase 1 reads each scan kernel's loop from cuobjdump's SASS: the
+    selective scan's innermost loop with an exponential (instructions a
+    state-step), the SSD's chunk loop (the longest with a barrier)."""
+    smoke = _chip_smoke()
+    loops = smoke.sass_loops(SASS, "scan_fwdI13")
+    assert [lp["instructions"] for lp in loops] == [5, 8]
+    assert loops[0]["ops"] == {"LDS": 1, "MUFU": 2, "FFMA": 1, "BRA": 1}
+    assert smoke.scan_loop_counts(SASS) == {
+        "instructions": 5, "mufu": 2, "per_state_step": 2.5}
+    assert smoke.ssd_loop_counts(SASS) == {
+        "kernel": "ssd_fwd_mmaILi32ELi64ELb1E", "instructions": 5,
+        "HMMA": 2, "FFMA": 0, "MUFU": 1}
+    with pytest.raises(smoke.SmokeFailure, match="no function like"):
+        smoke.sass_loops(SASS, "flash_fwd")

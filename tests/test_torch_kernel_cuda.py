@@ -234,14 +234,16 @@ def test_flash_attention_rejects_unaligned_bf16(B, S, H, KH, D, layout):
 
 
 # ------------------------------------------------------------------ SSD
-def _ssd_inputs(B, S, nh, hd, ds, dtype, dev, seed):
-    """Bm and Cm are slices of one packed tensor, as in the model."""
+def _ssd_inputs(B, S, nh, hd, ds, dtype, dev, seed, shift=0.0, skip=0):
+    """Bm and Cm are slices of one packed tensor, as in the model, after
+    ``skip`` other columns (3: rows not 16-byte aligned). dt is
+    softplus(N(shift, 1)): about 0.02 at shift -4 (slow decay)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     x = torch.randn(B, S, nh, hd, generator=g).to(dtype).to(dev)
-    bc = torch.randn(B, S, 2 * ds, generator=g).to(dtype).to(dev)
-    dt = F.softplus(torch.randn(B, S, nh, generator=g)).to(dev)
+    bc = torch.randn(B, S, skip + 2 * ds, generator=g).to(dtype).to(dev)
+    dt = F.softplus(torch.randn(B, S, nh, generator=g) + shift).to(dev)
     A = -torch.exp(torch.randn(nh, generator=g)).to(dev)
-    return x, bc[..., :ds], bc[..., ds:], dt, A
+    return x, bc[..., skip:skip + ds], bc[..., skip + ds:], dt, A
 
 
 @pytest.mark.gpu
@@ -260,6 +262,64 @@ def test_ssd_kernel_equals_plain(B, S, nh, hd, ds, dtype):
     assert out.dtype == dtype and out.shape == (B, S, nh, hd)
     tol = SSD_TOL[dtype]
     torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
+
+
+# the bf16 kernel against the f32 scan of its own inputs: chip_smoke.py's
+# limit (sound readings about 1.66e-3; an att low part dropped 2.33e-3)
+SSD_BF16_REL_L2 = 2.2e-3
+
+
+def _ssd_held(args, dtype):
+    """One launch of the kernel against the plain version (and, bf16, by
+    the tight check)."""
+    B, S, nh, hd = args[0].shape
+    before = ops.LAUNCHES["ssd_chunk"]
+    out = ops.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_chunk"] == before + 1
+    assert out.dtype == dtype and out.shape == (B, S, nh, hd)
+    assert out.is_contiguous()
+    exp = ref.ssd_chunk(*args)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        x, Bm, Cm, dt, A = args
+        exact = ref.ssd_chunk(x.float(), Bm.float(), Cm.float(), dt, A)
+        assert float((out.float() - exact).norm() / exact.norm()) \
+            <= SSD_BF16_REL_L2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 63, 65, 4095])
+@pytest.mark.parametrize("ds", [16, 64, 128])
+def test_ssd_tensor_core_kernel_edges(S, ds):
+    """The bf16 tensor-core kernel (hd in two column slices, one CTA each):
+    S of one step, one step short of and past a 64-step chunk, and a
+    ragged last chunk after 63 whole ones; each state size; B and C
+    strided slices of one packed tensor."""
+    dev = _card()
+    args = _ssd_inputs(2, S, 4, 64, ds, torch.bfloat16, dev, S + ds)
+    _ssd_held(args, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_slow_decay(dtype):
+    """dt about 0.02: the state outlives many chunks, so the carried state
+    and its split halves decide the output."""
+    dev = _card()
+    args = _ssd_inputs(2, 1000, 8, 64, 64, dtype, dev, 7, shift=-4.0)
+    _ssd_held(args, dtype)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_unaligned_rows():
+    """B and C after 3 other columns: rows not 16-byte aligned take the
+    plain loads in place of cp.async, with the same result."""
+    dev = _card()
+    args = _ssd_inputs(2, 200, 4, 64, 64, torch.bfloat16, dev, 3, skip=3)
+    assert args[1].data_ptr() % 16 != 0
+    _ssd_held(args, torch.bfloat16)
 
 
 @pytest.mark.gpu
@@ -315,6 +375,38 @@ def test_selective_scan_kernel_equals_plain(B, S, di, ds, dtype):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["selective_scan"] == before + 1
     assert out.dtype == dtype and out.shape == (B, S, di)
+    tol = SCAN_TOL[dtype]
+    torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        exact = ref.selective_scan(*(t.float() for t in args))
+        assert float((out.float() - exact).norm() / exact.norm()) \
+            <= SCAN_BF16_REL_L2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("di", [96, 8192])
+@pytest.mark.parametrize("ds", [8, 16])
+@pytest.mark.parametrize("S,shift", [(1, 0.0), (7, 0.0), (300, -4.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_edges(di, ds, S, shift, dtype):
+    """di of one and a half CTAs and the model's 8192, ds 8 and 16, S = 1
+    and 7 (one partial tile; the y reduction runs over groups of 4 steps),
+    and slow decay (dt about 0.02, softplus of N(-4, 1)), where the cheap
+    decay of the bf16 route and the f32 route's expf are held over many
+    steps."""
+    dev = _card()
+    x, dt, Bm, Cm, A, D = _scan_inputs(2, S, di, ds, dtype, dev, S + di)
+    if shift:
+        g = torch.Generator(device="cpu").manual_seed(S)
+        dt = F.softplus(torch.randn(2, S, di, generator=g) + shift) \
+            .to(dtype).to(dev)
+    args = (x, dt, Bm, Cm, A, D)
+    before = ops.LAUNCHES["selective_scan"]
+    out = ops.selective_scan(*args)
+    exp = ref.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["selective_scan"] == before + 1
+    assert out.dtype == dtype and out.shape == (2, S, di)
     tol = SCAN_TOL[dtype]
     torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
     if dtype == torch.bfloat16:
