@@ -9,7 +9,7 @@ Each fault is one edit of a kernel source under
 a temporary directory (the checkout is left as it is): ``TOPK_FAULTS``
 edit ``topk_select`` in ``topk_select.cu`` (2), ``FAULTS``
 ``flash_fwd_wgmma`` in ``flash_attention.cu`` (5), ``SSD_FAULTS`` the
-tensor-core ``ssd_fwd_mma`` in ``ssd_chunk.cu`` (4) and ``SCAN_FAULTS``
+tensor-core ``ssd_fwd_mma`` in ``ssd_chunk.cu`` (6) and ``SCAN_FAULTS``
 ``scan_fwd`` in ``selective_scan.cu`` (6).
 
 For the sound top-k kernel and each of its faults it runs phase 2 of
@@ -36,7 +36,8 @@ For the two scan kernels, sound and faulty, it prints the tight check of
 bf16 output from the f32 scan of the same bf16 inputs, at the prefill
 shape (phase 8's and phase 12's cases there, with fast and slow decay)
 and on the first call of a full-width prefill (zamba2-1.2b's SSD,
-falcon-mamba-7b's selective scan), against ``SSD_BF16_REL_L2`` and
+falcon-mamba-7b's selective scan), against ``SSD_BF16_REL_L2`` (the
+SSD's slow-decay case against ``SSD_BF16_REL_L2_SLOW``) and
 ``SCAN_BF16_REL_L2``.
 
 Exits 1 unless each sound kernel passes its check (bitwise for top-k, the
@@ -108,6 +109,13 @@ SSD_FAULTS = {
     "prefetched_chunk_from_stale_stage": (
         "const uint8_t* stage = dsm + st * L::STAGE;",
         "const uint8_t* stage = dsm + (st ^ 1) * L::STAGE;"),
+    # the low bf16 half of a split f32 operand dropped: of the carried
+    # state h in C h, and of w x in the state update; they show only with
+    # slow decay (SSD_BF16_REL_L2_SLOW)
+    "h_low_part_dropped": (
+        "          mma(yacc[2 * np], ca[kk], lf[0], lf[1]);\n"
+        "          mma(yacc[2 * np + 1], ca[kk], lf[2], lf[3]);\n", ""),
+    "wx_low_part_dropped": ("          mma(hr[i], bt, wl[0], wl[1]);\n", ""),
 }
 SCAN_FAULTS = {
     "d_skip_dropped": (
@@ -170,9 +178,10 @@ def logit_rel_l2(torch, got, exact):
         return float("nan")
 
 
-def fails(tight, limit):
-    """A tight check's readings fail it (a NaN fails)."""
-    return not all(v <= limit for v in tight.values())
+def fails(tight, limits):
+    """A tight check's readings fail it (a NaN fails); ``limits`` maps
+    each reading's name to its limit."""
+    return not all(v <= limits[where] for where, v in tight.items())
 
 
 def build_all(ops, tmp):
@@ -194,14 +203,16 @@ def build_all(ops, tmp):
     return libs
 
 
-def scan_readings(torch, libs, launch, inputs, limit, label):
+def scan_readings(torch, libs, launch, inputs, limits, label):
     """The tight check of each library on each named input set; ``inputs``
-    maps a name to (args, the f32 scan of them)."""
+    maps a name to (args, the f32 scan of them), ``limits`` a name to its
+    limit."""
     readings = {}
     for name, lib in libs.items():
         tight = {where: cs.rel_l2(torch, launch(lib, *args), exact)
                  for where, (args, exact) in inputs.items()}
-        readings[name] = {"tight": tight, "tight_fails": fails(tight, limit)}
+        readings[name] = {"tight": tight,
+                          "tight_fails": fails(tight, limits)}
         cs.log(json.dumps({label: {name: readings[name]}}))
     return readings
 
@@ -229,6 +240,14 @@ def ssd_cases(torch, ref, dev, prefill_call):
         cases[where] = (args, ref.ssd_chunk(x.float(), Bm.float(),
                                             Cm.float(), dt, A))
     return cases
+
+
+def ssd_limits(inputs):
+    """The tight check's limit for each of :func:`ssd_cases`' inputs:
+    ``SSD_BF16_REL_L2_SLOW`` for the slow-decay case."""
+    return {where: cs.ssd_limit(cs.SLOW_DT_SHIFT)
+            if where == f"prefill_shape dt shift {cs.SLOW_DT_SHIFT}"
+            else cs.SSD_BF16_REL_L2 for where in inputs}
 
 
 def scan_cases(torch, ref, dev, prefill_call):
@@ -323,7 +342,8 @@ def main(argv=None) -> int:
         del logits
         fwd = forward_logits(cfg, params, {"tokens": prompt}, device=dev)
         r = {"tight": tight,
-             "tight_fails": fails(tight, cs.ATTN_BF16_REL_L2),
+             "tight_fails": fails(tight, dict.fromkeys(
+                 tight, cs.ATTN_BF16_REL_L2)),
              "route_ratio": route / plain_d,
              "route_fails": not route / plain_d <= cs.BF16_ROUTE_RATIO,
              # as phase 10 reads it
@@ -339,7 +359,7 @@ def main(argv=None) -> int:
     ssd_in = ssd_cases(torch, ref, dev, seen["ssd_chunk"][0])
     del seen
     ssd = scan_readings(torch, all_libs["ssd_chunk"], sc.launch, ssd_in,
-                        cs.SSD_BF16_REL_L2, "ssd_chunk")
+                        ssd_limits(ssd_in), "ssd_chunk")
     del ssd_in
     torch.cuda.empty_cache()
 
@@ -355,7 +375,8 @@ def main(argv=None) -> int:
     scan_in = scan_cases(torch, ref, dev, seen["selective_scan"][0])
     del seen
     scan = scan_readings(torch, all_libs["selective_scan"], ss.launch,
-                         scan_in, cs.SCAN_BF16_REL_L2, "selective_scan")
+                         scan_in, dict.fromkeys(scan_in, cs.SCAN_BF16_REL_L2),
+                         "selective_scan")
     del scan_in, all_libs, libs
 
     readings = {"topk_reward": topk, "flash_attention": attn,
@@ -364,7 +385,8 @@ def main(argv=None) -> int:
               "flash_attention": {"tight": cs.ATTN_BF16_REL_L2,
                                   "route_ratio": cs.BF16_ROUTE_RATIO,
                                   "replay_rel_l2": cs.BF16_REPLAY_REL_L2},
-              "ssd_chunk": {"tight": cs.SSD_BF16_REL_L2},
+              "ssd_chunk": {"tight": cs.SSD_BF16_REL_L2,
+                            "tight_slow_decay": cs.SSD_BF16_REL_L2_SLOW},
               "selective_scan": {"tight": cs.SCAN_BF16_REL_L2}}
     fail_key = {"topk_reward": "bitwise_fails"}
     ok = all(not r["sound"][fail_key.get(k, "tight_fails")] and all(

@@ -55,10 +55,8 @@ SSD_PROBES = {
     "att_low_part_dropped": (
         "          mma(yacc[2 * np], alo, xf[0], xf[1]);\n"
         "          mma(yacc[2 * np + 1], alo, xf[2], xf[3]);\n", ""),
-    "h_low_part_dropped": (
-        "          mma(yacc[2 * np], ca[kk], lf[0], lf[1]);\n"
-        "          mma(yacc[2 * np + 1], ca[kk], lf[2], lf[3]);\n", ""),
-    "wx_low_part_dropped": ("          mma(hr[i], bt, wl[0], wl[1]);\n", ""),
+    "h_low_part_dropped": cf.SSD_FAULTS["h_low_part_dropped"],
+    "wx_low_part_dropped": cf.SSD_FAULTS["wx_low_part_dropped"],
     "slices_1": ("constexpr int kSlices = 2;", "constexpr int kSlices = 1;"),
     "slices_4": ("constexpr int kSlices = 2;", "constexpr int kSlices = 4;"),
 }
@@ -211,14 +209,15 @@ def main(argv=None) -> int:
         return seen[lib][0]
 
     readings = {}
-    for lib, launch, cases, limit in (
-            ("ssd_chunk", sc.launch, cf.ssd_cases, cs.SSD_BF16_REL_L2),
+    for lib, launch, cases, limits in (
+            ("ssd_chunk", sc.launch, cf.ssd_cases, cf.ssd_limits),
             ("selective_scan", ss.launch, cf.scan_cases,
-             cs.SCAN_BF16_REL_L2)):
+             lambda inputs: dict.fromkeys(inputs, cs.SCAN_BF16_REL_L2))):
         arch = {"ssd_chunk": "zamba2-1.2b",
                 "selective_scan": "falcon-mamba-7b"}[lib]
         inputs = cases(torch, ref, dev, first_call(arch, lib))
-        r = cf.scan_readings(torch, libs[lib], launch, inputs, limit, lib)
+        r = cf.scan_readings(torch, libs[lib], launch, inputs,
+                             limits(inputs), lib)
         fns = {n: (lambda lb: lambda *a: launch(lb, *a))(lb)
                for n, lb in libs[lib].items()}
         if parent:
@@ -238,6 +237,8 @@ def main(argv=None) -> int:
                               args32).items():
         readings["selective_scan"][name]["f32_slow_decay"] = r
     cs.log(json.dumps({"limits": {"ssd_chunk": cs.SSD_BF16_REL_L2,
+                                  "ssd_chunk_slow_decay":
+                                      cs.SSD_BF16_REL_L2_SLOW,
                                   "selective_scan": cs.SCAN_BF16_REL_L2,
                                   "f32": cs.SCAN_TOL["float32"]},
                        "readings": readings, "sass": sass}))

@@ -31,9 +31,32 @@ Phases (any mismatch exits non-zero; nothing is caught and swallowed):
    host microseconds of one wrapper call (no synchronise), and the
    card's name and power limit.
 
-In phases 3 to 5 every call of the top-k kernel's wrapper is recorded,
+The fused engines (each round one step with no host read, captured in a
+CUDA graph after a warm-up and replayed):
+
+6a. Fused selection at fleet scale: ``run_rounds_scanned`` at 1,048,576
+   clients, ``eafl``, k=100, 3 rounds; its picks, dropouts and batteries
+   equal host rounds (``select`` + ``simulate_round``, the same kernel)
+   with the same key rows; seconds for the 3 rounds.
+6b. Fused training parity: ``run_fl_scanned`` against the host ``run_fl``
+   on the card at the FLConfig defaults, full width, 3 rounds, TF32 off,
+   plain and with faults (crash with retries, straggle, corrupt) and a
+   budget, at tests/test_torch_training_engines.py's tolerances; then
+   with ``checkpoint_every=1`` and resumed after round 1, both bitwise
+   equal to the uninterrupted run (cuDNN's deterministic algorithms).
+6c. The fused main path: ``run_fl_scanned`` at 10,000 clients, k=100, full
+   width: a 3-round run minus a 1-round run, each less its warm-up and
+   capture, over 2, is a round, beside phase 5's; set-up and warm-up +
+   capture apart.
+6d. A ``torch.profiler`` trace of one round of each engine at 10,000
+   clients: the ten device operations that take the most time and the
+   device's idle share.
+
+In phases 3 to 6c every call of the top-k kernel's wrapper is recorded,
 inputs and outputs, and its outputs are held against the plain version on
-the same inputs.
+the same inputs. Under capture the records are copies captured into the
+graph, read after each replay; each replayed launch is also held against
+an eager launch on its inputs.
 
 The LM serving path (zamba2-1.2b, full width, random weights from
 ``--seed``):
@@ -48,7 +71,7 @@ The LM serving path (zamba2-1.2b, full width, random weights from
    S in {32, 64, 128, 4096, 4000 (a ragged last chunk)} at nh=64, hd=64,
    ds=64, and the prefill's shape with slow decay, bf16 (tensor cores) and
    f32; bf16 outputs also against the f32 scan of the same bf16 inputs
-   (the tight check).
+   (the tight check; the slow-decay case at a limit of its own).
 9. The main path of these kernels: ``make_prefill_step(CONFIG)`` on
    2 x 4096 tokens (a cut of ``prefill_32k``'s 32 x 32,768, for chip time
    and the plain route's memory). One forward must launch the attention
@@ -96,7 +119,9 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import weakref
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -386,9 +411,21 @@ def phase_timing(torch, ops, ref, call, label, l2_bytes):
 
 
 # ------------------------------------------------------------------ phase 3
-def phase_selection(torch, ref, dev, n, rounds):
+def fleet_population(torch, dev, n):
+    """Phases 3 and 6a's population: half the fleet has history, so
+    exploitation ranks about n/2 clients."""
     from repro_torch import prng
     from repro_torch.core.clients import make_population
+    pop = make_population(prng.PRNGKey(0, dev), n)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    return pop.replace(
+        explored=(torch.rand(n, generator=g) < 0.5).to(dev),
+        stat_util=(torch.rand(n, generator=g) * 50).to(dev),
+        last_duration=(torch.rand(n, generator=g) * 400).to(dev))
+
+
+def phase_selection(torch, ref, dev, n, rounds):
+    from repro_torch import prng
     from repro_torch.core.energy import EnergyModel
     from repro_torch.core.selection import (SelectorConfig, SelectorState,
                                             select)
@@ -396,13 +433,7 @@ def phase_selection(torch, ref, dev, n, rounds):
                                                   simulate_round)
     from repro_torch.kernels import ops
 
-    pop = make_population(prng.PRNGKey(0, dev), n)
-    g = torch.Generator(device="cpu").manual_seed(3)
-    # half the fleet has history, so exploitation ranks 500k clients
-    pop = pop.replace(
-        explored=(torch.rand(n, generator=g) < 0.5).to(dev),
-        stat_util=(torch.rand(n, generator=g) * 50).to(dev),
-        last_duration=(torch.rand(n, generator=g) * 400).to(dev))
+    pop = fleet_population(torch, dev, n)
     em = EnergyModel(busy_fraction=0.02)
     cfg = SelectorConfig("eafl", k=100)
 
@@ -515,7 +546,422 @@ def phase_training_scale(torch, ref, dev, cfg):
         f"{one - per_round:.3f} s set-up; kernel launches {launches}, each "
         f"call == plain on its inputs; train_loss {hist.train_loss}, "
         f"test_acc {hist.test_acc}, peak memory {peak:.2f} GiB")
-    return launches, err, calls[-1]
+    return launches, err, calls[-1], per_round
+
+
+# ------------------------------------------ the fused engines (phases 6a-6d)
+@contextlib.contextmanager
+def graph_recording(torch, ops, replay):
+    """Record every launch of ``ops.topk_reward`` while the block runs,
+    eager or replayed from a CUDA graph: ``(calls, replayed)``, each a list
+    of (inputs, kwargs, outputs). An eager call (a warm-up) is copied when
+    it is made. A call under capture launches nothing, but its copies of
+    the wrapper's inputs and outputs are device-to-device copies captured
+    into the graph, into buffers the graph keeps: after each replay they
+    hold that replay's launch, and are copied out then (into
+    ``replayed``)."""
+    # held: each graph's captured records, keyed by the StepGraphs object
+    # (weakly: a new object may take a freed one's id)
+    calls, replayed, pending = [], [], []
+    held = weakref.WeakKeyDictionary()
+    wrapper, run = ops.topk_reward, replay.StepGraphs.run
+
+    def spy(a, b, valid, **kw):
+        out = wrapper(a, b, valid, **kw)
+        ucb = kw.get("ucb")
+        rec = ((a.clone(), b.clone(), valid.clone()),
+               dict(kw, ucb=None if ucb is None else ucb.clone()),
+               tuple(t.clone() for t in out))
+        (pending if torch.cuda.is_current_stream_capturing()
+         else calls).append(rec)
+        return out
+
+    def run_and_read(self, name):
+        run(self, name)
+        graphs = held.setdefault(self, {})
+        if name not in graphs:
+            graphs[name] = list(pending)
+            pending.clear()
+        for ins, kw, outs in graphs[name]:
+            replayed.append((tuple(t.clone() for t in ins),
+                             dict(kw, ucb=None if kw["ucb"] is None
+                                  else kw["ucb"].clone()),
+                             tuple(t.clone() for t in outs)))
+
+    ops.topk_reward, replay.StepGraphs.run = spy, run_and_read
+    try:
+        yield calls, replayed
+    finally:
+        ops.topk_reward, replay.StepGraphs.run = wrapper, run
+
+
+def check_replayed(torch, ops, ref, calls, replayed, label, expect):
+    """Each recorded launch (warm-up and replays) against the plain version
+    on its inputs, indices exact and values bitwise; each replayed launch
+    also against the kernel launched eagerly on the same inputs (these
+    launches compare, and are made after the path's counts were read).
+    Returns the largest |difference|."""
+    check(len(replayed) == expect, f"{label}: {len(replayed)} replayed "
+          f"launches recorded, expected {expect}")
+    err = check_recorded(torch, ref, calls + replayed, label)
+    for j, ((a, b, valid), kw, out) in enumerate(replayed):
+        check_same(torch, out, ops.topk_reward(a, b, valid, **kw),
+                   f"{label}: replayed launch {j} vs an eager one")
+    return err
+
+
+def phase_fused_selection(torch, ops, ref, dev, n, rounds):
+    """6a: ``run_rounds_scanned`` at fleet scale, replayed from a CUDA
+    graph, against host rounds (``select`` + ``simulate_round``, the same
+    kernel) with the same key rows."""
+    from repro_torch import prng
+    from repro_torch.core.energy import EnergyModel
+    from repro_torch.core.selection import (SelectorConfig, SelectorState,
+                                            select)
+    from repro_torch.federated import replay
+    from repro_torch.federated.simulation import (round_cost_table,
+                                                  run_rounds_scanned,
+                                                  simulate_round)
+
+    pop = fleet_population(torch, dev, n)
+    em = EnergyModel(busy_fraction=0.02)
+    cfg = SelectorConfig("eafl", k=100)
+    key = prng.PRNGKey(11, dev)
+    with graph_recording(torch, ops, replay) as (calls, replayed), \
+            graphs_made(replay) as made:
+        ops.LAUNCHES["topk_reward"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, _, traj = run_rounds_scanned(
+            key, cfg, pop, SelectorState.create(cfg), em, 3.0e6, 10, 20,
+            rounds)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = ops.LAUNCHES["topk_reward"]
+    capture = made[0].capture_s.get("round", 0.0)
+    check(launches == rounds + 1, f"fused selection launched the kernel "
+          f"{launches} times (warm-up and {rounds} replays expected)")
+    err = check_replayed(torch, ops, ref, calls, replayed,
+                         "phase 6a", rounds)
+    _, cost = round_cost_table(pop, em, 3.0e6, 10, 20)
+    state, p = SelectorState.create(cfg), pop
+    for r, k in enumerate(prng.split(key, rounds)):
+        idx, state = select(k, cfg, state, p, cost)
+        p, out = simulate_round(p, idx, em, 3.0e6, 10, 20, r + 1)
+        chosen = traj["chosen"][r]
+        check(np.array_equal(traj["selected"][r][chosen], idx),
+              f"round {r + 1}: fused and host picks differ")
+        check(traj["new_dropouts"][r] == out.new_dropouts,
+              f"round {r + 1}: dropouts differ")
+    check(torch.equal(final.battery_pct, p.battery_pct),
+          "fused and host batteries differ")
+    row = {"run_s": secs, "capture_s": capture,
+           "s_per_round_replayed": (secs - capture) / rounds,
+           "card": card_name_power()}
+    log(f"phase 6a: run_rounds_scanned N={n} eafl k=100 x{rounds} rounds "
+        f"replayed from a CUDA graph on {row['card']}: {secs:.4f} s on the "
+        f"card, of which warm-up and capture {capture:.4f} s (so "
+        f"{row['s_per_round_replayed']:.5f} s a replayed round and the "
+        f"trajectory's fetch), kernel launches {launches} (warm-up 1, "
+        f"replayed {len(replayed)}), each == plain and == an eager launch "
+        f"on its inputs; picks and batteries equal to host rounds with the "
+        f"same keys")
+    return len(replayed), err, row
+
+
+HIST_EXACT = ("round", "cum_dropouts", "retries", "quarantined",
+              "update_skipped", "budget_exhausted_round")
+HIST_CLOSE = ("fairness", "participation", "wall_hours", "mean_battery",
+              "energy_spent_j")
+
+
+def check_engines_agree(host, fused, what, eval_samples):
+    """tests/test_torch_training_engines.py's tolerances; test accuracy, as
+    phase 4, within two argmax flips among the eval samples."""
+    for f in HIST_EXACT:
+        check(getattr(fused, f) == getattr(host, f),
+              f"{what}: {f} {getattr(fused, f)} != {getattr(host, f)}")
+    for f in HIST_CLOSE:
+        np.testing.assert_allclose(getattr(fused, f), getattr(host, f),
+                                   rtol=1e-5, err_msg=f"{what}: {f}")
+    np.testing.assert_allclose(fused.train_loss, host.train_loss, rtol=2e-3,
+                               err_msg=f"{what}: train_loss")
+    np.testing.assert_allclose(fused.test_acc, host.test_acc,
+                               atol=2.0 / eval_samples,
+                               err_msg=f"{what}: test_acc")
+
+
+def same_history(a, b):
+    """Every history field equal, bit for bit (NaN equal to NaN)."""
+    return all(np.array_equal(np.asarray(getattr(a, f), np.float64),
+                              np.asarray(getattr(b, f), np.float64),
+                              equal_nan=True)
+               for f in a.as_dict() if f != "budget_exhausted_round") and \
+        a.budget_exhausted_round == b.budget_exhausted_round
+
+
+def phase_fused_parity(torch, ops, ref, dev, cfg):
+    """6b: ``run_fl_scanned`` against the host ``run_fl`` on the card
+    (the FLConfig defaults, full width, TF32 off): plain, and with faults
+    and a budget; then killed after round 1 and resumed, bitwise equal to
+    the uninterrupted run (cuDNN's deterministic algorithms)."""
+    from repro_torch.federated import replay
+    from repro_torch.federated.faults import FaultConfig
+    from repro_torch.federated.server import run_fl, run_fl_scanned
+
+    faults = FaultConfig(seed=1, crash_prob=0.2, max_retries=2,
+                         straggle_prob=0.2, corrupt_prob=0.15)
+    # the cohorts spend about 7.3 kJ in rounds 1-2 and 6.5 kJ in round 3:
+    # the budget admits two rounds and refuses the third
+    cases = {"plain": cfg, "faults+budget": dataclasses.replace(
+        cfg, faults=faults, energy_budget_j=1.0e4, deadline_s=900.0)}
+    out = {}
+    with graph_recording(torch, ops, replay) as (calls, replayed):
+        for name, c in cases.items():
+            fused = run_fl_scanned(c, device=dev)
+            host = run_fl(c, device=dev)
+            check_engines_agree(host, fused, f"phase 6b {name}",
+                                c.eval_samples)
+            out[name] = {"train_loss": fused.train_loss,
+                         "test_acc": fused.test_acc,
+                         "retries": fused.retries,
+                         "quarantined": fused.quarantined,
+                         "budget_exhausted_round":
+                             fused.budget_exhausted_round}
+        check(sum(out["faults+budget"]["retries"]) > 0,
+              "phase 6b: the faults drew no retry")
+        check(out["faults+budget"]["budget_exhausted_round"] is not None,
+              "phase 6b: the energy budget refused no round")
+        torch.backends.cudnn.deterministic = True
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                c = cases["faults+budget"]
+                whole = run_fl_scanned(c, device=dev)
+                path = str(Path(tmp) / "fused-{round}.ckpt")
+                seg = run_fl_scanned(dataclasses.replace(
+                    c, checkpoint_path=path, checkpoint_every=1), device=dev)
+                resumed = run_fl_scanned(dataclasses.replace(
+                    c, resume_from=path.format(round=1)), device=dev)
+        finally:
+            torch.backends.cudnn.deterministic = False
+    check(same_history(whole, seg), "phase 6b: the segmented run differs "
+          "from the uninterrupted one")
+    check(same_history(whole, resumed), "phase 6b: the run resumed after "
+          "round 1 differs from the uninterrupted one")
+    # one replay a round: 3 rounds of each case's fused run, of the
+    # uninterrupted and of the segmented run, 2 of the resumed run
+    expect = 3 * 2 + 3 + 3 + 2
+    err = check_replayed(torch, ops, ref, calls, replayed, "phase 6b",
+                         expect)
+    log(f"phase 6b: run_fl_scanned == run_fl on the card, {cfg.n_clients} "
+        f"clients, k={cfg.selector.k}, {cfg.rounds} rounds, full width "
+        f"(plain, and faults+budget: retries {out['faults+budget']['retries']}"
+        f", quarantined {out['faults+budget']['quarantined']}, budget "
+        f"exhausted at round "
+        f"{out['faults+budget']['budget_exhausted_round']}); segmented "
+        f"and resumed-after-round-1 runs bitwise equal; {len(replayed)} "
+        f"replayed launches, each == plain and == an eager launch: {out}")
+    return len(replayed), err
+
+
+def phase_fused_scale(torch, ops, ref, dev, cfg, host_per_round):
+    """6c, the fused main path: ``run_fl_scanned`` at 10,000 clients. A
+    3-round run minus a 1-round run, each less its steps' warm-up and
+    capture (each run captures the round and the eval step once), over 2
+    is a round; the set-up (the 1-round run less a round and less the
+    capture) and the warm-up and capture are logged apart."""
+    from repro_torch.federated import replay
+    from repro_torch.federated.server import run_fl_scanned
+
+    def timed(c):
+        with graphs_made(replay) as made:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = run_fl_scanned(c, device=dev)
+            torch.cuda.synchronize()
+        return h, time.perf_counter() - t0, made[0]
+
+    _, one, graphs_one = timed(dataclasses.replace(cfg, rounds=1))
+    replays = []
+    with graph_recording(torch, ops, replay) as (calls, replayed), \
+            replay_timing(torch, replay, replays):
+        ops.LAUNCHES["topk_reward"] = 0
+        hist, secs, graphs = timed(cfg)
+        launches = ops.LAUNCHES["topk_reward"]
+    per_graph = graphs.launches.get("round", {}).get("topk_reward", 0)
+    check(per_graph == 1, f"the round graph holds {per_graph} top-k launches")
+    check(launches == 1 + cfg.rounds * per_graph,
+          f"run_fl_scanned launched the kernel {launches} times")
+    err = check_replayed(torch, ops, ref, calls, replayed, "phase 6c",
+                         cfg.rounds)
+    check(np.isfinite(hist.train_loss).all(), f"loss {hist.train_loss}")
+    capture = sum(graphs.capture_s.values())
+    capture_one = sum(graphs_one.capture_s.values())
+    per_round = ((secs - capture) - (one - capture_one)) / (cfg.rounds - 1)
+    row = {"s_per_round": per_round, "run_s": secs, "one_round_run_s": one,
+           "replay_s": replays[1:],
+           "capture_s": graphs.capture_s,
+           "one_round_run_capture_s": graphs_one.capture_s,
+           "set_up_s": one - per_round - capture_one,
+           "host_s_per_round": host_per_round,
+           "replayed_launches": cfg.rounds * per_graph,
+           "warm_up_launches": launches - cfg.rounds * per_graph,
+           "train_loss": hist.train_loss, "test_acc": hist.test_acc,
+           "card": card_name_power()}
+    log(f"phase 6c: run_fl_scanned full width, {cfg.n_clients} clients, k="
+        f"{cfg.selector.k}, {cfg.rounds} rounds on {row['card']}: {secs:.3f} "
+        f"s ({one:.3f} s for 1 round), each less its warm-up and capture "
+        f"({graphs.capture_s} s; {graphs_one.capture_s} s), so "
+        f"{per_round:.4f} s/round (host run_fl, phase 5: "
+        f"{host_per_round:.4f} s/round; a round's replay alone, rounds 2 "
+        f"and 3: {replays[1:]} s); set-up {row['set_up_s']:.3f} s; "
+        f"kernel launches {launches} (warm-up {row['warm_up_launches']}, "
+        f"replayed {row['replayed_launches']}), each == plain; train_loss "
+        f"{hist.train_loss}, test_acc {hist.test_acc}")
+    return row, err
+
+
+@contextlib.contextmanager
+def graphs_made(replay):
+    """The ``StepGraphs`` the block creates, in order (each holds its steps'
+    warm-up and capture seconds and the kernel launches a replay holds)."""
+    made, init = [], replay.StepGraphs.__init__
+
+    def record(self, *args, **kw):
+        init(self, *args, **kw)
+        made.append(self)
+
+    replay.StepGraphs.__init__ = record
+    try:
+        yield made
+    finally:
+        replay.StepGraphs.__init__ = init
+
+
+@contextlib.contextmanager
+def replay_timing(torch, replay, times):
+    """Append the wall seconds of each ``"round"`` step of the fused engine
+    to ``times``, the device drained before and after it (the first
+    includes its warm-up and capture)."""
+    run = replay.StepGraphs.run
+
+    def timed_run(self, name):
+        if name != "round":
+            return run(self, name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(self, name)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+
+    replay.StepGraphs.run = timed_run
+    try:
+        yield times
+    finally:
+        replay.StepGraphs.run = run
+
+
+def trace_round(torch, run, step_hook, out_dir, name, top=10):
+    """A ``torch.profiler`` trace of one round (the second) of ``run()``:
+    ``step_hook(prof)`` makes the engine call ``prof.step()`` as each
+    round starts. Returns the ``top`` device operations by total time and
+    the device's idle share over the round (1 - the union of the device
+    operations' intervals over the span from the round's start on the host
+    to the end of its last device operation)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    trace = out_dir / f"trace_{name}.json"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(str(trace))
+                 ) as prof:
+        with step_hook(prof):
+            run()
+        torch.cuda.synchronize()
+    return round_split(json.loads(trace.read_text())["traceEvents"], name,
+                       top)
+
+
+def round_split(events, name, top=10):
+    """:func:`trace_round`'s reading of a chrome trace's events."""
+    steps = [e for e in events if e.get("ph") == "X" and
+             str(e.get("name", "")).startswith("ProfilerStep#")]
+    check(steps, f"trace {name}: no profiler step")
+    t0 = min(e["ts"] for e in steps)
+    dev_ops = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+               ("kernel", "gpu_memcpy", "gpu_memset") and e["ts"] >= t0]
+    check(dev_ops, f"trace {name}: no device operation")
+    end = max(max(e["ts"] + e["dur"] for e in dev_ops),
+              max(e["ts"] + e["dur"] for e in steps))
+    busy, cur_s, cur_e = 0.0, None, None
+    for e in sorted(dev_ops, key=lambda e: e["ts"]):
+        s_, e_ = e["ts"], e["ts"] + e["dur"]
+        if cur_e is None or s_ > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    busy += cur_e - cur_s
+    totals = Counter()
+    counts = Counter()
+    for e in dev_ops:
+        totals[e["name"][:100]] += e["dur"]
+        counts[e["name"][:100]] += 1
+    span = end - t0
+    return {"span_ms": span / 1e3, "device_busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / span, "device_ops": len(dev_ops),
+            "top": [{"name": k, "ms": v / 1e3, "calls": counts[k]}
+                    for k, v in totals.most_common(top)]}
+
+
+def phase_profile(torch, dev, cfg):
+    """6d: one round (the second) of each engine at 10,000 clients under
+    ``torch.profiler`` (the traces, tens of MB, are read and dropped)."""
+    from repro_torch.federated import replay
+    from repro_torch.federated import server as tserver
+
+    @contextlib.contextmanager
+    def host_steps(prof):
+        select = tserver.select
+
+        def stepping(*a, **kw):
+            torch.cuda.synchronize()
+            prof.step()
+            return select(*a, **kw)
+        tserver.select = stepping
+        try:
+            yield
+        finally:
+            tserver.select = select
+
+    @contextlib.contextmanager
+    def fused_steps(prof):
+        run = replay.StepGraphs.run
+
+        def stepping(self, name):
+            if name == "round":       # the last round's device work is done
+                torch.cuda.synchronize()
+                prof.step()
+            return run(self, name)
+        replay.StepGraphs.run = stepping
+        try:
+            yield
+        finally:
+            replay.StepGraphs.run = run
+
+    rows = {}
+    for name, engine, hook in (("host", "host", host_steps),
+                               ("scanned", "scanned", fused_steps)):
+        with tempfile.TemporaryDirectory() as tmp:
+            rows[name] = trace_round(
+                torch, lambda: tserver.run_fl(cfg, engine=engine, device=dev),
+                hook, Path(tmp), name)
+        log(f"phase 6d: {name} engine, one round at {cfg.n_clients} clients "
+            f"k={cfg.selector.k}: span {rows[name]['span_ms']:.2f} ms, device "
+            f"busy {rows[name]['device_busy_ms']:.2f} ms, idle share "
+            f"{rows[name]['idle_share']:.4f}, {rows[name]['device_ops']} "
+            f"device operations; top: {rows[name]['top']}")
+    return rows
 
 
 # ------------------------------------------------- LM kernels (phases 7-11)
@@ -567,10 +1013,22 @@ PREFILL_BATCH, PREFILL_LEN = 2, 4096   # cut of prefill_32k (32 x 32,768)
 # prefill's call); the farthest 2.91.
 SSD_BF16_REL_L2 = 2.2e-3
 SCAN_BF16_REL_L2 = 2.2e-3
+# With slow decay the carried state decides the SSD output, and a lost low
+# half of a split operand shows there alone: dropped, the low part of h or
+# of w x reads 2.051e-3 at the prefill shape (chip_probes.py), under the
+# limit above, while the sound kernel reads at most 1.662e-3. The
+# slow-decay cases hold this limit of their own.
+SSD_BF16_REL_L2_SLOW = 1.85e-3
 # dt about 0.02, as trained Mamba models set it: the state then outlives a
 # 64-step chunk or a 32-step tile. At dt about 0.7 it decays within one,
 # and an SSD kernel that dropped the carried state read 2.46e-3.
 SLOW_DT_SHIFT = -4.0
+
+
+def ssd_limit(dt_shift):
+    """The SSD tight check's limit for inputs of ``dt_shift``."""
+    return SSD_BF16_REL_L2_SLOW if dt_shift == SLOW_DT_SHIFT else \
+        SSD_BF16_REL_L2
 
 # ------------------------------------------ Mamba1 kernel (phases 12-16)
 SCAN_SOURCE = "src/repro_torch/kernels/csrc/selective_scan.cu"
@@ -737,7 +1195,7 @@ def phase_attn_vs_plain(torch, ops, ref, dev):
 
 
 def phase_ssd_vs_plain(torch, ops, ref, dev):
-    errs, shapes, rel = {}, [], {}
+    errs, shapes, rel, limits = {}, [], {}, {}
     for i, (B, S, nh, hd, ds, shift) in enumerate(SSD_SHAPES):
         for dt in (torch.bfloat16, torch.float32):
             args = ssd_inputs(torch, B, S, nh, hd, ds, dt, dev, 100 + i,
@@ -749,17 +1207,20 @@ def phase_ssd_vs_plain(torch, ops, ref, dev):
             err = close(torch, out, ref.ssd_chunk(*args), SSD_TOL[name], what)
             errs[name] = max(errs.get(name, 0.0), err)
             if dt == torch.bfloat16:
-                rel[f"{B}x{S}x{nh}x{hd}x{ds} shift {shift}"] = ssd_rel_l2(
-                    torch, ref, out, *args)
+                case = f"{B}x{S}x{nh}x{hd}x{ds} shift {shift}"
+                rel[case] = ssd_rel_l2(torch, ref, out, *args)
+                limits[case] = ssd_limit(shift)
             shapes.append([B, S, nh, hd, ds, shift, name])
     torch.cuda.synchronize()
-    top = held(rel, SSD_BF16_REL_L2, "phase 8: ssd_chunk")
+    for case, limit in limits.items():
+        held({case: rel[case]}, limit, "phase 8: ssd_chunk")
+    top = max(rel.values())
     log(f"phase 8: ssd_chunk kernel == plain (sequential recurrence) on "
         f"{len(shapes)} cases (B,S,nh,hd,ds,dt shift) in {SSD_SHAPES}, bf16 "
         f"and f32, "
         f"B and C strided: max abs err {errs} (tol {SSD_TOL}); bf16 vs the "
         f"f32 scan of its inputs, relative L2 {rel} (limit "
-        f"{SSD_BF16_REL_L2})")
+        f"{SSD_BF16_REL_L2}, {SSD_BF16_REL_L2_SLOW} with slow decay)")
     return errs, shapes, top
 
 
@@ -1389,7 +1850,7 @@ def main(argv=None) -> int:
                                   ref, dev, fl_config(200, 10, 3))
     check(par_launches == 3, f"parity run launched {par_launches}")
     # the main path: counts set to 0 just before it, read just after
-    launches, main_err, main_call = timed(
+    launches, main_err, main_call, host_per_round = timed(
         "phase 5", phase_training_scale, torch, ref, dev,
         fl_config(10_000, 100, 3))
     check(launches == 3,
@@ -1401,6 +1862,19 @@ def main(argv=None) -> int:
     main = phase_timing(torch, ops, ref, main_call, "phase 5", l2)
     fleet = phase_timing(torch, ops, ref, fleet_call, "phase 3", l2)
     walls["phase 6"] = time.perf_counter() - t0
+
+    # the fused engines, each path's count set to 0 just before it and
+    # read just after (inside the phases)
+    fsel_launches, fsel_err, fsel_row = timed(
+        "phase 6a", phase_fused_selection, torch, ops, ref, dev, 1_048_576,
+        3)
+    fpar_launches, fpar_err = timed("phase 6b", phase_fused_parity, torch,
+                                    ops, ref, dev, fl_config(200, 10, 3))
+    fused_row, fused_err = timed("phase 6c", phase_fused_scale, torch, ops,
+                                 ref, dev, fl_config(10_000, 100, 3),
+                                 host_per_round)
+    profile_rows = timed("phase 6d", phase_profile, torch, dev,
+                         fl_config(10_000, 100, 3))
 
     attn_errs, attn_shapes, attn_rel = timed(
         "phase 7", phase_attn_vs_plain, torch, ops, ref, dev)
@@ -1446,7 +1920,8 @@ def main(argv=None) -> int:
         "name": "topk_reward", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "checked": True,
         "launches": launches,
-        "max_abs_err": max(sel_err, par_err, main_err),
+        "max_abs_err": max(sel_err, par_err, main_err, fsel_err, fpar_err,
+                           fused_err),
         "ms": main["ms"], "kernel_ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -1455,10 +1930,18 @@ def main(argv=None) -> int:
         "timing": main, "fleet_shape": fleet,
         "phase2_cases": {"matrix": topk_cases_run[0],
                          "edges": topk_cases_run[1]},
+        # the fused phases count replays times launches a graph holds
+        # (each graph's warm-up launch besides: phase 6c's in fused_10k)
         "launches_by_phase": {"selection_1M": sel_launches,
                               "run_fl_parity": par_launches,
-                              "run_fl_10k": launches},
+                              "run_fl_10k": launches,
+                              "fused_selection_1M": fsel_launches,
+                              "run_fl_scanned_parity": fpar_launches,
+                              "run_fl_scanned_10k":
+                                  fused_row["replayed_launches"]},
     }]}
+    summary["fused"] = {"selection_1M_3_rounds": fsel_row,
+                        "training_10k": fused_row, "profile": profile_rows}
     for name, source, replaces, errs, shapes, row, n, by_phase, rel in (
             ("flash_attention", ATTN_SOURCE, ATTN_REPLACES, attn_errs,
              attn_shapes, lm_rows["flash_attention"],
@@ -1474,7 +1957,8 @@ def main(argv=None) -> int:
               "serve_prompt_forward":
                   serve["prompt_forward_launches"]["ssd_chunk"]},
              {"phase8_max": ssd_rel, "prefill_call": prefill["ssd_rel_l2"],
-              "limit": SSD_BF16_REL_L2}),
+              "limit": SSD_BF16_REL_L2,
+              "limit_slow_decay": SSD_BF16_REL_L2_SLOW}),
             ("selective_scan", SCAN_SOURCE, SCAN_REPLACES, scan_errs,
              scan_shapes, scan_row, falcon_prefill["launches"],
              {"falcon_prefill_2x4096": falcon_prefill["launches"],

@@ -98,10 +98,13 @@ def scatter_stat_util(pop: ClientPopulation, idx: torch.Tensor,
                       mask: torch.Tensor,
                       stat_util: torch.Tensor) -> ClientPopulation:
     """Slot ``i`` writes ``stat_util[i]`` to client ``idx[i]`` iff
-    ``mask[i]``; masked slots are dropped."""
-    su = pop.stat_util.clone()
-    su[idx[mask]] = stat_util[mask].to(su.dtype)
-    return pop.replace(stat_util=su)
+    ``mask[i]``; masked slots write to an extra entry N that is cut off
+    (no host read, as the fused engines need)."""
+    n = pop.n
+    su = torch.cat([pop.stat_util, pop.stat_util.new_zeros(1)])
+    target = torch.where(mask, idx.long(), torch.full_like(idx.long(), n))
+    su = su.scatter(0, target, stat_util.to(su.dtype))
+    return pop.replace(stat_util=su[:n])
 
 
 def round_times(pop: ClientPopulation, model_bytes: float,

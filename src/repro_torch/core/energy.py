@@ -17,7 +17,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.numerics import f32, fma
+from repro_torch.numerics import constant, f32, fma
 
 # ---- Table 2: device categories (0 high-end, 1 mid-range, 2 low-end) ------
 CATEGORY_POWER_W = (6.33, 5.44, 2.98)
@@ -39,8 +39,7 @@ DEFAULT_BUSY_FRACTION = 0.15    # fraction of wall time a user keeps device busy
 
 
 def _table(values, index: torch.Tensor) -> torch.Tensor:
-    t = torch.tensor(values, dtype=torch.float32, device=index.device)
-    return t[index.long()]
+    return constant(values, torch.float32, index.device)[index.long()]
 
 
 def battery_wh(category: torch.Tensor) -> torch.Tensor:
@@ -75,8 +74,8 @@ def comm_battery_pct(network: torch.Tensor, t_down_sec, t_up_sec,
                      category=None, scale_to_capacity: bool = False):
     """Battery % consumed by communication (Table 1), clamped at >= 0.
     ``a * hours + b`` is one fused multiply-add, as in the reference."""
-    a = torch.tensor(COMM_A, dtype=torch.float32, device=network.device)
-    b = torch.tensor(COMM_B, dtype=torch.float32, device=network.device)
+    a = constant(COMM_A, torch.float32, network.device)
+    b = constant(COMM_B, torch.float32, network.device)
     net = network.long()
     hour = f32(1.0 / 3600.0, a)
     down = fma(a[net, 0], t_down_sec * hour, b[net, 0])

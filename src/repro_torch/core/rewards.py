@@ -42,7 +42,7 @@ def projected_power(battery_pct: torch.Tensor,
 
 def minmax_range(x: torch.Tensor, valid: torch.Tensor):
     """(lo, range) of ``x`` over the ``valid`` subset (range floored)."""
-    inf = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
+    inf = torch.full((), float("inf"), dtype=x.dtype, device=x.device)
     lo = torch.where(valid, x, inf).min()
     hi = torch.where(valid, x, -inf).max()
     return lo, torch.clamp_min(hi - lo, 1e-9)

@@ -1,5 +1,10 @@
-from repro_torch.data.partition import label_restricted_partition, make_test_set
-from repro_torch.data.synthetic import class_prototypes, make_classification_set
+from repro_torch.data.partition import (dirichlet_partition,
+                                        label_restricted_partition,
+                                        labels_from_probs, make_test_set)
+from repro_torch.data.synthetic import (class_prototypes,
+                                        make_classification_set,
+                                        sample_speech_like)
 
-__all__ = ["label_restricted_partition", "make_test_set", "class_prototypes",
-           "make_classification_set"]
+__all__ = ["dirichlet_partition", "label_restricted_partition",
+           "labels_from_probs", "make_test_set", "class_prototypes",
+           "make_classification_set", "sample_speech_like"]

@@ -39,6 +39,36 @@ def label_restricted_partition(key: torch.Tensor, n_clients: int,
     return {"x": x, "y": y}
 
 
+def dirichlet_partition(key: torch.Tensor, n_clients: int,
+                        samples_per_client: int, n_classes: int = 35,
+                        alpha: float = 0.3, hw: int = 32,
+                        noise: float = 0.8) -> Dict[str, torch.Tensor]:
+    """Dirichlet(alpha) label distribution per client (beyond the paper):
+    ``{"x": (N, M, H, W, 1) f32, "y": (N, M) int64}``. The class
+    probabilities come from :func:`prng.dirichlet` (gamma variates by
+    rejection, which no port can draw bit for bit like the reference's);
+    the labels drawn from given probabilities are the reference's, bit
+    for bit (:func:`labels_from_probs`)."""
+    prototypes = class_prototypes(prng.PRNGKey(7, key.device), n_classes, hw)
+    ka, kb, kc = prng.split(key, 3)
+    probs = prng.dirichlet(ka, alpha, (n_clients, n_classes))
+    y = labels_from_probs(kb, probs, samples_per_client)
+    x = make_classification_set(prng.split(kc, n_clients), y, prototypes,
+                                noise)
+    return {"x": x, "y": y}
+
+
+def labels_from_probs(key: torch.Tensor, probs: torch.Tensor,
+                      samples_per_client: int) -> torch.Tensor:
+    """Client i's ``samples_per_client`` labels drawn from ``probs[i]``
+    with key ``split(key, N)[i]`` (``jax.random.choice(..., p=probs[i])``
+    under vmap): (N, M) int64."""
+    keys = prng.split(key, probs.shape[0])
+    p_cuml = torch.cumsum(probs.to(torch.float32), dim=-1)
+    r = p_cuml[:, -1:] * (1.0 - prng.uniform(keys, (samples_per_client,)))
+    return torch.searchsorted(p_cuml.contiguous(), r.contiguous())
+
+
 def make_test_set(key: torch.Tensor, n_samples: int = 1024,
                   n_classes: int = 35, hw: int = 32,
                   noise: float = 0.8) -> Dict[str, torch.Tensor]:

@@ -8,6 +8,7 @@ normal draws differ from it only in ``erfinv``'s last bits.
 from __future__ import annotations
 
 import math
+from typing import Dict
 
 import torch
 
@@ -46,3 +47,17 @@ def make_classification_set(key: torch.Tensor, labels: torch.Tensor,
     lead = key.shape[:-1]
     z = prng.normal(key, x.shape[len(lead):])
     return (x + noise * z).to(torch.float32)
+
+
+def sample_speech_like(key: torch.Tensor, n_samples: int, n_classes: int = 35,
+                       hw: int = 32, noise: float = 0.8,
+                       prototypes=None) -> Dict[str, torch.Tensor]:
+    """``{"x": (n, hw, hw, 1) f32, "y": (n,) int64}``: uniform labels and
+    prototype + noise inputs, on ``key``'s device. Labels equal the
+    reference's bit for bit; x goes through ``normal``."""
+    _, kl, kn = prng.split(key, 3)
+    if prototypes is None:
+        prototypes = class_prototypes(prng.PRNGKey(7, key.device), n_classes,
+                                      hw)
+    y = prng.randint(kl, (n_samples,), 0, n_classes)
+    return {"x": make_classification_set(kn, y, prototypes, noise), "y": y}

@@ -6,17 +6,22 @@ simulation deciding who participates, who drops out, and how long each
 round takes. Local training runs over the whole cohort at once
 (``torch.func.vmap`` of ``grad_and_value`` over per-client parameters).
 
-This is the reference's synchronous host loop (``engine="host"``), with
-the same key schedule, so selection, dropout and battery trajectories
-follow the reference's. Options not ported yet raise and name their
-ROADMAP.md item: the fused/sharded engines, async aggregation, the knob
-controller, fault injection and checkpointing.
+Two synchronous engines, with the reference's key schedule, so selection,
+dropout and battery trajectories follow the reference's:
+
+- ``engine="host"`` (the default): the reference's host round loop, with
+  fault injection and checkpoint/resume;
+- ``engine="scanned"``: :func:`run_fl_scanned`, the whole round as one
+  step with no host read, replayed from a CUDA graph on the card.
+
+Options not ported yet raise and name their ROADMAP.md item: the sharded
+engine, async aggregation and the knob controller.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +29,7 @@ from torch.func import grad_and_value, vmap
 from torch.utils._pytree import tree_leaves, tree_map
 
 from repro_torch import prng
+from repro_torch.checkpoint import load_engine_checkpoint, segment_bounds
 from repro_torch.compression import compress_delta, wire_bytes
 from repro_torch.configs.paper_resnet_speech import CONFIG as RESNET_CONFIG
 from repro_torch.configs.paper_resnet_speech import ResNetConfig
@@ -32,7 +38,8 @@ from repro_torch.core.clients import (ClientPopulation, make_population,
 from repro_torch.core.energy import EnergyModel
 from repro_torch.core.fairness import jains_index
 from repro_torch.core.rewards import stat_utility
-from repro_torch.core.selection import SelectorConfig, SelectorState, select
+from repro_torch.core.selection import (SelectorConfig, SelectorState,
+                                        _device_select, _top_k_idx, select)
 from repro_torch.data.partition import label_restricted_partition, make_test_set
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.federated.aggregation import (finite_rows,
@@ -40,8 +47,19 @@ from repro_torch.federated.aggregation import (finite_rows,
                                                server_update, tree_finite,
                                                weighted_delta,
                                                zero_nonfinite_rows)
-from repro_torch.federated.simulation import round_cost_table, simulate_round
+from repro_torch.federated.faults import FaultConfig, faults_for_round
+from repro_torch.federated.replay import StepGraphs
+from repro_torch.federated.simulation import (BudgetLedger, _concat_traj,
+                                              _fault_totals,
+                                              _make_checkpointer,
+                                              budget_gate, cohort_energy_j,
+                                              round_cost_table,
+                                              run_rounds_scanned,
+                                              simulate_round,
+                                              simulate_round_device,
+                                              slot_mask)
 from repro_torch.models.resnet import init_resnet, resnet_forward, resnet_loss
+from repro_torch.numerics import f32
 
 
 @dataclass
@@ -86,8 +104,11 @@ class FLConfig:
     max_concurrency: Optional[int] = None
     staleness_power: float = 0.5
     snapshot_ring_size: Optional[int] = None
-    # faults and checkpoints: not ported yet (ROADMAP.md, queue 1 item 9)
-    faults: Optional[Any] = None
+    # faults: seed-driven transient client faults (federated/faults.py).
+    # checkpoint_path turns on engine-carry snapshots (a literal "{round}"
+    # makes one file per snapshot), checkpoint_every sets the cadence
+    # (default: the last round only), resume_from continues a snapshot
+    faults: Optional[FaultConfig] = None
     checkpoint_path: Optional[str] = None
     checkpoint_every: Optional[int] = None
     resume_from: Optional[str] = None
@@ -103,8 +124,10 @@ def replace_selector_k(sel: SelectorConfig, k: int) -> SelectorConfig:
 def cap_stragglers(outcome, k: int):
     """Over-provisioning cap: keep only the fastest ``k`` successful
     clients; stragglers beyond ``k`` are abandoned (they already paid
-    their energy). Returns a new outcome; only ``succeeded`` shrinks."""
-    order = np.argsort(outcome.durations)
+    their energy). Returns a new outcome; only ``succeeded`` shrinks.
+    Equal durations keep the earlier slot, as the fused engine's top-k
+    does."""
+    order = np.argsort(outcome.durations, kind="stable")
     keep = [i for i in order if outcome.succeeded[i]][:k]
     mask = np.zeros_like(outcome.succeeded)
     mask[keep] = True
@@ -226,6 +249,29 @@ def _engine_setup(cfg: FLConfig, kpop: torch.Tensor, model_bytes: float):
     return pop, sim_steps, up_bytes, energy_model
 
 
+def _train_meta(cfg: FLConfig, family: str) -> Dict[str, Any]:
+    """Checkpoint identity of a training run, the reference's: ``family``
+    is ``"train-host"`` for the host loop (its snapshot also carries the
+    Python-side FLHistory) and ``"train-sync"`` for the fused engine."""
+    return {
+        "family": family,
+        "n_clients": int(cfg.n_clients),
+        "rounds": int(cfg.rounds),
+        "kind": cfg.selector.kind,
+        "k": int(cfg.selector.k),
+        "seed": int(cfg.seed),
+        "deadline_s": (None if cfg.deadline_s is None
+                       else float(cfg.deadline_s)),
+        "overcommit": float(cfg.overcommit),
+        "compression": cfg.compression,
+        "server_opt": cfg.server_opt,
+        "faults": (None if cfg.faults is None
+                   else dataclasses.asdict(cfg.faults)),
+        "energy_budget_j": (None if cfg.energy_budget_j is None
+                            else float(cfg.energy_budget_j)),
+    }
+
+
 def _reject_unported(cfg: FLConfig, mode: str, engine: str) -> None:
     if mode not in ("auto", "sync", "async"):
         raise ValueError(f"unknown mode {mode!r}; expected 'auto', 'sync' "
@@ -235,28 +281,24 @@ def _reject_unported(cfg: FLConfig, mode: str, engine: str) -> None:
         raise NotImplementedError(
             "async (FedBuff) aggregation is not ported yet "
             "(ROADMAP.md, queue 1 item 11)")
-    if engine not in ("auto", "host"):
+    if engine == "sharded":
         raise NotImplementedError(
-            f"engine={engine!r} is not ported yet: the fused engine is "
-            f"ROADMAP.md queue 1 item 10, the sharded one item 13")
+            "engine='sharded' is not ported yet (ROADMAP.md, queue 1 "
+            "item 13)")
+    if engine not in ("auto", "host", "scanned"):
+        raise ValueError(f"unknown training engine {engine!r}; expected "
+                         f"'auto', 'host', 'scanned' or 'sharded'")
     if cfg.controller is not None:
         raise NotImplementedError(
             "the knob controller is not ported yet (ROADMAP.md, queue 1 "
             "item 12)")
-    if cfg.faults is not None:
-        raise NotImplementedError(
-            "fault injection is not ported yet (ROADMAP.md, queue 1 item 9)")
-    if cfg.checkpoint_path is not None or cfg.resume_from is not None:
-        raise NotImplementedError(
-            "checkpointing is not ported yet (ROADMAP.md, queue 1 item 9)")
 
 
-def run_fl(cfg: FLConfig, verbose: bool = False, mode: str = "auto",
-           engine: str = "auto", device: DeviceLike = None) -> FLHistory:
-    """Run the full synchronous FL experiment (REAL training) on
-    ``device`` (the CUDA card unless ``device="cpu"``)."""
-    _reject_unported(cfg, mode, engine)
-    dev = resolve_device(device)
+def _fused_setup(cfg: FLConfig, dev: torch.device):
+    """The run's data, model, optimizer and population, from the seed's
+    key split: the host loop's preamble, shared by the fused engine so
+    both start from one state. Returns ``(kloop, data, test, params, opt, opt_state, pop, sim_steps,
+    up_bytes, energy_model, model_bytes)``."""
     kpop, kdata, kmodel, ktest, kloop = prng.split(prng.PRNGKey(cfg.seed,
                                                                 dev), 5)
     data = label_restricted_partition(
@@ -264,39 +306,83 @@ def run_fl(cfg: FLConfig, verbose: bool = False, mode: str = "auto",
         cfg.labels_per_client, cfg.input_hw, noise=cfg.data_noise)
     test = make_test_set(ktest, cfg.eval_samples, cfg.n_classes,
                          cfg.input_hw, noise=cfg.data_noise)
-
     params = init_resnet(kmodel, cfg.model)
     n_params = sum(x.numel() for x in tree_leaves(params))
     model_bytes = (cfg.sim_model_bytes if cfg.sim_model_bytes is not None
                    else n_params * 4.0)
     opt = make_server_optimizer(cfg.server_opt, cfg.server_lr)
     opt_state = opt.init(params)
-
     pop, sim_steps, up_bytes, energy_model = _engine_setup(cfg, kpop,
                                                            model_bytes)
+    return (kloop, data, test, params, opt, opt_state, pop, sim_steps,
+            up_bytes, energy_model, model_bytes)
+
+
+def _accuracy_fn(model_cfg, test):
+    def test_acc_fn(p):
+        logits = resnet_forward(model_cfg, p, test["x"])
+        return (torch.argmax(logits, -1) == test["y"]).to(
+            torch.float32).mean()
+    return test_acc_fn
+
+
+def run_fl(cfg: FLConfig, verbose: bool = False, mode: str = "auto",
+           engine: str = "auto", device: DeviceLike = None) -> FLHistory:
+    """Run the full synchronous FL experiment (REAL training) on
+    ``device`` (the CUDA card unless ``device="cpu"``).
+
+    ``engine="host"`` (and ``"auto"``, as in the reference's sync family)
+    runs the host round loop; ``"scanned"`` runs :func:`run_fl_scanned`.
+    Both produce the same trajectory within float tolerance. With
+    ``cfg.checkpoint_path`` the host loop snapshots its carry and history
+    (``"train-host"`` family: a snapshot the reference wrote resumes
+    here); ``cfg.resume_from`` continues one."""
+    _reject_unported(cfg, mode, engine)
+    if engine == "scanned":
+        return run_fl_scanned(cfg, verbose=verbose, device=device)
+    dev = resolve_device(device)
+    (kloop, data, test, params, opt, opt_state, pop, sim_steps, up_bytes,
+     energy_model, model_bytes) = _fused_setup(cfg, dev)
     sel_state = SelectorState.create(cfg.selector)
     local_train = _cohort_train_fn(cfg.model, cfg.local_steps,
                                    cfg.batch_size, cfg.client_lr,
                                    cfg.fedprox_mu, cfg.compression,
                                    cfg.compression_sparsity)
-
-    def test_acc_fn(p):
-        logits = resnet_forward(cfg.model, p, test["x"])
-        return (torch.argmax(logits, -1) == test["y"]).to(
-            torch.float32).mean()
+    test_acc_fn = _accuracy_fn(cfg.model, test)
+    faulty = cfg.faults is not None and cfg.faults.active
 
     # round-invariant predicted cost: the selector's power(i) every round
     _, pred_cost = round_cost_table(pop, energy_model, model_bytes,
                                     sim_steps, cfg.batch_size, up_bytes)
 
-    hist = FLHistory()
-    hist.init_acc = float(test_acc_fn(params))
-    wall = 0.0
-    cum_drop = 0
-    last_loss = float("nan")
-    spent = 0.0
+    meta = _train_meta(cfg, "train-host")
+    ck = _make_checkpointer(cfg.checkpoint_path, cfg.checkpoint_every,
+                            cfg.rounds, meta)
+    start = 0
+    if cfg.resume_from:
+        templates = {"params": params, "opt_state": opt_state, "pop": pop,
+                     "st": sel_state.canonical(dev), "kloop": kloop}
+        start, state, saved, _ = load_engine_checkpoint(
+            cfg.resume_from, templates, expect_meta=meta)
+        params, opt_state, pop = (state["params"], state["opt_state"],
+                                  state["pop"])
+        sel_state, kloop = state["st"], state["kloop"]
+        hist = FLHistory(**saved["hist"])
+        wall = float(saved["wall"])
+        cum_drop = int(saved["cum_drop"])
+        last_loss = float(saved["last_loss"])
+        # the ledger's f32 chain round-trips exactly through the float
+        # history entry, so the resumed gate decisions match bitwise
+        spent = hist.energy_spent_j[-1] if hist.energy_spent_j else 0.0
+    else:
+        hist = FLHistory()
+        hist.init_acc = float(test_acc_fn(params))
+        wall = 0.0
+        cum_drop = 0
+        last_loss = float("nan")
+        spent = 0.0
 
-    for rnd in range(1, cfg.rounds + 1):
+    for rnd in range(start + 1, cfg.rounds + 1):
         kloop, ksel, ktrain, krecharge = prng.split(kloop, 4)
         n_pick = int(np.ceil(cfg.selector.k * cfg.overcommit))
         sel_cfg = cfg.selector if n_pick == cfg.selector.k else \
@@ -308,7 +394,8 @@ def run_fl(cfg: FLConfig, verbose: bool = False, mode: str = "auto",
         pop, outcome = simulate_round(
             pop, selected, energy_model, model_bytes, sim_steps,
             cfg.batch_size, rnd, cfg.deadline_s, up_bytes,
-            energy_budget_j=cfg.energy_budget_j, spent_j=spent)
+            faults=cfg.faults, energy_budget_j=cfg.energy_budget_j,
+            spent_j=spent)
         spent = outcome.spent_after_j
         if not outcome.admitted and hist.budget_exhausted_round is None:
             hist.budget_exhausted_round = rnd
@@ -326,6 +413,12 @@ def run_fl(cfg: FLConfig, verbose: bool = False, mode: str = "auto",
             keys = prng.split(ktrain, len(succ))
             deltas, per_sample, mean_losses = local_train(
                 params, data["x"][succ_t], data["y"][succ_t], keys)
+            if faulty:
+                # corrupted-upload fault: the client trained and paid the
+                # energy, but the delta that arrives is garbage
+                bad = torch.as_tensor(outcome.corrupt[outcome.succeeded],
+                                      device=dev)
+                deltas = _poison(deltas, bad)
             # non-finite quarantine: zero both the weight and the delta row
             finite = finite_rows(deltas)
             weights = pop.n_samples[succ_t].to(torch.float32)
@@ -358,4 +451,354 @@ def run_fl(cfg: FLConfig, verbose: bool = False, mode: str = "auto",
             print(f"[{cfg.selector.kind}] r={rnd} acc={hist.test_acc[-1]:.3f} "
                   f"loss={last_loss:.3f} drop={cum_drop} "
                   f"fair={hist.fairness[-1]:.3f} wall={wall:.2f}h")
+        if ck and ck.due(rnd):
+            # kloop here is the carry that seeds round rnd+1, so a resumed
+            # run re-enters the identical RNG chain
+            ck.save(rnd,
+                    {"params": params, "opt_state": opt_state, "pop": pop,
+                     "st": sel_state, "kloop": kloop},
+                    {"hist": hist.as_dict(), "wall": wall,
+                     "cum_drop": cum_drop, "last_loss": last_loss})
     return hist
+
+
+def _poison(deltas, bad: torch.Tensor):
+    """Rows ``bad`` of every stacked delta leaf become NaN."""
+    return tree_map(lambda d: torch.where(
+        bad.reshape((-1,) + (1,) * (d.ndim - 1)),
+        torch.full((), float("nan"), dtype=d.dtype, device=d.device), d),
+        deltas)
+
+
+# ------------------------------------------------------ the fused engine
+# The whole round as one step over tensors, with no host read: selection ->
+# fault draw -> budget gate -> simulation -> straggler cap -> recharge ->
+# masked fixed-width cohort local SGD -> corrupt injection -> quarantine ->
+# weighted delta -> gated server update -> stat-util scatter; the eval on
+# the scheduled rounds is a second step. On the card both are captured
+# once in CUDA graphs and replayed (federated/replay.py); on the CPU they
+# run eagerly. The carry (params, optimizer state, population, selector
+# state, RNG chain, last accuracy, budget ledger) lives in static tensors.
+#
+# Parity with the host loop (its oracle):
+#   * the RNG chain is the host's: kloop, ksel, ktrain, krecharge =
+#     split(kloop, 4) a round, and the slot with success-rank j trains with
+#     split(ktrain, n_slots)[j], which equals the host's split(ktrain,
+#     n_succ)[j] (threefry splits are prefix-stable);
+#   * failed and abandoned slots train dead weight: their deltas enter
+#     weighted_delta with weight exactly 0;
+#   * the straggler cap is the stable top-k of -duration over the
+#     successful slots, lowest slot first on ties, as cap_stragglers;
+#   * the recharge gain is the host's double-precision
+#     rate * duration / 3600 rounded once to float32;
+#   * the server update is computed always and kept where some
+#     non-quarantined slot succeeded and the aggregate is finite, as the
+#     host's gate (the adaptive optimizers are not no-ops on zero deltas);
+#   * train_loss and participation are reduced on the host from per-slot
+#     outputs, over the compacted slots as the host loop does.
+# One visible difference: the host loop stops when selection returns no
+# client; the fused engine runs every round (empty rounds are inert).
+
+_TRAIN_CARRY = ("params", "opt_state", "pop", "st", "kloop", "last_acc",
+                "ledger")
+
+
+def _recharge_gain(rate: float, duration: torch.Tensor) -> torch.Tensor:
+    """``rate * duration / 3600`` in double precision, rounded once to
+    float32: the host loop's Python arithmetic on the float32 duration
+    (the division by a tensor, which CUDA does not turn into a product
+    with a reciprocal)."""
+    d = duration.to(torch.float64) * rate
+    return torch.div(d, torch.full((), 3600.0, dtype=torch.float64,
+                                   device=d.device)).to(torch.float32)
+
+
+def _fused_runner(cfg: FLConfig, sel_cfg: SelectorConfig, agg_k: int,
+                  energy_model: EnergyModel, opt, use_kernel: bool,
+                  data_x, data_y, test_x, test_y, t_total, cost):
+    """The fused engine's two steps over the carry ``_TRAIN_CARRY``:
+    ``(round_fn, eval_fn)``, each ``fn(carry, ctr) -> (carry, outs)``
+    (``federated/replay.py``). ``sel_cfg.k`` is the over-provisioned slot
+    count ``ceil(k * overcommit)``, ``agg_k`` the aggregation cap."""
+    cohort = _cohort_train_fn(cfg.model, cfg.local_steps, cfg.batch_size,
+                              cfg.client_lr, cfg.fedprox_mu, cfg.compression,
+                              cfg.compression_sparsity)
+    faults = cfg.faults
+    faulty = faults is not None and faults.active
+    eval_acc = _accuracy_fn(cfg.model, {"x": test_x, "y": test_y})
+
+    def round_fn(carry, ctr):
+        params, opt_state, pop, st, kloop, last_acc, ledger = (
+            carry[k] for k in _TRAIN_CARRY)
+        n = pop.n
+        kloop, ksel, ktrain, krecharge = prng.split(kloop, 4).unbind(-2)
+        idx, chosen, st = _device_select(ksel, sel_cfg, st, pop, cost,
+                                         use_kernel)
+        idx = idx.long()
+        # selection scored on the clean cost; the simulation, the budget
+        # gate and the straggler cap see the fault-modified one
+        t_eff, cost_eff, draw = faults_for_round(faults, st.round, t_total,
+                                                 cost)
+        sel_mask = slot_mask(idx, chosen, n)
+        round_j = cohort_energy_j(pop, sel_mask, cost_eff)
+        sel_mask, _, ledger = budget_gate(sel_mask, round_j, ledger,
+                                          cfg.energy_budget_j, st.round)
+        pop, dev = simulate_round_device(
+            pop, sel_mask, t_eff, cost_eff, st.round, energy_model,
+            cfg.deadline_s, fail_mask=None if draw is None else draw.fail)
+        ledger = ledger._replace(spent_j=ledger.spent_j + dev.energy_spent_j)
+        n_slots = idx.shape[0]
+        mask = dev.succeeded[idx] & chosen
+        if n_slots > agg_k:
+            g = torch.where(mask, -t_eff[idx], f32(float("-inf"), t_eff))
+            keep = torch.zeros_like(mask).scatter(
+                0, _top_k_idx(g, agg_k), torch.ones_like(mask))
+            mask = mask & keep
+        if cfg.recharge_pct_per_hour > 0.0:
+            kplug = prng.fold_in(krecharge, 7)
+            plugged = prng.bernoulli(kplug, cfg.plugged_frac, (n,))
+            gain = _recharge_gain(cfg.recharge_pct_per_hour,
+                                  dev.round_duration)
+            battery = torch.clamp(
+                pop.battery_pct + plugged.to(torch.float32) * gain,
+                0.0, 100.0)
+            rejoin = pop.dropped & (battery >= cfg.rejoin_pct)
+            pop = pop.replace(battery_pct=battery,
+                              dropped=pop.dropped & ~rejoin)
+        # masked fixed-width cohort: every slot trains, the success-rank key
+        # assignment reproduces the host's split bitwise
+        ranks = torch.clamp(torch.cumsum(mask.to(torch.int64), 0) - 1, 0,
+                            n_slots - 1)
+        keys = prng.split(ktrain, n_slots)[ranks]
+        deltas, per_sample, mean_losses = cohort(params, data_x[idx],
+                                                 data_y[idx], keys)
+        if faulty:
+            deltas = _poison(deltas, draw.corrupt[idx] & mask)
+        finite = finite_rows(deltas)
+        good = mask & finite
+        w = torch.where(good, pop.n_samples[idx].to(torch.float32),
+                        f32(0.0, t_eff))
+        agg = weighted_delta(zero_nonfinite_rows(deltas, finite), w)
+        new_params, new_opt = server_update(params, agg, opt, opt_state)
+        ok = good.any() & tree_finite(agg)
+        params = tree_map(lambda a, b: torch.where(ok, a, b), new_params,
+                          params)
+        opt_state = tree_map(lambda a, b: torch.where(ok, a, b), new_opt,
+                             opt_state)
+        pop = scatter_stat_util(pop, idx, good, stat_utility(per_sample, w))
+        retries, _ = _fault_totals(draw, sel_mask)
+        out = {
+            "selected": idx.to(torch.int32),
+            "chosen": chosen,
+            "succeeded": mask,
+            "round_duration": dev.round_duration,
+            "new_dropouts": dev.new_dropouts,
+            "energy_spent_pct": dev.energy_spent_pct,
+            "mean_battery": pop.battery_pct.mean(),
+            "fairness": jains_index(pop.times_selected),
+            # per-slot losses; train_loss is reduced on the host over the
+            # compacted slots, as the host loop reduces it
+            "slot_losses": torch.where(mask, mean_losses,
+                                       torch.zeros_like(mean_losses)),
+            # the last evaluation; the eval step overwrites it on the
+            # rounds it runs
+            "test_acc": last_acc,
+            "retries": retries,
+            "quarantined": (mask & ~finite).sum().to(torch.int32),
+            "update_skipped": (~ok).to(torch.int32),
+            # the cumulative float32 ledger itself, as the host records it
+            "energy_spent_j": ledger.spent_j,
+            "budget_exhausted": ledger.exhausted_round,
+        }
+        return dict(params=params, opt_state=opt_state, pop=pop, st=st,
+                    kloop=kloop, last_acc=last_acc, ledger=ledger), out
+
+    def eval_fn(carry, ctr):
+        acc = eval_acc(carry["params"])
+        return dict(carry, last_acc=acc), {"test_acc": acc}
+
+    return round_fn, eval_fn
+
+
+def _reject_async_knobs(cfg: FLConfig, name: str) -> None:
+    if cfg.buffer_size is not None or cfg.max_concurrency is not None:
+        raise ValueError(
+            f"{name} is a synchronous engine; cfg.buffer_size / "
+            f"cfg.max_concurrency opt into the async server (not ported "
+            f"yet: ROADMAP.md, queue 1 item 11)")
+    if cfg.controller is not None:
+        raise ValueError(
+            f"{name} fixes its knobs for the run; the adaptive controller "
+            f"(cfg.controller) runs only in the host loop")
+
+
+def _history_from_traj(cfg: FLConfig, init_acc: float,
+                       traj: Dict[str, np.ndarray]) -> FLHistory:
+    """:class:`FLHistory` from a fused-engine trajectory. The host float
+    work is the host loop's: the float64 wall clock accumulated round by
+    round, participation in float64, and train_loss as the float32 mean
+    over the compacted successful slots."""
+    hist = FLHistory(init_acc=init_acc)
+    dur = np.asarray(traj["round_duration"])
+    hist.round = list(range(1, cfg.rounds + 1))
+    hist.wall_hours = [float(x) for x in
+                       np.cumsum(dur.astype(np.float64) / 3600.0)]
+    hist.round_duration = [float(x) for x in dur]
+    hist.cum_dropouts = [int(x) for x in
+                         np.cumsum(np.asarray(traj["new_dropouts"]))]
+    n_succ = np.asarray(traj["succeeded"]).sum(axis=1).astype(np.float64)
+    n_sel = np.asarray(traj["chosen"]).sum(axis=1).astype(np.float64)
+    hist.participation = [float(x) for x in n_succ / np.maximum(n_sel, 1.0)]
+    slot_losses = np.asarray(traj["slot_losses"])
+    succ_mask = np.asarray(traj["succeeded"])
+    last_loss = float("nan")
+    for r in range(slot_losses.shape[0]):
+        m = succ_mask[r]
+        if m.any():
+            last_loss = float(torch.from_numpy(slot_losses[r][m]).mean())
+        hist.train_loss.append(last_loss)
+    for name in ("test_acc", "fairness", "mean_battery", "energy_spent_j"):
+        setattr(hist, name, [float(x) for x in np.asarray(traj[name])])
+    for name in ("retries", "quarantined", "update_skipped"):
+        setattr(hist, name, [int(x) for x in np.asarray(traj[name])])
+    last = int(np.asarray(traj["budget_exhausted"])[-1])
+    hist.budget_exhausted_round = last if last > 0 else None
+    return hist
+
+
+def _print_fused_history(cfg: FLConfig, hist: FLHistory) -> None:
+    """The host loop's every-10-rounds progress line, after the run."""
+    for rnd in range(10, len(hist.round) + 1, 10):
+        i = rnd - 1
+        print(f"[{cfg.selector.kind}] r={rnd} acc={hist.test_acc[i]:.3f} "
+              f"loss={hist.train_loss[i]:.3f} drop={hist.cum_dropouts[i]} "
+              f"fair={hist.fairness[i]:.3f} wall={hist.wall_hours[i]:.2f}h")
+
+
+def _fused_do_eval(cfg: FLConfig, a: int, b: int) -> np.ndarray:
+    """Eval schedule of absolute rounds ``(a, b]``: a resumed segment
+    evaluates on exactly the rounds the uninterrupted run would."""
+    rr = np.arange(a + 1, b + 1)
+    return ((rr % cfg.eval_every) == 0) | (rr == cfg.rounds)
+
+
+def _run_fused_elastic(cfg: FLConfig, steps,
+                       carry0: Dict[str, Any]) -> FLHistory:
+    """Segment, checkpoint and resume loop of the fused engine: runs
+    ``steps = (round_fn, eval_fn)`` over ``carry0`` (a dict laid out as
+    ``_TRAIN_CARRY``) for ``cfg.rounds`` rounds. A round replays the round
+    step, and on the scheduled rounds the eval step; the trajectory comes
+    to the host once a segment."""
+    meta = _train_meta(cfg, "train-sync")
+    ck = _make_checkpointer(cfg.checkpoint_path, cfg.checkpoint_every,
+                            cfg.rounds, meta)
+    parts: List[Dict[str, Any]] = []
+    if cfg.resume_from:
+        start, carry, saved, _ = load_engine_checkpoint(
+            cfg.resume_from, carry0, expect_meta=meta)
+        parts.append(saved["traj"])
+        init_acc = float(saved["init_acc"])
+    else:
+        start, carry = 0, carry0
+        init_acc = float(carry0["last_acc"])
+    graphs = StepGraphs(carry, cfg.rounds, start)
+    graphs.add("round", steps[0], advance=True)
+    graphs.add("eval", steps[1], row=-1)
+    for a, b in segment_bounds(start, cfg.rounds, ck.every if ck else None):
+        for do_eval in _fused_do_eval(cfg, a, b):
+            graphs.run("round")
+            if do_eval:
+                graphs.run("eval")
+        parts.append(graphs.fetch(a, b))
+        if ck and ck.due(b):
+            ck.save(b, graphs.carry(),
+                    {"traj": _concat_traj(parts), "init_acc": init_acc})
+    return _history_from_traj(cfg, init_acc, _concat_traj(parts))
+
+
+def run_fl_scanned(cfg: FLConfig, verbose: bool = False,
+                   device: DeviceLike = None) -> FLHistory:
+    """:func:`run_fl` with the whole round on the device and no host read
+    inside it: on the card the round step is captured once in a CUDA
+    graph and replayed every round; on the CPU it runs eagerly.
+
+    The host loop is the oracle: selected indices, masks, dropouts,
+    retries, quarantines and skipped updates equal; battery, fairness,
+    participation, wall hours and joules within float32 rounding; loss and
+    accuracy within the tolerance of a cohort summed over more rows.
+    Checkpoint knobs (``cfg.checkpoint_path``, ``checkpoint_every``,
+    ``resume_from``) split the run into segments; the RNG chain rides in
+    the carry, so segmented and resumed runs equal the uninterrupted one
+    bitwise."""
+    _reject_async_knobs(cfg, "run_fl_scanned")
+    steps, carry0 = _fused_engine(cfg, resolve_device(device))
+    hist = _run_fused_elastic(cfg, steps, carry0)
+    if verbose:
+        _print_fused_history(cfg, hist)
+    return hist
+
+
+def _fused_engine(cfg: FLConfig, dev: torch.device):
+    """The fused engine's steps and fresh carry for ``cfg`` on ``dev``:
+    ``((round_fn, eval_fn), carry0)``."""
+    (kloop, data, test, params, opt, opt_state, pop, sim_steps, up_bytes,
+     energy_model, model_bytes) = _fused_setup(cfg, dev)
+    if "t" in opt_state:          # the step count rides in the graph too
+        opt_state = dict(opt_state, t=opt_state["t"].to(dev))
+    t_total, cost = round_cost_table(pop, energy_model, model_bytes,
+                                     sim_steps, cfg.batch_size, up_bytes)
+    n_pick = int(np.ceil(cfg.selector.k * cfg.overcommit))
+    sel_cfg = cfg.selector if n_pick == cfg.selector.k else \
+        replace_selector_k(cfg.selector, n_pick)
+    steps = _fused_runner(cfg, sel_cfg, int(cfg.selector.k), energy_model,
+                          opt, dev.type == "cuda", data["x"], data["y"],
+                          test["x"], test["y"], t_total, cost)
+    acc0 = _accuracy_fn(cfg.model, test)(params)
+    carry0 = dict(params=params, opt_state=opt_state, pop=pop,
+                  st=SelectorState.create(cfg.selector).canonical(dev),
+                  kloop=kloop, last_acc=acc0,
+                  ledger=BudgetLedger.create(dev))
+    return steps, carry0
+
+
+def run_selection_scanned(cfg: FLConfig, rounds: Optional[int] = None,
+                          n_shards: Optional[int] = None, mesh=None,
+                          mode: str = "auto", device: DeviceLike = None,
+                          ) -> Tuple[ClientPopulation, Dict[str, Any]]:
+    """Selection + energy + battery for ``rounds`` rounds with no training,
+    on :func:`run_rounds_scanned` (no host read inside a round), from the
+    population and simulated workload :func:`run_fl` builds. Returns
+    ``(final_pop, {"state": final_state, "engine": "scanned", **traj})``.
+    Only the scanned route is ported: the sharded route (``n_shards``,
+    ``mesh``) is ROADMAP.md queue 1 item 13, async item 11, and the
+    engine dispatch by name and size item 14."""
+    if n_shards is not None or mesh is not None:
+        raise NotImplementedError("the sharded selection engine is not "
+                                  "ported yet (ROADMAP.md, queue 1 item 13)")
+    if mode == "async" or (mode == "auto" and (
+            cfg.buffer_size is not None or cfg.max_concurrency is not None)):
+        raise NotImplementedError("the async selection engine is not "
+                                  "ported yet (ROADMAP.md, queue 1 item 11)")
+    if mode not in ("auto", "sync"):
+        raise NotImplementedError(
+            f"mode={mode!r}: engine dispatch by name is not ported yet "
+            f"(ROADMAP.md, queue 1 item 14); the scanned engine runs for "
+            f"'auto' and 'sync'")
+    dev = resolve_device(device)
+    kpop, _kdata, kmodel, _ktest, kloop = prng.split(prng.PRNGKey(cfg.seed,
+                                                                dev), 5)
+    if cfg.sim_model_bytes is not None:
+        model_bytes = cfg.sim_model_bytes
+    else:
+        params = init_resnet(kmodel, cfg.model)
+        model_bytes = sum(x.numel() for x in tree_leaves(params)) * 4.0
+    pop, sim_steps, up_bytes, energy_model = _engine_setup(cfg, kpop,
+                                                           model_bytes)
+    final_pop, final_state, traj = run_rounds_scanned(
+        kloop, cfg.selector, pop, SelectorState.create(cfg.selector),
+        energy_model, model_bytes, sim_steps, cfg.batch_size,
+        rounds if rounds is not None else cfg.rounds,
+        deadline_s=cfg.deadline_s, up_bytes=up_bytes,
+        faults=cfg.faults, checkpoint_every=cfg.checkpoint_every,
+        checkpoint_path=cfg.checkpoint_path, resume_from=cfg.resume_from)
+    return final_pop, {"state": final_state, "engine": "scanned", **traj}

@@ -1,4 +1,4 @@
-"""Round simulation: timing, energy, battery, dropouts (sync host subset).
+"""Round simulation: timing, energy, battery, dropouts, and the fused engine.
 
 Mirrors the reference's FedScale-style simulator: a round's wall time is
 the slowest successful participant's download + compute + upload latency;
@@ -8,19 +8,30 @@ devices drain at the idle/busy mix rate over the round's wall time.
 
 :func:`simulate_round_device` is the tensor core over a selection mask;
 :func:`simulate_round` is the host facade over an index list, with the
-fleet energy-budget gate. Fault injection is not ported yet (ROADMAP.md,
-queue 1 item 9): ``faults`` must be ``None``.
+fleet energy-budget gate and the fault draws. :func:`make_round_engine`
+composes predicted cost, selection and simulation into one step with no
+host read, and :func:`run_rounds_scanned` advances it for R rounds,
+replayed from a CUDA graph on the card.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import prng
+from repro_torch.checkpoint import (CarryCheckpointer, load_engine_checkpoint,
+                                    segment_bounds)
 from repro_torch.core.clients import ClientPopulation, round_times
 from repro_torch.core.energy import EnergyModel, pct_to_joules
+from repro_torch.core.selection import (SelectorConfig, SelectorState,
+                                        _device_select)
+from repro_torch.federated.faults import (FaultConfig, FaultDraw,
+                                          faults_for_round)
+from repro_torch.federated.replay import StepGraphs
 from repro_torch.numerics import f32
 
 
@@ -32,7 +43,7 @@ class RoundOutcome:
     round_duration: float         # wall seconds for the round
     new_dropouts: int             # clients that ran out of battery this round
     energy_spent_pct: float       # total battery % spent by participants
-    retries: int = 0              # upload re-attempts (faults: not ported)
+    retries: int = 0              # upload re-attempts across the cohort
     corrupt: Optional[np.ndarray] = None  # (K,) bool: delta is poisoned
     energy_spent_j: float = 0.0   # joules debited by this round's cohort
     admitted: bool = True         # False when the budget gate refused it
@@ -64,12 +75,6 @@ class BudgetLedger(NamedTuple):
     def create(cls, device=None) -> "BudgetLedger":
         return cls(torch.zeros((), dtype=torch.float32, device=device),
                    torch.zeros((), dtype=torch.int32, device=device))
-
-
-def _no_faults(faults) -> None:
-    if faults is not None:
-        raise NotImplementedError(
-            "fault injection is not ported yet (ROADMAP.md, queue 1 item 9)")
 
 
 def cohort_energy_j(pop: ClientPopulation, sel_mask: torch.Tensor,
@@ -132,8 +137,14 @@ def simulate_round_device(pop: ClientPopulation, sel_mask: torch.Tensor,
                           t_total: torch.Tensor, cost: torch.Tensor,
                           rnd, energy_model: EnergyModel,
                           deadline_s: Optional[float] = None,
+                          fail_mask: Optional[torch.Tensor] = None,
                           ) -> Tuple[ClientPopulation, DeviceRoundOutcome]:
-    """Round state update over a (N,) selection mask."""
+    """Round state update over a (N,) selection mask.
+
+    ``fail_mask`` marks clients whose upload an injected crash fault lost
+    (``federated/faults.py``): they fail the round like a battery death
+    (energy is still debited) but drop out only if their battery ran
+    dry."""
     zero = torch.zeros_like(cost)
     neg_inf = f32(float("-inf"), cost)
     battery_after = pop.battery_pct - torch.where(sel_mask, cost, zero)
@@ -144,6 +155,8 @@ def simulate_round_device(pop: ClientPopulation, sel_mask: torch.Tensor,
     else:
         missed_deadline = torch.zeros_like(sel_mask)
     succeeded = sel_mask & ~ran_out & ~missed_deadline
+    if fail_mask is not None:
+        succeeded = succeeded & ~fail_mask
 
     # round wall time: slowest successful participant (or deadline)
     any_sel = sel_mask.any()
@@ -190,16 +203,22 @@ def simulate_round_device(pop: ClientPopulation, sel_mask: torch.Tensor,
 def simulate_round(pop: ClientPopulation, selected, energy_model: EnergyModel,
                    model_bytes: float, local_steps: int, batch_size: int,
                    rnd: int, deadline_s: Optional[float] = None,
-                   up_bytes: float = None, *, faults=None,
+                   up_bytes: float = None, *,
+                   faults: Optional[FaultConfig] = None,
                    energy_budget_j: Optional[float] = None,
                    spent_j: float = 0.0):
     """Returns ``(new_pop, RoundOutcome)``: host facade over the core.
 
-    With ``energy_budget_j`` the fleet budget gate runs first: ``spent_j``
-    is the cumulative joules so far (feed back ``outcome.spent_after_j``);
-    a cohort whose predicted debit does not fit is refused whole
-    (``outcome.admitted`` False, no battery movement)."""
-    _no_faults(faults)
+    With ``faults`` the round's fault draws (keyed on ``(faults.seed,
+    rnd, client)`` only) are folded in: stragglers and retries lengthen
+    ``durations``, retries surcharge the debit, crashed uploads fail the
+    round, and ``RoundOutcome.corrupt`` flags the clients whose delta the
+    server must quarantine.
+
+    With ``energy_budget_j`` the fleet budget gate runs first, on the
+    fault-modified cost: ``spent_j`` is the cumulative joules so far (feed
+    back ``outcome.spent_after_j``); a cohort whose debit does not fit is
+    refused whole (``outcome.admitted`` False, no battery movement)."""
     selected = np.asarray(selected)
     dev = pop.device
     sel_mask = torch.zeros(pop.n, dtype=torch.bool, device=dev)
@@ -210,12 +229,15 @@ def simulate_round(pop: ClientPopulation, selected, energy_model: EnergyModel,
     t_total, cost = _round_cost(pop, energy_model, float(model_bytes),
                                 int(local_steps), int(batch_size),
                                 None if up_bytes is None else float(up_bytes))
-    round_j = cohort_energy_j(pop, sel_mask, cost)
+    t_eff, cost_eff, draw = faults_for_round(faults, rnd, t_total, cost)
+    round_j = cohort_energy_j(pop, sel_mask, cost_eff)
     sel_mask, admit, ledger = budget_gate(sel_mask, round_j, ledger,
                                           energy_budget_j, rnd)
-    new_pop, dev_out = simulate_round_device(pop, sel_mask, t_total, cost,
-                                             rnd, energy_model, deadline_s)
+    new_pop, dev_out = simulate_round_device(
+        pop, sel_mask, t_eff, cost_eff, rnd, energy_model, deadline_s,
+        fail_mask=None if draw is None else draw.fail)
     spent_after = ledger.spent_j + dev_out.energy_spent_j
+    retries, corrupt = _fault_totals(draw, sel_mask)
     sel = torch.as_tensor(selected, dtype=torch.long, device=dev)
     outcome = RoundOutcome(
         selected=selected,
@@ -224,10 +246,202 @@ def simulate_round(pop: ClientPopulation, selected, energy_model: EnergyModel,
         round_duration=float(dev_out.round_duration),
         new_dropouts=int(dev_out.new_dropouts),
         energy_spent_pct=float(dev_out.energy_spent_pct),
-        retries=0,
-        corrupt=np.zeros(len(selected), bool),
+        retries=int(retries),
+        corrupt=corrupt[sel].cpu().numpy(),
         energy_spent_j=float(dev_out.energy_spent_j),
         admitted=bool(admit),
         spent_after_j=float(spent_after),
     )
     return new_pop, outcome
+
+
+def _fault_totals(draw: Optional[FaultDraw], sel_mask: torch.Tensor):
+    """``(retries, corrupt)``: the cohort's upload re-attempts (int32
+    scalar) and the (N,) poisoned-delta flags; zeros without faults."""
+    if draw is None:
+        return (torch.zeros((), dtype=torch.int32, device=sel_mask.device),
+                torch.zeros_like(sel_mask))
+    retries = torch.where(sel_mask, draw.retries,
+                          torch.zeros_like(draw.retries)).sum()
+    return retries.to(torch.int32), draw.corrupt
+
+
+# ------------------------------------------------- the fused round engine
+# The reference advances selection + simulation for R rounds inside one
+# ``lax.scan``. Here the round is one sync-free step over tensors,
+# replayed from a CUDA graph on the card (``federated/replay.py``) and run
+# eagerly on the CPU; per-round outputs go to preallocated (R, ...)
+# buffers fetched once a segment.
+
+def make_round_engine(sel_cfg: SelectorConfig, energy_model: EnergyModel,
+                      model_bytes: float, local_steps: int, batch_size: int,
+                      deadline_s: Optional[float] = None,
+                      up_bytes: Optional[float] = None,
+                      faults: Optional[FaultConfig] = None):
+    """One fused round step: predicted cost -> selection -> simulation.
+
+    Returns ``step(key, pop, sel_state) -> (pop, sel_state, idx, chosen,
+    DeviceRoundOutcome, retries, corrupt)``: ``retries`` (int32 scalar)
+    counts the cohort's upload re-attempts and ``corrupt`` ((N,) bool)
+    flags poisoned deltas, both zero without active ``faults``. Selection
+    scores on the clean predicted cost (the selector cannot see transient
+    faults coming); the simulation runs on the fault-modified durations
+    and costs. Nothing in the step reads a value on the host. The top-k
+    kernel runs on CUDA and the affine-folded plain route on the CPU, as
+    in ``select``."""
+
+    def step(key, pop: ClientPopulation, sel_state: SelectorState):
+        t_total, cost = _round_cost(pop, energy_model, model_bytes,
+                                    local_steps, batch_size, up_bytes)
+        idx, chosen, sel_state = _device_select(
+            key, sel_cfg, sel_state, pop, cost, pop.device.type == "cuda")
+        sel_mask = slot_mask(idx, chosen, pop.n)
+        # post-selection sel_state.round is the 1-based round number every
+        # engine agrees on: the fault draws key off it (on the device)
+        t_eff, cost_eff, draw = faults_for_round(faults, sel_state.round,
+                                                 t_total, cost)
+        pop, dev = simulate_round_device(
+            pop, sel_mask, t_eff, cost_eff, sel_state.round, energy_model,
+            deadline_s, fail_mask=None if draw is None else draw.fail)
+        retries, corrupt = _fault_totals(draw, sel_mask)
+        return pop, sel_state, idx, chosen, dev, retries, corrupt
+
+    return step
+
+
+def slot_mask(idx: torch.Tensor, chosen: torch.Tensor, n: int) -> torch.Tensor:
+    """The (N,) mask of the chosen slots' clients: unchosen slots scatter
+    to an extra entry N that is cut off (the reference's
+    ``.at[where(chosen, idx, N)].set(True, mode="drop")``)."""
+    mask = torch.zeros(n + 1, dtype=torch.bool, device=idx.device)
+    target = torch.where(chosen, idx.long(), torch.full_like(idx.long(), n))
+    return mask.scatter(0, target, torch.ones_like(chosen))[:n]
+
+
+def _selection_graphs(step, keys: torch.Tensor, pop: ClientPopulation,
+                      st: SelectorState, rounds: int,
+                      start: int) -> StepGraphs:
+    """The selection engine's round over the carry ``{"pop", "st"}``
+    (the twin of the reference's ``_scanned_runner``); round ``ctr`` uses
+    key row ``keys[ctr]``."""
+
+    def round_fn(carry, ctr):
+        key = keys.index_select(0, ctr.reshape(1))[0]
+        pop, st, idx, chosen, dev, retries, corrupt = step(
+            key, carry["pop"], carry["st"])
+        out = {
+            "selected": idx.to(torch.int32),
+            "chosen": chosen,
+            "succeeded": dev.succeeded[idx] & chosen,
+            "round_duration": dev.round_duration,
+            "new_dropouts": dev.new_dropouts,
+            "energy_spent_pct": dev.energy_spent_pct,
+            "energy_spent_j": dev.energy_spent_j,
+            "mean_battery": pop.battery_pct.mean(),
+            "total_dropped": pop.dropped.sum().to(torch.int32),
+            "retries": retries,
+            "corrupt": corrupt[idx] & chosen,
+        }
+        return {"pop": pop, "st": st}, out
+
+    graphs = StepGraphs({"pop": pop, "st": st}, rounds, start)
+    graphs.add("round", round_fn, advance=True)
+    return graphs
+
+
+# ------------------------------------------------- elastic run plumbing
+# Shared by the fused engines: segment the rounds at checkpoint
+# boundaries, snapshot the full carry atomically, splice trajectory parts
+# back together, and identify checkpoints so a resume refuses a snapshot
+# of another run. Each engine replays an explicit prefix-stable key array
+# (or carries its RNG chain), so resuming from a round-r snapshot is
+# bitwise identical to the uninterrupted run.
+
+def _engine_meta(family: str, sel_cfg: SelectorConfig, n: int, rounds: int,
+                 deadline_s, faults: Optional[FaultConfig]
+                 ) -> Dict[str, Any]:
+    return {
+        "family": family,
+        "n_clients": int(n),
+        "rounds": int(rounds),
+        "kind": sel_cfg.kind,
+        "k": int(sel_cfg.k),
+        "deadline_s": None if deadline_s is None else float(deadline_s),
+        "faults": None if faults is None else dataclasses.asdict(faults),
+    }
+
+
+def _concat_traj(parts: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Concatenate per-segment trajectory dicts along the round axis."""
+    if len(parts) == 1:
+        return dict(parts[0])
+    return {k: np.concatenate([np.asarray(p[k]) for p in parts], axis=0)
+            for k in parts[0]}
+
+
+def _make_checkpointer(checkpoint_path: Optional[str],
+                       checkpoint_every: Optional[int], rounds: int,
+                       meta: Dict[str, Any]):
+    """Validate the elastic knobs into a CarryCheckpointer (or None);
+    ``checkpoint_path`` alone means a final snapshot only."""
+    if checkpoint_every is not None and not checkpoint_path:
+        raise ValueError("checkpoint_every is set but checkpoint_path is "
+                         "not: there is nowhere to write snapshots")
+    if not checkpoint_path:
+        return None
+    every = checkpoint_every if checkpoint_every is not None else rounds
+    return CarryCheckpointer(checkpoint_path, every, rounds, meta)
+
+
+def run_rounds_scanned(key: torch.Tensor, sel_cfg: SelectorConfig,
+                       pop: ClientPopulation, sel_state: SelectorState,
+                       energy_model: EnergyModel, model_bytes: float,
+                       local_steps: int, batch_size: int, rounds: int,
+                       deadline_s: Optional[float] = None,
+                       up_bytes: Optional[float] = None,
+                       faults: Optional[FaultConfig] = None,
+                       checkpoint_every: Optional[int] = None,
+                       checkpoint_path: Optional[str] = None,
+                       resume_from: Optional[str] = None,
+                       ) -> Tuple[ClientPopulation, SelectorState,
+                                  Dict[str, np.ndarray]]:
+    """Advance selection + energy + battery for ``rounds`` rounds with no
+    host read inside a round: replayed from a CUDA graph on the card, run
+    eagerly on the CPU. Round r uses row r of ``split(key, rounds)``.
+
+    Returns ``(final_pop, final_state, trajectory)``, the trajectory as
+    numpy arrays: ``selected (R,k)`` int32, ``chosen (R,k)``, ``succeeded
+    (R,k)`` (per slot), ``round_duration``, ``new_dropouts``,
+    ``energy_spent_pct``, ``energy_spent_j``, ``mean_battery``,
+    ``total_dropped``, ``retries (R,)`` and ``corrupt (R,k)``.
+
+    ``checkpoint_path`` (+ ``checkpoint_every`` rounds, default the last
+    only) snapshots the carry and the trajectory so far;
+    ``resume_from`` continues from such a snapshot, bitwise equal to the
+    uninterrupted run."""
+    step = make_round_engine(sel_cfg, energy_model, float(model_bytes),
+                             int(local_steps), int(batch_size),
+                             None if deadline_s is None else float(deadline_s),
+                             None if up_bytes is None else float(up_bytes),
+                             faults)
+    keys = prng.split(key, rounds)
+    st = sel_state.canonical(pop.device)
+    meta = _engine_meta("sync", sel_cfg, pop.n, rounds, deadline_s, faults)
+    start, parts = 0, []
+    if resume_from is not None:
+        start, state, data, _ = load_engine_checkpoint(
+            resume_from, {"pop": pop, "st": st}, expect_meta=meta)
+        pop, st = state["pop"], state["st"]
+        if data.get("traj"):
+            parts.append(data["traj"])
+    ck = _make_checkpointer(checkpoint_path, checkpoint_every, rounds, meta)
+    graphs = _selection_graphs(step, keys, pop, st, rounds, start)
+    for a, b in segment_bounds(start, rounds,
+                               ck.every if ck is not None else None):
+        for _ in range(a, b):
+            graphs.run("round")
+        parts.append(graphs.fetch(a, b))
+        if ck is not None and ck.due(b):
+            ck.save(b, graphs.carry(), {"traj": _concat_traj(parts)})
+    carry = graphs.carry()
+    return carry["pop"], carry["st"], _concat_traj(parts)

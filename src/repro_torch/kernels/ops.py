@@ -4,7 +4,8 @@ A wrapper takes the plain PyTorch version (``kernels/ref.py``) only for
 tensors on the CPU. For CUDA tensors it launches the kernel or raises;
 nothing falls back. Each wrapper counts its kernel launches in
 :data:`LAUNCHES`, a plain integer per kernel, so a run can show that its
-main path went through the kernel.
+main path went through the kernel (a call under CUDA graph capture counts
+in :data:`CAPTURED` instead, and each replay of the graph adds it).
 
 The CUDA sources under ``csrc/`` are compiled at first use with ``nvcc``
 into ``build/`` at the repository root, one shared library per source
@@ -47,6 +48,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
 LAUNCHES: Dict[str, int] = {"topk_reward": 0, "flash_attention": 0,
                             "ssd_chunk": 0, "selective_scan": 0}
+# wrapper calls made while a CUDA graph was being captured: they launch
+# nothing then. ``federated/replay.py`` adds a graph's captured calls to
+# LAUNCHES at each replay, where the kernel really runs.
+CAPTURED: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 _BINDERS = {"topk_select": _tk.bind,   # declares each library's C signatures
             "flash_attention": _fa.bind, "ssd_chunk": _sc.bind,
             "selective_scan": _ss.bind}
@@ -113,6 +118,13 @@ def load_library(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
+def _count(name: str) -> None:
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED[name] += 1
+    else:
+        LAUNCHES[name] += 1
+
+
 def topk_reward(a: torch.Tensor, b: torch.Tensor, valid: torch.Tensor, *,
                 f: float, k: int, block_n: int = _tk.DEFAULT_BLOCK_N,
                 ucb=None, mode: str = "eafl", index_offset: int = 0):
@@ -141,7 +153,7 @@ def topk_reward(a: torch.Tensor, b: torch.Tensor, valid: torch.Tensor, *,
                      block_n=block_n,
                      ucb=None if ucb is None else ucb.contiguous(),
                      mode=mode, index_offset=index_offset)
-    LAUNCHES["topk_reward"] += 1
+    _count("topk_reward")
     return out
 
 
@@ -155,7 +167,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal)
     out = _fa.launch(load_library("flash_attention"), q, k, v, causal=causal)
-    LAUNCHES["flash_attention"] += 1
+    _count("flash_attention")
     return out
 
 
@@ -168,7 +180,7 @@ def ssd_chunk(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     if x.device.type == "cpu":
         return ref.ssd_chunk(x, Bm, Cm, dt, A)
     out = _sc.launch(load_library("ssd_chunk"), x, Bm, Cm, dt, A)
-    LAUNCHES["ssd_chunk"] += 1
+    _count("ssd_chunk")
     return out
 
 
@@ -182,5 +194,5 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     if x.device.type == "cpu":
         return ref.selective_scan(x, dt, Bm, Cm, A, D)
     out = _ss.launch(load_library("selective_scan"), x, dt, Bm, Cm, A, D)
-    LAUNCHES["selective_scan"] += 1
+    _count("selective_scan")
     return out

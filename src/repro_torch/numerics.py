@@ -12,13 +12,30 @@ and plain version agree bit for bit.
 """
 from __future__ import annotations
 
+from typing import Any, Dict, Tuple
+
 import torch
 
 
 def f32(x, like: torch.Tensor) -> torch.Tensor:
     """A 0-d float32 tensor on ``like``'s device: a Python float rounded
-    once to float32, as JAX rounds a weakly-typed scalar."""
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    once to float32, as JAX rounds a weakly-typed scalar. Filled on the
+    device (no host-to-device copy), so a CUDA graph can capture it."""
+    return torch.full((), x, dtype=torch.float32, device=like.device)
+
+
+_CONSTANTS: Dict[Tuple[Any, torch.dtype, torch.device], torch.Tensor] = {}
+
+
+def constant(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A constant table (nested tuples of Python numbers) on ``device``,
+    made once per (table, dtype, device) and kept: a round step replayed
+    from a CUDA graph reads it and copies nothing from the host. Never
+    write to it."""
+    key = (values, dtype, torch.device(device))
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    return _CONSTANTS[key]
 
 
 def fma(x, y, z) -> torch.Tensor:

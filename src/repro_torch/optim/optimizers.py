@@ -49,7 +49,8 @@ def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
 
 def _adaptive(lr, b1, b2, eps, variant: str) -> Optimizer:
     def init(params):
-        # the step count stays a 0-d CPU tensor: CUDA ops take it as a scalar
+        # the step count is a 0-d CPU tensor (CUDA ops take it as a
+        # scalar); an engine replayed from a CUDA graph moves it to the card
         return {"m": _zeros_like_f32(params), "v": _zeros_like_f32(params),
                 "t": torch.zeros((), dtype=torch.int32)}
 
@@ -74,8 +75,8 @@ def _adaptive(lr, b1, b2, eps, variant: str) -> Optimizer:
                 return -lr * m_ / (torch.sqrt(v_) + eps)
         else:
             tf = t.to(torch.float32)
-            bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32), tf)
-            bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32), tf)
+            bc1 = 1 - torch.pow(torch.full((), b1, device=t.device), tf)
+            bc2 = 1 - torch.pow(torch.full((), b2, device=t.device), tf)
 
             def step(m_, v_):
                 mhat = m_ / bc1

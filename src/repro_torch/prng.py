@@ -59,9 +59,10 @@ def threefry2x32(k0, k1, x0, x1) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def PRNGKey(seed: int, device: DeviceLike = None) -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` for a seed that fits in int32 (the
-    reference runs with x64 off, so the high word is always 0)."""
-    return torch.tensor([0, int(seed) & MASK], dtype=torch.int64,
-                        device=resolve_device(device))
+    reference runs with x64 off, so the high word is always 0). Filled on
+    the device, so a CUDA graph can capture it."""
+    return torch.arange(2, dtype=torch.int64,
+                        device=resolve_device(device)) * (int(seed) & MASK)
 
 
 def _counters(n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -76,10 +77,16 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b0, b1], dim=-1)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in(key, data)`` for a scalar ``data``."""
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` for a scalar ``data``: a Python
+    int, or a 0-d integer tensor (say a round counter on the device),
+    which is folded in without reading it on the host."""
     zero = torch.zeros((), dtype=torch.int64, device=key.device)
-    d = torch.full((), int(data) & MASK, dtype=torch.int64, device=key.device)
+    if torch.is_tensor(data):
+        d = data.to(device=key.device, dtype=torch.int64) & MASK
+    else:
+        d = torch.full((), int(data) & MASK, dtype=torch.int64,
+                       device=key.device)
     b0, b1 = threefry2x32(key[..., 0], key[..., 1], zero, d)
     return torch.stack([b0, b1], dim=-1)
 
@@ -136,6 +143,43 @@ def normal(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
     lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)).item()
     u = uniform(key, shape, lo, 1.0)
     return f32(math.sqrt(2), key) * torch.erfinv(u)
+
+
+def gamma(key: torch.Tensor, a: float, shape: Shape) -> torch.Tensor:
+    """Gamma(a, 1) variates in float32 on ``key``'s device (Marsaglia and
+    Tsang's rejection method, with the ``U ** (1/a)`` boost below a = 1),
+    from this module's streams only: attempt i draws its normals and
+    uniforms from ``fold_in(key, i)`` for every element and keeps the
+    first accepted one. Distributed as the reference's
+    ``jax.random.gamma``, not equal to its draws."""
+    shape = _shape(shape)
+    boost = a < 1.0
+    d = (a + 1.0 if boost else a) - 1.0 / 3.0
+    c = 1.0 / math.sqrt(9.0 * d)
+    out = torch.zeros(shape, dtype=torch.float32, device=key.device)
+    done = torch.zeros(shape, dtype=torch.bool, device=key.device)
+    attempt = 0
+    while not bool(done.all()):
+        kz, ku = split(fold_in(key, attempt))
+        z = normal(kz, shape)
+        u = uniform(ku, shape)
+        v = (1.0 + c * z) ** 3
+        ok = (v > 0) & (torch.log(u) < 0.5 * z * z + d - d * v
+                        + d * torch.log(torch.clamp_min(v, 1e-30)))
+        out = torch.where(ok & ~done, d * v, out)
+        done = done | ok
+        attempt += 1
+    if boost:
+        ub = uniform(fold_in(key, -1), shape)
+        out = out * ub ** (1.0 / a)
+    return out
+
+
+def dirichlet(key: torch.Tensor, alpha: float, shape: Shape) -> torch.Tensor:
+    """Dirichlet(alpha * ones) rows over the last dimension of ``shape``,
+    normalised :func:`gamma` variates (float32)."""
+    g = gamma(key, alpha, shape)
+    return g / torch.clamp_min(g.sum(dim=-1, keepdim=True), 1e-30)
 
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:

@@ -293,6 +293,8 @@ SCAN_KERNEL_FAULTS = [
     ("ssd_chunk", "chunk_decay_not_applied"),
     ("ssd_chunk", "output_scaled_1.05"),
     ("ssd_chunk", "prefetched_chunk_from_stale_stage"),
+    ("ssd_chunk", "h_low_part_dropped"),
+    ("ssd_chunk", "wx_low_part_dropped"),
     ("selective_scan", "d_skip_dropped"),
     ("selective_scan", "state_reset_each_tile"),
     ("selective_scan", "decay_without_dt"),
@@ -510,3 +512,40 @@ def test_chip_smoke_counts_the_scan_kernels_loops_in_sass():
         "HMMA": 2, "FFMA": 0, "MUFU": 1}
     with pytest.raises(smoke.SmokeFailure, match="no function like"):
         smoke.sass_loops(SASS, "flash_fwd")
+
+
+def test_round_split_reads_a_trace():
+    """Phase 6d's reading of a chrome trace: the union of the device
+    operations over the span from the profiled round's start to the end of
+    its last device operation, and the top operations by time."""
+    cs = _chip_smoke()
+    events = [
+        {"ph": "X", "cat": "kernel", "name": "early", "ts": 0, "dur": 50},
+        {"ph": "X", "cat": "user_annotation", "name": "ProfilerStep#2",
+         "ts": 100, "dur": 60},
+        {"ph": "X", "cat": "kernel", "name": "a", "ts": 110, "dur": 20},
+        {"ph": "X", "cat": "kernel", "name": "b", "ts": 120, "dur": 20},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "copy", "ts": 170, "dur": 30},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::add", "ts": 105,
+         "dur": 90}]
+    row = cs.round_split(events, "synthetic", top=2)
+    assert row["span_ms"] == 0.1 and row["device_ops"] == 3
+    assert abs(row["device_busy_ms"] - 0.06) < 1e-12
+    assert abs(row["idle_share"] - 0.4) < 1e-12
+    assert [t["name"] for t in row["top"]] == ["copy", "a"]
+    with pytest.raises(cs.SmokeFailure):
+        cs.round_split(events[2:], "no step")
+
+
+def test_same_history_is_bitwise():
+    cs = _chip_smoke()
+    from repro_torch.federated.server import FLHistory
+    a = FLHistory(round=[1, 2], train_loss=[float("nan"), 0.5],
+                  budget_exhausted_round=None)
+    b = FLHistory(round=[1, 2], train_loss=[float("nan"), 0.5],
+                  budget_exhausted_round=None)
+    assert cs.same_history(a, b)
+    b.train_loss[1] = 0.5000001
+    assert not cs.same_history(a, b)
+    b.train_loss[1], b.budget_exhausted_round = 0.5, 2
+    assert not cs.same_history(a, b)

@@ -265,11 +265,14 @@ def test_ssd_kernel_equals_plain(B, S, nh, hd, ds, dtype):
 
 
 # the bf16 kernel against the f32 scan of its own inputs: chip_smoke.py's
-# limit (sound readings about 1.66e-3; an att low part dropped 2.33e-3)
+# limit (sound readings about 1.66e-3; an att low part dropped 2.33e-3),
+# and its own limit for slow decay, where a dropped low part of h or of
+# w x reads 2.051e-3
 SSD_BF16_REL_L2 = 2.2e-3
+SSD_BF16_REL_L2_SLOW = 1.85e-3
 
 
-def _ssd_held(args, dtype):
+def _ssd_held(args, dtype, limit=SSD_BF16_REL_L2):
     """One launch of the kernel against the plain version (and, bf16, by
     the tight check)."""
     B, S, nh, hd = args[0].shape
@@ -285,8 +288,7 @@ def _ssd_held(args, dtype):
     if dtype == torch.bfloat16:
         x, Bm, Cm, dt, A = args
         exact = ref.ssd_chunk(x.float(), Bm.float(), Cm.float(), dt, A)
-        assert float((out.float() - exact).norm() / exact.norm()) \
-            <= SSD_BF16_REL_L2
+        assert float((out.float() - exact).norm() / exact.norm()) <= limit
 
 
 @pytest.mark.gpu
@@ -309,7 +311,7 @@ def test_ssd_kernel_slow_decay(dtype):
     and its split halves decide the output."""
     dev = _card()
     args = _ssd_inputs(2, 1000, 8, 64, 64, dtype, dev, 7, shift=-4.0)
-    _ssd_held(args, dtype)
+    _ssd_held(args, dtype, SSD_BF16_REL_L2_SLOW)
 
 
 @pytest.mark.gpu

@@ -1,5 +1,6 @@
 """Round simulation: port vs reference ``round_cost_table`` and
-``simulate_round`` (with a deadline and with a binding energy budget).
+``simulate_round`` (with a deadline, with a binding energy budget and with
+injected faults).
 
 Masks and counts are exact; battery, durations and joules within rtol 1e-6
 (float32 elementwise models in the reference's order; sums of a cohort's
@@ -13,9 +14,11 @@ import jax  # noqa: E402
 
 from repro.core import clients as jclients  # noqa: E402
 from repro.core.energy import EnergyModel as JEnergy  # noqa: E402
+from repro.federated import faults as jfaults  # noqa: E402
 from repro.federated import simulation as jsim  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core.energy import EnergyModel as TEnergy  # noqa: E402
+from repro_torch.federated import faults as tfaults  # noqa: E402
 from repro_torch.federated import simulation as tsim  # noqa: E402
 
 RTOL = 1e-6
@@ -48,7 +51,9 @@ def test_round_cost_table(up_bytes):
                                          20, up_bytes))
 
 
-def _compare_rounds(deadline_s, budget, rounds=4, seed=1):
+def _compare_rounds(deadline_s, budget, rounds=4, seed=1, faults=None):
+    fj = None if faults is None else jfaults.FaultConfig(**faults)
+    ft = None if faults is None else tfaults.FaultConfig(**faults)
     pj, pt = _pops(seed)
     rs = np.random.RandomState(seed)
     spent_j = spent_t = 0.0
@@ -56,16 +61,18 @@ def _compare_rounds(deadline_s, budget, rounds=4, seed=1):
     for rnd in range(1, rounds + 1):
         sel = rs.choice(pj.n, 12, replace=False)
         pj, oj = jsim.simulate_round(pj, sel, JEnergy(0.02), MODEL_BYTES,
-                                     2000, 20, rnd, deadline_s,
+                                     2000, 20, rnd, deadline_s, faults=fj,
                                      energy_budget_j=budget, spent_j=spent_j)
         pt, ot = tsim.simulate_round(pt, sel, TEnergy(0.02), MODEL_BYTES,
-                                     2000, 20, rnd, deadline_s,
+                                     2000, 20, rnd, deadline_s, faults=ft,
                                      energy_budget_j=budget, spent_j=spent_t)
         spent_j, spent_t = oj.spent_after_j, ot.spent_after_j
         np.testing.assert_array_equal(oj.selected, ot.selected)
         np.testing.assert_array_equal(oj.succeeded, ot.succeeded)
         assert oj.new_dropouts == ot.new_dropouts
         assert oj.admitted == ot.admitted
+        assert oj.retries == ot.retries
+        np.testing.assert_array_equal(oj.corrupt, ot.corrupt)
         refused += not ot.admitted
         _close(oj.durations, ot.durations)
         for f in ("round_duration", "energy_spent_pct", "energy_spent_j",
@@ -112,8 +119,27 @@ def test_budget_gate_and_ledger():
     assert bool(admit) and bool((m3 == torch.from_numpy(mask)).all())
 
 
+FAULTS = dict(seed=4, crash_prob=0.3, max_retries=2, retry_backoff_s=7.3,
+              retry_cost_frac=0.15, straggle_prob=0.25, corrupt_prob=0.2)
+
+
+@pytest.mark.parametrize("deadline_s,budget", [(None, None), (600.0, None),
+                                               (600.0, 40_000.0)])
+def test_simulate_round_faults(deadline_s, budget):
+    """Straggle, crash with retries and corrupt updates: fail masks,
+    retries and corrupt flags exact; the debit includes the retries'
+    surcharge, also at the budget gate."""
+    _compare_rounds(deadline_s, budget, rounds=5, seed=2, faults=FAULTS)
+
+
 def test_faults_are_rejected():
-    _, pt = _pops(0, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsim.simulate_round(pt, [0, 1], TEnergy(), MODEL_BYTES, 10, 20, 1,
-                            faults=object())
+    """Fault configurations that make no sense are refused, as in the
+    reference."""
+    for bad in (dict(crash_prob=1.5), dict(straggle_prob=-0.1),
+                dict(crash_prob=1.0, max_retries=1), dict(max_retries=-1)):
+        with pytest.raises(ValueError):
+            tfaults.FaultConfig(**bad)
+        with pytest.raises(ValueError):
+            jfaults.FaultConfig(**bad)
+    assert not tfaults.FaultConfig().active
+    assert tfaults.FaultConfig(corrupt_prob=0.1).active
