@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Plant faults in the top-k, tensor-core attention and both scan
-kernels, and read what ``chip_smoke.py``'s checks make of them, on one GPU.
+kernels and in the async (FedBuff) engines, and read what
+``chip_smoke.py``'s checks make of them, on one GPU.
 
     python3 chip_faults.py [--seed N]   # needs one CUDA device
 
@@ -40,9 +41,17 @@ falcon-mamba-7b's selective scan), against ``SSD_BF16_REL_L2`` (the
 SSD's slow-decay case against ``SSD_BF16_REL_L2_SLOW``) and
 ``SCAN_BF16_REL_L2``.
 
-Exits 1 unless each sound kernel passes its check (bitwise for top-k, the
-tight check for the others) and every fault fails it. The last line is
-one JSON object with all the readings.
+``ASYNC_FAULTS`` replace one function of the port's async engines for
+the time of one phase: the flush's top-k with equal arrival times taken
+highest index first, the snapshot ring's lookup one version off, and the
+damping with its exponent dropped. The sound engines must pass phases 6e
+(async selection at 1,048,576 clients) and 6f (plain, the fused engine
+against the host loop at full width) of ``chip_smoke.py``, and each fault
+must fail the phase it names.
+
+Exits 1 unless each sound kernel and engine passes its check (bitwise for
+top-k, the tight check for the others) and every fault fails it. The last
+line is one JSON object with all the readings.
 """
 from __future__ import annotations
 
@@ -146,6 +155,75 @@ SCAN_FAULTS = {
         "const double a2 = (double)aj;"),
 }
 # library: (its faults, the kernel function they edit)
+def _ties_reversed(sound):
+    """The flush's ``_top_k_idx`` with equal values highest index first."""
+    def top_k(x, k):
+        n = x.shape[0]
+        return n - 1 - sound(x.flip(0), k)
+    return top_k
+
+
+def _lookup_one_off(sound):
+    """The ring lookup of the version before the requested one."""
+    return lambda ring, versions: sound(ring, versions - 1)
+
+
+def _damping_dropped(sound):
+    """``(1 + s) ** -power`` with the exponent dropped: every weight 1."""
+    return lambda staleness, power: sound(staleness, 0.0)
+
+
+# name: (module of the port, the name it is read by there, the fault made
+# from the sound function, the phase of chip_smoke.py whose check must
+# fail)
+ASYNC_FAULTS = {
+    "flush_ties_highest_index_first": (
+        "repro_torch.federated.simulation", "_top_k_idx", _ties_reversed,
+        "6e"),
+    "ring_lookup_one_version_off": (
+        "repro_torch.federated.async_server", "_ring_lookup",
+        _lookup_one_off, "6f"),
+    "damping_exponent_dropped": (
+        "repro_torch.federated.simulation", "staleness_damping",
+        _damping_dropped, "6e"),
+}
+
+
+def async_phase(torch, ops, ref, dev, phase):
+    """Run phase 6e or 6f (plain only) of ``chip_smoke.py``; returns
+    ``{"fails": bool, "first_failure": text}``."""
+    try:
+        if phase == "6e":
+            cs.phase_async_selection(torch, ops, ref, dev, 1_048_576, 4)
+        else:
+            cs.phase_async_parity(
+                torch, ops, ref, dev,
+                cs.fl_config(200, 10, 6, buffer_size=4, max_concurrency=10,
+                             staleness_power=cs.ASYNC_POWER),
+                budget=False, restart=False)
+    except AssertionError as err:     # a SmokeFailure or a tolerance
+        return {"fails": True, "first_failure": str(err)[:300]}
+    return {"fails": False}
+
+
+def async_readings(torch, ops, ref, dev):
+    """The sound engines on phases 6e and 6f, then each planted fault on
+    the phase it names."""
+    import importlib
+    out = {"sound": {ph: async_phase(torch, ops, ref, dev, ph)
+                     for ph in ("6e", "6f")}}
+    for name, (module, attr, make_fault, phase) in ASYNC_FAULTS.items():
+        mod = importlib.import_module(module)
+        sound = getattr(mod, attr)
+        setattr(mod, attr, make_fault(sound))
+        try:
+            out[name] = {phase: async_phase(torch, ops, ref, dev, phase)}
+        finally:
+            setattr(mod, attr, sound)
+        cs.log(json.dumps({"async": {name: out[name]}}))
+    return out
+
+
 KERNEL_FAULTS = {"topk_select": (TOPK_FAULTS, "topk_select("),
                  "flash_attention": (FAULTS, "flash_fwd_wgmma("),
                  "ssd_chunk": (SSD_FAULTS, "ssd_fwd_mma("),
@@ -379,19 +457,29 @@ def main(argv=None) -> int:
                          "selective_scan")
     del scan_in, all_libs, libs
 
+    # the async engines: the sound ones pass phases 6e and 6f, each fault
+    # fails the phase it names
+    asyn = async_readings(torch, ops, ref, dev)
+
     readings = {"topk_reward": topk, "flash_attention": attn,
-                "ssd_chunk": ssd, "selective_scan": scan}
+                "ssd_chunk": ssd, "selective_scan": scan, "async": asyn}
     limits = {"topk_reward": {"bitwise": "indices exact, values bitwise"},
               "flash_attention": {"tight": cs.ATTN_BF16_REL_L2,
                                   "route_ratio": cs.BF16_ROUTE_RATIO,
                                   "replay_rel_l2": cs.BF16_REPLAY_REL_L2},
               "ssd_chunk": {"tight": cs.SSD_BF16_REL_L2,
                             "tight_slow_decay": cs.SSD_BF16_REL_L2_SLOW},
-              "selective_scan": {"tight": cs.SCAN_BF16_REL_L2}}
+              "selective_scan": {"tight": cs.SCAN_BF16_REL_L2},
+              "async": {"6e": "flush, staleness and damping against the "
+                              "event clock recomputed on the host",
+                        "6f": "fused engine against the host loop"}}
     fail_key = {"topk_reward": "bitwise_fails"}
     ok = all(not r["sound"][fail_key.get(k, "tight_fails")] and all(
         v[fail_key.get(k, "tight_fails")] for n, v in r.items()
-        if n != "sound") for k, r in readings.items())
+        if n != "sound") for k, r in readings.items() if k != "async")
+    ok = ok and not any(v["fails"] for v in asyn["sound"].values()) and all(
+        v["fails"] for n, r in asyn.items() if n != "sound"
+        for v in r.values())
     cs.log(json.dumps({"ok": ok, "limits": limits, "readings": readings}))
     return 0 if ok else 1
 

@@ -52,7 +52,34 @@ CUDA graph after a warm-up and replayed):
    clients: the ten device operations that take the most time and the
    device's idle share.
 
-In phases 3 to 6c every call of the top-k kernel's wrapper is recorded,
+The buffered-asynchronous (FedBuff) engines, buffer 25 and concurrency 100
+at k = 100 (``examples/async_fedbuff.py``'s ratio), staleness power 0.5:
+
+6e. Async selection at fleet scale: ``run_async_scanned`` at 1,048,576
+   clients (bandwidths at their network's median, so arrivals tie),
+   ``eafl``, 4 aggregations, each replayed from a CUDA graph; every
+   flush, refill, staleness, damping weight, dropout and battery equal to
+   eager steps of ``make_async_round_engine`` with the same keys, and each
+   flush to the event clock recomputed on the host (the earliest arrivals,
+   equal times lowest index first; the staleness; ``(1 + s) ** -0.5``);
+   top-k at k = 100 for the fill and k = 25 a refill; seconds, with the
+   fill, warm-up and capture apart.
+6f. Async training parity: ``run_fl_async_scanned`` against the host
+   event loop ``run_fl_async`` on the card, the FLConfig defaults at full
+   width (200 clients, k = 10), buffer 4, concurrency 10, 6 aggregations,
+   TF32 off, cuDNN's deterministic algorithms, plain and with a fleet
+   budget and recharge: the flush and refill columns equal, the damping
+   weights bitwise, the history at the tests' tolerances; it fails if no
+   flush is stale or the budget refuses no batch. Then with
+   ``checkpoint_every=2`` and resumed after aggregation 2, bitwise equal
+   to the uninterrupted run.
+6g. The async main path: ``run_fl(mode="async")`` at 10,000 clients, full
+   width, host and fused engines: seconds an aggregation (a 3-aggregation
+   run minus a 1-aggregation run, over 2), set-up, warm-up + capture and
+   peak device memory apart, and one profiled aggregation of each (top
+   device operations, idle share).
+
+In phases 3 to 6g every call of the top-k kernel's wrapper is recorded,
 inputs and outputs, and its outputs are held against the plain version on
 the same inputs. Under capture the records are copies captured into the
 graph, read after each replay; each replayed launch is also held against
@@ -474,11 +501,11 @@ def phase_selection(torch, ref, dev, n, rounds):
 
 
 # --------------------------------------------------------------- phase 4/5
-def fl_config(n_clients, k, rounds):
+def fl_config(n_clients, k, rounds, **kw):
     from repro_torch.core.selection import SelectorConfig
     from repro_torch.federated.server import FLConfig
     return FLConfig(selector=SelectorConfig("eafl", k=k),
-                    n_clients=n_clients, rounds=rounds)
+                    n_clients=n_clients, rounds=rounds, **kw)
 
 
 def phase_training_parity(torch, ref, dev, cfg):
@@ -963,6 +990,366 @@ def phase_profile(torch, dev, cfg):
             f"device operations; top: {rows[name]['top']}")
     return rows
 
+
+# ------------------------------------------------ the async engines (6e-6g)
+# FedBuff's knobs: examples/async_fedbuff.py's buffer-to-concurrency ratio
+# (3 : 12) at k = 100, its staleness power
+ASYNC_BUFFER, ASYNC_CONCURRENCY, ASYNC_POWER = 25, 100, 0.5
+# 6f's fleet budget: the cohorts of 200 clients at full width spend about
+# 3.9 kJ by the third aggregation and 9.8 kJ by the sixth, with 10
+# clients' costs committed in flight, so 10 kJ refuses a refill (at the
+# fourth aggregation in a run of the selection alone on the CPU)
+ASYNC_BUDGET_J = 1.0e4
+
+
+def async_fleet(torch, dev, n):
+    """6e's population: phase 3's fleet with every client's bandwidths at
+    its network's median (WiFi 40/15, 3G 6/2 Mbit/s), so six round times:
+    arrivals tie, and the flush's order among equal times (lowest index
+    first) decides who completes."""
+    pop = fleet_population(torch, dev, n)
+    wifi = pop.network == 0
+    f32 = dict(dtype=torch.float32, device=dev)
+    return pop.replace(
+        down_mbps=torch.where(wifi, torch.tensor(40.0, **f32),
+                              torch.tensor(6.0, **f32)),
+        up_mbps=torch.where(wifi, torch.tensor(15.0, **f32),
+                            torch.tensor(2.0, **f32)))
+
+
+def expected_flush(t_done, start_version, server_version, b):
+    """The flush the event clock calls for, recomputed on the host from the
+    event state before it: the ``b`` earliest clients in flight (equal
+    times lowest index first) and their staleness."""
+    flying = np.nonzero(np.isfinite(t_done))[0]
+    order = flying[np.lexsort((flying, t_done[flying]))]
+    done = order[:b]
+    return done, np.maximum(server_version - start_version[done], 0)
+
+
+def check_flush(flush, before, b, power, label):
+    """One aggregation's flush (host arrays) against its recomputation:
+    the completed clients in order, their staleness, and the damping
+    weights ``(1 + s) ** -power`` of the successful ones (float64, rtol
+    1e-6; 0 elsewhere). Returns the largest staleness."""
+    done, stale = expected_flush(*before, b)
+    m = len(done)
+    chosen = flush["comp_chosen"]
+    check(int(chosen.sum()) == m and bool(chosen[:m].all()),
+          f"{label}: {int(chosen.sum())} completions, {m} expected")
+    check(np.array_equal(flush["completed"][:m], done),
+          f"{label}: the flush completed {flush['completed'][:m]} where the "
+          f"event clock calls for {done}")
+    check(np.array_equal(flush["staleness"][:m], stale),
+          f"{label}: staleness {flush['staleness'][:m]}, expected {stale}")
+    s = flush["staleness"].astype(np.float64)
+    expect = np.where(flush["succeeded"], (1.0 + s) ** -power, 0.0)
+    check(np.allclose(flush["agg_weight"], expect, rtol=1e-6, atol=0.0),
+          f"{label}: damping weights {flush['agg_weight']}, expected "
+          f"{expect}")
+    return int(stale.max()) if m else 0
+
+
+def phase_async_selection(torch, ops, ref, dev, n, rounds):
+    """6e: ``run_async_scanned`` at fleet scale, replayed from a CUDA
+    graph, against eager steps of ``make_async_round_engine`` with the same
+    keys, and each flush against its recomputation on the host."""
+    from repro_torch import prng
+    from repro_torch.core.energy import EnergyModel
+    from repro_torch.core.selection import SelectorConfig, SelectorState
+    from repro_torch.federated import replay
+    from repro_torch.federated.simulation import (AsyncEventState,
+                                                  _async_xs,
+                                                  make_async_round_engine,
+                                                  run_async_scanned)
+
+    pop = async_fleet(torch, dev, n)
+    em = EnergyModel(busy_fraction=0.02)
+    cfg = SelectorConfig("eafl", k=100)
+    kw = dict(buffer_size=ASYNC_BUFFER, max_concurrency=ASYNC_CONCURRENCY,
+              staleness_power=ASYNC_POWER)
+    key = prng.PRNGKey(13, dev)
+    with graph_recording(torch, ops, replay) as (calls, replayed), \
+            graphs_made(replay) as made:
+        ops.LAUNCHES["topk_reward"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, _, traj = run_async_scanned(
+            key, cfg, pop, SelectorState.create(cfg), em, 3.0e6, 10, 20,
+            rounds, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = ops.LAUNCHES["topk_reward"]
+    capture = made[0].capture_s.get("agg", 0.0)
+    check(launches == rounds + 2, f"async selection launched the kernel "
+          f"{launches} times (the fill, the warm-up and {rounds} replays "
+          f"expected)")
+    err = check_replayed(torch, ops, ref, calls, replayed, "phase 6e",
+                         rounds)
+    ks = sorted({c[1]["k"] for c in calls + replayed})
+    check(ks == [ASYNC_BUFFER, ASYNC_CONCURRENCY],
+          f"phase 6e: top-k launched at k in {ks}")
+
+    init_fill, step = make_async_round_engine(cfg, em, 3.0e6, 10, 20, **kw)
+    key0, keys, refill = _async_xs(key, rounds)
+    st, a, idx0, chosen0 = init_fill(key0, pop,
+                                     SelectorState.create(cfg).canonical(dev),
+                                     AsyncEventState.create(n, dev))
+    check(np.array_equal(traj["fill_selected"],
+                         idx0.to(torch.int32).cpu().numpy()),
+          "phase 6e: the fill differs from an eager fill")
+    p, stale_max = pop, 0
+    for r in range(rounds):
+        label = f"phase 6e, aggregation {r + 1}"
+        before = (a.t_done.cpu().numpy(), a.start_version.cpu().numpy(),
+                  int(a.server_version))
+        p, st, a, flush, (ridx, rchosen) = step(keys[r], p, st, a, refill[r])
+        flush = {k2: v.cpu().numpy() for k2, v in flush.items()}
+        for name in ("completed", "comp_chosen", "succeeded", "staleness",
+                     "agg_weight", "new_dropouts"):
+            check(np.array_equal(traj[name][r], flush[name]),
+                  f"{label}: {name} differs from the eager step")
+        stale_max = max(stale_max, check_flush(flush, before, ASYNC_BUFFER,
+                                               ASYNC_POWER, label))
+        if r + 1 < rounds:
+            sel, ch = ridx.cpu().numpy(), rchosen.cpu().numpy()
+            check(np.array_equal(traj["selected"][r + 1], sel) and
+                  np.array_equal(traj["chosen"][r + 1], ch),
+                  f"{label}: the refill differs from the eager step")
+            flying = np.isfinite(before[0])
+            flying[flush["completed"][flush["comp_chosen"]]] = False
+            check(not flying[sel[ch]].any(),
+                  f"{label}: a client in flight was selected again")
+        check(traj["mean_battery"][r] == float(p.battery_pct.mean()),
+              f"{label}: mean battery differs from the eager step")
+    check(torch.equal(final.battery_pct, p.battery_pct) and
+          torch.equal(final.dropped, p.dropped),
+          "phase 6e: the batteries differ from the eager steps")
+    check(stale_max > 0, "phase 6e: no flush was stale")
+    row = {"run_s": secs, "capture_s": capture,
+           "s_per_agg_replayed": (secs - capture) / rounds,
+           "launches": launches, "k": ks, "max_staleness": stale_max,
+           "card": card_name_power()}
+    log(f"phase 6e: run_async_scanned N={n} eafl k=100 buffer "
+        f"{ASYNC_BUFFER} concurrency {ASYNC_CONCURRENCY} x{rounds} "
+        f"aggregations replayed from a CUDA graph on {row['card']}: "
+        f"{secs:.4f} s, of which the fill, warm-up and capture "
+        f"{capture:.4f} s (so {row['s_per_agg_replayed']:.5f} s a replayed "
+        f"aggregation and the fetch); top-k launches {launches} (the fill "
+        f"at k={ASYNC_CONCURRENCY}, the warm-up, {len(replayed)} replayed "
+        f"at k={ASYNC_BUFFER}), each == plain and each replayed one == an "
+        f"eager launch; flushes, staleness (max {stale_max}), damping, "
+        f"refills and batteries equal to eager steps and to the event "
+        f"clock recomputed on the host")
+    return launches, err, row
+
+
+ASYNC_TRACE = ("completed", "comp_chosen", "succeeded", "staleness",
+               "start_version", "selected", "chosen")
+
+
+def check_traces(trace, traj, label):
+    """The host loop's per-aggregation columns against the fused
+    trajectory, index for index, the damping weights bit for bit."""
+    for r, row in enumerate(trace):
+        for name in ASYNC_TRACE:
+            check(np.array_equal(row[name], traj[name][r]),
+                  f"{label}, aggregation {r + 1}: {name} {row[name]} != "
+                  f"{traj[name][r]}")
+        check(np.array_equal(row["agg_weight"].view(np.int32),
+                             traj["agg_weight"][r].view(np.int32)),
+              f"{label}, aggregation {r + 1}: damping weights differ")
+
+
+def phase_async_parity(torch, ops, ref, dev, cfg, budget=True,
+                       restart=True):
+    """6f: the fused async engine against the host event loop on the card
+    (FLConfig defaults at full width, TF32 off), plain and (``budget``)
+    with a fleet budget and recharge; then (``restart``) killed after
+    aggregation 2 and resumed, bitwise equal to the uninterrupted run.
+    All under cuDNN's deterministic algorithms: with the default ones the
+    weight gradients' atomics make a run differ from itself, and stale
+    updates amplify that past the tests' 2e-3 in train_loss within six
+    aggregations; deterministic, each engine repeats itself bitwise and
+    the two engines differ only by the flush's width."""
+    from repro_torch.federated import replay
+    from repro_torch.federated.async_server import (run_fl_async,
+                                                    run_fl_async_scanned)
+
+    cases = {"plain": cfg}
+    if budget:
+        cases["budget+recharge"] = dataclasses.replace(
+            cfg, energy_budget_j=ASYNC_BUDGET_J, recharge_pct_per_hour=5.0,
+            plugged_frac=0.4)
+    out, stale_max = {}, 0
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with graph_recording(torch, ops, replay) as (calls, replayed):
+            for name, c in cases.items():
+                trace, cap = [], {}
+                fused = run_fl_async_scanned(c, device=dev, _capture=cap)
+                host = run_fl_async(c, device=dev, _trace=trace)
+                check_engines_agree(host, fused, f"phase 6f {name}",
+                                    c.eval_samples)
+                check_traces(trace, cap["traj"], f"phase 6f {name}")
+                stale_max = max([stale_max] + [int(t["staleness"].max())
+                                               for t in trace])
+                loss_f, loss_h = (np.asarray(h.train_loss, np.float64)
+                                  for h in (fused, host))
+                out[name] = {"train_loss": fused.train_loss,
+                             "test_acc": fused.test_acc,
+                             "train_loss_rel_diff": float(np.nanmax(
+                                 np.abs(loss_f - loss_h) / np.abs(loss_h))),
+                             "aggregations": len(fused.round),
+                             "budget_exhausted_round":
+                                 fused.budget_exhausted_round,
+                             "staleness": [t["staleness"].tolist()
+                                           for t in trace]}
+            check(stale_max > 0, "phase 6f: no flush was stale")
+            if budget:
+                check(out["budget+recharge"]["budget_exhausted_round"]
+                      is not None, "phase 6f: the budget refused no batch")
+            if restart:
+                with tempfile.TemporaryDirectory() as tmp:
+                    c = cases["budget+recharge" if budget else "plain"]
+                    whole = run_fl_async_scanned(c, device=dev)
+                    path = str(Path(tmp) / "async-{round}.ckpt")
+                    seg = run_fl_async_scanned(dataclasses.replace(
+                        c, checkpoint_path=path, checkpoint_every=2),
+                        device=dev)
+                    resumed = run_fl_async_scanned(dataclasses.replace(
+                        c, resume_from=path.format(round=2)), device=dev)
+                check(same_history(whole, seg), "phase 6f: the segmented "
+                      "run differs from the uninterrupted one")
+                check(same_history(whole, resumed), "phase 6f: the run "
+                      "resumed after aggregation 2 differs from the "
+                      "uninterrupted one")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    # one replay an aggregation of each fused run (the eval graph holds no
+    # top-k): each case's, and the uninterrupted, segmented and resumed runs
+    expect = cfg.rounds * len(cases) + (3 * cfg.rounds - 2 if restart
+                                        else 0)
+    err = check_replayed(torch, ops, ref, calls, replayed, "phase 6f",
+                         expect)
+    log(f"phase 6f: run_fl_async_scanned == run_fl_async on the card, "
+        f"{cfg.n_clients} clients, k={cfg.selector.k}, buffer "
+        f"{cfg.buffer_size}, concurrency {cfg.max_concurrency}, "
+        f"{cfg.rounds} aggregations, full width, cuDNN deterministic "
+        f"({', '.join(cases)}): flush and refill columns equal, damping "
+        f"bitwise, max staleness {stale_max}"
+        + ("; segmented and resumed-after-aggregation-2 runs bitwise equal"
+           if restart else "")
+        + f"; {len(replayed)} replayed launches, each == plain and == an "
+        f"eager launch: {out}")
+    return len(replayed), err, out
+
+
+def phase_async_scale(torch, ops, ref, dev, cfg):
+    """6g, the async main path: ``run_fl(mode="async")`` at 10,000
+    clients, host and fused engines in this call. For each: a 3-aggregation
+    run minus a 1-aggregation run (the fused runs each less their warm-up
+    and capture) over 2 is an aggregation; the set-up, the warm-up and
+    capture and the peak device memory apart; then one profiled
+    aggregation (the second) of each. Each engine's top-k count is set to
+    0 just before its timed run and read just after."""
+    from repro_torch.federated import async_server, replay
+    from repro_torch.federated.server import run_fl
+
+    def timed(c, engine):
+        with graphs_made(replay) as made:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = run_fl(c, mode="async", engine=engine, device=dev)
+            torch.cuda.synchronize()
+        capture = sum(made[0].capture_s.values()) if made else 0.0
+        return h, time.perf_counter() - t0, capture, made
+
+    rows, errs = {}, []
+    for engine in ("host", "scanned"):
+        _, one, capture_one, _ = timed(dataclasses.replace(cfg, rounds=1),
+                                       engine)
+        torch.cuda.reset_peak_memory_stats()
+        with graph_recording(torch, ops, replay) as (calls, replayed):
+            ops.LAUNCHES["topk_reward"] = 0
+            hist, secs, capture, made = timed(cfg, engine)
+            launches = ops.LAUNCHES["topk_reward"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        fused = engine == "scanned"
+        expect = cfg.rounds + (2 if fused else 1)
+        check(launches == expect, f"phase 6g {engine}: the kernel launched "
+              f"{launches} times, {expect} expected")
+        errs.append(check_replayed(torch, ops, ref, calls, replayed,
+                                   f"phase 6g {engine}",
+                                   cfg.rounds if fused else 0))
+        check(np.isfinite(hist.train_loss).all(), f"loss {hist.train_loss}")
+        check(hist.round == list(range(1, cfg.rounds + 1)), f"{hist.round}")
+        per_agg = ((secs - capture) - (one - capture_one)) / (cfg.rounds - 1)
+        rows[engine] = {
+            "s_per_agg": per_agg, "run_s": secs, "one_agg_run_s": one,
+            "capture_s": made[0].capture_s if made else {},
+            "set_up_s": one - per_agg - capture_one, "peak_gib": peak,
+            "launches": launches, "train_loss": hist.train_loss,
+            "test_acc": hist.test_acc}
+
+    @contextlib.contextmanager
+    def host_steps(prof):
+        make = async_server._async_engine
+
+        def stepping_engine(*a, **kw):
+            init_fill, step = make(*a, **kw)
+
+            def stepping(*s, **skw):
+                torch.cuda.synchronize()
+                prof.step()
+                return step(*s, **skw)
+            return init_fill, stepping
+        async_server._async_engine = stepping_engine
+        try:
+            yield
+        finally:
+            async_server._async_engine = make
+
+    @contextlib.contextmanager
+    def fused_steps(prof):
+        run = replay.StepGraphs.run
+
+        def stepping(self, name):
+            if name == "round":       # the fused engine's aggregation step
+                torch.cuda.synchronize()
+                prof.step()
+            return run(self, name)
+        replay.StepGraphs.run = stepping
+        try:
+            yield
+        finally:
+            replay.StepGraphs.run = run
+
+    for engine, hook in (("host", host_steps), ("scanned", fused_steps)):
+        with tempfile.TemporaryDirectory() as tmp:
+            rows[engine]["profile"] = trace_round(
+                torch, lambda: run_fl(cfg, mode="async", engine=engine,
+                                      device=dev),
+                hook, Path(tmp), f"async_{engine}")
+    card = card_name_power()
+    for engine, row in rows.items():
+        prof = row["profile"]
+        row["card"] = card
+        log(f"phase 6g: run_fl(mode='async', engine='{engine}') full width, "
+            f"{cfg.n_clients} clients, k={cfg.selector.k}, buffer "
+            f"{cfg.buffer_size}, concurrency {cfg.max_concurrency}, on "
+            f"{card}: {row['run_s']:.3f} s for {cfg.rounds} aggregations "
+            f"({row['one_agg_run_s']:.3f} s for 1), warm-up and capture "
+            f"{row['capture_s']} s, so {row['s_per_agg']:.4f} s an "
+            f"aggregation; set-up {row['set_up_s']:.3f} s; peak memory "
+            f"{row['peak_gib']:.2f} GiB; top-k launches {row['launches']}, "
+            f"each == plain; one profiled aggregation: span "
+            f"{prof['span_ms']:.2f} ms, device busy "
+            f"{prof['device_busy_ms']:.2f} ms, idle share "
+            f"{prof['idle_share']:.4f}, {prof['device_ops']} device "
+            f"operations; top: {prof['top']}")
+    return rows, max(errs)
 
 # ------------------------------------------------- LM kernels (phases 7-11)
 BF16_FLOP_PER_S = 989e12           # H100 SXM data sheet, dense tensor cores
@@ -1875,6 +2262,20 @@ def main(argv=None) -> int:
                                  host_per_round)
     profile_rows = timed("phase 6d", phase_profile, torch, dev,
                          fl_config(10_000, 100, 3))
+    # the async engines; each path's count set to 0 just before it and
+    # read just after (inside the phases)
+    asel_launches, asel_err, asel_row = timed(
+        "phase 6e", phase_async_selection, torch, ops, ref, dev, 1_048_576,
+        4)
+    apar_launches, apar_err, apar_out = timed(
+        "phase 6f", phase_async_parity, torch, ops, ref, dev,
+        fl_config(200, 10, 6, buffer_size=4, max_concurrency=10,
+                  staleness_power=ASYNC_POWER))
+    async_rows, async_err = timed(
+        "phase 6g", phase_async_scale, torch, ops, ref, dev,
+        fl_config(10_000, 100, 3, buffer_size=ASYNC_BUFFER,
+                  max_concurrency=ASYNC_CONCURRENCY,
+                  staleness_power=ASYNC_POWER))
 
     attn_errs, attn_shapes, attn_rel = timed(
         "phase 7", phase_attn_vs_plain, torch, ops, ref, dev)
@@ -1921,7 +2322,7 @@ def main(argv=None) -> int:
         "replaces": KERNEL_REPLACES, "checked": True,
         "launches": launches,
         "max_abs_err": max(sel_err, par_err, main_err, fsel_err, fpar_err,
-                           fused_err),
+                           fused_err, asel_err, apar_err, async_err),
         "ms": main["ms"], "kernel_ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -1938,10 +2339,18 @@ def main(argv=None) -> int:
                               "fused_selection_1M": fsel_launches,
                               "run_fl_scanned_parity": fpar_launches,
                               "run_fl_scanned_10k":
-                                  fused_row["replayed_launches"]},
+                                  fused_row["replayed_launches"],
+                              "async_selection_1M": asel_launches,
+                              "run_fl_async_parity_replayed": apar_launches,
+                              "run_fl_async_10k_host":
+                                  async_rows["host"]["launches"],
+                              "run_fl_async_10k_fused":
+                                  async_rows["scanned"]["launches"]},
     }]}
     summary["fused"] = {"selection_1M_3_rounds": fsel_row,
                         "training_10k": fused_row, "profile": profile_rows}
+    summary["async"] = {"selection_1M_4_aggregations": asel_row,
+                        "parity_200": apar_out, "training_10k": async_rows}
     for name, source, replaces, errs, shapes, row, n, by_phase, rel in (
             ("flash_attention", ATTN_SOURCE, ATTN_REPLACES, attn_errs,
              attn_shapes, lm_rows["flash_attention"],

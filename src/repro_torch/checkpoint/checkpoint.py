@@ -10,7 +10,8 @@ bit-flipped or foreign file raises :class:`CheckpointError`.
 Tensors cross the file boundary in the reference's layouts:
 
 - a 4-d float tensor is a convolution weight, OIHW here and HWIO in the
-  reference (and so in the file);
+  reference (and so in the file); a 5-d float tensor is a stack of them
+  (the async engines' snapshot ring), SOIHW here and SHWIO there;
 - an int64 tensor is a PRNG key (the port holds the two uint32 words of a
   threefry key in int64), stored as uint32.
 """
@@ -44,6 +45,8 @@ def to_file(t: torch.Tensor) -> np.ndarray:
     a = t.detach().cpu()
     if a.ndim == 4 and a.is_floating_point():
         a = a.permute(2, 3, 1, 0)          # OIHW -> HWIO
+    elif a.ndim == 5 and a.is_floating_point():
+        a = a.permute(0, 3, 4, 2, 1)       # SOIHW -> SHWIO
     if a.dtype == torch.int64:
         if bool(((a < 0) | (a > 0xFFFFFFFF)).any()):
             raise CheckpointError("an int64 tensor that is not a PRNG key "
@@ -61,6 +64,8 @@ def from_file(a: np.ndarray, dtype: Optional[torch.dtype] = None,
     t = torch.from_numpy(np.array(a))
     if t.ndim == 4 and t.is_floating_point():
         t = t.permute(3, 2, 0, 1).contiguous()   # HWIO -> OIHW
+    elif t.ndim == 5 and t.is_floating_point():
+        t = t.permute(0, 4, 3, 1, 2).contiguous()   # SHWIO -> SOIHW
     return t.to(device=device, dtype=dtype)
 
 

@@ -8,10 +8,13 @@ device tensor holding the 0-based round index, ``outs`` a dict of
 per-round tensors. :class:`StepGraphs` keeps the carry in static tensors
 updated in place, and each output in a preallocated ``(rounds, ...)``
 trajectory buffer at row ``ctr``; nothing is read on the host inside a
-round. On the CPU a step runs eagerly. On CUDA its first call runs it
-once on a side stream (a warm-up whose results are discarded: it
-initialises libraries, kernel attributes and cached constants outside
-capture), captures it into a ``torch.cuda.CUDAGraph`` and replays it;
+round. A step may also write a carry tensor in place and return that
+same tensor (the async engine's snapshot ring, too large to copy each
+step). On the CPU a step runs eagerly. On CUDA its first call runs it
+once on a side stream, on a copy of the carry (a warm-up whose results
+are discarded: it initialises libraries, kernel attributes and cached
+constants outside capture), captures it into a ``torch.cuda.CUDAGraph``
+and replays it;
 every later call is a replay. A failed capture raises: there is no eager
 fallback on the card. The warm-up's kernel launches are real and count
 in ``kernels.ops.LAUNCHES``; the capture's launch nothing, and each replay
@@ -101,9 +104,13 @@ class StepGraphs:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            _, outs = fn(self.carry(), self.ctr)     # warm-up, discarded
+            # warm-up, discarded: on a copy, as a step may write its carry
+            # in place (the async engine's snapshot ring)
+            copy = tree_unflatten(self._treedef,
+                                  [s.clone() for s in self.static])
+            _, outs = fn(copy, self.ctr)
             self._alloc(outs)
-            del outs
+            del outs, copy
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = dict(ops.CAPTURED)

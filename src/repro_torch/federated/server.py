@@ -14,8 +14,13 @@ dropout and battery trajectories follow the reference's:
 - ``engine="scanned"``: :func:`run_fl_scanned`, the whole round as one
   step with no host read, replayed from a CUDA graph on the card.
 
+``mode="async"`` (or ``"auto"`` with ``buffer_size`` or
+``max_concurrency`` set) runs the buffered-asynchronous (FedBuff) twins
+of ``federated/async_server.py``: the host event loop for
+``engine="host"``, the fused engine otherwise.
+
 Options not ported yet raise and name their ROADMAP.md item: the sharded
-engine, async aggregation and the knob controller.
+engines and the knob controller.
 """
 from __future__ import annotations
 
@@ -54,6 +59,7 @@ from repro_torch.federated.simulation import (BudgetLedger, _concat_traj,
                                               _make_checkpointer,
                                               budget_gate, cohort_energy_j,
                                               round_cost_table,
+                                              run_async_scanned,
                                               run_rounds_scanned,
                                               simulate_round,
                                               simulate_round_device,
@@ -99,7 +105,8 @@ class FLConfig:
     fedprox_mu: float = 0.0
     # over-provisioning: select ceil(overcommit*K), aggregate the fastest K
     overcommit: float = 1.0
-    # async (FedBuff) knobs: not ported yet (ROADMAP.md, queue 1 item 11)
+    # async (FedBuff) knobs: setting buffer_size or max_concurrency opts
+    # into the async server (federated/async_server.py)
     buffer_size: Optional[int] = None
     max_concurrency: Optional[int] = None
     staleness_power: float = 0.5
@@ -136,13 +143,20 @@ def cap_stragglers(outcome, k: int):
 
 def _cohort_train_fn(model_cfg, local_steps: int, batch_size: int, lr: float,
                      fedprox_mu: float = 0.0, compression: str = "none",
-                     compression_sparsity: float = 0.05):
-    """Local SGD of a whole cohort from one global parameter tree.
+                     compression_sparsity: float = 0.05,
+                     params_axis: Optional[int] = None):
+    """Local SGD of a whole cohort.
 
     ``cohort(params, xs (C,M,H,W,1), ys (C,M), keys (C,2))`` returns
     ``(deltas (C,...), per_sample_loss (C,M), mean_step_loss (C,))``.
-    Minibatch indices come from the batched threefry ``randint`` with the
-    reference's per-client key schedule."""
+    ``params_axis=None`` trains every client from one global parameter
+    tree (the sync engines); ``params_axis=0`` gives each client its own
+    start parameters, stacked ``(C, ...)``, and its own FedProx anchor
+    (the async engines: a completer trains from the version it
+    downloaded). Minibatch indices come from the batched threefry
+    ``randint`` with the reference's per-client key schedule."""
+    if params_axis not in (None, 0):
+        raise ValueError(f"params_axis must be None or 0, got {params_axis}")
     codec_params = ({"sparsity": compression_sparsity}
                     if compression == "topk" else {})
 
@@ -155,7 +169,7 @@ def _cohort_train_fn(model_cfg, local_steps: int, batch_size: int, lr: float,
         return loss, per_sample
 
     step_fn = vmap(grad_and_value(loss_fn, has_aux=True),
-                   in_dims=(0, 0, 0, None))
+                   in_dims=(0, 0, 0, params_axis))
     eval_fn = vmap(lambda p, x, y: resnet_loss(model_cfg, p,
                                                {"x": x, "y": y})[1])
 
@@ -163,7 +177,8 @@ def _cohort_train_fn(model_cfg, local_steps: int, batch_size: int, lr: float,
         c, m = ys.shape
         idx = prng.randint(prng.split(keys, local_steps), (batch_size,), 0, m)
         rows = torch.arange(c, device=ys.device)[:, None]
-        p = tree_map(lambda w: w.expand(c, *w.shape), params)
+        p = params if params_axis == 0 else \
+            tree_map(lambda w: w.expand(c, *w.shape), params)
         losses = []
         for s in range(local_steps):
             bi = idx[:, s]
@@ -272,15 +287,28 @@ def _train_meta(cfg: FLConfig, family: str) -> Dict[str, Any]:
     }
 
 
-def _reject_unported(cfg: FLConfig, mode: str, engine: str) -> None:
-    if mode not in ("auto", "sync", "async"):
+_ENGINE_MODES = ("scanned", "sharded", "async-scanned", "async-sharded")
+
+
+def _resolve_mode(cfg: FLConfig, mode: str) -> str:
+    """``"sync"`` or ``"async"``, as the reference's
+    ``resolve_aggregation`` resolves ``run_fl``'s mode: ``"auto"`` is
+    async exactly when ``cfg.buffer_size`` or ``cfg.max_concurrency`` is
+    set (the knobs have no synchronous meaning)."""
+    if mode in _ENGINE_MODES:
+        raise ValueError(
+            f"run_fl takes 'auto'/'sync'/'async', not the engine name "
+            f"{mode!r}")
+    if mode == "auto":
+        return ("async" if cfg.buffer_size is not None
+                or cfg.max_concurrency is not None else "sync")
+    if mode not in ("sync", "async"):
         raise ValueError(f"unknown mode {mode!r}; expected 'auto', 'sync' "
                          f"or 'async'")
-    if mode == "async" or (mode == "auto" and (
-            cfg.buffer_size is not None or cfg.max_concurrency is not None)):
-        raise NotImplementedError(
-            "async (FedBuff) aggregation is not ported yet "
-            "(ROADMAP.md, queue 1 item 11)")
+    return mode
+
+
+def _reject_unported(cfg: FLConfig, engine: str, asynchronous: bool) -> None:
     if engine == "sharded":
         raise NotImplementedError(
             "engine='sharded' is not ported yet (ROADMAP.md, queue 1 "
@@ -288,7 +316,9 @@ def _reject_unported(cfg: FLConfig, mode: str, engine: str) -> None:
     if engine not in ("auto", "host", "scanned"):
         raise ValueError(f"unknown training engine {engine!r}; expected "
                          f"'auto', 'host', 'scanned' or 'sharded'")
-    if cfg.controller is not None:
+    # the async engines refuse a controller themselves (a ValueError, as
+    # the reference's)
+    if cfg.controller is not None and not asynchronous:
         raise NotImplementedError(
             "the knob controller is not ported yet (ROADMAP.md, queue 1 "
             "item 12)")
@@ -328,16 +358,29 @@ def _accuracy_fn(model_cfg, test):
 
 def run_fl(cfg: FLConfig, verbose: bool = False, mode: str = "auto",
            engine: str = "auto", device: DeviceLike = None) -> FLHistory:
-    """Run the full synchronous FL experiment (REAL training) on
-    ``device`` (the CUDA card unless ``device="cpu"``).
+    """Run the full FL experiment (REAL training) on ``device`` (the CUDA
+    card unless ``device="cpu"``).
 
-    ``engine="host"`` (and ``"auto"``, as in the reference's sync family)
-    runs the host round loop; ``"scanned"`` runs :func:`run_fl_scanned`.
-    Both produce the same trajectory within float tolerance. With
-    ``cfg.checkpoint_path`` the host loop snapshots its carry and history
-    (``"train-host"`` family: a snapshot the reference wrote resumes
-    here); ``cfg.resume_from`` continues one."""
-    _reject_unported(cfg, mode, engine)
+    ``mode`` resolves as the reference's: ``"sync"``, ``"async"``
+    (FedBuff, ``federated/async_server.py``), or ``"auto"``, async exactly
+    when ``cfg.buffer_size`` or ``cfg.max_concurrency`` is set. In the
+    sync family ``engine="host"`` (and ``"auto"``) runs the host round
+    loop and ``"scanned"`` :func:`run_fl_scanned`; in the async family
+    ``"host"`` runs the host event loop ``run_fl_async`` and ``"scanned"``
+    (and ``"auto"``, the reference's one-device choice)
+    ``run_fl_async_scanned``. The engines of a family produce the same
+    trajectory within float tolerance. With ``cfg.checkpoint_path`` the
+    host loop snapshots its carry and history (``"train-host"`` family: a
+    snapshot the reference wrote resumes here); ``cfg.resume_from``
+    continues one."""
+    asynchronous = _resolve_mode(cfg, mode) == "async"
+    _reject_unported(cfg, engine, asynchronous)
+    if asynchronous:
+        from repro_torch.federated.async_server import (
+            run_fl_async, run_fl_async_scanned)
+        if engine == "host":
+            return run_fl_async(cfg, verbose=verbose, device=device)
+        return run_fl_async_scanned(cfg, verbose=verbose, device=device)
     if engine == "scanned":
         return run_fl_scanned(cfg, verbose=verbose, device=device)
     dev = resolve_device(device)
@@ -513,6 +556,22 @@ def _recharge_gain(rate: float, duration: torch.Tensor) -> torch.Tensor:
                                    device=d.device)).to(torch.float32)
 
 
+def _recharge_device(cfg: FLConfig, pop: ClientPopulation,
+                     krecharge: torch.Tensor,
+                     duration: torch.Tensor) -> ClientPopulation:
+    """:func:`_recharge_step` with the round's duration on the device (no
+    host read), bitwise the host loop's."""
+    if cfg.recharge_pct_per_hour <= 0.0:
+        return pop
+    kplug = prng.fold_in(krecharge, 7)
+    plugged = prng.bernoulli(kplug, cfg.plugged_frac, (pop.n,))
+    gain = _recharge_gain(cfg.recharge_pct_per_hour, duration)
+    battery = torch.clamp(pop.battery_pct + plugged.to(torch.float32) * gain,
+                          0.0, 100.0)
+    rejoin = pop.dropped & (battery >= cfg.rejoin_pct)
+    return pop.replace(battery_pct=battery, dropped=pop.dropped & ~rejoin)
+
+
 def _fused_runner(cfg: FLConfig, sel_cfg: SelectorConfig, agg_k: int,
                   energy_model: EnergyModel, opt, use_kernel: bool,
                   data_x, data_y, test_x, test_y, t_total, cost):
@@ -554,17 +613,7 @@ def _fused_runner(cfg: FLConfig, sel_cfg: SelectorConfig, agg_k: int,
             keep = torch.zeros_like(mask).scatter(
                 0, _top_k_idx(g, agg_k), torch.ones_like(mask))
             mask = mask & keep
-        if cfg.recharge_pct_per_hour > 0.0:
-            kplug = prng.fold_in(krecharge, 7)
-            plugged = prng.bernoulli(kplug, cfg.plugged_frac, (n,))
-            gain = _recharge_gain(cfg.recharge_pct_per_hour,
-                                  dev.round_duration)
-            battery = torch.clamp(
-                pop.battery_pct + plugged.to(torch.float32) * gain,
-                0.0, 100.0)
-            rejoin = pop.dropped & (battery >= cfg.rejoin_pct)
-            pop = pop.replace(battery_pct=battery,
-                              dropped=pop.dropped & ~rejoin)
+        pop = _recharge_device(cfg, pop, krecharge, dev.round_duration)
         # masked fixed-width cohort: every slot trains, the success-rank key
         # assignment reproduces the host's split bitwise
         ranks = torch.clamp(torch.cumsum(mask.to(torch.int64), 0) - 1, 0,
@@ -624,8 +673,8 @@ def _reject_async_knobs(cfg: FLConfig, name: str) -> None:
     if cfg.buffer_size is not None or cfg.max_concurrency is not None:
         raise ValueError(
             f"{name} is a synchronous engine; cfg.buffer_size / "
-            f"cfg.max_concurrency opt into the async server (not ported "
-            f"yet: ROADMAP.md, queue 1 item 11)")
+            f"cfg.max_concurrency opt into the async server: use "
+            f"run_fl(cfg, mode='async')")
     if cfg.controller is not None:
         raise ValueError(
             f"{name} fixes its knobs for the run; the adaptive controller "
@@ -682,14 +731,22 @@ def _fused_do_eval(cfg: FLConfig, a: int, b: int) -> np.ndarray:
     return ((rr % cfg.eval_every) == 0) | (rr == cfg.rounds)
 
 
-def _run_fused_elastic(cfg: FLConfig, steps,
-                       carry0: Dict[str, Any]) -> FLHistory:
-    """Segment, checkpoint and resume loop of the fused engine: runs
-    ``steps = (round_fn, eval_fn)`` over ``carry0`` (a dict laid out as
-    ``_TRAIN_CARRY``) for ``cfg.rounds`` rounds. A round replays the round
-    step, and on the scheduled rounds the eval step; the trajectory comes
-    to the host once a segment."""
-    meta = _train_meta(cfg, "train-sync")
+def _run_fused_elastic(cfg: FLConfig, steps, carry0: Dict[str, Any],
+                       meta: Optional[Dict[str, Any]] = None,
+                       history_fn=None,
+                       capture: Optional[dict] = None) -> FLHistory:
+    """Segment, checkpoint and resume loop of the fused engines (sync and
+    async): runs ``steps = (round_fn, eval_fn)`` over ``carry0`` (a dict
+    of named carry trees, the checkpoint's state names) for
+    ``cfg.rounds`` rounds. A round replays the round step, and on the
+    scheduled rounds the eval step; the trajectory comes to the host once
+    a segment. ``meta`` and ``history_fn(cfg, init_acc, traj)`` default
+    to the sync family's; ``capture``, a dict, receives the whole
+    trajectory under ``"traj"`` (a test hook)."""
+    if meta is None:
+        meta = _train_meta(cfg, "train-sync")
+    if history_fn is None:
+        history_fn = _history_from_traj
     ck = _make_checkpointer(cfg.checkpoint_path, cfg.checkpoint_every,
                             cfg.rounds, meta)
     parts: List[Dict[str, Any]] = []
@@ -713,7 +770,10 @@ def _run_fused_elastic(cfg: FLConfig, steps,
         if ck and ck.due(b):
             ck.save(b, graphs.carry(),
                     {"traj": _concat_traj(parts), "init_acc": init_acc})
-    return _history_from_traj(cfg, init_acc, _concat_traj(parts))
+    traj = _concat_traj(parts)
+    if capture is not None:
+        capture["traj"] = traj
+    return history_fn(cfg, init_acc, traj)
 
 
 def run_fl_scanned(cfg: FLConfig, verbose: bool = False,
@@ -766,24 +826,23 @@ def run_selection_scanned(cfg: FLConfig, rounds: Optional[int] = None,
                           mode: str = "auto", device: DeviceLike = None,
                           ) -> Tuple[ClientPopulation, Dict[str, Any]]:
     """Selection + energy + battery for ``rounds`` rounds with no training,
-    on :func:`run_rounds_scanned` (no host read inside a round), from the
-    population and simulated workload :func:`run_fl` builds. Returns
-    ``(final_pop, {"state": final_state, "engine": "scanned", **traj})``.
-    Only the scanned route is ported: the sharded route (``n_shards``,
-    ``mesh``) is ROADMAP.md queue 1 item 13, async item 11, and the
-    engine dispatch by name and size item 14."""
+    from the population and simulated workload :func:`run_fl` builds, on
+    :func:`run_rounds_scanned` or, for ``mode="async"`` (or ``"auto"``
+    with ``cfg.buffer_size`` or ``cfg.max_concurrency`` set),
+    :func:`run_async_scanned`: no host read inside a round. Returns
+    ``(final_pop, {"state": final_state, "engine": "scanned" or
+    "async-scanned", **traj})``. The sharded route (``n_shards``,
+    ``mesh``) is ROADMAP.md queue 1 item 13, the engine dispatch by name
+    and size item 14."""
     if n_shards is not None or mesh is not None:
         raise NotImplementedError("the sharded selection engine is not "
                                   "ported yet (ROADMAP.md, queue 1 item 13)")
-    if mode == "async" or (mode == "auto" and (
-            cfg.buffer_size is not None or cfg.max_concurrency is not None)):
-        raise NotImplementedError("the async selection engine is not "
-                                  "ported yet (ROADMAP.md, queue 1 item 11)")
-    if mode not in ("auto", "sync"):
+    if mode not in ("auto", "sync", "async"):
         raise NotImplementedError(
             f"mode={mode!r}: engine dispatch by name is not ported yet "
-            f"(ROADMAP.md, queue 1 item 14); the scanned engine runs for "
-            f"'auto' and 'sync'")
+            f"(ROADMAP.md, queue 1 item 14); the scanned engines run for "
+            f"'auto', 'sync' and 'async'")
+    asynchronous = _resolve_mode(cfg, mode) == "async"
     dev = resolve_device(device)
     kpop, _kdata, kmodel, _ktest, kloop = prng.split(prng.PRNGKey(cfg.seed,
                                                                 dev), 5)
@@ -794,11 +853,19 @@ def run_selection_scanned(cfg: FLConfig, rounds: Optional[int] = None,
         model_bytes = sum(x.numel() for x in tree_leaves(params)) * 4.0
     pop, sim_steps, up_bytes, energy_model = _engine_setup(cfg, kpop,
                                                            model_bytes)
-    final_pop, final_state, traj = run_rounds_scanned(
-        kloop, cfg.selector, pop, SelectorState.create(cfg.selector),
-        energy_model, model_bytes, sim_steps, cfg.batch_size,
-        rounds if rounds is not None else cfg.rounds,
-        deadline_s=cfg.deadline_s, up_bytes=up_bytes,
-        faults=cfg.faults, checkpoint_every=cfg.checkpoint_every,
-        checkpoint_path=cfg.checkpoint_path, resume_from=cfg.resume_from)
+    args = (kloop, cfg.selector, pop, SelectorState.create(cfg.selector),
+            energy_model, model_bytes, sim_steps, cfg.batch_size,
+            rounds if rounds is not None else cfg.rounds)
+    common = dict(deadline_s=cfg.deadline_s, up_bytes=up_bytes,
+                  faults=cfg.faults, checkpoint_every=cfg.checkpoint_every,
+                  checkpoint_path=cfg.checkpoint_path,
+                  resume_from=cfg.resume_from)
+    if asynchronous:
+        final_pop, final_state, traj = run_async_scanned(
+            *args, buffer_size=cfg.buffer_size,
+            max_concurrency=cfg.max_concurrency,
+            staleness_power=cfg.staleness_power, **common)
+        return final_pop, {"state": final_state, "engine": "async-scanned",
+                           **traj}
+    final_pop, final_state, traj = run_rounds_scanned(*args, **common)
     return final_pop, {"state": final_state, "engine": "scanned", **traj}

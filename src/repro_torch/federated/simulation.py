@@ -11,7 +11,9 @@ devices drain at the idle/busy mix rate over the round's wall time.
 fleet energy-budget gate and the fault draws. :func:`make_round_engine`
 composes predicted cost, selection and simulation into one step with no
 host read, and :func:`run_rounds_scanned` advances it for R rounds,
-replayed from a CUDA graph on the card.
+replayed from a CUDA graph on the card. :func:`make_async_round_engine`
+and :func:`run_async_scanned` are the buffered-asynchronous (FedBuff)
+twins: one step is one server aggregation.
 """
 from __future__ import annotations
 
@@ -28,11 +30,11 @@ from repro_torch.checkpoint import (CarryCheckpointer, load_engine_checkpoint,
 from repro_torch.core.clients import ClientPopulation, round_times
 from repro_torch.core.energy import EnergyModel, pct_to_joules
 from repro_torch.core.selection import (SelectorConfig, SelectorState,
-                                        _device_select)
+                                        _device_select, _top_k_idx)
 from repro_torch.federated.faults import (FaultConfig, FaultDraw,
                                           faults_for_round)
 from repro_torch.federated.replay import StepGraphs
-from repro_torch.numerics import f32
+from repro_torch.numerics import f32, staleness_damping
 
 
 @dataclass
@@ -138,13 +140,16 @@ def simulate_round_device(pop: ClientPopulation, sel_mask: torch.Tensor,
                           rnd, energy_model: EnergyModel,
                           deadline_s: Optional[float] = None,
                           fail_mask: Optional[torch.Tensor] = None,
+                          busy_mask: Optional[torch.Tensor] = None,
                           ) -> Tuple[ClientPopulation, DeviceRoundOutcome]:
     """Round state update over a (N,) selection mask.
 
     ``fail_mask`` marks clients whose upload an injected crash fault lost
     (``federated/faults.py``): they fail the round like a battery death
     (energy is still debited) but drop out only if their battery ran
-    dry."""
+    dry. ``busy_mask`` marks clients computing through the whole window
+    (the async engine's clients still in flight): they pay their round
+    cost when they complete, so they do not drain at the idle rate."""
     zero = torch.zeros_like(cost)
     neg_inf = f32(float("-inf"), cost)
     battery_after = pop.battery_pct - torch.where(sel_mask, cost, zero)
@@ -171,6 +176,8 @@ def simulate_round_device(pop: ClientPopulation, sel_mask: torch.Tensor,
     # unselected (and dropped-out mid-round) devices drain at idle rate
     idle = pop.battery_pct - energy_model.idle_cost_pct(pop.category,
                                                         duration)
+    if busy_mask is not None:
+        idle = torch.where(busy_mask, pop.battery_pct, idle)
     battery_new = torch.clamp(torch.where(sel_mask, battery_after, idle),
                               0.0, 100.0)
 
@@ -309,13 +316,22 @@ def make_round_engine(sel_cfg: SelectorConfig, energy_model: EnergyModel,
     return step
 
 
+def scatter_drop(base: torch.Tensor, idx: torch.Tensor, keep: torch.Tensor,
+                 values: torch.Tensor) -> torch.Tensor:
+    """``base`` with ``values[i]`` written at ``idx[i]`` where ``keep[i]``:
+    the other slots scatter to an extra entry that is cut off (the
+    reference's ``.at[where(keep, idx, N)].set(values, mode="drop")``,
+    with no host read)."""
+    n = base.shape[0]
+    padded = torch.cat([base, base.new_zeros((1,) + base.shape[1:])])
+    target = torch.where(keep, idx.long(), torch.full_like(idx.long(), n))
+    return padded.scatter(0, target, values.to(base.dtype))[:n]
+
+
 def slot_mask(idx: torch.Tensor, chosen: torch.Tensor, n: int) -> torch.Tensor:
-    """The (N,) mask of the chosen slots' clients: unchosen slots scatter
-    to an extra entry N that is cut off (the reference's
-    ``.at[where(chosen, idx, N)].set(True, mode="drop")``)."""
-    mask = torch.zeros(n + 1, dtype=torch.bool, device=idx.device)
-    target = torch.where(chosen, idx.long(), torch.full_like(idx.long(), n))
-    return mask.scatter(0, target, torch.ones_like(chosen))[:n]
+    """The (N,) mask of the chosen slots' clients."""
+    return scatter_drop(torch.zeros(n, dtype=torch.bool, device=idx.device),
+                        idx, chosen, torch.ones_like(chosen))
 
 
 def _selection_graphs(step, keys: torch.Tensor, pop: ClientPopulation,
@@ -358,8 +374,8 @@ def _selection_graphs(step, keys: torch.Tensor, pop: ClientPopulation,
 # bitwise identical to the uninterrupted run.
 
 def _engine_meta(family: str, sel_cfg: SelectorConfig, n: int, rounds: int,
-                 deadline_s, faults: Optional[FaultConfig]
-                 ) -> Dict[str, Any]:
+                 deadline_s, faults: Optional[FaultConfig],
+                 **extra) -> Dict[str, Any]:
     return {
         "family": family,
         "n_clients": int(n),
@@ -368,6 +384,7 @@ def _engine_meta(family: str, sel_cfg: SelectorConfig, n: int, rounds: int,
         "k": int(sel_cfg.k),
         "deadline_s": None if deadline_s is None else float(deadline_s),
         "faults": None if faults is None else dataclasses.asdict(faults),
+        **extra,
     }
 
 
@@ -445,3 +462,375 @@ def run_rounds_scanned(key: torch.Tensor, sel_cfg: SelectorConfig,
             ck.save(b, graphs.carry(), {"traj": _concat_traj(parts)})
     carry = graphs.carry()
     return carry["pop"], carry["st"], _concat_traj(parts)
+
+
+# ------------------------------------------------------------------- async
+# FedBuff-style buffered-asynchronous engine (Nguyen et al., AISTATS'22).
+# Every selected client finishes at its own event-clock time instead of a
+# synchronous barrier; the server aggregates whenever `buffer_size`
+# completions have arrived, damping each delta by 1/(1+staleness)**p, and
+# refills the freed concurrency slots from the same selectors the sync
+# engine uses. One step is one server aggregation:
+#
+#   flush:  take the `buffer_size` earliest completions off the per-client
+#           event clock, debit battery and dropouts through
+#           simulate_round_device (arrival offsets play the round times;
+#           clients still in flight do not drain at the idle rate),
+#           advance the server clock to the last arrival, bump the version;
+#   refill: select `buffer_size` replacements (in-flight clients masked out
+#           of the candidates) and start their clocks at the new time.
+#
+# With buffer_size == max_concurrency == k and staleness_power = 0 every
+# flush completes exactly the cohort the previous refill started, so the
+# engine reproduces run_rounds_scanned's selection trajectory.
+
+
+def _async_knobs(sel_cfg: SelectorConfig, buffer_size: Optional[int],
+                 max_concurrency: Optional[int]):
+    """Normalise and validate the FedBuff knobs: ``(buffer_size,
+    max_concurrency, fill_cfg, refill_cfg)``, the selector configs that
+    prime the concurrency slots (k = max_concurrency) and refill after
+    each flush (k = buffer_size)."""
+    buffer_size = sel_cfg.k if buffer_size is None else int(buffer_size)
+    max_concurrency = (sel_cfg.k if max_concurrency is None
+                       else int(max_concurrency))
+    if buffer_size < 1:
+        raise ValueError("buffer_size must be >= 1")
+    if max_concurrency < buffer_size:
+        raise ValueError("max_concurrency must be >= buffer_size "
+                         f"({max_concurrency} < {buffer_size})")
+    fill_cfg = dataclasses.replace(sel_cfg, k=max_concurrency)
+    refill_cfg = dataclasses.replace(sel_cfg, k=buffer_size)
+    return buffer_size, max_concurrency, fill_cfg, refill_cfg
+
+
+class AsyncEventState(NamedTuple):
+    """The async engine's event bookkeeping, on the population's device.
+
+    ``t_done`` holds each in-flight client's *remaining* seconds from the
+    last aggregation (+inf when idle), not an absolute clock: offsets are
+    what the flush order, the wall advance, the deadline and
+    ``last_duration`` need, and they keep ``(clock + t) - clock`` drift out
+    of the sync-parity limit. Each flush advances ``server_clock`` by the
+    aggregation's wall time and re-bases the survivors' offsets."""
+
+    t_done: torch.Tensor           # (N,) f32 remaining seconds; +inf idle
+    start_version: torch.Tensor    # (N,) i32 server version when started
+    server_clock: torch.Tensor     # f32 0-d, absolute seconds
+    server_version: torch.Tensor   # i32 0-d, aggregations so far
+    spent_j: torch.Tensor          # f32 0-d, cumulative joules debited
+    exhausted_round: torch.Tensor  # i32 0-d, first budget-refused agg (0)
+
+    @classmethod
+    def create(cls, n: int, device=None) -> "AsyncEventState":
+        f = dict(dtype=torch.float32, device=device)
+        i = dict(dtype=torch.int32, device=device)
+        return cls(t_done=torch.full((n,), float("inf"), **f),
+                   start_version=torch.zeros((n,), **i),
+                   server_clock=torch.zeros((), **f),
+                   server_version=torch.zeros((), **i),
+                   spent_j=torch.zeros((), **f),
+                   exhausted_round=torch.zeros((), **i))
+
+    @property
+    def in_flight(self) -> torch.Tensor:
+        return torch.isfinite(self.t_done)
+
+
+def _start_clients(astate: AsyncEventState, idx: torch.Tensor,
+                   chosen: torch.Tensor,
+                   t_total: torch.Tensor) -> AsyncEventState:
+    """Arm the event clock of the chosen slots' clients: they start at the
+    current aggregation point, so their remaining time is their round
+    time."""
+    t_done = scatter_drop(astate.t_done, idx, chosen, t_total[idx])
+    start_v = scatter_drop(astate.start_version, idx, chosen,
+                           astate.server_version.expand(idx.shape[0]))
+    return astate._replace(t_done=t_done, start_version=start_v)
+
+
+def make_async_round_engine(sel_cfg: SelectorConfig,
+                            energy_model: EnergyModel,
+                            model_bytes: float, local_steps: int,
+                            batch_size: int,
+                            buffer_size: Optional[int] = None,
+                            max_concurrency: Optional[int] = None,
+                            staleness_power: float = 0.5,
+                            deadline_s: Optional[float] = None,
+                            up_bytes: Optional[float] = None,
+                            energy_budget_j: Optional[float] = None):
+    """The FedBuff event engine: ``(init_fill, step)``, neither reading a
+    value on the host. The top-k kernel runs on CUDA and the
+    affine-folded plain route on the CPU, as in ``select``.
+
+    ``init_fill(key, pop, sel_state, astate)`` primes ``max_concurrency``
+    slots (no battery is debited: debits happen at completion) and
+    returns ``(sel_state, astate, idx, chosen)``.
+
+    ``step(key, pop, sel_state, astate, do_refill)`` flushes and refills
+    once: ``(pop, sel_state, astate, flush, (ridx, rchosen))``, ``flush``
+    the completion batch (``completed``, ``comp_chosen``, ``succeeded``,
+    ``staleness``, ``agg_weight``, ``round_duration``, ``new_dropouts``,
+    ``energy_spent_pct``, ``energy_spent_j``). ``do_refill`` is a 0-d
+    bool tensor: False flushes without starting clients or advancing the
+    selector (the last step of a fixed-length run).
+
+    ``energy_budget_j`` gates a fill or refill batch all or nothing:
+    spent joules (debited at completion) plus the committed cost of every
+    in-flight client plus the batch's predicted cost must fit, so the
+    debits can never overshoot. ``deadline_s`` abandons an arrival more
+    than ``deadline_s`` seconds after the previous aggregation (it still
+    pays its energy), the sync engine's deadline."""
+    buffer_size, _, fill_cfg, refill_cfg = _async_knobs(
+        sel_cfg, buffer_size, max_concurrency)
+
+    def _select(key, cfg, sel_state, pop, cost, astate):
+        # in-flight clients must not be selected again: they leave the
+        # candidates through `dropped` (a copy for the selection only)
+        sel_pop = pop.replace(dropped=pop.dropped | astate.in_flight)
+        return _device_select(key, cfg, sel_state, sel_pop, cost,
+                              pop.device.type == "cuda")
+
+    def _admit_batch(astate, pop, cost, idx, chosen, rnd):
+        """The gated ``chosen`` and the astate with ``exhausted_round``
+        stamped at the first refusal."""
+        if energy_budget_j is None:
+            return chosen, astate
+        cost_j = pct_to_joules(pop.category, cost)
+        zero = torch.zeros_like(cost_j)
+        committed = torch.where(astate.in_flight, cost_j, zero).sum()
+        batch_j = torch.where(chosen, cost_j[idx], zero[idx]).sum()
+        admit = (astate.spent_j + committed + batch_j
+                 <= f32(energy_budget_j, cost_j))
+        refused = chosen.any() & ~admit
+        exhausted = torch.where((astate.exhausted_round == 0) & refused,
+                                rnd.to(torch.int32), astate.exhausted_round)
+        return chosen & admit, astate._replace(exhausted_round=exhausted)
+
+    def init_fill(key, pop: ClientPopulation, sel_state: SelectorState,
+                  astate: AsyncEventState):
+        t_total, cost = _round_cost(pop, energy_model, model_bytes,
+                                    local_steps, batch_size, up_bytes)
+        idx, chosen, sel_state = _select(key, fill_cfg, sel_state, pop,
+                                         cost, astate)
+        chosen, astate = _admit_batch(astate, pop, cost, idx, chosen,
+                                      astate.server_version + 1)
+        astate = _start_clients(astate, idx, chosen, t_total)
+        return sel_state, astate, idx, chosen
+
+    def step(key, pop: ClientPopulation, sel_state: SelectorState,
+             astate: AsyncEventState, do_refill: torch.Tensor):
+        n = pop.n
+        t_total, cost = _round_cost(pop, energy_model, model_bytes,
+                                    local_steps, batch_size, up_bytes)
+
+        # ---- flush: the buffer_size earliest arrivals, ties (equal times,
+        # survivors clamped to 0) lowest index first, as lax.top_k
+        in_flight = astate.in_flight
+        n_if = in_flight.sum().to(torch.int32)
+        neg_inf = f32(float("-inf"), cost)
+        cidx = _top_k_idx(torch.where(in_flight, -astate.t_done, neg_inf),
+                          buffer_size)
+        comp_chosen = torch.arange(cidx.shape[0], device=cost.device) < \
+            torch.clamp_max(n_if, buffer_size)
+        comp_mask = slot_mask(cidx, comp_chosen, n)
+
+        # remaining offsets from the previous aggregation play the sync
+        # engine's round times: the slowest successful arrival advances the
+        # clock, the deadline abandons late arrivals
+        busy = in_flight & ~comp_mask
+        rnd = astate.server_version + 1
+        pop, dev = simulate_round_device(pop, comp_mask, astate.t_done,
+                                         cost, rnd, energy_model,
+                                         deadline_s, busy_mask=busy)
+
+        staleness = torch.clamp_min(
+            astate.server_version - astate.start_version[cidx], 0)
+        succeeded = dev.succeeded[cidx] & comp_chosen
+        agg_weight = torch.where(
+            succeeded, staleness_damping(staleness, staleness_power),
+            f32(0.0, cost))
+
+        # re-base survivors on the new aggregation point, clamped at 0: a
+        # flush that failed whole under a loose deadline lasts the deadline,
+        # which can overshoot a survivor's remaining time (it then arrives
+        # at offset 0, never negative, which would run the clock backwards)
+        any_comp = n_if > 0
+        astate = astate._replace(
+            t_done=torch.where(comp_mask, f32(float("inf"), cost),
+                               torch.clamp_min(astate.t_done
+                                               - dev.round_duration, 0.0)),
+            server_clock=astate.server_clock + dev.round_duration,
+            server_version=astate.server_version + any_comp.to(torch.int32),
+            spent_j=astate.spent_j + dev.energy_spent_j)
+
+        zero_i = torch.zeros_like(staleness)
+        flush = {
+            "completed": cidx.to(torch.int32),
+            "comp_chosen": comp_chosen,
+            "succeeded": succeeded,
+            "staleness": torch.where(comp_chosen, staleness, zero_i),
+            "agg_weight": agg_weight,
+            "round_duration": dev.round_duration,
+            "new_dropouts": dev.new_dropouts,
+            "energy_spent_pct": dev.energy_spent_pct,
+            "energy_spent_j": dev.energy_spent_j,
+        }
+
+        # ---- refill the freed slots -------------------------------------
+        ridx, rchosen, new_st = _select(key, refill_cfg, sel_state, pop,
+                                        cost, astate)
+        rchosen = rchosen & do_refill
+        rchosen, astate = _admit_batch(astate, pop, cost, ridx, rchosen,
+                                       astate.server_version + 1)
+        old = sel_state.canonical(pop.device)
+        sel_state = SelectorState(*(
+            torch.where(do_refill, getattr(new_st, f.name),
+                        getattr(old, f.name))
+            for f in dataclasses.fields(SelectorState)))
+        astate = _start_clients(astate, ridx, rchosen, t_total)
+        return pop, sel_state, astate, flush, (ridx, rchosen)
+
+    return init_fill, step
+
+
+def _async_graphs(step, keys: torch.Tensor, refill: torch.Tensor,
+                  carry: Dict[str, Any], rounds: int,
+                  start: int) -> StepGraphs:
+    """The selection-only async engine's aggregation over the carry
+    ``{"pop", "st", "astate"}`` (the twin of the reference's
+    ``_async_scanned_runner`` scan); aggregation ``ctr`` uses key row
+    ``keys[ctr]`` and refills where ``refill[ctr]``."""
+
+    def agg_fn(carry, ctr):
+        at = ctr.reshape(1)
+        pop, st, astate, flush, (ridx, rchosen) = step(
+            keys.index_select(0, at)[0], carry["pop"], carry["st"],
+            carry["astate"], refill.index_select(0, at)[0])
+        out = {
+            **flush,
+            "selected": ridx.to(torch.int32),
+            "chosen": rchosen,
+            "server_clock": astate.server_clock,
+            "n_inflight": astate.in_flight.sum().to(torch.int32),
+            "mean_battery": pop.battery_pct.mean(),
+            "total_dropped": pop.dropped.sum().to(torch.int32),
+            "budget_spent_j": astate.spent_j,
+            "budget_exhausted": astate.exhausted_round,
+        }
+        return {"pop": pop, "st": st, "astate": astate}, out
+
+    graphs = StepGraphs(carry, rounds, start)
+    graphs.add("agg", agg_fn, advance=True)
+    return graphs
+
+
+def _async_xs(key: torch.Tensor, rounds: int):
+    """The async engines' key stream: the sync engine's ``split(key,
+    rounds)`` rows, so the parity limit reproduces its selections key for
+    key. Row 0 primes the pipe and row r refills after flush r; the last
+    flush refills nothing. Returns ``(key0, keys (R, 2), refill (R,))``."""
+    keys = prng.split(key, rounds)
+    refill = torch.arange(rounds, device=key.device) < rounds - 1
+    return keys[0], torch.cat([keys[1:], keys[-1:]]), refill
+
+
+def _async_fill_prepend(traj: Dict[str, Any], idx0, chosen0,
+                        b: int) -> Dict[str, Any]:
+    """The selection trajectory aligned with the sync engine's: row r is
+    the cohort *started* for aggregation r+1 (the fill, cut to the refill
+    width, then the refills); the whole fill is kept as ``fill_selected``
+    and ``fill_chosen``. Returns a new dict."""
+    idx0, chosen0 = np.asarray(idx0), np.asarray(chosen0)
+    traj = dict(traj)
+    traj["fill_selected"], traj["fill_chosen"] = idx0, chosen0
+    traj["selected"] = np.concatenate([idx0[None, :b],
+                                       np.asarray(traj["selected"])[:-1]])
+    traj["chosen"] = np.concatenate([chosen0[None, :b],
+                                     np.asarray(traj["chosen"])[:-1]])
+    return traj
+
+
+def run_async_scanned(key: torch.Tensor, sel_cfg: SelectorConfig,
+                      pop: ClientPopulation, sel_state: SelectorState,
+                      energy_model: EnergyModel, model_bytes: float,
+                      local_steps: int, batch_size: int, rounds: int,
+                      buffer_size: Optional[int] = None,
+                      max_concurrency: Optional[int] = None,
+                      staleness_power: float = 0.5,
+                      deadline_s: Optional[float] = None,
+                      up_bytes: Optional[float] = None,
+                      faults: Optional[FaultConfig] = None,
+                      checkpoint_every: Optional[int] = None,
+                      checkpoint_path: Optional[str] = None,
+                      resume_from: Optional[str] = None,
+                      ) -> Tuple[ClientPopulation, SelectorState,
+                                 Dict[str, Any]]:
+    """The FedBuff twin of :func:`run_rounds_scanned`: ``rounds`` server
+    aggregations, each one step with no host read, replayed from a CUDA
+    graph on the card and run eagerly on the CPU (the fill runs once,
+    eagerly).
+
+    The trajectory holds, per aggregation, the completion batch
+    (``completed (R,B)``, ``comp_chosen``, ``succeeded``, ``staleness``,
+    ``agg_weight``: the damping factors, 0 for failed slots), the refilled
+    cohort (``selected (R,B)``, ``chosen``: row r the cohort started for
+    aggregation r+1, the sync trajectory in the parity limit), the wall
+    (``round_duration`` between aggregations, ``server_clock``),
+    ``n_inflight`` (never above ``max_concurrency``) and the sync scan's
+    dropout and battery fields; ``final_event_state`` is the last
+    :class:`AsyncEventState`.
+
+    ``checkpoint_path``/``checkpoint_every``/``resume_from`` snapshot the
+    carry (population, selector state, event state) between
+    aggregations; a resumed run is bitwise the uninterrupted one.
+    ``faults`` are rejected: the event engine has no round boundary for
+    the per-round fault draws."""
+    if faults is not None and faults.active:
+        raise ValueError(
+            "fault injection is not supported by the async event engines "
+            "(no per-round fault boundary); use the sync engines")
+    init_fill, step = make_async_round_engine(
+        sel_cfg, energy_model, float(model_bytes), int(local_steps),
+        int(batch_size), buffer_size, max_concurrency,
+        float(staleness_power),
+        None if deadline_s is None else float(deadline_s),
+        None if up_bytes is None else float(up_bytes))
+    b, c, _, _ = _async_knobs(sel_cfg, buffer_size, max_concurrency)
+    key0, keys, refill = _async_xs(key, rounds)
+    dev = pop.device
+    st = sel_state.canonical(dev)
+    meta = _engine_meta("async", sel_cfg, pop.n, rounds, deadline_s, faults,
+                        buffer_size=b, max_concurrency=c,
+                        staleness_power=float(staleness_power))
+    start, parts = 0, []
+    if resume_from is not None:
+        templates = {"pop": pop, "st": st,
+                     "astate": AsyncEventState.create(pop.n, dev)}
+        start, state, data, _ = load_engine_checkpoint(
+            resume_from, templates, expect_meta=meta)
+        carry = state
+        idx0, chosen0 = data["fill_selected"], data["fill_chosen"]
+        if data.get("traj"):
+            parts.append(data["traj"])
+    else:
+        st, astate, idx0, chosen0 = init_fill(
+            key0, pop, st, AsyncEventState.create(pop.n, dev))
+        carry = {"pop": pop, "st": st, "astate": astate}
+        idx0 = idx0.to(torch.int32).cpu().numpy()
+        chosen0 = chosen0.cpu().numpy()
+    ck = _make_checkpointer(checkpoint_path, checkpoint_every, rounds, meta)
+    graphs = _async_graphs(step, keys, refill, carry, rounds, start)
+    for a, e in segment_bounds(start, rounds,
+                               ck.every if ck is not None else None):
+        for _ in range(a, e):
+            graphs.run("agg")
+        parts.append(graphs.fetch(a, e))
+        if ck is not None and ck.due(e):
+            ck.save(e, graphs.carry(), {"traj": _concat_traj(parts),
+                                        "fill_selected": idx0,
+                                        "fill_chosen": chosen0})
+    carry = graphs.carry()
+    traj = _async_fill_prepend(_concat_traj(parts), idx0, chosen0, b)
+    traj["final_event_state"] = carry["astate"]
+    return carry["pop"], carry["st"], traj

@@ -12,8 +12,10 @@ and plain version agree bit for bit.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
 
@@ -58,3 +60,45 @@ def orderable_key(x: torch.Tensor) -> torch.Tensor:
     bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
     flip = torch.where(bits >= 0x80000000, 0xFFFFFFFF, 0x80000000)
     return bits ^ flip
+
+
+_POWF_TABLE = 1 << 12
+_DAMPING: Dict[Tuple[float, torch.device], torch.Tensor] = {}
+
+
+def _powf_table(exponent: float, device: torch.device) -> torch.Tensor:
+    """``powf(1 + s, exponent)`` for s in ``[0, 4096)``, from the C
+    library, made once per (exponent, device) and kept (a replayed step
+    reads it and copies nothing from the host)."""
+    key = (exponent, torch.device(device))
+    if key not in _DAMPING:
+        powf = ctypes.CDLL(None).powf
+        powf.restype, powf.argtypes = ctypes.c_float, [ctypes.c_float] * 2
+        table = np.array([powf(1.0 + s, exponent)
+                          for s in range(_POWF_TABLE)], np.float32)
+        _DAMPING[key] = torch.from_numpy(table).to(device)
+    return _DAMPING[key]
+
+
+def staleness_damping(staleness: torch.Tensor, power: float) -> torch.Tensor:
+    """FedBuff's damping ``(1 + s) ** -power`` in float32, for integer
+    staleness ``s >= 0``, as XLA's CPU build evaluates the reference's
+    expression. XLA folds ``pow(x, -0.0)`` to 1 and rewrites ``pow(x,
+    -1)`` as the division ``1 / x``; any other exponent becomes a call of
+    the C library's ``powf`` (glibc's, below one ulp but not correctly
+    rounded: a float64 power rounded once differs from it, first at s =
+    17 for power 1.5, and ``torch.pow`` in float32 at s = 5 for power
+    0.5). So ``powf`` is read from a table of its values; a staleness
+    beyond the table (4096 aggregations) takes the float64 power rounded
+    once."""
+    x = 1.0 + staleness.to(torch.float32)
+    if power == 0.0:
+        return torch.ones_like(x)
+    if power == 1.0:
+        return f32(1.0, x) / x
+    exponent = float(np.float32(-power))    # the reference's f32 constant
+    table = _powf_table(exponent, x.device)
+    inside = staleness < _POWF_TABLE
+    near = table[torch.clamp(staleness.long(), 0, _POWF_TABLE - 1)]
+    far = torch.pow(x.to(torch.float64), exponent).to(torch.float32)
+    return torch.where(inside, near, far)

@@ -1,6 +1,6 @@
-"""The fused engines on the card: each step replayed from its CUDA graph
-equals the same step run eagerly, bit for bit, and a replayed top-k launch
-equals an eager one. Needs a CUDA device and skips elsewhere; imports no
+"""The fused engines, sync and async, on the card: each step replayed from
+its CUDA graph equals the same step run eagerly, bit for bit, and a
+replayed top-k launch equals an eager one. Needs a CUDA device and skips elsewhere; imports no
 JAX (run with ``--noconftest`` on a machine without it)."""
 import dataclasses
 
@@ -93,6 +93,65 @@ def test_training_replay_equals_eager():
     torch.backends.cudnn.deterministic = True
     try:
         replayed, eager = _both(make, cfg.rounds, ("round", "eval"))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    _equal(replayed, eager)
+
+
+@pytest.mark.gpu
+def test_async_selection_replay_equals_eager():
+    dev = _card()
+    cfg, em = SelectorConfig("eafl", k=40), EnergyModel(0.02)
+    pop = make_population(prng.PRNGKey(5, dev), 50_000)
+    init_fill, step = tsim.make_async_round_engine(
+        cfg, em, 3.0e6, 10, 20, buffer_size=10, max_concurrency=40,
+        deadline_s=900.0, energy_budget_j=2e5)
+    key0, keys, refill = tsim._async_xs(prng.PRNGKey(1, dev), 5)
+
+    def make():
+        st, astate, _, _ = init_fill(
+            key0, pop, SelectorState.create(cfg).canonical(dev),
+            tsim.AsyncEventState.create(pop.n, dev))
+        return tsim._async_graphs(step, keys, refill,
+                                  {"pop": pop, "st": st, "astate": astate},
+                                  5, 0)
+
+    replayed, eager = _both(make, 5, ("agg",))
+    _equal(replayed, eager)
+    assert replayed["staleness"].max() > 0
+
+
+@pytest.mark.gpu
+def test_async_training_replay_equals_eager():
+    from repro_torch.federated import async_server as tasync
+    dev = _card()
+    cfg = tserver.FLConfig(selector=SelectorConfig("oort", k=5),
+                           n_clients=40, rounds=4, local_steps=2,
+                           batch_size=4, samples_per_client=8,
+                           model=dataclasses.replace(reduced(), input_hw=16),
+                           input_hw=16, eval_samples=32, eval_every=2,
+                           buffer_size=2, max_concurrency=6,
+                           recharge_pct_per_hour=30.0)
+
+    def make():
+        (kloop, data, test, params, opt, opt_state, pop, sim_steps,
+         up_bytes, energy_model, model_bytes) = tserver._fused_setup(cfg, dev)
+        opt_state = dict(opt_state, t=opt_state["t"].to(dev))
+        fill, agg_fn, eval_fn = tasync._async_fused_runner(
+            cfg, energy_model, sim_steps, model_bytes, up_bytes, opt,
+            data["x"], data["y"], test["x"], test["y"])
+        carry = fill(kloop, params, opt_state, pop,
+                     SelectorState.create(cfg.selector).canonical(dev),
+                     tserver._accuracy_fn(cfg.model, test)(params))
+        graphs = StepGraphs(carry, cfg.rounds)
+        graphs.add("agg", agg_fn, advance=True)
+        graphs.add("eval", eval_fn, row=-1)
+        return graphs
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        replayed, eager = _both(make, cfg.rounds, ("agg", "eval"))
     finally:
         torch.backends.cudnn.deterministic = deterministic
     _equal(replayed, eager)

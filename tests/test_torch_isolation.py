@@ -106,6 +106,27 @@ def test_scan_covers_the_lm_slice():
             "kernels/selective_scan.py"} <= names
 
 
+def test_scan_covers_the_async_slice():
+    pkg = ROOT / "src" / "repro_torch"
+    names = {p.relative_to(pkg).as_posix() for p in FILES
+             if pkg in p.parents}
+    assert {"federated/async_server.py", "federated/simulation.py",
+            "federated/replay.py", "numerics.py"} <= names
+
+
+def test_async_entry_points_need_cuda_or_an_explicit_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card")
+    from repro_torch.core.selection import SelectorConfig
+    from repro_torch.federated import (FLConfig, run_fl, run_fl_async,
+                                       run_fl_async_scanned)
+    cfg = FLConfig(selector=SelectorConfig("eafl", k=2), n_clients=8,
+                   rounds=1, buffer_size=1, max_concurrency=2)
+    for run in (run_fl, run_fl_async, run_fl_async_scanned):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run(cfg)
+
+
 def _load(name):
     import importlib.util
     import sys
@@ -549,3 +570,60 @@ def test_same_history_is_bitwise():
     assert not cs.same_history(a, b)
     b.train_loss[1], b.budget_exhausted_round = 0.5, 2
     assert not cs.same_history(a, b)
+
+
+def test_chip_smoke_flush_check_reads_the_event_clock():
+    """Phase 6e's host recomputation of a flush: the earliest arrivals,
+    equal times lowest index first; a flush in the other tie order, a
+    wrong staleness or an undamped weight fails it."""
+    import numpy as np
+    smoke = _chip_smoke()
+    inf = float("inf")
+    t_done = np.array([5.0, inf, 2.0, 5.0, 2.0, 9.0], np.float32)
+    start = np.array([0, 0, 1, 0, 2, 1], np.int32)
+    before = (t_done, start, 2)
+    done, stale = smoke.expected_flush(*before, 3)
+    assert done.tolist() == [2, 4, 0] and stale.tolist() == [1, 0, 2]
+    flush = {"completed": np.array([2, 4, 0]),
+             "comp_chosen": np.ones(3, bool),
+             "succeeded": np.array([True, True, False]),
+             "staleness": np.array([1, 0, 2]),
+             "agg_weight": np.array([2 ** -0.5, 1.0, 0.0], np.float32)}
+    assert smoke.check_flush(flush, before, 3, 0.5, "cpu") == 2
+    for name, bad in (("completed", np.array([4, 2, 0])),
+                      ("completed", np.array([2, 4, 3])),
+                      ("staleness", np.array([1, 1, 2])),
+                      ("agg_weight", np.array([1.0, 1.0, 0.0], np.float32))):
+        with pytest.raises(smoke.SmokeFailure):
+            smoke.check_flush(dict(flush, **{name: bad}), before, 3, 0.5,
+                              "cpu")
+
+
+def test_chip_faults_async_faults_replace_live_functions():
+    """Each planted async fault names a function its module reads, and
+    changes what that function returns."""
+    import importlib
+    _chip_smoke()
+    faults = _load("chip_faults").ASYNC_FAULTS
+    assert set(faults) == {"flush_ties_highest_index_first",
+                           "ring_lookup_one_version_off",
+                           "damping_exponent_dropped"}
+    from repro_torch.federated.async_server import _ring_create, \
+        _ring_retain
+    ring = _ring_retain(_ring_create({"w": torch.zeros(2)}, 3),
+                        torch.tensor(4, dtype=torch.int32),
+                        {"w": torch.ones(2)},
+                        torch.tensor(1, dtype=torch.int32),
+                        torch.zeros(2, dtype=torch.int64))
+    ring = _ring_retain(ring, torch.tensor(5, dtype=torch.int32),
+                        {"w": torch.ones(2)},
+                        torch.tensor(1, dtype=torch.int32),
+                        torch.zeros(2, dtype=torch.int64))
+    inputs = {"_top_k_idx": (torch.tensor([1.0, 2.0, 2.0, 0.0]), 2),
+              "_ring_lookup": (ring, torch.tensor([5, 4])),
+              "staleness_damping": (torch.tensor([0, 1, 3]), 0.5)}
+    for module, attr, make_fault, phase in faults.values():
+        sound = getattr(importlib.import_module(module), attr)
+        args = inputs[attr]
+        assert phase in ("6e", "6f")
+        assert not torch.equal(make_fault(sound)(*args), sound(*args)), attr

@@ -115,10 +115,12 @@ def test_run_selection_scanned():
     assert out["engine"] == "scanned" and int(out["state"].round) == 3
     assert out["selected"].shape == (3, 4) and pop.n == 30
     for bad, match in ((dict(n_shards=2), "item 13"),
-                       (dict(mode="async"), "item 11"),
                        (dict(mode="sharded"), "item 14")):
         with pytest.raises(NotImplementedError, match=match):
             tserver.run_selection_scanned(cfg, device="cpu", **bad)
+    # async is ported: it runs the async event engine
+    _, out = tserver.run_selection_scanned(cfg, device="cpu", mode="async")
+    assert out["engine"] == "async-scanned"
 
 
 @pytest.mark.parametrize("seed", [0, 3])

@@ -109,9 +109,12 @@ def test_run_fl_matches_reference(case, monkeypatch):
     np.testing.assert_allclose(out.init_acc, ref.init_acc, rtol=2e-3)
 
 
+# the async (FedBuff) knobs are ported now: they route to the async
+# engines (tests/test_torch_async_training.py), so the one unported
+# option left here is the controller (its id kept from the pair it was)
 @pytest.mark.parametrize("change,match", [
-    (dict(buffer_size=2), "item 11"),
-    (dict(controller=object()), "item 12"),
+    pytest.param(dict(controller=object()), "item 12",
+                 id="change1-item 12"),
 ])
 def test_unported_options_raise(change, match):
     cfg = dataclasses.replace(_cfgs("eafl")[1], **change)
@@ -119,12 +122,29 @@ def test_unported_options_raise(change, match):
         tserver.run_fl(cfg, device="cpu")
 
 
+def test_async_knobs_route_to_the_async_engines(monkeypatch):
+    """``buffer_size`` alone opts into async (mode ``auto``): the fused
+    async engine runs, where it once raised."""
+    called = []
+    from repro_torch.federated import async_server
+    monkeypatch.setattr(async_server, "run_fl_async_scanned",
+                        lambda cfg, **kw: called.append(("scanned", kw)))
+    monkeypatch.setattr(async_server, "run_fl_async",
+                        lambda cfg, **kw: called.append(("host", kw)))
+    cfg = dataclasses.replace(_cfgs("eafl")[1], buffer_size=2)
+    tserver.run_fl(cfg, device="cpu")
+    tserver.run_fl(cfg, engine="host", device="cpu")
+    tserver.run_fl(_cfgs("eafl")[1], mode="async", device="cpu")
+    assert [c[0] for c in called] == ["scanned", "host", "scanned"]
+
+
 @pytest.mark.parametrize("engine", ["sharded"])
 def test_unported_engines_raise(engine):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tserver.run_fl(_cfgs("eafl")[1], engine=engine, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tserver.run_fl(_cfgs("eafl")[1], mode="async", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tserver.run_fl(_cfgs("eafl")[1], mode="async", engine=engine,
+                       device="cpu")
 
 
 def test_port_runs_on_its_own_draws():
