@@ -79,7 +79,33 @@ at k = 100 (``examples/async_fedbuff.py``'s ratio), staleness power 0.5:
    peak device memory apart, and one profiled aggregation of each (top
    device operations, idle share).
 
-In phases 3 to 6g every call of the top-k kernel's wrapper is recorded,
+The front doors (the knob controller, the dispatch, the host oracle, the
+``train`` launcher):
+
+6h. ``run_fl`` with the UCB knob controller in the host loop, the FLConfig
+   defaults at full width, cuDNN's deterministic algorithms, 7 rounds over
+   five arms (k = 5, 10, 20; ``compression_sparsity`` under topk
+   compression; ``buffer_size`` with ``staleness_power=0.5``): the
+   untried arms pulled first in index order, each round's top-k launch at
+   its arm's k and equal to its plain version, a run checkpointed after
+   round 3 and resumed bitwise equal to the run without a break, and an
+   all-inherit controller bitwise the controller-free run; then 10,000
+   clients, k = 100: s/round with the all-inherit controller and its
+   reward probe beside the same run without a controller, in turns
+   (plain, controller, controller, plain), and one probe evaluation
+   timed alone.
+6i. ``run_rounds`` at 1,048,576 clients (phase 3's population, k = 100,
+   3 rounds): ``"auto"`` resolves to ``"scanned"``, ``"async"`` to
+   ``"async-scanned"`` (buffer 25, concurrency 100), and those and the
+   forced names give trajectories index for index equal to direct calls
+   of ``run_rounds_scanned`` and ``run_async_scanned``; then
+   ``repro_torch.examples.million_client_selection`` on the card: the
+   kernel against its plain version, and ``select`` (the kernel) against
+   the host oracle ``select_host``, index for index, with both times.
+6j. ``python -m repro_torch.launch.train fl --rounds 2`` in a process of
+   its own on the card: exit 0 and a ``history.json`` of 2 rounds.
+
+In phases 3 to 6i every call of the top-k kernel's wrapper is recorded,
 inputs and outputs, and its outputs are held against the plain version on
 the same inputs. Under capture the records are copies captured into the
 graph, read after each replay; each replayed launch is also held against
@@ -142,6 +168,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1351,6 +1378,273 @@ def phase_async_scale(torch, ops, ref, dev, cfg):
             f"operations; top: {prof['top']}")
     return rows, max(errs)
 
+# ------------------------------------------ the front doors (6h, 6i, 6j)
+def pulled_k(hist, arms, k):
+    """Each round's cohort size under the controller: the pulled arm's k,
+    or the config's when the arm inherits it (overcommit 1)."""
+    return [k if arms[a].k is None else arms[a].k
+            for a in hist.controller_arm]
+
+
+def phase_controller(torch, ops, ref, dev, cfg, scale_cfg, host_per_round):
+    """6h: ``run_fl`` with the UCB knob controller in the host loop, the
+    paper model at full width (``cfg``: the FLConfig defaults), cuDNN's
+    deterministic algorithms. Five arms: k = 5, 10, 20, one that sets
+    ``compression_sparsity`` (under ``compression="topk"``) and one that
+    sets ``buffer_size`` with ``staleness_power=0.5``; 7 rounds. The first
+    five pulls are the untried arms in index order; each round launches
+    the top-k kernel once at its arm's k, each launch equal to its plain
+    version; a run checkpointed after round 3 and resumed equals the run
+    without a break bitwise; a controller whose only arm inherits every
+    knob reproduces the controller-free run bitwise. Then the main path's
+    size (``scale_cfg``: 10,000 clients, k = 100): s/round with the
+    all-inherit controller beside the run without one, in turns, and one
+    reward probe (an evaluation of the test set) timed alone."""
+    from repro_torch import prng
+    from repro_torch.data.partition import make_test_set
+    from repro_torch.federated.controller import Arm, ControllerConfig
+    from repro_torch.federated.server import _accuracy_fn, run_fl
+    from repro_torch.models.resnet import init_resnet
+
+    arms = (Arm(k=5), Arm(k=10), Arm(k=20), Arm(compression_sparsity=0.25),
+            Arm(buffer_size=4, staleness_power=0.5))
+    c = dataclasses.replace(cfg, rounds=7, compression="topk",
+                            compression_sparsity=0.05,
+                            controller=ControllerConfig(arms=arms))
+    inherit = ControllerConfig(arms=(Arm(),))
+    torch.backends.cudnn.deterministic = True
+    try:
+        with recording(ops) as calls:
+            ops.LAUNCHES["topk_reward"] = 0
+            whole = run_fl(c, device=dev)
+            launches = ops.LAUNCHES["topk_reward"]
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "ctrl-{round}.ckpt")
+            seg = run_fl(dataclasses.replace(c, checkpoint_path=path,
+                                             checkpoint_every=3), device=dev)
+            resumed = run_fl(dataclasses.replace(
+                c, resume_from=path.format(round=3)), device=dev)
+        plain = run_fl(cfg, device=dev)
+        one_arm = run_fl(dataclasses.replace(cfg, controller=inherit),
+                         device=dev)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    ks = pulled_k(whole, arms, c.selector.k)
+    check(whole.controller_arm[:5] == [0, 1, 2, 3, 4],
+          f"phase 6h: first pulls {whole.controller_arm[:5]}")
+    check(launches == c.rounds, f"phase 6h: the kernel launched {launches} "
+          f"times in {c.rounds} rounds")
+    check([kw["k"] for _, kw, _ in calls] == ks,
+          f"phase 6h: launches at k {[kw['k'] for _, kw, _ in calls]}, "
+          f"the pulled arms' k {ks}")
+    err = check_recorded(torch, ref, calls, "phase 6h")
+    check(same_history(whole, seg), "phase 6h: the checkpointed run differs "
+          "from the uninterrupted one")
+    check(same_history(whole, resumed), "phase 6h: the run resumed after "
+          "round 3 differs from the uninterrupted one")
+    check(one_arm.controller_arm == [0] * cfg.rounds,
+          f"phase 6h: all-inherit pulls {one_arm.controller_arm}")
+    check(same_history(plain, dataclasses.replace(one_arm,
+                                                  controller_arm=[])),
+          "phase 6h: the all-inherit controller moved the trajectory")
+
+    def timed(run_cfg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = run_fl(run_cfg, device=dev)
+        torch.cuda.synchronize()
+        return h, time.perf_counter() - t0
+
+    # the controller's s/round beside the same run without one, in turns
+    # (plain, controller, controller, plain), each a 3-round run minus a
+    # 1-round run over 2; each 3-round run's count set to 0 just before
+    # it and read just after
+    big = dataclasses.replace(scale_cfg, controller=inherit)
+    turns, big_launches = [], []
+    for name in ("plain", "controller", "controller", "plain"):
+        run_cfg = big if name == "controller" else scale_cfg
+        _, one = timed(dataclasses.replace(run_cfg, rounds=1))
+        with recording(ops) as big_calls:
+            ops.LAUNCHES["topk_reward"] = 0
+            hist, secs = timed(run_cfg)
+            turn_launches = ops.LAUNCHES["topk_reward"]
+        check(turn_launches == run_cfg.rounds, f"phase 6h at "
+              f"{run_cfg.n_clients} ({name}): the kernel launched "
+              f"{turn_launches} times")
+        err = max(err, check_recorded(torch, ref, big_calls,
+                                      f"phase 6h 10k {name}"))
+        check(np.isfinite(hist.train_loss).all(), f"loss {hist.train_loss}")
+        if name == "controller":
+            check(hist.controller_arm == [0] * run_cfg.rounds,
+                  f"phase 6h 10k: pulls {hist.controller_arm}")
+            big_launches.append(turn_launches)
+        turns.append({"run": name, "s_per_round":
+                      (secs - one) / (run_cfg.rounds - 1), "run_s": secs,
+                      "one_round_run_s": one})
+    per = {name: statistics.mean(t["s_per_round"] for t in turns
+                                 if t["run"] == name)
+           for name in ("plain", "controller")}
+    key = prng.PRNGKey(big.seed, dev)
+    test = make_test_set(key, big.eval_samples, big.n_classes, big.input_hw,
+                         noise=big.data_noise)
+    probe = _accuracy_fn(big.model, test)
+    params = init_resnet(prng.fold_in(key, 1), big.model)
+    probe_ms = cuda_ms(torch, probe, [(params,)])
+    row = {"arms": [a.describe() for a in arms],
+           "pulls": whole.controller_arm, "k_by_round": ks,
+           "launches": launches, "train_loss": whole.train_loss,
+           "test_acc": whole.test_acc, "turns_10k": turns,
+           "s_per_round_10k": per["controller"],
+           "plain_s_per_round_10k": per["plain"],
+           "launches_10k": big_launches,
+           "host_s_per_round_phase5": host_per_round,
+           "probe_eval_ms": probe_ms, "card": card_name_power()}
+    log(f"phase 6h: run_fl with the knob controller, {cfg.n_clients} "
+        f"clients full width, {c.rounds} rounds, arms {row['arms']}: pulls "
+        f"{whole.controller_arm} (untried first), top-k at k {ks}, "
+        f"{launches} launches each == plain; checkpointed and resumed-"
+        f"after-round-3 runs bitwise equal; the all-inherit controller "
+        f"bitwise the controller-free run. At {big.n_clients} clients, k="
+        f"{big.selector.k}, {big.rounds} rounds on {row['card']}, in turns "
+        f"(plain, controller, controller, plain): "
+        f"{[round(t['s_per_round'], 4) for t in turns]} s/round, so "
+        f"{per['controller']:.4f} s/round with the all-inherit controller "
+        f"and its reward probe against {per['plain']:.4f} without (host "
+        f"run_fl, phase 5: {host_per_round:.4f} s/round); one probe "
+        f"evaluation of {big.eval_samples} test samples {probe_ms:.4f} ms "
+        f"(CUDA events); launches {big_launches} a controller run, each "
+        f"== plain")
+    return row, err
+
+
+def phase_dispatch(torch, ops, ref, dev, n, rounds):
+    """6i: the ``run_rounds`` front door at fleet scale (phase 3's
+    population, eafl, k = 100, ``rounds`` rounds): ``"auto"`` resolves to
+    ``"scanned"`` and ``"async"`` to ``"async-scanned"`` (buffer 25,
+    concurrency 100); the forced names too; every leg's trajectory index
+    for index equal to a direct call of ``run_rounds_scanned`` or
+    ``run_async_scanned`` with the same key. Each leg's top-k count is set
+    to 0 just before it and read just after. Then the million-client
+    example twin on the card: the kernel against its plain version, and
+    ``select`` (the kernel) against the host oracle ``select_host``, index
+    for index, each timed."""
+    from repro_torch import prng
+    from repro_torch.core.energy import EnergyModel
+    from repro_torch.core.selection import SelectorConfig, SelectorState
+    from repro_torch.examples import million_client_selection
+    from repro_torch.federated import replay
+    from repro_torch.federated.simulation import (run_async_scanned,
+                                                  run_rounds,
+                                                  run_rounds_scanned)
+
+    pop = fleet_population(torch, dev, n)
+    em = EnergyModel(busy_fraction=0.02)
+    cfg = SelectorConfig("eafl", k=100)
+    key = prng.PRNGKey(13, dev)
+    args = (key, cfg, pop, SelectorState.create(cfg), em, 3.0e6, 10, 20,
+            rounds)
+    knobs = dict(buffer_size=ASYNC_BUFFER, max_concurrency=ASYNC_CONCURRENCY,
+                 staleness_power=ASYNC_POWER)
+    legs = {"auto": (lambda: run_rounds(*args), "scanned", 1),
+            "scanned": (lambda: run_rounds(*args, mode="scanned"),
+                        "scanned", 1),
+            "direct scanned": (lambda: run_rounds_scanned(*args), None, 1),
+            "async": (lambda: run_rounds(*args, mode="async", **knobs),
+                      "async-scanned", 2),
+            "async-scanned": (lambda: run_rounds(
+                *args, mode="async-scanned", **knobs), "async-scanned", 2),
+            "direct async": (lambda: run_async_scanned(*args, **knobs),
+                             None, 2)}
+    out, row = {}, {"engines": {}, "s": {}, "launches": {}}
+    with graph_recording(torch, ops, replay) as (calls, replayed):
+        for name, (run, engine, eager) in legs.items():
+            ops.LAUNCHES["topk_reward"] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fpop, _, traj = run()
+            torch.cuda.synchronize()
+            row["s"][name] = time.perf_counter() - t0
+            row["launches"][name] = ops.LAUNCHES["topk_reward"]
+            # a warm-up launch (and the async fill) and one a replay
+            check(row["launches"][name] == eager + rounds,
+                  f"phase 6i {name}: {row['launches'][name]} launches")
+            if engine is not None:
+                check(traj["engine"] == engine, f"phase 6i {name}: engine "
+                      f"{traj['engine']}, {engine} expected")
+                row["engines"][name] = traj["engine"]
+            out[name] = (fpop, traj)
+    err = check_replayed(torch, ops, ref, calls, replayed, "phase 6i",
+                         len(legs) * rounds)
+    for name, base in (("auto", "direct scanned"),
+                       ("scanned", "direct scanned"),
+                       ("async", "direct async"),
+                       ("async-scanned", "direct async")):
+        (p, t), (bp, bt) = out[name], out[base]
+        for f in bt:
+            if f in ("engine", "final_event_state"):
+                continue
+            check(np.array_equal(np.asarray(t[f]), np.asarray(bt[f])),
+                  f"phase 6i {name}: {f} differs from {base}")
+        check(torch.equal(p.battery_pct, bp.battery_pct),
+              f"phase 6i {name}: batteries differ from {base}")
+
+    with graph_recording(torch, ops, replay) as (ex_calls, ex_replayed):
+        ops.LAUNCHES["topk_reward"] = 0
+        times = million_client_selection.main(
+            ["--n", str(n), "--k", "100", "--rounds", str(rounds),
+             "--device", str(dev)])
+        ex_launches = ops.LAUNCHES["topk_reward"]
+    # step 1's two launches (a warm-up and the timed one), step 2's two
+    # select calls, step 3's warm-up and one a replayed round
+    check(ex_launches == 2 + 2 + 1 + rounds,
+          f"phase 6i: the example launched {ex_launches} times")
+    err = max(err, check_replayed(torch, ops, ref, ex_calls, ex_replayed,
+                                  "phase 6i example", rounds))
+    row.update({"example_s": times, "example_launches": ex_launches,
+                "card": card_name_power()})
+    log(f"phase 6i: run_rounds at N={n}, eafl k=100, {rounds} rounds on "
+        f"{row['card']}: engines {row['engines']}, every leg index for "
+        f"index equal to the direct engine call; launches {row['launches']}"
+        f", each == plain; seconds a leg {row['s']}. The million-client "
+        f"example on the card: kernel == plain and select (kernel) == "
+        f"select_host at N={n}; select {times['select_s']:.5f} s, "
+        f"select_host {times['select_host_s']:.5f} s, kernel "
+        f"{times['kernel_s']:.5f} s, plain {times['plain_s']:.5f} s, "
+        f"{rounds} fused rounds {times['scan_s']:.4f} s")
+    return row, err
+
+
+def phase_train_cli(torch):
+    """6j: ``python -m repro_torch.launch.train fl --rounds 2`` in a
+    process of its own, on the card (no ``--device``): it exits 0 and
+    writes a ``history.json`` of 2 rounds with finite losses. Its kernel
+    launches are that process's and are not counted here."""
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (str(SRC), env.get("PYTHONPATH")) if p)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "fl",
+             "--rounds", "2", "--out", tmp], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        check(proc.returncode == 0, f"phase 6j: train fl exited "
+              f"{proc.returncode}: {proc.stderr[-3000:]}")
+        hist = json.loads((Path(tmp) / "history.json").read_text())
+    check(hist["round"] == [1, 2], f"phase 6j: rounds {hist['round']}")
+    check(len(hist["test_acc"]) == 2 and np.isfinite(hist["train_loss"]).all(),
+          f"phase 6j: history {hist}")
+    row = {"s": secs, "train_loss": hist["train_loss"],
+           "test_acc": hist["test_acc"], "card": card_name_power()}
+    log(f"phase 6j: python -m repro_torch.launch.train fl --rounds 2 on "
+        f"{row['card']}: exit 0 in {secs:.2f} s (process start, CUDA "
+        f"initialisation and set-up included), history.json of 2 rounds, "
+        f"train_loss {hist['train_loss']}, test_acc {hist['test_acc']}; "
+        f"last line: {proc.stdout.strip().splitlines()[-1]}")
+    return row
+
+
 # ------------------------------------------------- LM kernels (phases 7-11)
 BF16_FLOP_PER_S = 989e12           # H100 SXM data sheet, dense tensor cores
 ATTN_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -2277,6 +2571,16 @@ def main(argv=None) -> int:
                   max_concurrency=ASYNC_CONCURRENCY,
                   staleness_power=ASYNC_POWER))
 
+    # the front doors: the knob controller, the dispatch and the host
+    # oracle, the train launcher; counts set to 0 just before each path
+    # and read just after (inside the phases)
+    ctrl_row, ctrl_err = timed(
+        "phase 6h", phase_controller, torch, ops, ref, dev,
+        fl_config(200, 10, 3), fl_config(10_000, 100, 3), host_per_round)
+    disp_row, disp_err = timed("phase 6i", phase_dispatch, torch, ops, ref,
+                               dev, 1_048_576, 3)
+    cli_row = timed("phase 6j", phase_train_cli, torch)
+
     attn_errs, attn_shapes, attn_rel = timed(
         "phase 7", phase_attn_vs_plain, torch, ops, ref, dev)
     ssd_errs, ssd_shapes, ssd_rel = timed(
@@ -2322,7 +2626,8 @@ def main(argv=None) -> int:
         "replaces": KERNEL_REPLACES, "checked": True,
         "launches": launches,
         "max_abs_err": max(sel_err, par_err, main_err, fsel_err, fpar_err,
-                           fused_err, asel_err, apar_err, async_err),
+                           fused_err, asel_err, apar_err, async_err,
+                           ctrl_err, disp_err),
         "ms": main["ms"], "kernel_ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -2345,12 +2650,20 @@ def main(argv=None) -> int:
                               "run_fl_async_10k_host":
                                   async_rows["host"]["launches"],
                               "run_fl_async_10k_fused":
-                                  async_rows["scanned"]["launches"]},
+                                  async_rows["scanned"]["launches"],
+                              "controller_run_fl_200": ctrl_row["launches"],
+                              "controller_run_fl_10k_by_turn":
+                                  ctrl_row["launches_10k"],
+                              "run_rounds_1M_by_leg": disp_row["launches"],
+                              "million_client_example":
+                                  disp_row["example_launches"]},
     }]}
     summary["fused"] = {"selection_1M_3_rounds": fsel_row,
                         "training_10k": fused_row, "profile": profile_rows}
     summary["async"] = {"selection_1M_4_aggregations": asel_row,
                         "parity_200": apar_out, "training_10k": async_rows}
+    summary["front_doors"] = {"controller": ctrl_row, "dispatch": disp_row,
+                              "train_cli": cli_row}
     for name, source, replaces, errs, shapes, row, n, by_phase, rel in (
             ("flash_attention", ATTN_SOURCE, ATTN_REPLACES, attn_errs,
              attn_shapes, lm_rows["flash_attention"],

@@ -7,11 +7,12 @@ from repro_torch.core.rewards import (eafl_reward, minmax_normalize,
                                       projected_power, stat_utility,
                                       system_penalty)
 from repro_torch.core.selection import (SelectorConfig, SelectorState,
-                                        compute_scores, select)
+                                        compute_scores, select,
+                                        select_host)
 
 __all__ = ["ClientPopulation", "make_population", "round_times",
            "scatter_stat_util", "EnergyModel", "pct_to_joules",
            "jains_index", "eafl_reward", "minmax_normalize", "minmax_range",
            "oort_utility", "projected_power", "stat_utility",
            "system_penalty", "SelectorConfig", "SelectorState",
-           "compute_scores", "select"]
+           "compute_scores", "select", "select_host"]

@@ -23,6 +23,9 @@ each held against its own reference twin:
 
 Every top-k here has a defined tie order, lowest index first, as
 ``lax.top_k`` has. A CUDA population always takes the kernel.
+
+:func:`select_host` is the reference's eager numpy oracle, on the port's
+own draws and scores (:func:`compute_scores`, the plain route's).
 """
 from __future__ import annotations
 
@@ -255,3 +258,67 @@ def select(key: torch.Tensor, cfg: SelectorConfig, state: SelectorState,
     idx, chosen, new_state = _device_select(key, cfg, state, pop,
                                             predicted_cost_pct, use_kernel)
     return idx[chosen].cpu().numpy().astype(np.int64), new_state
+
+
+def select_host(key: torch.Tensor, cfg: SelectorConfig, state: SelectorState,
+                pop: ClientPopulation,
+                predicted_cost_pct: Optional[torch.Tensor] = None,
+                ) -> Tuple[np.ndarray, SelectorState]:
+    """The reference's eager host selection (numpy argsort), the parity
+    oracle of :func:`select`: ``(indices (<=K,) int64, new_state)`` with
+    a state of Python numbers. The draws are the port's threefry on
+    ``pop``'s device: ``random`` is ``jax.random.choice(replace=False,
+    p=alive / n_alive)``'s Gumbel top-k, the explore leg ranks
+    ``jax.random.gumbel``; the exploit leg ranks :func:`compute_scores`
+    with a stable sort."""
+    valid = pop.alive.cpu().numpy()
+    n_valid = int(valid.sum())
+    k = min(cfg.k, n_valid)
+    state = SelectorState(state.round + 1, state.epsilon, state.pacer_T,
+                          state.util_ema)
+    if k == 0:
+        return np.zeros((0,), np.int64), state
+
+    if cfg.kind == "random":
+        p = torch.from_numpy(valid / valid.sum()).to(torch.float32)
+        idx = prng.choice_without_replacement(key, pop.n, k,
+                                              p.to(pop.device))
+        return idx.cpu().numpy().astype(np.int64), state
+
+    if predicted_cost_pct is None:
+        predicted_cost_pct = torch.zeros(pop.n, dtype=torch.float32,
+                                         device=pop.device)
+
+    explored = pop.explored.cpu().numpy() & valid
+    unexplored = valid & ~explored
+    score = compute_scores(cfg, state, pop,
+                           predicted_cost_pct).cpu().numpy().copy()
+    score[~explored] = -np.inf
+    n_explore = min(int(round(float(state.epsilon) * k)),
+                    int(unexplored.sum()))
+    # exploit slots are capped by the selectable explored pool (a finite
+    # score: for eafl-epj this excludes clients that would die mid-round)
+    n_exploit = min(k - n_explore, int((score > -np.inf).sum()))
+    n_explore = k - n_exploit     # leftovers go back to exploration
+    n_explore = min(n_explore, int(unexplored.sum()))
+
+    picks = []
+    if n_exploit > 0:
+        picks.append(np.argsort(-score, kind="stable")[:n_exploit])
+    if n_explore > 0:
+        g = prng.gumbel(key, (pop.n,)).cpu().numpy().copy()
+        g[~unexplored] = -np.inf
+        picks.append(np.argsort(-g, kind="stable")[:n_explore])
+    idx = np.concatenate(picks) if picks else np.zeros((0,), np.int64)
+
+    # epsilon decay + pacer update on the picked utility mass
+    epsilon = max(cfg.epsilon_min, float(state.epsilon) * cfg.epsilon_decay)
+    pacer_T = float(state.pacer_T)
+    util_ema = float(state.util_ema)
+    stat_util = pop.stat_util.cpu().numpy()
+    sel_util = float(stat_util[idx].mean()) if len(idx) else 0.0
+    if util_ema > 0.0 and sel_util < 0.95 * util_ema:
+        pacer_T = min(cfg.pacer_max, pacer_T + cfg.pacer_delta)
+    util_ema = 0.9 * util_ema + 0.1 * sel_util
+    return idx.astype(np.int64), SelectorState(state.round, epsilon, pacer_T,
+                                               util_ema)

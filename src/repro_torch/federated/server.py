@@ -10,17 +10,18 @@ Two synchronous engines, with the reference's key schedule, so selection,
 dropout and battery trajectories follow the reference's:
 
 - ``engine="host"`` (the default): the reference's host round loop, with
-  fault injection and checkpoint/resume;
+  fault injection, checkpoint/resume and the knob controller
+  (``cfg.controller``, ``federated/controller.py``);
 - ``engine="scanned"``: :func:`run_fl_scanned`, the whole round as one
   step with no host read, replayed from a CUDA graph on the card.
 
 ``mode="async"`` (or ``"auto"`` with ``buffer_size`` or
 ``max_concurrency`` set) runs the buffered-asynchronous (FedBuff) twins
 of ``federated/async_server.py``: the host event loop for
-``engine="host"``, the fused engine otherwise.
-
-Options not ported yet raise and name their ROADMAP.md item: the sharded
-engines and the knob controller.
+``engine="host"``, the fused engine otherwise. Mode and engine resolve
+through the reference's dispatch (``simulation.resolve_aggregation``,
+``resolve_train_engine``). The sharded engines raise and name their
+ROADMAP.md item (queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -52,18 +53,20 @@ from repro_torch.federated.aggregation import (finite_rows,
                                                server_update, tree_finite,
                                                weighted_delta,
                                                zero_nonfinite_rows)
+from repro_torch.federated.controller import (ControllerConfig,
+                                              UCBController, arm_knobs)
 from repro_torch.federated.faults import FaultConfig, faults_for_round
 from repro_torch.federated.replay import StepGraphs
-from repro_torch.federated.simulation import (BudgetLedger, _concat_traj,
-                                              _fault_totals,
+from repro_torch.federated.simulation import (ENGINES, BudgetLedger,
+                                              _concat_traj, _fault_totals,
                                               _make_checkpointer,
                                               budget_gate, cohort_energy_j,
-                                              round_cost_table,
-                                              run_async_scanned,
-                                              run_rounds_scanned,
+                                              resolve_aggregation,
+                                              resolve_train_engine,
+                                              round_cost_table, run_rounds,
                                               simulate_round,
                                               simulate_round_device,
-                                              slot_mask)
+                                              slot_mask, world_size)
 from repro_torch.models.resnet import init_resnet, resnet_forward, resnet_loss
 from repro_torch.numerics import f32
 
@@ -119,9 +122,13 @@ class FLConfig:
     checkpoint_path: Optional[str] = None
     checkpoint_every: Optional[int] = None
     resume_from: Optional[str] = None
-    # fleet energy budget (joules); controller: not ported (item 12)
+    # energy_budget_j: fleet-wide joules budget, enforced in every engine.
+    # controller: between-rounds UCB bandit over discrete knob arms
+    # (federated/controller.py) adapting k / buffer_size / staleness_power
+    # / compression_sparsity from observed accuracy per joule; the sync
+    # host loop only (the fused engines fix their knobs for the run)
     energy_budget_j: Optional[float] = None
-    controller: Optional[Any] = None
+    controller: Optional[ControllerConfig] = None
 
 
 def replace_selector_k(sel: SelectorConfig, k: int) -> SelectorConfig:
@@ -287,43 +294,6 @@ def _train_meta(cfg: FLConfig, family: str) -> Dict[str, Any]:
     }
 
 
-_ENGINE_MODES = ("scanned", "sharded", "async-scanned", "async-sharded")
-
-
-def _resolve_mode(cfg: FLConfig, mode: str) -> str:
-    """``"sync"`` or ``"async"``, as the reference's
-    ``resolve_aggregation`` resolves ``run_fl``'s mode: ``"auto"`` is
-    async exactly when ``cfg.buffer_size`` or ``cfg.max_concurrency`` is
-    set (the knobs have no synchronous meaning)."""
-    if mode in _ENGINE_MODES:
-        raise ValueError(
-            f"run_fl takes 'auto'/'sync'/'async', not the engine name "
-            f"{mode!r}")
-    if mode == "auto":
-        return ("async" if cfg.buffer_size is not None
-                or cfg.max_concurrency is not None else "sync")
-    if mode not in ("sync", "async"):
-        raise ValueError(f"unknown mode {mode!r}; expected 'auto', 'sync' "
-                         f"or 'async'")
-    return mode
-
-
-def _reject_unported(cfg: FLConfig, engine: str, asynchronous: bool) -> None:
-    if engine == "sharded":
-        raise NotImplementedError(
-            "engine='sharded' is not ported yet (ROADMAP.md, queue 1 "
-            "item 13)")
-    if engine not in ("auto", "host", "scanned"):
-        raise ValueError(f"unknown training engine {engine!r}; expected "
-                         f"'auto', 'host', 'scanned' or 'sharded'")
-    # the async engines refuse a controller themselves (a ValueError, as
-    # the reference's)
-    if cfg.controller is not None and not asynchronous:
-        raise NotImplementedError(
-            "the knob controller is not ported yet (ROADMAP.md, queue 1 "
-            "item 12)")
-
-
 def _fused_setup(cfg: FLConfig, dev: torch.device):
     """The run's data, model, optimizer and population, from the seed's
     key split: the host loop's preamble, shared by the fused engine so
@@ -361,21 +331,46 @@ def run_fl(cfg: FLConfig, verbose: bool = False, mode: str = "auto",
     """Run the full FL experiment (REAL training) on ``device`` (the CUDA
     card unless ``device="cpu"``).
 
-    ``mode`` resolves as the reference's: ``"sync"``, ``"async"``
-    (FedBuff, ``federated/async_server.py``), or ``"auto"``, async exactly
-    when ``cfg.buffer_size`` or ``cfg.max_concurrency`` is set. In the
-    sync family ``engine="host"`` (and ``"auto"``) runs the host round
-    loop and ``"scanned"`` :func:`run_fl_scanned`; in the async family
-    ``"host"`` runs the host event loop ``run_fl_async`` and ``"scanned"``
-    (and ``"auto"``, the reference's one-device choice)
-    ``run_fl_async_scanned``. The engines of a family produce the same
-    trajectory within float tolerance. With ``cfg.checkpoint_path`` the
-    host loop snapshots its carry and history (``"train-host"`` family: a
-    snapshot the reference wrote resumes here); ``cfg.resume_from``
+    ``mode`` resolves through ``resolve_aggregation``, as the reference's:
+    ``"sync"``, ``"async"`` (FedBuff, ``federated/async_server.py``), or
+    ``"auto"``, async exactly when ``cfg.buffer_size`` or
+    ``cfg.max_concurrency`` is set; an engine name is a ``ValueError``
+    (engines are forced through ``run_rounds``). ``engine`` resolves
+    through ``resolve_train_engine``: in the sync family ``"host"`` (and
+    ``"auto"``) runs the host round loop and ``"scanned"``
+    :func:`run_fl_scanned`; in the async family ``"host"`` runs the host
+    event loop ``run_fl_async`` and ``"scanned"`` (and ``"auto"`` on one
+    device) ``run_fl_async_scanned``; ``"sharded"`` raises (ROADMAP.md
+    queue 1 item 13). The engines of a family produce the same trajectory
+    within float tolerance.
+
+    ``cfg.controller`` runs only in the sync host loop (a ``ValueError``
+    elsewhere, as the reference's): before each round the UCB bandit
+    pulls an arm whose knobs shape that round, and after it one extra
+    evaluation, which draws no random number, rewards the arm with the
+    accuracy gained per joule. With ``cfg.checkpoint_path`` the host loop
+    snapshots its carry, history and controller (``"train-host"`` family:
+    a snapshot the reference wrote resumes here); ``cfg.resume_from``
     continues one."""
-    asynchronous = _resolve_mode(cfg, mode) == "async"
-    _reject_unported(cfg, engine, asynchronous)
-    if asynchronous:
+    if mode in ENGINES:
+        raise ValueError(
+            f"run_fl takes 'auto'/'sync'/'async', not the engine name "
+            f"{mode!r}; force engines via repro_torch.federated.run_rounds")
+    mode = resolve_aggregation(mode, cfg.buffer_size, cfg.max_concurrency)
+    engine = resolve_train_engine(cfg.n_clients, world_size(), mode=mode,
+                                  engine=engine)
+    if cfg.controller is not None and (mode == "async" or engine != "host"):
+        # the controller turns knobs that are fixed in the fused engines
+        # and structural in the async event loop
+        raise ValueError(
+            f"cfg.controller runs only in the synchronous host loop "
+            f"(resolved mode={mode!r}, engine={engine!r}); use "
+            f"run_fl(cfg, mode='sync', engine='host')")
+    if engine == "sharded":
+        raise NotImplementedError(
+            "engine='sharded' is not ported yet (ROADMAP.md, queue 1 "
+            "item 13)")
+    if mode == "async":
         from repro_torch.federated.async_server import (
             run_fl_async, run_fl_async_scanned)
         if engine == "host":
@@ -398,6 +393,24 @@ def run_fl(cfg: FLConfig, verbose: bool = False, mode: str = "auto",
     _, pred_cost = round_cost_table(pop, energy_model, model_bytes,
                                     sim_steps, cfg.batch_size, up_bytes)
 
+    ctrl = None if cfg.controller is None else UCBController(cfg.controller)
+    # (wire bytes, predicted cost, train fn) of each sparsity an arm sets,
+    # built once: the cost column depends only on fixed population fields
+    tables: Dict[float, tuple] = {}
+
+    def arm_tables(sparsity: float):
+        if sparsity not in tables:
+            ub = wire_bytes(model_bytes, cfg.compression,
+                            **({"sparsity": sparsity}
+                               if cfg.compression == "topk" else {}))
+            _, pc = round_cost_table(pop, energy_model, model_bytes,
+                                     sim_steps, cfg.batch_size, ub)
+            tf = _cohort_train_fn(cfg.model, cfg.local_steps,
+                                  cfg.batch_size, cfg.client_lr,
+                                  cfg.fedprox_mu, cfg.compression, sparsity)
+            tables[sparsity] = (ub, pc, tf)
+        return tables[sparsity]
+
     meta = _train_meta(cfg, "train-host")
     ck = _make_checkpointer(cfg.checkpoint_path, cfg.checkpoint_every,
                             cfg.rounds, meta)
@@ -417,6 +430,9 @@ def run_fl(cfg: FLConfig, verbose: bool = False, mode: str = "auto",
         # the ledger's f32 chain round-trips exactly through the float
         # history entry, so the resumed gate decisions match bitwise
         spent = hist.energy_spent_j[-1] if hist.energy_spent_j else 0.0
+        probe_acc = float(saved.get("probe_acc", hist.init_acc))
+        if ctrl is not None and "ctrl" in saved:
+            ctrl.load_state(saved["ctrl"])
     else:
         hist = FLHistory()
         hist.init_acc = float(test_acc_fn(params))
@@ -424,27 +440,46 @@ def run_fl(cfg: FLConfig, verbose: bool = False, mode: str = "auto",
         cum_drop = 0
         last_loss = float("nan")
         spent = 0.0
+        probe_acc = hist.init_acc
 
     for rnd in range(start + 1, cfg.rounds + 1):
         kloop, ksel, ktrain, krecharge = prng.split(kloop, 4)
-        n_pick = int(np.ceil(cfg.selector.k * cfg.overcommit))
+        arm = arm_i = None
+        arm_k = cfg.selector.k
+        rnd_up_bytes, rnd_pred_cost, rnd_train = (up_bytes, pred_cost,
+                                                  local_train)
+        if ctrl is not None:
+            # the arm is pulled before the round, so every knob it moves
+            # shapes this round; an all-inherit arm changes no value
+            arm_i = ctrl.choose(rnd)
+            arm = cfg.controller.arms[arm_i]
+            arm_k = int(arm_knobs(cfg.selector.k, arm.k))
+            if arm.compression_sparsity is not None:
+                rnd_up_bytes, rnd_pred_cost, rnd_train = arm_tables(
+                    float(arm.compression_sparsity))
+        n_pick = int(np.ceil(arm_k * cfg.overcommit))
         sel_cfg = cfg.selector if n_pick == cfg.selector.k else \
             replace_selector_k(cfg.selector, n_pick)
         selected, sel_state = select(ksel, sel_cfg, sel_state, pop,
-                                     pred_cost)
+                                     rnd_pred_cost)
         if len(selected) == 0:
             break
+        spent_before = spent
         pop, outcome = simulate_round(
             pop, selected, energy_model, model_bytes, sim_steps,
-            cfg.batch_size, rnd, cfg.deadline_s, up_bytes,
+            cfg.batch_size, rnd, cfg.deadline_s, rnd_up_bytes,
             faults=cfg.faults, energy_budget_j=cfg.energy_budget_j,
             spent_j=spent)
         spent = outcome.spent_after_j
         if not outcome.admitted and hist.budget_exhausted_round is None:
             hist.budget_exhausted_round = rnd
         cum_drop += outcome.new_dropouts
-        if cfg.overcommit > 1.0:
-            outcome = cap_stragglers(outcome, cfg.selector.k)
+        agg_cap = (arm_k if arm is None or arm.buffer_size is None
+                   else min(arm_k, int(arm.buffer_size)))
+        if cfg.overcommit > 1.0 or agg_cap < n_pick:
+            # keep the fastest agg_cap successful clients; agg_cap falls
+            # below k only when an arm sets buffer_size
+            outcome = cap_stragglers(outcome, agg_cap)
 
         pop = _recharge_step(cfg, pop, krecharge, outcome.round_duration)
 
@@ -454,7 +489,7 @@ def run_fl(cfg: FLConfig, verbose: bool = False, mode: str = "auto",
         if len(succ) > 0:
             succ_t = torch.as_tensor(succ, dtype=torch.long, device=dev)
             keys = prng.split(ktrain, len(succ))
-            deltas, per_sample, mean_losses = local_train(
+            deltas, per_sample, mean_losses = rnd_train(
                 params, data["x"][succ_t], data["y"][succ_t], keys)
             if faulty:
                 # corrupted-upload fault: the client trained and paid the
@@ -466,6 +501,13 @@ def run_fl(cfg: FLConfig, verbose: bool = False, mode: str = "auto",
             finite = finite_rows(deltas)
             weights = pop.n_samples[succ_t].to(torch.float32)
             w = torch.where(finite, weights, torch.zeros_like(weights))
+            if (arm is not None and arm.staleness_power is not None
+                    and arm.staleness_power > 0.0):
+                # FedBuff-style damping of the sync cohort by arrival rank
+                # (round duration), computed by numpy as the reference's
+                w = w * torch.as_tensor(
+                    _arrival_damping(outcome, arm.staleness_power),
+                    device=dev)
             agg = weighted_delta(zero_nonfinite_rows(deltas, finite), w)
             n_quar = int((~finite).sum())
             if bool(finite.any()) and bool(tree_finite(agg)):
@@ -489,6 +531,13 @@ def run_fl(cfg: FLConfig, verbose: bool = False, mode: str = "auto",
         hist.quarantined.append(n_quar)
         hist.update_skipped.append(skipped)
         hist.energy_spent_j.append(spent)
+        if ctrl is not None:
+            hist.controller_arm.append(arm_i)
+            # the reward probe: one extra evaluation, which draws no random
+            # number, so the bookkeeping cannot move the trajectory
+            acc_now = float(test_acc_fn(params))
+            ctrl.update(arm_i, acc_now - probe_acc, spent - spent_before)
+            probe_acc = acc_now
         _record_test_acc(hist, cfg, rnd, params, test_acc_fn)
         if verbose and rnd % 10 == 0:
             print(f"[{cfg.selector.kind}] r={rnd} acc={hist.test_acc[-1]:.3f} "
@@ -497,12 +546,25 @@ def run_fl(cfg: FLConfig, verbose: bool = False, mode: str = "auto",
         if ck and ck.due(rnd):
             # kloop here is the carry that seeds round rnd+1, so a resumed
             # run re-enters the identical RNG chain
+            ck_data = {"hist": hist.as_dict(), "wall": wall,
+                       "cum_drop": cum_drop, "last_loss": last_loss}
+            if ctrl is not None:
+                ck_data["ctrl"] = ctrl.state_dict()
+                ck_data["probe_acc"] = probe_acc
             ck.save(rnd,
                     {"params": params, "opt_state": opt_state, "pop": pop,
                      "st": sel_state, "kloop": kloop},
-                    {"hist": hist.as_dict(), "wall": wall,
-                     "cum_drop": cum_drop, "last_loss": last_loss})
+                    ck_data)
     return hist
+
+
+def _arrival_damping(outcome, power: float) -> np.ndarray:
+    """``(1 + rank) ** -power`` of each successful client's arrival rank
+    (its round duration, ties in slot order), in float32 by numpy, as the
+    reference's sync-cohort damping."""
+    dur = np.asarray(outcome.durations)[outcome.succeeded]
+    rank = np.argsort(np.argsort(dur, kind="stable"), kind="stable")
+    return (1.0 + rank.astype(np.float32)) ** np.float32(-power)
 
 
 def _poison(deltas, bad: torch.Tensor):
@@ -826,23 +888,12 @@ def run_selection_scanned(cfg: FLConfig, rounds: Optional[int] = None,
                           mode: str = "auto", device: DeviceLike = None,
                           ) -> Tuple[ClientPopulation, Dict[str, Any]]:
     """Selection + energy + battery for ``rounds`` rounds with no training,
-    from the population and simulated workload :func:`run_fl` builds, on
-    :func:`run_rounds_scanned` or, for ``mode="async"`` (or ``"auto"``
-    with ``cfg.buffer_size`` or ``cfg.max_concurrency`` set),
-    :func:`run_async_scanned`: no host read inside a round. Returns
-    ``(final_pop, {"state": final_state, "engine": "scanned" or
-    "async-scanned", **traj})``. The sharded route (``n_shards``,
-    ``mesh``) is ROADMAP.md queue 1 item 13, the engine dispatch by name
-    and size item 14."""
-    if n_shards is not None or mesh is not None:
-        raise NotImplementedError("the sharded selection engine is not "
-                                  "ported yet (ROADMAP.md, queue 1 item 13)")
-    if mode not in ("auto", "sync", "async"):
-        raise NotImplementedError(
-            f"mode={mode!r}: engine dispatch by name is not ported yet "
-            f"(ROADMAP.md, queue 1 item 14); the scanned engines run for "
-            f"'auto', 'sync' and 'async'")
-    asynchronous = _resolve_mode(cfg, mode) == "async"
+    from the population and simulated workload :func:`run_fl` builds,
+    through the :func:`run_rounds` front door: ``mode`` (default
+    ``"auto"``), ``cfg``'s async knobs and the population size pick the
+    engine (``n_shards``/``mesh`` force the sharded twin, ROADMAP.md queue
+    1 item 13). No host read inside a round. Returns ``(final_pop,
+    {"state": final_state, "engine": name, **traj})``."""
     dev = resolve_device(device)
     kpop, _kdata, kmodel, _ktest, kloop = prng.split(prng.PRNGKey(cfg.seed,
                                                                 dev), 5)
@@ -853,19 +904,13 @@ def run_selection_scanned(cfg: FLConfig, rounds: Optional[int] = None,
         model_bytes = sum(x.numel() for x in tree_leaves(params)) * 4.0
     pop, sim_steps, up_bytes, energy_model = _engine_setup(cfg, kpop,
                                                            model_bytes)
-    args = (kloop, cfg.selector, pop, SelectorState.create(cfg.selector),
-            energy_model, model_bytes, sim_steps, cfg.batch_size,
-            rounds if rounds is not None else cfg.rounds)
-    common = dict(deadline_s=cfg.deadline_s, up_bytes=up_bytes,
-                  faults=cfg.faults, checkpoint_every=cfg.checkpoint_every,
-                  checkpoint_path=cfg.checkpoint_path,
-                  resume_from=cfg.resume_from)
-    if asynchronous:
-        final_pop, final_state, traj = run_async_scanned(
-            *args, buffer_size=cfg.buffer_size,
-            max_concurrency=cfg.max_concurrency,
-            staleness_power=cfg.staleness_power, **common)
-        return final_pop, {"state": final_state, "engine": "async-scanned",
-                           **traj}
-    final_pop, final_state, traj = run_rounds_scanned(*args, **common)
-    return final_pop, {"state": final_state, "engine": "scanned", **traj}
+    final_pop, final_state, traj = run_rounds(
+        kloop, cfg.selector, pop, SelectorState.create(cfg.selector),
+        energy_model, model_bytes, sim_steps, cfg.batch_size,
+        rounds if rounds is not None else cfg.rounds, mode=mode,
+        deadline_s=cfg.deadline_s, up_bytes=up_bytes,
+        buffer_size=cfg.buffer_size, max_concurrency=cfg.max_concurrency,
+        staleness_power=cfg.staleness_power, mesh=mesh, n_shards=n_shards,
+        faults=cfg.faults, checkpoint_every=cfg.checkpoint_every,
+        checkpoint_path=cfg.checkpoint_path, resume_from=cfg.resume_from)
+    return final_pop, {"state": final_state, **traj}

@@ -834,3 +834,165 @@ def run_async_scanned(key: torch.Tensor, sel_cfg: SelectorConfig,
     traj = _async_fill_prepend(_concat_traj(parts), idx0, chosen0, b)
     traj["final_event_state"] = carry["astate"]
     return carry["pop"], carry["st"], traj
+
+
+# -------------------------------------------------------------- dispatcher
+# One front door over the four round engines. The pick is a pure function
+# of (n, device_count, mode, async knobs), the reference's, so dispatch
+# decisions match between the packages. The sharded twins are ROADMAP.md
+# queue 1 item 13: their legs raise until it lands.
+
+#: Population size at or above which a multi-device run dispatches to the
+#: sharded engines. The reference's value (its CPU-mesh measurement); it
+#: was not measured on the H100, which item 13 does with the sharded twins.
+ENGINE_CUTOVER_N = 262_144
+
+SYNC_ENGINES = ("scanned", "sharded")
+ASYNC_ENGINES = ("async-scanned", "async-sharded")
+ENGINES = SYNC_ENGINES + ASYNC_ENGINES
+
+#: Training engines behind ``run_fl``: the host round loop, the fused
+#: engine (``run_fl_scanned`` / ``run_fl_async_scanned``) and the sharded
+#: twin (item 13). Every name exists in both aggregation families.
+TRAIN_ENGINES = ("host", "scanned", "sharded")
+
+def world_size() -> int:
+    """Devices a run is planned across: the world size of an initialised
+    ``torch.distributed`` group, else 1. Not ``torch.cuda.device_count()``:
+    the sharded twins run one process a card, so one process on a host of
+    many cards plans for one."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def resolve_train_engine(n: int, device_count: Optional[int] = None, *,
+                         mode: str = "sync", engine: str = "auto",
+                         cutover_n: Optional[int] = None) -> str:
+    """Pick the training engine for ``run_fl``, as the reference does. An
+    explicit name in :data:`TRAIN_ENGINES` passes through. ``"auto"`` keeps
+    the host loop in the sync family and picks the device engines in the
+    async family: ``"sharded"`` on more than one device, else
+    ``"scanned"``."""
+    if engine == "auto":
+        if mode != "async":
+            return "host"
+        if device_count is None:
+            device_count = world_size()
+        return "sharded" if device_count > 1 else "scanned"
+    if engine not in TRAIN_ENGINES:
+        raise ValueError(f"unknown training engine {engine!r}; expected "
+                         f"'auto' or one of {TRAIN_ENGINES}")
+    return engine
+
+
+def resolve_aggregation(mode: str, buffer_size: Optional[int] = None,
+                        max_concurrency: Optional[int] = None) -> str:
+    """``"sync"`` or ``"async"`` from a user's mode. ``"auto"`` is async
+    exactly when ``buffer_size`` or ``max_concurrency`` is set (they have
+    no synchronous meaning); engine names map to their family."""
+    if mode in ("sync", "async"):
+        return mode
+    if mode in SYNC_ENGINES:
+        return "sync"
+    if mode in ASYNC_ENGINES:
+        return "async"
+    if mode == "auto":
+        return ("async" if buffer_size is not None
+                or max_concurrency is not None else "sync")
+    raise ValueError(f"unknown mode {mode!r}; expected 'auto', 'sync', "
+                     f"'async', or one of {ENGINES}")
+
+
+def resolve_engine(n: int, device_count: Optional[int] = None, *,
+                   mode: str = "auto",
+                   buffer_size: Optional[int] = None,
+                   max_concurrency: Optional[int] = None,
+                   cutover_n: Optional[int] = None) -> str:
+    """Pick the round engine for ``n`` clients: the family from ``mode``
+    and the async knobs (:func:`resolve_aggregation`; an engine name as
+    ``mode`` wins outright), the placement sharded iff ``device_count > 1``
+    and ``n >= cutover_n`` (default :data:`ENGINE_CUTOVER_N`). Returns
+    one of :data:`ENGINES`."""
+    if mode in ENGINES:
+        return mode
+    family = resolve_aggregation(mode, buffer_size, max_concurrency)
+    if device_count is None:
+        device_count = world_size()
+    if cutover_n is None:
+        cutover_n = ENGINE_CUTOVER_N
+    sharded = device_count > 1 and n >= cutover_n
+    if family == "async":
+        return "async-sharded" if sharded else "async-scanned"
+    return "sharded" if sharded else "scanned"
+
+
+def run_rounds(key: torch.Tensor, sel_cfg: SelectorConfig,
+               pop: ClientPopulation, sel_state: SelectorState,
+               energy_model: EnergyModel, model_bytes: float,
+               local_steps: int, batch_size: int, rounds: int, *,
+               mode: str = "auto",
+               deadline_s: Optional[float] = None,
+               up_bytes: Optional[float] = None,
+               buffer_size: Optional[int] = None,
+               max_concurrency: Optional[int] = None,
+               staleness_power: float = 0.5,
+               mesh=None, n_shards: Optional[int] = None,
+               cutover_n: Optional[int] = None,
+               faults: Optional[FaultConfig] = None,
+               checkpoint_every: Optional[int] = None,
+               checkpoint_path: Optional[str] = None,
+               resume_from: Optional[str] = None,
+               ) -> Tuple[ClientPopulation, SelectorState, Dict[str, Any]]:
+    """One front door over the round engines, through
+    :func:`resolve_engine`: ``mode`` picks the family (``"auto"`` infers
+    async from ``buffer_size``/``max_concurrency``) or, as an engine name,
+    the engine; the population size against ``cutover_n`` on more than one
+    device picks the placement, and ``mesh``/``n_shards`` upgrade an
+    auto-resolved engine to its sharded twin. The chosen name is recorded
+    as ``traj["engine"]``. The reference's checks, in its order: an
+    unknown mode, a forced single-device name with ``mesh``/``n_shards``,
+    async knobs with a sync engine (each a ``ValueError``). The sharded
+    twins raise ``NotImplementedError`` (item 13)."""
+    if mesh is not None:
+        devices = mesh.size()
+    elif n_shards is not None:
+        devices = n_shards
+    else:
+        devices = world_size()
+    engine = resolve_engine(pop.n, devices, mode=mode,
+                            buffer_size=buffer_size,
+                            max_concurrency=max_concurrency,
+                            cutover_n=cutover_n)
+    if mesh is not None or n_shards is not None:
+        if mode in ("scanned", "async-scanned"):
+            raise ValueError(
+                f"mode={mode!r} forces a single-device engine but "
+                f"mesh/n_shards was passed; drop one of the two")
+        engine = {"scanned": "sharded",
+                  "async-scanned": "async-sharded"}.get(engine, engine)
+    if engine in SYNC_ENGINES and (buffer_size is not None
+                                   or max_concurrency is not None):
+        raise ValueError(
+            f"async knobs (buffer_size/max_concurrency) with the "
+            f"synchronous {engine!r} engine; use mode='async' or drop "
+            f"the knobs")
+    if engine in ("sharded", "async-sharded"):
+        raise NotImplementedError(
+            f"the {engine!r} engine is not ported yet (ROADMAP.md, queue 1 "
+            f"item 13)")
+
+    common = dict(deadline_s=deadline_s, up_bytes=up_bytes, faults=faults,
+                  checkpoint_every=checkpoint_every,
+                  checkpoint_path=checkpoint_path, resume_from=resume_from)
+    args = (key, sel_cfg, pop, sel_state, energy_model, model_bytes,
+            local_steps, batch_size, rounds)
+    if engine == "scanned":
+        fpop, st, traj = run_rounds_scanned(*args, **common)
+    else:
+        fpop, st, traj = run_async_scanned(
+            *args, buffer_size=buffer_size, max_concurrency=max_concurrency,
+            staleness_power=staleness_power, **common)
+    traj["engine"] = engine
+    return fpop, st, traj

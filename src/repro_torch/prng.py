@@ -24,7 +24,7 @@ from typing import Sequence, Tuple, Union
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.numerics import f32, fma
+from repro_torch.numerics import f32, fma, orderable_key
 
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -143,6 +143,26 @@ def normal(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
     lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)).item()
     u = uniform(key, shape, lo, 1.0)
     return f32(math.sqrt(2), key) * torch.erfinv(u)
+
+
+def gumbel(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+    """``jax.random.gumbel`` (its default ``"low"`` mode) in float32:
+    ``-log(-log(u))`` of the reference's exact ``u`` in ``[tiny, 1)``.
+    The logs are torch's, which can differ from XLA's in the last bit;
+    the order of distinct ``u`` is kept wherever neighbouring draws lie
+    more than an ulp apart."""
+    u = uniform(key, shape, torch.finfo(torch.float32).tiny, 1.0)
+    return -torch.log(-torch.log(u))
+
+
+def choice_without_replacement(key: torch.Tensor, n_inputs: int, k: int,
+                               p: torch.Tensor) -> torch.Tensor:
+    """``jax.random.choice(key, n_inputs, (k,), replace=False, p=p)``: the
+    Gumbel top-k of ``gumbel(key, (n_inputs,)) + log(p)`` (``p`` float32),
+    equal scores lowest index first as ``lax.top_k``. Returns int64."""
+    g = gumbel(key, (n_inputs,)) + torch.log(p)
+    return torch.sort(orderable_key(g), descending=True,
+                      stable=True).indices[:k]
 
 
 def gamma(key: torch.Tensor, a: float, shape: Shape) -> torch.Tensor:

@@ -114,6 +114,18 @@ def test_scan_covers_the_async_slice():
             "federated/replay.py", "numerics.py"} <= names
 
 
+def test_scan_covers_the_front_doors():
+    """The controller, the ``train`` launcher and the example twins are
+    in the scan (a package file is found by the glob, not listed)."""
+    pkg = ROOT / "src" / "repro_torch"
+    names = {p.relative_to(pkg).as_posix() for p in FILES
+             if pkg in p.parents}
+    assert {"federated/controller.py", "launch/train.py",
+            "examples/__init__.py", "examples/quickstart.py",
+            "examples/async_fedbuff.py",
+            "examples/million_client_selection.py"} <= names
+
+
 def test_async_entry_points_need_cuda_or_an_explicit_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is the card")
@@ -627,3 +639,13 @@ def test_chip_faults_async_faults_replace_live_functions():
         args = inputs[attr]
         assert phase in ("6e", "6f")
         assert not torch.equal(make_fault(sound)(*args), sound(*args)), attr
+
+
+def test_chip_smoke_reads_each_rounds_pulled_k():
+    """Phase 6h holds each round's top-k launch at the k its pulled arm
+    sets, the config's where the arm inherits it."""
+    from repro_torch.federated.controller import Arm
+    from repro_torch.federated.server import FLHistory
+    arms = (Arm(k=5), Arm(), Arm(k=20, staleness_power=0.5))
+    hist = FLHistory(controller_arm=[0, 1, 2, 1])
+    assert _chip_smoke().pulled_k(hist, arms, 10) == [5, 10, 20, 10]

@@ -114,8 +114,10 @@ def test_run_selection_scanned():
     pop, out = tserver.run_selection_scanned(cfg, device="cpu")
     assert out["engine"] == "scanned" and int(out["state"].round) == 3
     assert out["selected"].shape == (3, 4) and pop.n == 30
+    # the sharded twins, by a shard count or by name, raise from the
+    # run_rounds front door (ROADMAP.md queue 1 item 13)
     for bad, match in ((dict(n_shards=2), "item 13"),
-                       (dict(mode="sharded"), "item 14")):
+                       (dict(mode="sharded"), "item 13")):
         with pytest.raises(NotImplementedError, match=match):
             tserver.run_selection_scanned(cfg, device="cpu", **bad)
     # async is ported: it runs the async event engine

@@ -34,6 +34,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.configs.paper_resnet_speech import reduced as treduced  # noqa: E402
 from repro_torch.core.selection import SelectorConfig as TSel  # noqa: E402
 from repro_torch.federated import server as tserver  # noqa: E402
+from repro_torch.federated.controller import Arm, ControllerConfig  # noqa: E402
 
 COMMON = dict(n_clients=12, rounds=3, local_steps=2, batch_size=4,
               samples_per_client=8, input_hw=16, eval_samples=16,
@@ -109,17 +110,20 @@ def test_run_fl_matches_reference(case, monkeypatch):
     np.testing.assert_allclose(out.init_acc, ref.init_acc, rtol=2e-3)
 
 
-# the async (FedBuff) knobs are ported now: they route to the async
-# engines (tests/test_torch_async_training.py), so the one unported
-# option left here is the controller (its id kept from the pair it was)
+# The async knobs and the knob controller are ported now (the controller
+# runs in the sync host loop: tests/test_torch_controller.py). The case
+# keeps its id and holds the reference's order of refusals: a controller
+# with any engine but the host loop is the reference's ValueError, raised
+# before the sharded engine's NotImplementedError (item 13).
 @pytest.mark.parametrize("change,match", [
-    pytest.param(dict(controller=object()), "item 12",
-                 id="change1-item 12"),
+    pytest.param(dict(controller=ControllerConfig(arms=(Arm(),))),
+                 "synchronous host loop", id="change1-item 12"),
 ])
 def test_unported_options_raise(change, match):
     cfg = dataclasses.replace(_cfgs("eafl")[1], **change)
-    with pytest.raises(NotImplementedError, match=match):
-        tserver.run_fl(cfg, device="cpu")
+    for engine in ("sharded", "scanned"):
+        with pytest.raises(ValueError, match=match):
+            tserver.run_fl(cfg, engine=engine, device="cpu")
 
 
 def test_async_knobs_route_to_the_async_engines(monkeypatch):
