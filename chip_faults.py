@@ -44,10 +44,14 @@ SSD's slow-decay case against ``SSD_BF16_REL_L2_SLOW``) and
 ``ASYNC_FAULTS`` replace one function of the port's async engines for
 the time of one phase: the flush's top-k with equal arrival times taken
 highest index first, the snapshot ring's lookup one version off, and the
-damping with its exponent dropped. The sound engines must pass phases 6e
-(async selection at 1,048,576 clients) and 6f (plain, the fused engine
-against the host loop at full width) of ``chip_smoke.py``, and each fault
-must fail the phase it names.
+damping with its exponent dropped. ``SHARD_FAULTS`` do the same to the
+sharded engines: the per-shard top-k leg with ``index_offset`` dropped,
+the candidate merge with ties highest index first, and the
+one-owner-per-slot gather summing two owners. The sound engines must
+pass phases 6e (async selection at 1,048,576 clients), 6f (plain, the
+fused engine against the host loop at full width) and 6k (sharded
+selection at 1,048,576 clients on 1, 2 and 8 shards) of
+``chip_smoke.py``, and each fault must fail the phase it names.
 
 Exits 1 unless each sound kernel and engine passes its check (bitwise for
 top-k, the tight check for the others) and every fault fails it. The last
@@ -189,12 +193,54 @@ ASYNC_FAULTS = {
 }
 
 
+def _offset_dropped(sound):
+    """The top-k wrapper with ``index_offset`` ignored: each shard's
+    candidates keep their local indices."""
+    def topk_reward(a, b, valid, *, index_offset=0, **kw):
+        return sound(a, b, valid, **kw)
+    return topk_reward
+
+
+def _merge_ties_reversed(sound):
+    """The candidate merge with the gathered candidates reversed, so that
+    equal values go highest index first."""
+    return lambda v_loc, i_loc, k, axis: sound(v_loc.flip((0, 1)),
+                                               i_loc.flip((0, 1)), k, axis)
+
+
+def _two_owners(sound):
+    """The slot owner with each shard also claiming the next shard's
+    slots, so that every one-owner-per-slot gather sums two owners."""
+    def slot_owner(idx, base, n_loc):
+        own, loc = sound(idx, base, n_loc)
+        return own | sound(idx, base + n_loc, n_loc)[0], loc
+    return slot_owner
+
+
+# the sharded engines' planted faults, in the same form; a name imported
+# by several modules is replaced in each
+SHARD_FAULTS = {
+    "per_shard_leg_index_offset_dropped": (
+        ("repro_torch.kernels.ops",), "topk_reward", _offset_dropped,
+        "6k"),
+    "merge_ties_highest_index_first": (
+        ("repro_torch.core.selection",), "_merge_candidates",
+        _merge_ties_reversed, "6k"),
+    "slot_gather_two_owners": (
+        ("repro_torch.core.selection", "repro_torch.federated.simulation",
+         "repro_torch.federated.server"), "_slot_owner", _two_owners,
+        "6k"),
+}
+
+
 def async_phase(torch, ops, ref, dev, phase):
-    """Run phase 6e or 6f (plain only) of ``chip_smoke.py``; returns
+    """Run phase 6e, 6f (plain only) or 6k of ``chip_smoke.py``; returns
     ``{"fails": bool, "first_failure": text}``."""
     try:
         if phase == "6e":
             cs.phase_async_selection(torch, ops, ref, dev, 1_048_576, 4)
+        elif phase == "6k":
+            cs.phase_sharded_selection(torch, ops, ref, dev, 1_048_576, 3)
         else:
             cs.phase_async_parity(
                 torch, ops, ref, dev,
@@ -207,20 +253,25 @@ def async_phase(torch, ops, ref, dev, phase):
 
 
 def async_readings(torch, ops, ref, dev):
-    """The sound engines on phases 6e and 6f, then each planted fault on
-    the phase it names."""
+    """The sound engines on phases 6e, 6f and 6k, then each planted fault
+    of the async and the sharded engines on the phase it names."""
     import importlib
     out = {"sound": {ph: async_phase(torch, ops, ref, dev, ph)
-                     for ph in ("6e", "6f")}}
-    for name, (module, attr, make_fault, phase) in ASYNC_FAULTS.items():
-        mod = importlib.import_module(module)
-        sound = getattr(mod, attr)
-        setattr(mod, attr, make_fault(sound))
+                     for ph in ("6e", "6f", "6k")}}
+    faults = {name: ((module,), attr, make, phase) for name, (
+        module, attr, make, phase) in ASYNC_FAULTS.items()}
+    faults.update(SHARD_FAULTS)
+    for name, (modules, attr, make_fault, phase) in faults.items():
+        mods = [importlib.import_module(m) for m in modules]
+        sound = getattr(mods[0], attr)
+        for mod in mods:
+            setattr(mod, attr, make_fault(sound))
         try:
             out[name] = {phase: async_phase(torch, ops, ref, dev, phase)}
         finally:
-            setattr(mod, attr, sound)
-        cs.log(json.dumps({"async": {name: out[name]}}))
+            for mod in mods:
+                setattr(mod, attr, sound)
+        cs.log(json.dumps({"engines": {name: out[name]}}))
     return out
 
 
@@ -457,8 +508,8 @@ def main(argv=None) -> int:
                          "selective_scan")
     del scan_in, all_libs, libs
 
-    # the async engines: the sound ones pass phases 6e and 6f, each fault
-    # fails the phase it names
+    # the async and sharded engines: the sound ones pass phases 6e, 6f and
+    # 6k, each fault fails the phase it names
     asyn = async_readings(torch, ops, ref, dev)
 
     readings = {"topk_reward": topk, "flash_attention": attn,
@@ -472,7 +523,10 @@ def main(argv=None) -> int:
               "selective_scan": {"tight": cs.SCAN_BF16_REL_L2},
               "async": {"6e": "flush, staleness and damping against the "
                               "event clock recomputed on the host",
-                        "6f": "fused engine against the host loop"}}
+                        "6f": "fused engine against the host loop",
+                        "6k": "sharded selection on 1, 2 and 8 shards "
+                              "against the single-device engine, every "
+                              "launch against the plain version"}}
     fail_key = {"topk_reward": "bitwise_fails"}
     ok = all(not r["sound"][fail_key.get(k, "tight_fails")] and all(
         v[fail_key.get(k, "tight_fails")] for n, v in r.items()

@@ -101,11 +101,38 @@ The front doors (the knob controller, the dispatch, the host oracle, the
    of ``run_rounds_scanned`` and ``run_async_scanned``; then
    ``repro_torch.examples.million_client_selection`` on the card: the
    kernel against its plain version, and ``select`` (the kernel) against
-   the host oracle ``select_host``, index for index, with both times.
+   the host oracle ``select_host``, index for index, with both times,
+   and its sharded step 4 on a one-shard mesh.
 6j. ``python -m repro_torch.launch.train fl --rounds 2`` in a process of
    its own on the card: exit 0 and a ``history.json`` of 2 rounds.
 
-In phases 3 to 6i every call of the top-k kernel's wrapper is recorded,
+The sharded synchronous engines, over a ``clients`` mesh
+(``repro_torch/launch/mesh.py``; virtual shards in one process on the
+one card, or a ``torch.distributed`` process group):
+
+6k. ``run_rounds_sharded`` at 1,048,576 clients (phase 3's population,
+   eafl, k = 100, 3 rounds) on virtual meshes of 1, 2 and 8 shards, each
+   round one CUDA-graph replay that launches the top-k kernel once a
+   shard with its own ``index_offset``: selected, chosen, succeeded,
+   dropouts, batteries and selector state equal to ``run_rounds_scanned``
+   with the same key; then one step where every score ties, which must
+   pick the lowest indices on every mesh; seconds a replayed round and
+   capture beside the single-device engine's.
+6l. ``run_fl(engine="sharded")`` (one shard) and ``run_fl_sharded`` on
+   4 shards at 10,000 clients, k = 100, full width, 3 rounds, against
+   ``run_fl_scanned`` (cuDNN's deterministic algorithms): the selection
+   columns equal, one shard bitwise, four within
+   tests/test_torch_training_engines.py's tolerances; each replayed round
+   timed alone beside the fused engine's, capture apart; one profiled
+   round of the 4-shard engine (idle share); the fused engine's
+   ``train-sync`` snapshot after round 2 resumed on 4 shards.
+6m. A ``torch.distributed`` NCCL group of world size 1 (a ``FileStore``,
+   bootstrap on the loopback) and ``run_rounds_sharded`` over its
+   process-group mesh at 1,048,576 clients: the collectives run through
+   NCCL and are captured in the round's graph (counted during capture),
+   and the run is bitwise the virtual one-shard mesh's.
+
+In phases 3 to 6m every call of the top-k kernel's wrapper is recorded,
 inputs and outputs, and its outputs are held against the plain version on
 the same inputs. Under capture the records are copies captured into the
 graph, read after each replay; each replayed launch is also held against
@@ -968,6 +995,26 @@ def round_split(events, name, top=10):
                     for k, v in totals.most_common(top)]}
 
 
+def fused_steps(torch, replay):
+    """A ``step_hook`` for :func:`trace_round` that steps the profiler as
+    each ``"round"`` step of a fused engine starts."""
+    @contextlib.contextmanager
+    def hook(prof):
+        run = replay.StepGraphs.run
+
+        def stepping(self, name):
+            if name == "round":       # the last round's device work is done
+                torch.cuda.synchronize()
+                prof.step()
+            return run(self, name)
+        replay.StepGraphs.run = stepping
+        try:
+            yield
+        finally:
+            replay.StepGraphs.run = run
+    return hook
+
+
 def phase_profile(torch, dev, cfg):
     """6d: one round (the second) of each engine at 10,000 clients under
     ``torch.profiler`` (the traces, tens of MB, are read and dropped)."""
@@ -988,24 +1035,10 @@ def phase_profile(torch, dev, cfg):
         finally:
             tserver.select = select
 
-    @contextlib.contextmanager
-    def fused_steps(prof):
-        run = replay.StepGraphs.run
-
-        def stepping(self, name):
-            if name == "round":       # the last round's device work is done
-                torch.cuda.synchronize()
-                prof.step()
-            return run(self, name)
-        replay.StepGraphs.run = stepping
-        try:
-            yield
-        finally:
-            replay.StepGraphs.run = run
-
     rows = {}
     for name, engine, hook in (("host", "host", host_steps),
-                               ("scanned", "scanned", fused_steps)):
+                               ("scanned", "scanned",
+                                fused_steps(torch, replay))):
         with tempfile.TemporaryDirectory() as tmp:
             rows[name] = trace_round(
                 torch, lambda: tserver.run_fl(cfg, engine=engine, device=dev),
@@ -1595,11 +1628,12 @@ def phase_dispatch(torch, ops, ref, dev, n, rounds):
              "--device", str(dev)])
         ex_launches = ops.LAUNCHES["topk_reward"]
     # step 1's two launches (a warm-up and the timed one), step 2's two
-    # select calls, step 3's warm-up and one a replayed round
-    check(ex_launches == 2 + 2 + 1 + rounds,
+    # select calls, step 3's warm-up and one a replayed round, and step
+    # 4's (the sharded engine on a one-shard mesh) as many
+    check(ex_launches == 2 + 2 + 2 * (1 + rounds),
           f"phase 6i: the example launched {ex_launches} times")
     err = max(err, check_replayed(torch, ops, ref, ex_calls, ex_replayed,
-                                  "phase 6i example", rounds))
+                                  "phase 6i example", 2 * rounds))
     row.update({"example_s": times, "example_launches": ex_launches,
                 "card": card_name_power()})
     log(f"phase 6i: run_rounds at N={n}, eafl k=100, {rounds} rounds on "
@@ -1610,7 +1644,8 @@ def phase_dispatch(torch, ops, ref, dev, n, rounds):
         f"select_host at N={n}; select {times['select_s']:.5f} s, "
         f"select_host {times['select_host_s']:.5f} s, kernel "
         f"{times['kernel_s']:.5f} s, plain {times['plain_s']:.5f} s, "
-        f"{rounds} fused rounds {times['scan_s']:.4f} s")
+        f"{rounds} fused rounds {times['scan_s']:.4f} s, the same on a "
+        f"one-shard mesh {times['shard_s']:.4f} s")
     return row, err
 
 
@@ -1643,6 +1678,319 @@ def phase_train_cli(torch):
         f"train_loss {hist['train_loss']}, test_acc {hist['test_acc']}; "
         f"last line: {proc.stdout.strip().splitlines()[-1]}")
     return row
+
+
+# --------------------------------------- the sharded engines (6k-6m)
+SHARD_EXACT = ("selected", "chosen", "succeeded", "corrupt", "retries",
+               "new_dropouts", "total_dropped", "round_duration")
+
+
+def check_sharded_rounds(torch, got, base, label, exact_floats=False):
+    """A ``run_rounds_sharded`` result against a ``run_rounds_scanned`` one
+    on the same key: the index and count columns, durations, batteries,
+    dropouts and the selector state equal; the summed floats within rtol
+    1e-6 (equal too with ``exact_floats``)."""
+    (p, st, t), (bp, bst, bt) = got, base
+    for f in SHARD_EXACT + (("mean_battery", "energy_spent_pct",
+                             "energy_spent_j") if exact_floats else ()):
+        check(np.array_equal(t[f], bt[f]), f"{label}: {f} differs")
+    for f in ("mean_battery", "energy_spent_pct", "energy_spent_j"):
+        np.testing.assert_allclose(t[f], bt[f], rtol=1e-6,
+                                   err_msg=f"{label}: {f}")
+    check(torch.equal(p.battery_pct, bp.battery_pct),
+          f"{label}: batteries differ")
+    check(torch.equal(p.dropped, bp.dropped), f"{label}: dropouts differ")
+    for f in ("round", "epsilon", "pacer_T", "util_ema"):
+        check(float(getattr(st, f)) == float(getattr(bst, f)),
+              f"{label}: state.{f} differs")
+
+
+def timed_engine(torch, replay, fn, *args, **kw):
+    """``fn(*args, **kw)`` on the card: ``(its result, seconds, the first
+    StepGraphs it made)``."""
+    with graphs_made(replay) as made:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, made[0]
+
+
+def phase_sharded_selection(torch, ops, ref, dev, n, rounds,
+                            counts=(1, 2, 8)):
+    """6k: ``run_rounds_sharded`` at fleet scale on virtual ``clients``
+    meshes of ``counts`` shards, one card, each round one CUDA-graph
+    replay, against ``run_rounds_scanned`` with the same key (phase 3's
+    population, eafl, k = 100). Each shard launches the top-k kernel with
+    its own ``index_offset``; every launch is held against the plain
+    version and each replayed one against an eager launch. The count is
+    set to 0 just before each mesh's run and read just after. Then one
+    step on a population whose scores all tie (exploitation only): the
+    sharded step (``make_sharded_select_step``) picks the lowest indices,
+    as the single-device step does."""
+    from repro_torch import prng
+    from repro_torch.core.energy import EnergyModel
+    from repro_torch.core.selection import (SelectorConfig, SelectorState,
+                                            _device_select,
+                                            make_sharded_select_step)
+    from repro_torch.federated import replay
+    from repro_torch.federated.simulation import (run_rounds_scanned,
+                                                  run_rounds_sharded)
+    from repro_torch.launch.mesh import make_client_mesh
+
+    pop = fleet_population(torch, dev, n)
+    cfg = SelectorConfig("eafl", k=100)
+    args = (prng.PRNGKey(17, dev), cfg, pop, SelectorState.create(cfg),
+            EnergyModel(busy_fraction=0.02), 3.0e6, 10, 20, rounds)
+    rows = {}
+
+    def timed(fn, **kw):
+        """The run with each round step timed alone: the first holds the
+        warm-up and the capture, the others are replays; the rest of the
+        run (padding, layout, key split, fetch) is its set-up."""
+        times = []
+        with replay_timing(torch, replay, times):
+            out, secs, graphs = timed_engine(torch, replay, fn, *args, **kw)
+        return out, graphs, {
+            "run_s": secs, "setup_s": secs - sum(times),
+            "first_step_s": times[0],
+            "capture_s": graphs.capture_s.get("round", 0.0),
+            "replay_s": times[1:]}
+
+    base, _, rows["scanned"] = timed(run_rounds_scanned)
+    launches = {}
+    with graph_recording(torch, ops, replay) as (calls, replayed):
+        for d in counts:
+            mesh = make_client_mesh(d)
+            ops.LAUNCHES["topk_reward"] = 0
+            got, graphs, rows[f"D={d}"] = timed(run_rounds_sharded,
+                                                mesh=mesh)
+            launches[d] = ops.LAUNCHES["topk_reward"]
+            # one launch a shard in the warm-up and in each replay
+            check(launches[d] == d * (1 + rounds), f"phase 6k D={d}: the "
+                  f"kernel launched {launches[d]} times")
+            held = graphs.launches.get("round")
+            check(held == {"topk_reward": d},
+                  f"phase 6k D={d}: the round graph holds {held}")
+            check_sharded_rounds(torch, got, base, f"phase 6k D={d}")
+        flat = pop.replace(
+            stat_util=torch.ones_like(pop.stat_util),
+            last_duration=torch.ones_like(pop.last_duration),
+            battery_pct=torch.full_like(pop.battery_pct, 80.0),
+            explored=torch.ones_like(pop.explored),
+            dropped=torch.zeros_like(pop.dropped))
+        pred = torch.full_like(pop.battery_pct, 3.0)
+        tie_cfg = SelectorConfig("eafl", k=100, epsilon0=0.0,
+                                 epsilon_min=0.0)
+        key = prng.PRNGKey(23, dev)
+        want_idx, _, _ = _device_select(key, tie_cfg, SelectorState.create(
+            tie_cfg), flat, pred, dev.type == "cuda")
+        check(torch.equal(want_idx, torch.arange(100, device=dev)),
+              "phase 6k ties: the single-device step does not pick the "
+              "lowest indices")
+        for d in counts:
+            idx, _, _ = make_sharded_select_step(
+                tie_cfg, make_client_mesh(d), n)(
+                key, SelectorState.create(tie_cfg), flat, pred)
+            check(torch.equal(idx, want_idx), f"phase 6k ties D={d}: "
+                  f"picks {idx[:8].tolist()}...")
+    # the single-device engine again, so that the comparison is in turns
+    _, _, rows["scanned, again"] = timed(run_rounds_scanned)
+    err = check_replayed(torch, ops, ref, calls, replayed, "phase 6k",
+                         sum(d * rounds for d in counts))
+    offsets = sorted({kw.get("index_offset", 0)
+                      for _, kw, _ in calls + replayed})
+    want = sorted({s * (n // d) for d in counts for s in range(d)})
+    check(offsets == want, f"phase 6k: index offsets {offsets}, {want} "
+          f"expected")
+    out = {"rows": rows, "launches": launches, "card": card_name_power()}
+    log(f"phase 6k: run_rounds_sharded N={n} eafl k=100 x{rounds} rounds on "
+        f"virtual meshes of {list(counts)} shards on {out['card']}, each "
+        f"round one CUDA-graph replay: selected, chosen, succeeded, "
+        f"dropouts, batteries and selector state equal to "
+        f"run_rounds_scanned, and the all-ties step's picks the lowest "
+        f"indices; kernel launches {launches} (one a shard in "
+        f"the warm-up and in each replay, index offsets {offsets}), each "
+        f"== plain and == an eager launch; seconds (the run, its set-up, "
+        f"the first step with warm-up and capture, the capture alone, "
+        f"each replayed round alone): {rows}")
+    return out, err
+
+
+def phase_sharded_training(torch, ops, ref, dev, cfg, counts=(1, 4)):
+    """6l: ``run_fl`` with ``engine="sharded"`` (one shard) and
+    ``run_fl_sharded`` on a 4-shard virtual mesh at 10,000 clients, full
+    width, against ``run_fl_scanned`` on the card, cuDNN's deterministic
+    algorithms: selected, chosen and succeeded equal round for round, the
+    history at tests/test_torch_training_engines.py's tolerances (one
+    shard bitwise). Each round replay is timed alone beside the fused
+    engine's, in turns (fused, 1 shard, 4 shards, fused), warm-up and
+    capture apart; one round of the 4-shard engine is profiled (idle
+    share). A ``train-sync`` snapshot of the fused engine after round 2
+    resumes in the 4-shard engine."""
+    from repro_torch.federated import replay
+    from repro_torch.federated.server import (run_fl, run_fl_scanned,
+                                              run_fl_sharded)
+    from repro_torch.launch.mesh import make_client_mesh
+
+    cols = ("selected", "chosen", "succeeded")
+    rows, launches, out = {}, {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "scanned-{round}.ckpt")
+            times = []
+            with replay_timing(torch, replay, times):
+                base, secs, graphs = timed_engine(
+                    torch, replay, run_fl_scanned, dataclasses.replace(
+                        cfg, checkpoint_path=path, checkpoint_every=2),
+                    device=dev)
+            base_cols = {f: graphs.traj[f].cpu().numpy() for f in cols}
+            rows["scanned"] = {"run_s": secs, "capture_s": graphs.capture_s,
+                               "replay_s": times[1:]}
+            for d in counts:
+                mesh = make_client_mesh(d)
+                times = []
+                with graph_recording(torch, ops, replay) as (calls,
+                                                             replayed), \
+                        replay_timing(torch, replay, times):
+                    ops.LAUNCHES["topk_reward"] = 0
+                    if d == 1:
+                        hist, secs, graphs = timed_engine(
+                            torch, replay, run_fl, cfg, engine="sharded",
+                            device=dev)
+                    else:
+                        hist, secs, graphs = timed_engine(
+                            torch, replay, run_fl_sharded, cfg, mesh=mesh,
+                            device=dev)
+                    launches[d] = ops.LAUNCHES["topk_reward"]
+                check(launches[d] == d * (1 + cfg.rounds),
+                      f"phase 6l D={d}: the kernel launched {launches[d]} "
+                      f"times")
+                err = check_replayed(torch, ops, ref, calls, replayed,
+                                     f"phase 6l D={d}", d * cfg.rounds)
+                out[f"max_abs_err_D={d}"] = err
+                for f in cols:
+                    check(np.array_equal(graphs.traj[f].cpu().numpy(),
+                                         base_cols[f]),
+                          f"phase 6l D={d}: {f} differs from the fused "
+                          f"engine's")
+                if d == 1:
+                    check(same_history(base, hist), "phase 6l D=1: the "
+                          "history differs from the fused engine's")
+                check_engines_agree(base, hist, f"phase 6l D={d}",
+                                    cfg.eval_samples)
+                rows[f"D={d}"] = {"run_s": secs,
+                                  "capture_s": graphs.capture_s,
+                                  "replay_s": times[1:],
+                                  "train_loss": hist.train_loss,
+                                  "test_acc": hist.test_acc}
+            resumed = run_fl_sharded(dataclasses.replace(
+                cfg, resume_from=path.format(round=2)), n_shards=counts[-1],
+                device=dev)
+            check_engines_agree(base, resumed, f"phase 6l: the fused "
+                                f"engine's snapshot resumed on "
+                                f"{counts[-1]} shards", cfg.eval_samples)
+            times = []
+            with replay_timing(torch, replay, times):
+                again, secs, graphs = timed_engine(torch, replay,
+                                                   run_fl_scanned, cfg,
+                                                   device=dev)
+            check(same_history(base, again), "phase 6l: the fused engine "
+                  "did not repeat itself")
+            rows["scanned, again"] = {"run_s": secs,
+                                      "capture_s": graphs.capture_s,
+                                      "replay_s": times[1:]}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    d = counts[-1]
+    with tempfile.TemporaryDirectory() as tmp:
+        rows[f"D={d}"]["profile"] = trace_round(
+            torch, lambda: run_fl_sharded(cfg, n_shards=d, device=dev),
+            fused_steps(torch, replay), Path(tmp), f"sharded{d}")
+    out.update({"rows": rows, "launches": launches,
+                "card": card_name_power()})
+    log(f"phase 6l: run_fl sharded (D in {list(counts)}) against "
+        f"run_fl_scanned, {cfg.n_clients} clients, k={cfg.selector.k}, "
+        f"{cfg.rounds} rounds, full width, on {out['card']}: selection "
+        f"columns equal, D=1 bitwise, the history within the tests' "
+        f"tolerances; the fused engine's snapshot after round 2 resumed "
+        f"on {d} shards within them; kernel launches {launches}; seconds "
+        f"(run, warm-up + capture, each replayed round alone) and the "
+        f"{d}-shard round's profile: {rows}")
+    return out, max(v for k, v in out.items() if k.startswith("max_abs"))
+
+
+def phase_process_group(torch, ops, ref, dev, n, rounds):
+    """6m: a ``torch.distributed`` NCCL group of world size 1 (a
+    ``FileStore``, bootstrap on the loopback) and ``run_rounds_sharded``
+    over its process-group mesh at fleet scale: the collectives run
+    through NCCL and are captured in the round's CUDA graph (counted
+    during capture); the run equals the virtual one-shard mesh's
+    bitwise."""
+    import torch.distributed as dist
+    from repro_torch import prng
+    from repro_torch.core.energy import EnergyModel
+    from repro_torch.core.selection import SelectorConfig, SelectorState
+    from repro_torch.federated import replay
+    from repro_torch.federated.simulation import run_rounds_sharded
+    from repro_torch.launch.mesh import make_client_mesh
+
+    pop = fleet_population(torch, dev, n)
+    cfg = SelectorConfig("eafl", k=100)
+    args = (prng.PRNGKey(19, dev), cfg, pop, SelectorState.create(cfg),
+            EnergyModel(busy_fraction=0.02), 3.0e6, 10, 20, rounds)
+    virtual = run_rounds_sharded(*args, mesh=make_client_mesh(1))
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(torch.cuda.current_device()
+                          if dev.index is None else dev.index)
+    captured = Counter()
+    sound = {name: getattr(dist, name) for name in ("all_reduce",
+                                                    "all_gather")}
+
+    def counting(name):
+        def call(*a, **kw):
+            if torch.cuda.is_current_stream_capturing():
+                captured[name] += 1
+            return sound[name](*a, **kw)
+        return call
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_client_mesh()
+            check(mesh.group is not None and mesh.size() == 1,
+                  f"phase 6m: mesh {mesh}")
+            for name in sound:
+                setattr(dist, name, counting(name))
+            with graph_recording(torch, ops, replay) as (calls, replayed):
+                ops.LAUNCHES["topk_reward"] = 0
+                got, secs, graphs = timed_engine(
+                    torch, replay, run_rounds_sharded, *args, mesh=mesh)
+                launches = ops.LAUNCHES["topk_reward"]
+        finally:
+            for name, fn in sound.items():
+                setattr(dist, name, fn)
+            dist.destroy_process_group()
+    check(launches == 1 + rounds, f"phase 6m: the kernel launched "
+          f"{launches} times")
+    check(captured["all_reduce"] > 0 and captured["all_gather"] > 0,
+          f"phase 6m: collectives captured {dict(captured)}")
+    check_sharded_rounds(torch, got, virtual, "phase 6m", exact_floats=True)
+    err = check_replayed(torch, ops, ref, calls, replayed, "phase 6m",
+                         rounds)
+    row = {"run_s": secs, "capture_s": graphs.capture_s.get("round", 0.0),
+           "launches": launches, "captured_collectives": dict(captured),
+           "card": card_name_power()}
+    log(f"phase 6m: run_rounds_sharded N={n} over an NCCL process group "
+        f"of world size 1 on {row['card']}: {dict(captured)} collective "
+        f"calls captured in the round's CUDA graph, the trajectory, "
+        f"batteries and state bitwise equal to the virtual one-shard "
+        f"mesh's; kernel launches {launches}, each == plain; {secs:.4f} s "
+        f"with warm-up and capture {row['capture_s']:.4f} s")
+    return row, err
 
 
 # ------------------------------------------------- LM kernels (phases 7-11)
@@ -2580,6 +2928,15 @@ def main(argv=None) -> int:
     disp_row, disp_err = timed("phase 6i", phase_dispatch, torch, ops, ref,
                                dev, 1_048_576, 3)
     cli_row = timed("phase 6j", phase_train_cli, torch)
+    # the sharded engines; counts set to 0 just before each mesh's run and
+    # read just after (inside the phases)
+    shsel_row, shsel_err = timed("phase 6k", phase_sharded_selection, torch,
+                                 ops, ref, dev, 1_048_576, 6)
+    shtrain_row, shtrain_err = timed(
+        "phase 6l", phase_sharded_training, torch, ops, ref, dev,
+        fl_config(10_000, 100, 3))
+    pg_row, pg_err = timed("phase 6m", phase_process_group, torch, ops,
+                           ref, dev, 1_048_576, 3)
 
     attn_errs, attn_shapes, attn_rel = timed(
         "phase 7", phase_attn_vs_plain, torch, ops, ref, dev)
@@ -2627,7 +2984,8 @@ def main(argv=None) -> int:
         "launches": launches,
         "max_abs_err": max(sel_err, par_err, main_err, fsel_err, fpar_err,
                            fused_err, asel_err, apar_err, async_err,
-                           ctrl_err, disp_err),
+                           ctrl_err, disp_err, shsel_err, shtrain_err,
+                           pg_err),
         "ms": main["ms"], "kernel_ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -2656,7 +3014,13 @@ def main(argv=None) -> int:
                                   ctrl_row["launches_10k"],
                               "run_rounds_1M_by_leg": disp_row["launches"],
                               "million_client_example":
-                                  disp_row["example_launches"]},
+                                  disp_row["example_launches"],
+                              "sharded_selection_1M_by_shards":
+                                  shsel_row["launches"],
+                              "sharded_run_fl_10k_by_shards":
+                                  shtrain_row["launches"],
+                              "process_group_selection_1M":
+                                  pg_row["launches"]},
     }]}
     summary["fused"] = {"selection_1M_3_rounds": fsel_row,
                         "training_10k": fused_row, "profile": profile_rows}
@@ -2664,6 +3028,9 @@ def main(argv=None) -> int:
                         "parity_200": apar_out, "training_10k": async_rows}
     summary["front_doors"] = {"controller": ctrl_row, "dispatch": disp_row,
                               "train_cli": cli_row}
+    summary["sharded"] = {"selection_1M": shsel_row,
+                          "training_10k": shtrain_row,
+                          "process_group": pg_row}
     for name, source, replaces, errs, shapes, row, n, by_phase, rel in (
             ("flash_attention", ATTN_SOURCE, ATTN_REPLACES, attn_errs,
              attn_shapes, lm_rows["flash_attention"],

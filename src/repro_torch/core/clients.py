@@ -94,6 +94,30 @@ def make_population(key: torch.Tensor, n_clients: int,
     )
 
 
+def pad_population(pop: ClientPopulation, multiple: int) -> ClientPopulation:
+    """``pop`` padded to a multiple of ``multiple`` clients (the sharded
+    engines: every shard of a ``clients`` mesh holds as many clients).
+
+    Pad clients are inert: battery 0 and ``dropped`` (so never ``alive``
+    and never scored), ``explored`` (never an exploration candidate), unit
+    bandwidths (finite round times) and 0 samples. The engines keep them
+    so: battery clips at 0, and a client already dropped never counts as a
+    new dropout."""
+    pad = (-pop.n) % multiple
+    if pad == 0:
+        return pop
+    fills = {"category": 0, "network": 0, "down_mbps": 1.0, "up_mbps": 1.0,
+             "battery_pct": 0.0, "stat_util": 0.0, "last_duration": 1.0,
+             "explored": True, "last_round": 0, "times_selected": 0,
+             "dropped": True, "n_samples": 0}
+    return ClientPopulation(**{
+        f: torch.cat([getattr(pop, f),
+                      torch.full((pad,), fills[f],
+                                 dtype=getattr(pop, f).dtype,
+                                 device=pop.device)])
+        for f in _FIELDS})
+
+
 def scatter_stat_util(pop: ClientPopulation, idx: torch.Tensor,
                       mask: torch.Tensor,
                       stat_util: torch.Tensor) -> ClientPopulation:
@@ -122,5 +146,5 @@ def round_times(pop: ClientPopulation, model_bytes: float,
             "total": t_down + t_comp + t_up}
 
 
-__all__ = ["ClientPopulation", "make_population", "scatter_stat_util",
-           "round_times"]
+__all__ = ["ClientPopulation", "make_population", "pad_population",
+           "scatter_stat_util", "round_times"]

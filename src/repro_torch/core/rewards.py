@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.launch.mesh import amax, amin
 from repro_torch.numerics import f32, fma
 
 
@@ -40,11 +41,17 @@ def projected_power(battery_pct: torch.Tensor,
     return torch.clamp_min(battery_pct - predicted_round_cost_pct, 0.0)
 
 
-def minmax_range(x: torch.Tensor, valid: torch.Tensor):
-    """(lo, range) of ``x`` over the ``valid`` subset (range floored)."""
+def minmax_range(x: torch.Tensor, valid: torch.Tensor, axis=None):
+    """(lo, range) of ``x`` over the ``valid`` subset (range floored).
+
+    With a ``clients`` mesh as ``axis`` (``launch/mesh.py``) ``x`` is a
+    shard block ``(S, n_loc)``: each shard's extrema, reduced over the
+    mesh (the reference's ``minmax_range_shard``). min and max are
+    exactly associative, so the pair is bitwise that of the whole
+    array."""
     inf = torch.full((), float("inf"), dtype=x.dtype, device=x.device)
-    lo = torch.where(valid, x, inf).min()
-    hi = torch.where(valid, x, -inf).max()
+    lo = amin(torch.where(valid, x, inf), axis)
+    hi = amax(torch.where(valid, x, -inf), axis)
     return lo, torch.clamp_min(hi - lo, 1e-9)
 
 

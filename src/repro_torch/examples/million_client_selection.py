@@ -2,7 +2,7 @@
 population of one million clients, on the CUDA card unless
 ``--device cpu``.
 
-Three things are shown and cross-checked:
+Four things are shown and cross-checked:
   1. the top-k reward kernel (``kernels/csrc/topk_select.cu`` on the
      card, its plain version on the CPU) against the plain version:
      indices equal, values bitwise;
@@ -11,13 +11,14 @@ Three things are shown and cross-checked:
      ``select_host``: the picks equal, index for index;
   3. a multi-round run of the fused selection, energy and battery engine
      (``run_rounds_scanned``, replayed from a CUDA graph on the card) over
-     the same population.
-
-The reference's fourth step, the sharded engine, waits for the sharded
-twins (ROADMAP.md, queue 1 item 13).
+     the same population;
+  4. the sharded engine (``run_rounds_sharded``: the population split
+     over a ``clients`` mesh of ``--devices D`` virtual shards, each
+     shard's exploit leg the kernel with its own ``index_offset``)
+     against the single-device run, index for index.
 
   python -m repro_torch.examples.million_client_selection [--n 65536] \\
-      [--device cpu]
+      [--devices 8] [--device cpu]
 """
 import argparse
 import time
@@ -32,8 +33,9 @@ from repro_torch.core.energy import EnergyModel
 from repro_torch.core.selection import (SelectorConfig, SelectorState,
                                         select, select_host)
 from repro_torch.device import resolve_device
-from repro_torch.federated import run_rounds_scanned
+from repro_torch.federated import run_rounds_scanned, run_rounds_sharded
 from repro_torch.kernels import ops, ref
+from repro_torch.launch.mesh import make_client_mesh
 
 
 def _clock(dev: torch.device) -> float:
@@ -48,9 +50,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
                     help="population size (e.g. 65536 for a quick run)")
     ap.add_argument("--k", type=int, default=100)
     ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--devices", type=int, default=None,
+                    help="virtual shards of step 4's clients mesh "
+                         "(default 1)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
+    if args.devices is not None and args.devices < 1:
+        ap.error(f"--devices must be at least 1, got {args.devices}")
     dev = resolve_device(args.device)
     N, K, F = args.n, min(args.k, args.n), 0.25
     key = prng.PRNGKey(0, dev)
@@ -110,6 +117,20 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
           f"{times['scan_s']*1e3:.1f} ms (with warm-up and capture); "
           f"final mean battery {float(fpop.battery_pct.mean()):.1f}%, "
           f"{drop:,} dropped")
+
+    # --- 4. the sharded engine against the single-device run ----------
+    mesh = make_client_mesh(args.devices)
+    t0 = _clock(dev)
+    _, _, straj = run_rounds_sharded(
+        prng.fold_in(key, 7), cfg, pop, SelectorState.create(cfg),
+        em, 85e6, 400, 20, rounds=args.rounds, mesh=mesh)
+    times["shard_s"] = _clock(dev) - t0
+    assert np.array_equal(traj["selected"], straj["selected"]), \
+        "sharded selection trajectory != single-device"
+    assert np.array_equal(traj["chosen"], straj["chosen"])
+    print(f"[shard]  same {args.rounds} rounds on a {mesh.size()}-shard "
+          f"clients mesh in {times['shard_s']*1e3:.1f} ms (with warm-up "
+          f"and capture); selection trajectory identical index for index")
     return times
 
 

@@ -69,13 +69,15 @@ class FaultDraw(NamedTuple):
     corrupt: torch.Tensor  # bool: delta goes non-finite if the client trains
 
 
-def fault_streams(fcfg: FaultConfig, rnd, n: int,
-                  device) -> Tuple[torch.Tensor, ...]:
+def fault_streams(fcfg: FaultConfig, rnd, n: int, device,
+                  offset: int = 0) -> Tuple[torch.Tensor, ...]:
     """The round's ``N_FAULT_STREAMS`` uniform streams, each ``(n,)``.
     ``rnd`` is the 1-based round number, a Python int or a 0-d integer
-    tensor on ``device`` (read on the device only)."""
+    tensor on ``device`` (read on the device only). The streams are
+    prefix-stable: ``offset`` draws clients ``[offset, offset + n)`` of
+    the population-wide streams (a shard's slice)."""
     kf = prng.fold_in(prng.PRNGKey(fcfg.seed, device), rnd)
-    return tuple(prng.uniform(prng.fold_in(kf, j), (n,))
+    return tuple(prng.uniform(prng.fold_in(kf, j), (n,), offset=offset)
                  for j in range(N_FAULT_STREAMS))
 
 
@@ -92,13 +94,13 @@ def apply_faults(fcfg: FaultConfig, t_total: torch.Tensor, cost: torch.Tensor,
                  streams: Tuple[torch.Tensor, ...],
                  ) -> Tuple[torch.Tensor, torch.Tensor, FaultDraw]:
     """Fold one round of faults into clean durations and costs: returns
-    ``(t_eff, cost_eff, draw)``. Branches on the static config only."""
+    ``(t_eff, cost_eff, draw)``. Branches on the static config only.
+    Elementwise: any shape, such as a shard's ``(S, n_loc)`` block."""
     u_crash, u_retry, u_straggle, u_corrupt = streams
-    n = t_total.shape[0]
-    no = torch.zeros(n, dtype=torch.bool, device=t_total.device)
+    no = torch.zeros_like(t_total, dtype=torch.bool)
     t_eff, cost_eff = t_total, cost
     fail = no
-    retries = torch.zeros(n, dtype=torch.int32, device=t_total.device)
+    retries = torch.zeros_like(t_total, dtype=torch.int32)
 
     if fcfg.straggle_prob > 0.0:
         straggle = u_straggle < f32(fcfg.straggle_prob, u_straggle)
@@ -132,12 +134,20 @@ def apply_faults(fcfg: FaultConfig, t_total: torch.Tensor, cost: torch.Tensor,
 
 
 def faults_for_round(fcfg: Optional[FaultConfig], rnd, t_total: torch.Tensor,
-                     cost: torch.Tensor,
+                     cost: torch.Tensor, axis=None,
                      ) -> Tuple[torch.Tensor, torch.Tensor,
                                 Optional[FaultDraw]]:
     """Streams and :func:`apply_faults` in one call; the identity (and
-    ``None`` for the draw) when ``fcfg`` is ``None`` or inactive."""
+    ``None`` for the draw) when ``fcfg`` is ``None`` or inactive. With a
+    ``clients`` mesh as ``axis`` (``launch/mesh.py``) ``t_total`` and
+    ``cost`` are this process's ``(S, n_loc)`` blocks and the streams its
+    slices of the population-wide ones (prefix-stable draws)."""
     if fcfg is None or not fcfg.active:
         return t_total, cost, None
-    streams = fault_streams(fcfg, rnd, t_total.shape[0], t_total.device)
+    n_loc, dev = t_total.shape[-1], t_total.device
+    if axis is None:
+        streams = fault_streams(fcfg, rnd, n_loc, dev)
+    else:
+        streams = tuple(u.reshape(axis.local, n_loc) for u in fault_streams(
+            fcfg, rnd, axis.local * n_loc, dev, axis.first * n_loc))
     return apply_faults(fcfg, t_total, cost, streams)

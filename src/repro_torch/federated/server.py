@@ -6,21 +6,23 @@ simulation deciding who participates, who drops out, and how long each
 round takes. Local training runs over the whole cohort at once
 (``torch.func.vmap`` of ``grad_and_value`` over per-client parameters).
 
-Two synchronous engines, with the reference's key schedule, so selection,
-dropout and battery trajectories follow the reference's:
+Three synchronous engines, with the reference's key schedule, so
+selection, dropout and battery trajectories follow the reference's:
 
 - ``engine="host"`` (the default): the reference's host round loop, with
   fault injection, checkpoint/resume and the knob controller
   (``cfg.controller``, ``federated/controller.py``);
 - ``engine="scanned"``: :func:`run_fl_scanned`, the whole round as one
-  step with no host read, replayed from a CUDA graph on the card.
+  step with no host read, replayed from a CUDA graph on the card;
+- ``engine="sharded"``: :func:`run_fl_sharded`, that step over a
+  ``clients`` mesh (``launch/mesh.py``).
 
 ``mode="async"`` (or ``"auto"`` with ``buffer_size`` or
 ``max_concurrency`` set) runs the buffered-asynchronous (FedBuff) twins
 of ``federated/async_server.py``: the host event loop for
 ``engine="host"``, the fused engine otherwise. Mode and engine resolve
 through the reference's dispatch (``simulation.resolve_aggregation``,
-``resolve_train_engine``). The sharded engines raise and name their
+``resolve_train_engine``). The async sharded twin raises and names its
 ROADMAP.md item (queue 1 item 13).
 """
 from __future__ import annotations
@@ -45,7 +47,8 @@ from repro_torch.core.energy import EnergyModel
 from repro_torch.core.fairness import jains_index
 from repro_torch.core.rewards import stat_utility
 from repro_torch.core.selection import (SelectorConfig, SelectorState,
-                                        _device_select, _top_k_idx, select)
+                                        _slot_gather, _slot_owner,
+                                        _top_k_idx, select)
 from repro_torch.data.partition import label_restricted_partition, make_test_set
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.federated.aggregation import (finite_rows,
@@ -55,18 +58,18 @@ from repro_torch.federated.aggregation import (finite_rows,
                                                zero_nonfinite_rows)
 from repro_torch.federated.controller import (ControllerConfig,
                                               UCBController, arm_knobs)
-from repro_torch.federated.faults import FaultConfig, faults_for_round
+from repro_torch.federated.faults import FaultConfig
 from repro_torch.federated.replay import StepGraphs
 from repro_torch.federated.simulation import (ENGINES, BudgetLedger,
-                                              _concat_traj, _fault_totals,
+                                              _concat_traj,
                                               _make_checkpointer,
-                                              budget_gate, cohort_energy_j,
+                                              _round_step,
                                               resolve_aggregation,
                                               resolve_train_engine,
                                               round_cost_table, run_rounds,
-                                              simulate_round,
-                                              simulate_round_device,
-                                              slot_mask, world_size)
+                                              scatter_drop_rows,
+                                              simulate_round, world_size)
+from repro_torch.launch.mesh import asum, population_draw
 from repro_torch.models.resnet import init_resnet, resnet_forward, resnet_loss
 from repro_torch.numerics import f32
 
@@ -340,9 +343,10 @@ def run_fl(cfg: FLConfig, verbose: bool = False, mode: str = "auto",
     ``"auto"``) runs the host round loop and ``"scanned"``
     :func:`run_fl_scanned`; in the async family ``"host"`` runs the host
     event loop ``run_fl_async`` and ``"scanned"`` (and ``"auto"`` on one
-    device) ``run_fl_async_scanned``; ``"sharded"`` raises (ROADMAP.md
-    queue 1 item 13). The engines of a family produce the same trajectory
-    within float tolerance.
+    device) ``run_fl_async_scanned``; ``"sharded"`` runs
+    :func:`run_fl_sharded` in the sync family and raises in the async one
+    (ROADMAP.md queue 1 item 13). The engines of a family produce the same
+    trajectory within float tolerance.
 
     ``cfg.controller`` runs only in the sync host loop (a ``ValueError``
     elsewhere, as the reference's): before each round the UCB bandit
@@ -367,9 +371,11 @@ def run_fl(cfg: FLConfig, verbose: bool = False, mode: str = "auto",
             f"(resolved mode={mode!r}, engine={engine!r}); use "
             f"run_fl(cfg, mode='sync', engine='host')")
     if engine == "sharded":
-        raise NotImplementedError(
-            "engine='sharded' is not ported yet (ROADMAP.md, queue 1 "
-            "item 13)")
+        if mode == "async":
+            raise NotImplementedError(
+                "mode='async' with engine='sharded' (run_fl_async_sharded) "
+                "is not ported yet (ROADMAP.md, queue 1 item 13)")
+        return run_fl_sharded(cfg, verbose=verbose, device=device)
     if mode == "async":
         from repro_torch.federated.async_server import (
             run_fl_async, run_fl_async_scanned)
@@ -585,6 +591,19 @@ def _poison(deltas, bad: torch.Tensor):
 # run eagerly. The carry (params, optimizer state, population, selector
 # state, RNG chain, last accuracy, budget ledger) lives in static tensors.
 #
+# The engine runs over a ``clients`` mesh (``launch/mesh.py``; one shard
+# for run_fl_scanned): selection and simulation shard-local
+# (``simulation._round_step``); the cohort's per-slot data reassembled by
+# one-owner-per-slot sums; the slot axis padded to a multiple of the shard
+# count and split evenly, shard i training slots [i*n_per, (i+1)*n_per);
+# each shard's weighted partial delta summed over the mesh; the server
+# step and the eval on the replicated parameters. Selection, success
+# masks, dropouts and battery are the same on any mesh (the same streams,
+# elementwise battery arithmetic, exact max durations); the aggregate is
+# a float32 reduction reordered by shard, so parameters and what follows
+# them (accuracy, loss, stat utilities) agree within a tolerance across
+# shard counts.
+#
 # Parity with the host loop (its oracle):
 #   * the RNG chain is the host's: kloop, ksel, ktrain, krecharge =
 #     split(kloop, 4) a round, and the slot with success-rank j trains with
@@ -619,14 +638,24 @@ def _recharge_gain(rate: float, duration: torch.Tensor) -> torch.Tensor:
 
 
 def _recharge_device(cfg: FLConfig, pop: ClientPopulation,
-                     krecharge: torch.Tensor,
-                     duration: torch.Tensor) -> ClientPopulation:
+                     krecharge: torch.Tensor, duration: torch.Tensor,
+                     axis=None, n_real: Optional[int] = None,
+                     ) -> ClientPopulation:
     """:func:`_recharge_step` with the round's duration on the device (no
-    host read), bitwise the host loop's."""
+    host read), bitwise the host loop's. On a ``clients`` mesh (``axis``)
+    the population is in shard blocks padded from ``n_real`` clients: each
+    shard takes its slice of the population-wide plug-in draw, and pad
+    clients never plug in, so they never rejoin."""
     if cfg.recharge_pct_per_hour <= 0.0:
         return pop
     kplug = prng.fold_in(krecharge, 7)
-    plugged = prng.bernoulli(kplug, cfg.plugged_frac, (pop.n,))
+    n_loc = pop.battery_pct.shape[-1]
+    plugged = population_draw(lambda n, off: prng.bernoulli(
+        kplug, cfg.plugged_frac, (n,), off), n_loc, axis)
+    if axis is not None:
+        base = axis.bases(n_loc, plugged.device)
+        plugged = plugged & ((base[:, None] + torch.arange(
+            n_loc, device=plugged.device)) < n_real)
     gain = _recharge_gain(cfg.recharge_pct_per_hour, duration)
     battery = torch.clamp(pop.battery_pct + plugged.to(torch.float32) * gain,
                           0.0, 100.0)
@@ -635,69 +664,104 @@ def _recharge_device(cfg: FLConfig, pop: ClientPopulation,
 
 
 def _fused_runner(cfg: FLConfig, sel_cfg: SelectorConfig, agg_k: int,
-                  energy_model: EnergyModel, opt, use_kernel: bool,
-                  data_x, data_y, test_x, test_y, t_total, cost):
+                  energy_model: EnergyModel, opt, mesh, data_x, data_y,
+                  test_x, test_y, t_total, cost):
     """The fused engine's two steps over the carry ``_TRAIN_CARRY``:
     ``(round_fn, eval_fn)``, each ``fn(carry, ctr) -> (carry, outs)``
-    (``federated/replay.py``). ``sel_cfg.k`` is the over-provisioned slot
+    (``federated/replay.py``), on the ``clients`` ``mesh``: the
+    population, ``data_x``/``data_y``, ``t_total`` and ``cost`` in shard
+    blocks ``(S, n_loc, ...)``. ``sel_cfg.k`` is the over-provisioned slot
     count ``ceil(k * overcommit)``, ``agg_k`` the aggregation cap."""
     cohort = _cohort_train_fn(cfg.model, cfg.local_steps, cfg.batch_size,
                               cfg.client_lr, cfg.fedprox_mu, cfg.compression,
                               cfg.compression_sparsity)
-    faults = cfg.faults
-    faulty = faults is not None and faults.active
+    faulty = cfg.faults is not None and cfg.faults.active
     eval_acc = _accuracy_fn(cfg.model, {"x": test_x, "y": test_y})
+    n_real = cfg.n_clients
+    S, n_loc = cost.shape
+    n_slots = min(sel_cfg.k, n_real)
+    # the slot axis padded to a multiple of the shard count and split
+    # evenly: shard i trains slots [i*n_per, (i+1)*n_per)
+    pad_s = (-n_slots) % mesh.size()
+    n_per = (n_slots + pad_s) // mesh.size()
+    lo, hi = mesh.first * n_per, (mesh.first + S) * n_per
+    neg_inf = f32(float("-inf"), cost)
+
+    def pad_slots(a):
+        return a if pad_s == 0 else torch.cat(
+            [a, a.new_zeros((pad_s, *a.shape[1:]))])
 
     def round_fn(carry, ctr):
         params, opt_state, pop, st, kloop, last_acc, ledger = (
             carry[k] for k in _TRAIN_CARRY)
-        n = pop.n
         kloop, ksel, ktrain, krecharge = prng.split(kloop, 4).unbind(-2)
-        idx, chosen, st = _device_select(ksel, sel_cfg, st, pop, cost,
-                                         use_kernel)
-        idx = idx.long()
-        # selection scored on the clean cost; the simulation, the budget
-        # gate and the straggler cap see the fault-modified one
-        t_eff, cost_eff, draw = faults_for_round(faults, st.round, t_total,
-                                                 cost)
-        sel_mask = slot_mask(idx, chosen, n)
-        round_j = cohort_energy_j(pop, sel_mask, cost_eff)
-        sel_mask, _, ledger = budget_gate(sel_mask, round_j, ledger,
-                                          cfg.energy_budget_j, st.round)
-        pop, dev = simulate_round_device(
-            pop, sel_mask, t_eff, cost_eff, st.round, energy_model,
-            cfg.deadline_s, fail_mask=None if draw is None else draw.fail)
-        ledger = ledger._replace(spent_j=ledger.spent_j + dev.energy_spent_j)
-        n_slots = idx.shape[0]
-        mask = dev.succeeded[idx] & chosen
+        (pop, st, idx, chosen, dev, retries, corrupt,
+         ledger) = _round_step(
+            ksel, st, pop, t_total, cost, sel_cfg=sel_cfg,
+            energy_model=energy_model, deadline_s=cfg.deadline_s,
+            faults=cfg.faults, axis=mesh, n_real=n_real,
+            energy_budget_j=cfg.energy_budget_j, ledger=ledger)
+        mask = _slot_gather(dev.succeeded, idx, chosen, mesh) > 0
         if n_slots > agg_k:
-            g = torch.where(mask, -t_eff[idx], f32(float("-inf"), t_eff))
+            # the straggler cap ranks the fault-modified durations
+            slot_dur = _slot_gather(dev.durations, idx, chosen, mesh)
+            g = torch.where(mask, -slot_dur, neg_inf)
             keep = torch.zeros_like(mask).scatter(
                 0, _top_k_idx(g, agg_k), torch.ones_like(mask))
             mask = mask & keep
-        pop = _recharge_device(cfg, pop, krecharge, dev.round_duration)
+        pop = _recharge_device(cfg, pop, krecharge, dev.round_duration, mesh,
+                               n_real)
+        # the cohort's data: one shard owns each slot's client
+        own, loc = _slot_owner(idx, mesh.bases(n_loc, cost.device), n_loc)
+        rows = torch.arange(S, device=cost.device)[:, None]
+
+        def gather(a_loc):
+            vals = a_loc[rows, loc]
+            keep = own.reshape(*own.shape, *(1,) * (vals.ndim - 2))
+            return mesh.psum(torch.where(keep, vals, torch.zeros_like(vals)))
+
+        w = _slot_gather(pop.n_samples, idx, mask, mesh)
         # masked fixed-width cohort: every slot trains, the success-rank key
         # assignment reproduces the host's split bitwise
         ranks = torch.clamp(torch.cumsum(mask.to(torch.int64), 0) - 1, 0,
                             n_slots - 1)
-        keys = prng.split(ktrain, n_slots)[ranks]
-        deltas, per_sample, mean_losses = cohort(params, data_x[idx],
-                                                 data_y[idx], keys)
+        keys = pad_slots(prng.split(ktrain, n_slots)[ranks])[lo:hi]
+        deltas, per_sample, mean_losses = cohort(
+            params, pad_slots(gather(data_x))[lo:hi],
+            pad_slots(gather(data_y))[lo:hi], keys)
         if faulty:
-            deltas = _poison(deltas, draw.corrupt[idx] & mask)
-        finite = finite_rows(deltas)
-        good = mask & finite
-        w = torch.where(good, pop.n_samples[idx].to(torch.float32),
-                        f32(0.0, t_eff))
-        agg = weighted_delta(zero_nonfinite_rows(deltas, finite), w)
+            bad = _slot_gather(corrupt, idx, chosen, mesh) > 0
+            deltas = _poison(deltas, pad_slots(bad & mask)[lo:hi])
+        # quarantine on this process's slots, gathered back in slot order
+        fin_loc = finite_rows(deltas)
+        deltas = zero_nonfinite_rows(deltas, fin_loc)
+        fin = mesh.all_gather(fin_loc.reshape(S, n_per)).reshape(-1)[:n_slots]
+        good = mask & fin
+        wq = torch.where(fin, w, torch.zeros_like(w))
+        w_loc = pad_slots(wq)[lo:hi]
+        # weighted_delta's arithmetic with the reduction split by shard:
+        # normalised by the global weight, each shard's partial product
+        # summed over the mesh (on one shard, weighted_delta itself)
+        wn = pad_slots(wq / torch.clamp_min(wq.sum(), 1e-9))[lo:hi]
+        wn = wn.reshape(S, n_per)
+        agg = tree_map(lambda d: mesh.psum(torch.stack([
+            torch.tensordot(wn[s].to(d.dtype), d_s, dims=1)
+            for s, d_s in enumerate(d.reshape(S, n_per, *d.shape[1:]))])),
+            deltas)
         new_params, new_opt = server_update(params, agg, opt, opt_state)
+        # the update is kept where some non-quarantined slot succeeded and
+        # the aggregate is finite, as the host's gate
         ok = good.any() & tree_finite(agg)
         params = tree_map(lambda a, b: torch.where(ok, a, b), new_params,
                           params)
         opt_state = tree_map(lambda a, b: torch.where(ok, a, b), new_opt,
                              opt_state)
-        pop = scatter_stat_util(pop, idx, good, stat_utility(per_sample, w))
-        retries, _ = _fault_totals(draw, sel_mask)
+        su = mesh.all_gather(stat_utility(per_sample, w_loc).reshape(
+            S, n_per)).reshape(-1)[:n_slots]
+        losses = mesh.all_gather(mean_losses.reshape(S, n_per)).reshape(
+            -1)[:n_slots]
+        pop = pop.replace(stat_util=scatter_drop_rows(
+            pop.stat_util, loc, own & good, su))
         out = {
             "selected": idx.to(torch.int32),
             "chosen": chosen,
@@ -705,17 +769,17 @@ def _fused_runner(cfg: FLConfig, sel_cfg: SelectorConfig, agg_k: int,
             "round_duration": dev.round_duration,
             "new_dropouts": dev.new_dropouts,
             "energy_spent_pct": dev.energy_spent_pct,
-            "mean_battery": pop.battery_pct.mean(),
-            "fairness": jains_index(pop.times_selected),
+            "mean_battery": asum(pop.battery_pct, mesh) / n_real,
+            "fairness": jains_index(pop.times_selected, mesh, n_real),
             # per-slot losses; train_loss is reduced on the host over the
             # compacted slots, as the host loop reduces it
-            "slot_losses": torch.where(mask, mean_losses,
-                                       torch.zeros_like(mean_losses)),
+            "slot_losses": torch.where(mask, losses,
+                                       torch.zeros_like(losses)),
             # the last evaluation; the eval step overwrites it on the
             # rounds it runs
             "test_acc": last_acc,
             "retries": retries,
-            "quarantined": (mask & ~finite).sum().to(torch.int32),
+            "quarantined": (mask & ~fin).sum().to(torch.int32),
             "update_skipped": (~ok).to(torch.int32),
             # the cumulative float32 ledger itself, as the host records it
             "energy_spent_j": ledger.spent_j,
@@ -796,7 +860,8 @@ def _fused_do_eval(cfg: FLConfig, a: int, b: int) -> np.ndarray:
 def _run_fused_elastic(cfg: FLConfig, steps, carry0: Dict[str, Any],
                        meta: Optional[Dict[str, Any]] = None,
                        history_fn=None,
-                       capture: Optional[dict] = None) -> FLHistory:
+                       capture: Optional[dict] = None,
+                       mesh=None) -> FLHistory:
     """Segment, checkpoint and resume loop of the fused engines (sync and
     async): runs ``steps = (round_fn, eval_fn)`` over ``carry0`` (a dict
     of named carry trees, the checkpoint's state names) for
@@ -804,17 +869,31 @@ def _run_fused_elastic(cfg: FLConfig, steps, carry0: Dict[str, Any],
     scheduled rounds the eval step; the trajectory comes to the host once
     a segment. ``meta`` and ``history_fn(cfg, init_acc, traj)`` default
     to the sync family's; ``capture``, a dict, receives the whole
-    trajectory under ``"traj"`` (a test hook)."""
+    trajectory under ``"traj"`` (a test hook). With a ``clients``
+    ``mesh`` the carry's population is in shard blocks: a snapshot holds
+    it trimmed to the real clients (so it resumes under any shard count
+    and in the single-device engine too), and on a process-group mesh
+    rank 0 writes it."""
+    from repro_torch.launch.sharding import population_sharding
+
     if meta is None:
         meta = _train_meta(cfg, "train-sync")
     if history_fn is None:
         history_fn = _history_from_traj
+
+    def to_file(carry):
+        if mesh is None:
+            return carry
+        return dict(carry, pop=mesh.gather(carry["pop"], cfg.n_clients))
+
     ck = _make_checkpointer(cfg.checkpoint_path, cfg.checkpoint_every,
                             cfg.rounds, meta)
     parts: List[Dict[str, Any]] = []
     if cfg.resume_from:
         start, carry, saved, _ = load_engine_checkpoint(
-            cfg.resume_from, carry0, expect_meta=meta)
+            cfg.resume_from, to_file(carry0), expect_meta=meta)
+        if mesh is not None:
+            carry = dict(carry, pop=population_sharding(mesh)(carry["pop"]))
         parts.append(saved["traj"])
         init_acc = float(saved["init_acc"])
     else:
@@ -830,8 +909,10 @@ def _run_fused_elastic(cfg: FLConfig, steps, carry0: Dict[str, Any],
                 graphs.run("eval")
         parts.append(graphs.fetch(a, b))
         if ck and ck.due(b):
-            ck.save(b, graphs.carry(),
-                    {"traj": _concat_traj(parts), "init_acc": init_acc})
+            state = to_file(graphs.carry())
+            if mesh is None or mesh.rank == 0:
+                ck.save(b, state, {"traj": _concat_traj(parts),
+                                   "init_acc": init_acc})
     traj = _concat_traj(parts)
     if capture is not None:
         capture["traj"] = traj
@@ -842,7 +923,8 @@ def run_fl_scanned(cfg: FLConfig, verbose: bool = False,
                    device: DeviceLike = None) -> FLHistory:
     """:func:`run_fl` with the whole round on the device and no host read
     inside it: on the card the round step is captured once in a CUDA
-    graph and replayed every round; on the CPU it runs eagerly.
+    graph and replayed every round; on the CPU it runs eagerly. It is
+    :func:`run_fl_sharded` on a mesh of one shard.
 
     The host loop is the oracle: selected indices, masks, dropouts,
     retries, quarantines and skipped updates equal; battery, fairness,
@@ -852,35 +934,75 @@ def run_fl_scanned(cfg: FLConfig, verbose: bool = False,
     ``resume_from``) split the run into segments; the RNG chain rides in
     the carry, so segmented and resumed runs equal the uninterrupted one
     bitwise."""
+    from repro_torch.launch.mesh import ClientMesh
+
     _reject_async_knobs(cfg, "run_fl_scanned")
-    steps, carry0 = _fused_engine(cfg, resolve_device(device))
-    hist = _run_fused_elastic(cfg, steps, carry0)
+    return _run_fused(cfg, verbose, device, ClientMesh(1))
+
+
+def _run_fused(cfg: FLConfig, verbose: bool, device: DeviceLike,
+               mesh) -> FLHistory:
+    steps, carry0 = _fused_engine(cfg, resolve_device(device), mesh)
+    hist = _run_fused_elastic(cfg, steps, carry0, mesh=mesh)
     if verbose:
         _print_fused_history(cfg, hist)
     return hist
 
 
-def _fused_engine(cfg: FLConfig, dev: torch.device):
+def _fused_engine(cfg: FLConfig, dev: torch.device, mesh=None):
     """The fused engine's steps and fresh carry for ``cfg`` on ``dev``:
-    ``((round_fn, eval_fn), carry0)``."""
+    ``((round_fn, eval_fn), carry0)``, over a ``clients`` ``mesh`` (one
+    shard by default): the population and the clients' data in shard
+    blocks."""
+    from repro_torch.launch.mesh import ClientMesh
+    from repro_torch.launch.sharding import population_sharding, \
+        shard_clients
+
+    mesh = ClientMesh(1) if mesh is None else mesh
     (kloop, data, test, params, opt, opt_state, pop, sim_steps, up_bytes,
      energy_model, model_bytes) = _fused_setup(cfg, dev)
     if "t" in opt_state:          # the step count rides in the graph too
         opt_state = dict(opt_state, t=opt_state["t"].to(dev))
-    t_total, cost = round_cost_table(pop, energy_model, model_bytes,
-                                     sim_steps, cfg.batch_size, up_bytes)
     n_pick = int(np.ceil(cfg.selector.k * cfg.overcommit))
     sel_cfg = cfg.selector if n_pick == cfg.selector.k else \
         replace_selector_k(cfg.selector, n_pick)
-    steps = _fused_runner(cfg, sel_cfg, int(cfg.selector.k), energy_model,
-                          opt, dev.type == "cuda", data["x"], data["y"],
-                          test["x"], test["y"], t_total, cost)
+    pop = population_sharding(mesh)(pop)
+    t_total, cost = round_cost_table(pop, energy_model, model_bytes,
+                                     sim_steps, cfg.batch_size, up_bytes)
+    steps = _fused_runner(
+        cfg, sel_cfg, int(cfg.selector.k), energy_model, opt, mesh,
+        shard_clients(data["x"], mesh), shard_clients(data["y"], mesh),
+        test["x"], test["y"], t_total, cost)
     acc0 = _accuracy_fn(cfg.model, test)(params)
     carry0 = dict(params=params, opt_state=opt_state, pop=pop,
                   st=SelectorState.create(cfg.selector).canonical(dev),
                   kloop=kloop, last_acc=acc0,
                   ledger=BudgetLedger.create(dev))
     return steps, carry0
+
+
+def run_fl_sharded(cfg: FLConfig, verbose: bool = False, mesh=None,
+                   n_shards: Optional[int] = None,
+                   device: DeviceLike = None) -> FLHistory:
+    """:func:`run_fl_scanned` over a ``clients`` mesh (``mesh``, or one of
+    ``n_shards`` shards from ``launch/mesh.py::make_client_mesh``): the
+    population, its data and the simulation in shard blocks, the cohort's
+    local SGD split evenly over the shards, their weighted deltas summed.
+    Each round is one step with no host read, replayed from a CUDA graph
+    on the card.
+
+    ``run_fl_scanned`` (one shard) is the oracle: selection, success
+    masks, dropouts, durations and participation equal; parameters,
+    accuracy, loss, battery and fairness within float32 reduction order
+    (the ``--train`` matrix of ``launch/sharded_check.py`` states the
+    tolerance). Its ``"train-sync"`` snapshots hold the population
+    trimmed to the real clients, so they resume under any shard count and
+    in ``run_fl_scanned``, and the other way round."""
+    from repro_torch.launch.mesh import make_client_mesh
+
+    _reject_async_knobs(cfg, "run_fl_sharded")
+    return _run_fused(cfg, verbose, device,
+                      make_client_mesh(n_shards) if mesh is None else mesh)
 
 
 def run_selection_scanned(cfg: FLConfig, rounds: Optional[int] = None,
@@ -891,8 +1013,8 @@ def run_selection_scanned(cfg: FLConfig, rounds: Optional[int] = None,
     from the population and simulated workload :func:`run_fl` builds,
     through the :func:`run_rounds` front door: ``mode`` (default
     ``"auto"``), ``cfg``'s async knobs and the population size pick the
-    engine (``n_shards``/``mesh`` force the sharded twin, ROADMAP.md queue
-    1 item 13). No host read inside a round. Returns ``(final_pop,
+    engine (``n_shards``/``mesh`` upgrade it to its sharded twin). No host
+    read inside a round. Returns ``(final_pop,
     {"state": final_state, "engine": name, **traj})``."""
     dev = resolve_device(device)
     kpop, _kdata, kmodel, _ktest, kloop = prng.split(prng.PRNGKey(cfg.seed,

@@ -11,9 +11,11 @@ devices drain at the idle/busy mix rate over the round's wall time.
 fleet energy-budget gate and the fault draws. :func:`make_round_engine`
 composes predicted cost, selection and simulation into one step with no
 host read, and :func:`run_rounds_scanned` advances it for R rounds,
-replayed from a CUDA graph on the card. :func:`make_async_round_engine`
-and :func:`run_async_scanned` are the buffered-asynchronous (FedBuff)
-twins: one step is one server aggregation.
+replayed from a CUDA graph on the card; :func:`run_rounds_sharded` is its
+twin over a ``clients`` mesh (``launch/mesh.py``).
+:func:`make_async_round_engine` and :func:`run_async_scanned` are the
+buffered-asynchronous (FedBuff) twins: one step is one server
+aggregation.
 """
 from __future__ import annotations
 
@@ -30,10 +32,12 @@ from repro_torch.checkpoint import (CarryCheckpointer, load_engine_checkpoint,
 from repro_torch.core.clients import ClientPopulation, round_times
 from repro_torch.core.energy import EnergyModel, pct_to_joules
 from repro_torch.core.selection import (SelectorConfig, SelectorState,
-                                        _device_select, _top_k_idx)
+                                        _device_select, _slot_gather,
+                                        _slot_owner, _top_k_idx)
 from repro_torch.federated.faults import (FaultConfig, FaultDraw,
                                           faults_for_round)
 from repro_torch.federated.replay import StepGraphs
+from repro_torch.launch.mesh import aany, amax, asum
 from repro_torch.numerics import f32, staleness_damping
 
 
@@ -80,25 +84,26 @@ class BudgetLedger(NamedTuple):
 
 
 def cohort_energy_j(pop: ClientPopulation, sel_mask: torch.Tensor,
-                    cost_pct: torch.Tensor) -> torch.Tensor:
+                    cost_pct: torch.Tensor, axis=None) -> torch.Tensor:
     """Joules the masked cohort would debit at ``cost_pct`` battery-%: the
     one expression shared by the budget gate and the debit, so "spent
     never exceeds budget" is exact."""
     j = pct_to_joules(pop.category, cost_pct)
-    return torch.where(sel_mask, j, torch.zeros_like(j)).sum()
+    return asum(torch.where(sel_mask, j, torch.zeros_like(j)), axis)
 
 
 def budget_gate(sel_mask: torch.Tensor, round_j: torch.Tensor,
                 ledger: BudgetLedger, energy_budget_j: Optional[float],
-                rnd) -> Tuple[torch.Tensor, torch.Tensor, BudgetLedger]:
+                rnd, axis=None,
+                ) -> Tuple[torch.Tensor, torch.Tensor, BudgetLedger]:
     """All-or-nothing cohort admission against the remaining budget:
     ``(sel_mask', admit, ledger')``. Identity when ``energy_budget_j`` is
-    None."""
+    None. On a mesh the decision is replicated across the shards."""
     if energy_budget_j is None:
         return sel_mask, torch.ones((), dtype=torch.bool,
                                     device=sel_mask.device), ledger
     admit = ledger.spent_j + round_j <= f32(energy_budget_j, round_j)
-    refused = sel_mask.any() & ~admit
+    refused = aany(sel_mask, axis) & ~admit
     exhausted = torch.where((ledger.exhausted_round == 0) & refused,
                             torch.as_tensor(rnd, dtype=torch.int32,
                                             device=sel_mask.device),
@@ -129,7 +134,9 @@ def round_cost_table(pop: ClientPopulation, energy_model: EnergyModel,
                      model_bytes: float, local_steps: int, batch_size: int,
                      up_bytes: Optional[float] = None):
     """The round-invariant per-client ``(round time, battery cost)`` table;
-    both depend only on fields that never change during a run."""
+    both depend only on fields that never change during a run. Elementwise,
+    so a sharded population's ``(S, n_loc)`` block gives its shards'
+    table (the sharded engines compute it once at set-up)."""
     return _round_cost(pop, energy_model, float(model_bytes),
                        int(local_steps), int(batch_size),
                        None if up_bytes is None else float(up_bytes))
@@ -141,8 +148,14 @@ def simulate_round_device(pop: ClientPopulation, sel_mask: torch.Tensor,
                           deadline_s: Optional[float] = None,
                           fail_mask: Optional[torch.Tensor] = None,
                           busy_mask: Optional[torch.Tensor] = None,
+                          axis=None,
                           ) -> Tuple[ClientPopulation, DeviceRoundOutcome]:
     """Round state update over a (N,) selection mask.
+
+    With a ``clients`` mesh as ``axis`` the same body runs on a shard
+    block (every per-client tensor ``(S, n_loc)``): the per-client updates
+    are elementwise, bitwise the unsharded ones, and the scalar reductions
+    go over the mesh (max exactly; the summed stats within the last bit).
 
     ``fail_mask`` marks clients whose upload an injected crash fault lost
     (``federated/faults.py``): they fail the round like a battery death
@@ -164,11 +177,11 @@ def simulate_round_device(pop: ClientPopulation, sel_mask: torch.Tensor,
         succeeded = succeeded & ~fail_mask
 
     # round wall time: slowest successful participant (or deadline)
-    any_sel = sel_mask.any()
-    max_succ = torch.where(succeeded, t_total, neg_inf).max()
-    max_sel = torch.where(sel_mask, t_total, neg_inf).max()
+    any_sel = aany(sel_mask, axis)
+    max_succ = amax(torch.where(succeeded, t_total, neg_inf), axis)
+    max_sel = amax(torch.where(sel_mask, t_total, neg_inf), axis)
     fallback = f32(deadline_s, cost) if deadline_s is not None else max_sel
-    duration = torch.where(succeeded.any(), max_succ, fallback)
+    duration = torch.where(aany(succeeded, axis), max_succ, fallback)
     if deadline_s is not None:
         duration = torch.minimum(duration, f32(deadline_s, cost))
     duration = torch.where(any_sel, duration, zero.new_zeros(()))
@@ -183,7 +196,7 @@ def simulate_round_device(pop: ClientPopulation, sel_mask: torch.Tensor,
 
     was_dropped = pop.dropped
     dropped_new = was_dropped | (battery_new <= 0.0)
-    new_dropouts = (dropped_new & ~was_dropped).sum().to(torch.int32)
+    new_dropouts = asum(dropped_new & ~was_dropped, axis).to(torch.int32)
 
     rnd_t = torch.as_tensor(rnd, dtype=torch.int32, device=cost.device)
     new_pop = pop.replace(
@@ -201,8 +214,8 @@ def simulate_round_device(pop: ClientPopulation, sel_mask: torch.Tensor,
         cost_pct=cost,
         round_duration=duration.to(torch.float32),
         new_dropouts=new_dropouts,
-        energy_spent_pct=torch.where(sel_mask, cost, zero).sum(),
-        energy_spent_j=cohort_energy_j(pop, sel_mask, cost),
+        energy_spent_pct=asum(torch.where(sel_mask, cost, zero), axis),
+        energy_spent_j=cohort_energy_j(pop, sel_mask, cost, axis),
     )
     return new_pop, outcome
 
@@ -262,14 +275,16 @@ def simulate_round(pop: ClientPopulation, selected, energy_model: EnergyModel,
     return new_pop, outcome
 
 
-def _fault_totals(draw: Optional[FaultDraw], sel_mask: torch.Tensor):
+def _fault_totals(draw: Optional[FaultDraw], sel_mask: torch.Tensor,
+                  axis=None):
     """``(retries, corrupt)``: the cohort's upload re-attempts (int32
-    scalar) and the (N,) poisoned-delta flags; zeros without faults."""
+    scalar, an exact integer sum over the mesh with one) and the
+    per-client poisoned-delta flags; zeros without faults."""
     if draw is None:
         return (torch.zeros((), dtype=torch.int32, device=sel_mask.device),
                 torch.zeros_like(sel_mask))
-    retries = torch.where(sel_mask, draw.retries,
-                          torch.zeros_like(draw.retries)).sum()
+    retries = asum(torch.where(sel_mask, draw.retries,
+                               torch.zeros_like(draw.retries)), axis)
     return retries.to(torch.int32), draw.corrupt
 
 
@@ -279,39 +294,79 @@ def _fault_totals(draw: Optional[FaultDraw], sel_mask: torch.Tensor):
 # replayed from a CUDA graph on the card (``federated/replay.py``) and run
 # eagerly on the CPU; per-round outputs go to preallocated (R, ...)
 # buffers fetched once a segment.
+#
+# One body serves one device and a ``clients`` mesh (``launch/mesh.py``):
+# on a mesh the population lives in shard blocks ``(S, n_loc)``,
+# selection runs each shard's candidates and a merge, and the battery and
+# dropout simulation stays shard-local, with only the (k,) selected slots
+# and the round's scalars reassembled by collectives. On a virtual mesh
+# the collectives are tensor operations and a round is one CUDA-graph
+# replay.
+
+def _round_step(key, sel_state: SelectorState, pop: ClientPopulation,
+                t_total: torch.Tensor, cost: torch.Tensor, *,
+                sel_cfg: SelectorConfig, energy_model: EnergyModel,
+                deadline_s: Optional[float],
+                faults: Optional[FaultConfig] = None, axis=None,
+                n_real: Optional[int] = None,
+                energy_budget_j: Optional[float] = None,
+                ledger: Optional[BudgetLedger] = None):
+    """The round, selection -> fault draw -> budget gate -> simulation,
+    over the clean round times and costs ``t_total``/``cost``. Returns
+    ``(pop, sel_state, idx, chosen, DeviceRoundOutcome, retries, corrupt,
+    ledger)``. Selection scores on the clean cost (the selector cannot see
+    transient faults coming); the gate and the simulation see the
+    fault-modified one (``DeviceRoundOutcome.durations``). With ``ledger``
+    the budget gate runs on the cohort's joules. On a mesh (``axis``)
+    every per-client tensor is a shard block, the fault streams are each
+    shard's slice of the prefix-stable population-wide ones, and every
+    per-client outcome is bitwise the single-device engine's."""
+    idx, chosen, sel_state = _device_select(
+        key, sel_cfg, sel_state, pop, cost, cost.device.type == "cuda",
+        axis=axis, n_real=n_real)
+    sel_mask = slot_mask(idx, chosen, cost.shape[-1], axis)
+    # post-selection sel_state.round is the 1-based round number every
+    # engine agrees on: the fault draws key off it (on the device)
+    t_sim, cost_sim, draw = faults_for_round(faults, sel_state.round,
+                                             t_total, cost, axis)
+    if ledger is not None:
+        round_j = cohort_energy_j(pop, sel_mask, cost_sim, axis)
+        sel_mask, _, ledger = budget_gate(sel_mask, round_j, ledger,
+                                          energy_budget_j, sel_state.round,
+                                          axis)
+    pop, dev = simulate_round_device(
+        pop, sel_mask, t_sim, cost_sim, sel_state.round, energy_model,
+        deadline_s, fail_mask=None if draw is None else draw.fail, axis=axis)
+    if ledger is not None:
+        ledger = ledger._replace(spent_j=ledger.spent_j + dev.energy_spent_j)
+    retries, corrupt = _fault_totals(draw, sel_mask, axis)
+    return pop, sel_state, idx, chosen, dev, retries, corrupt, ledger
+
 
 def make_round_engine(sel_cfg: SelectorConfig, energy_model: EnergyModel,
                       model_bytes: float, local_steps: int, batch_size: int,
                       deadline_s: Optional[float] = None,
                       up_bytes: Optional[float] = None,
-                      faults: Optional[FaultConfig] = None):
+                      faults: Optional[FaultConfig] = None,
+                      mesh=None, n_real: Optional[int] = None):
     """One fused round step: predicted cost -> selection -> simulation.
 
     Returns ``step(key, pop, sel_state) -> (pop, sel_state, idx, chosen,
     DeviceRoundOutcome, retries, corrupt)``: ``retries`` (int32 scalar)
-    counts the cohort's upload re-attempts and ``corrupt`` ((N,) bool)
-    flags poisoned deltas, both zero without active ``faults``. Selection
-    scores on the clean predicted cost (the selector cannot see transient
-    faults coming); the simulation runs on the fault-modified durations
-    and costs. Nothing in the step reads a value on the host. The top-k
-    kernel runs on CUDA and the affine-folded plain route on the CPU, as
-    in ``select``."""
+    counts the cohort's upload re-attempts and ``corrupt`` (per client,
+    bool) flags poisoned deltas, both zero without active ``faults``.
+    Nothing in the step reads a value on the host. The top-k kernel runs
+    on CUDA and the affine-folded plain route on the CPU, as in
+    ``select``. With a ``clients`` ``mesh`` the step takes the population
+    in shard blocks, padded from ``n_real`` clients (:func:`_round_step`)."""
 
     def step(key, pop: ClientPopulation, sel_state: SelectorState):
         t_total, cost = _round_cost(pop, energy_model, model_bytes,
                                     local_steps, batch_size, up_bytes)
-        idx, chosen, sel_state = _device_select(
-            key, sel_cfg, sel_state, pop, cost, pop.device.type == "cuda")
-        sel_mask = slot_mask(idx, chosen, pop.n)
-        # post-selection sel_state.round is the 1-based round number every
-        # engine agrees on: the fault draws key off it (on the device)
-        t_eff, cost_eff, draw = faults_for_round(faults, sel_state.round,
-                                                 t_total, cost)
-        pop, dev = simulate_round_device(
-            pop, sel_mask, t_eff, cost_eff, sel_state.round, energy_model,
-            deadline_s, fail_mask=None if draw is None else draw.fail)
-        retries, corrupt = _fault_totals(draw, sel_mask)
-        return pop, sel_state, idx, chosen, dev, retries, corrupt
+        return _round_step(key, sel_state, pop, t_total, cost,
+                           sel_cfg=sel_cfg, energy_model=energy_model,
+                           deadline_s=deadline_s, faults=faults, axis=mesh,
+                           n_real=n_real)[:7]
 
     return step
 
@@ -328,18 +383,44 @@ def scatter_drop(base: torch.Tensor, idx: torch.Tensor, keep: torch.Tensor,
     return padded.scatter(0, target, values.to(base.dtype))[:n]
 
 
-def slot_mask(idx: torch.Tensor, chosen: torch.Tensor, n: int) -> torch.Tensor:
-    """The (N,) mask of the chosen slots' clients."""
-    return scatter_drop(torch.zeros(n, dtype=torch.bool, device=idx.device),
-                        idx, chosen, torch.ones_like(chosen))
+def scatter_drop_rows(base: torch.Tensor, loc: torch.Tensor,
+                      keep: torch.Tensor, values: torch.Tensor,
+                      ) -> torch.Tensor:
+    """:func:`scatter_drop` in each row of a shard block: ``base (S,
+    n_loc)`` with ``values[j]`` written in row s at ``loc[s, j]`` where
+    ``keep[s, j]`` (``loc``, ``keep``: ``(S, k)``; ``values``: ``(k,)``)."""
+    n_loc = base.shape[-1]
+    padded = torch.cat([base, base.new_zeros((base.shape[0], 1))], dim=-1)
+    target = torch.where(keep, loc, torch.full_like(loc, n_loc))
+    return padded.scatter(-1, target, values.to(base.dtype).expand(
+        loc.shape))[:, :n_loc]
+
+
+def slot_mask(idx: torch.Tensor, chosen: torch.Tensor, n: int,
+              axis=None) -> torch.Tensor:
+    """The per-client mask of the chosen slots' clients: ``(n,)``, or on a
+    mesh each local shard's ``(S, n)`` block of it (``n`` = ``n_loc``)."""
+    if axis is None:
+        return scatter_drop(torch.zeros(n, dtype=torch.bool,
+                                        device=idx.device),
+                            idx, chosen, torch.ones_like(chosen))
+    own, loc = _slot_owner(idx, axis.bases(n, idx.device), n)
+    return scatter_drop_rows(
+        torch.zeros((axis.local, n), dtype=torch.bool, device=idx.device),
+        loc, own & chosen, torch.ones_like(chosen))
 
 
 def _selection_graphs(step, keys: torch.Tensor, pop: ClientPopulation,
-                      st: SelectorState, rounds: int,
-                      start: int) -> StepGraphs:
+                      st: SelectorState, rounds: int, start: int,
+                      mesh=None, n_real: Optional[int] = None,
+                      ) -> StepGraphs:
     """The selection engine's round over the carry ``{"pop", "st"}``
-    (the twin of the reference's ``_scanned_runner``); round ``ctr`` uses
-    key row ``keys[ctr]``."""
+    (the twin of the reference's ``_scanned_runner`` and, with a
+    ``clients`` ``mesh`` and the population in shard blocks padded from
+    ``n_real`` clients, of its ``_sharded_scanned_runner``); round
+    ``ctr`` uses key row ``keys[ctr]``."""
+    n_real = pop.n if mesh is None else n_real
+    n_pad = 0 if mesh is None else mesh.n_padded(n_real) - n_real
 
     def round_fn(carry, ctr):
         key = keys.index_select(0, ctr.reshape(1))[0]
@@ -348,15 +429,16 @@ def _selection_graphs(step, keys: torch.Tensor, pop: ClientPopulation,
         out = {
             "selected": idx.to(torch.int32),
             "chosen": chosen,
-            "succeeded": dev.succeeded[idx] & chosen,
+            "succeeded": _slot_gather(dev.succeeded, idx, chosen, mesh) > 0,
             "round_duration": dev.round_duration,
             "new_dropouts": dev.new_dropouts,
             "energy_spent_pct": dev.energy_spent_pct,
             "energy_spent_j": dev.energy_spent_j,
-            "mean_battery": pop.battery_pct.mean(),
-            "total_dropped": pop.dropped.sum().to(torch.int32),
+            "mean_battery": asum(pop.battery_pct, mesh) / n_real,
+            # pad clients are dead from the start
+            "total_dropped": asum(pop.dropped, mesh).to(torch.int32) - n_pad,
             "retries": retries,
-            "corrupt": corrupt[idx] & chosen,
+            "corrupt": _slot_gather(corrupt, idx, chosen, mesh) > 0,
         }
         return {"pop": pop, "st": st}, out
 
@@ -410,6 +492,62 @@ def _make_checkpointer(checkpoint_path: Optional[str],
     return CarryCheckpointer(checkpoint_path, every, rounds, meta)
 
 
+def _run_selection_engine(key: torch.Tensor, sel_cfg: SelectorConfig,
+                          pop: ClientPopulation, sel_state: SelectorState,
+                          energy_model: EnergyModel, model_bytes: float,
+                          local_steps: int, batch_size: int, rounds: int,
+                          deadline_s: Optional[float],
+                          up_bytes: Optional[float],
+                          faults: Optional[FaultConfig],
+                          checkpoint_every: Optional[int],
+                          checkpoint_path: Optional[str],
+                          resume_from: Optional[str], mesh=None):
+    """The selection engine's segment, checkpoint and resume loop, on one
+    device or over a ``clients`` ``mesh`` (the population padded and laid
+    out in shard blocks for the run, and trimmed to its real clients in
+    snapshots and in the result, on every process; rank 0 of a
+    process-group mesh writes the snapshots)."""
+    from repro_torch.launch.sharding import population_sharding
+
+    n_real = pop.n
+    keys = prng.split(key, rounds)
+    st = sel_state.canonical(pop.device)
+    meta = _engine_meta("sync", sel_cfg, n_real, rounds, deadline_s, faults)
+    start, parts = 0, []
+    if resume_from is not None:
+        start, state, data, _ = load_engine_checkpoint(
+            resume_from, {"pop": pop, "st": st}, expect_meta=meta)
+        pop, st = state["pop"], state["st"]
+        if data.get("traj"):
+            parts.append(data["traj"])
+    if mesh is not None:
+        pop = population_sharding(mesh)(pop)
+
+    def whole(p):
+        return p if mesh is None else mesh.gather(p, n_real)
+
+    step = make_round_engine(sel_cfg, energy_model, float(model_bytes),
+                             int(local_steps), int(batch_size),
+                             None if deadline_s is None else float(deadline_s),
+                             None if up_bytes is None else float(up_bytes),
+                             faults, mesh, n_real)
+    ck = _make_checkpointer(checkpoint_path, checkpoint_every, rounds, meta)
+    graphs = _selection_graphs(step, keys, pop, st, rounds, start, mesh,
+                               n_real)
+    for a, b in segment_bounds(start, rounds,
+                               ck.every if ck is not None else None):
+        for _ in range(a, b):
+            graphs.run("round")
+        parts.append(graphs.fetch(a, b))
+        if ck is not None and ck.due(b):
+            carry = graphs.carry()
+            state = {"pop": whole(carry["pop"]), "st": carry["st"]}
+            if mesh is None or mesh.rank == 0:
+                ck.save(b, state, {"traj": _concat_traj(parts)})
+    carry = graphs.carry()
+    return whole(carry["pop"]), carry["st"], _concat_traj(parts)
+
+
 def run_rounds_scanned(key: torch.Tensor, sel_cfg: SelectorConfig,
                        pop: ClientPopulation, sel_state: SelectorState,
                        energy_model: EnergyModel, model_bytes: float,
@@ -436,32 +574,48 @@ def run_rounds_scanned(key: torch.Tensor, sel_cfg: SelectorConfig,
     only) snapshots the carry and the trajectory so far;
     ``resume_from`` continues from such a snapshot, bitwise equal to the
     uninterrupted run."""
-    step = make_round_engine(sel_cfg, energy_model, float(model_bytes),
-                             int(local_steps), int(batch_size),
-                             None if deadline_s is None else float(deadline_s),
-                             None if up_bytes is None else float(up_bytes),
-                             faults)
-    keys = prng.split(key, rounds)
-    st = sel_state.canonical(pop.device)
-    meta = _engine_meta("sync", sel_cfg, pop.n, rounds, deadline_s, faults)
-    start, parts = 0, []
-    if resume_from is not None:
-        start, state, data, _ = load_engine_checkpoint(
-            resume_from, {"pop": pop, "st": st}, expect_meta=meta)
-        pop, st = state["pop"], state["st"]
-        if data.get("traj"):
-            parts.append(data["traj"])
-    ck = _make_checkpointer(checkpoint_path, checkpoint_every, rounds, meta)
-    graphs = _selection_graphs(step, keys, pop, st, rounds, start)
-    for a, b in segment_bounds(start, rounds,
-                               ck.every if ck is not None else None):
-        for _ in range(a, b):
-            graphs.run("round")
-        parts.append(graphs.fetch(a, b))
-        if ck is not None and ck.due(b):
-            ck.save(b, graphs.carry(), {"traj": _concat_traj(parts)})
-    carry = graphs.carry()
-    return carry["pop"], carry["st"], _concat_traj(parts)
+    return _run_selection_engine(
+        key, sel_cfg, pop, sel_state, energy_model, model_bytes, local_steps,
+        batch_size, rounds, deadline_s, up_bytes, faults, checkpoint_every,
+        checkpoint_path, resume_from)
+
+
+def run_rounds_sharded(key: torch.Tensor, sel_cfg: SelectorConfig,
+                       pop: ClientPopulation, sel_state: SelectorState,
+                       energy_model: EnergyModel, model_bytes: float,
+                       local_steps: int, batch_size: int, rounds: int,
+                       deadline_s: Optional[float] = None,
+                       up_bytes: Optional[float] = None,
+                       mesh=None, n_shards: Optional[int] = None,
+                       faults: Optional[FaultConfig] = None,
+                       checkpoint_every: Optional[int] = None,
+                       checkpoint_path: Optional[str] = None,
+                       resume_from: Optional[str] = None,
+                       ) -> Tuple[ClientPopulation, SelectorState,
+                                  Dict[str, np.ndarray]]:
+    """:func:`run_rounds_scanned` over a ``clients`` mesh (``mesh``, or one
+    of ``n_shards`` shards from ``launch/mesh.py::make_client_mesh``).
+
+    Pads the population to a multiple of the shard count (pad clients are
+    dead and never selected), lays it out in shard blocks, and runs every
+    round shard-local, replayed from a CUDA graph on the card.
+    ``selected``, ``chosen``, ``succeeded``, dropouts and the selector
+    state equal :func:`run_rounds_scanned`'s on the same key index for
+    index; the summed statistics (``energy_spent_pct``,
+    ``mean_battery``) agree within float32 reduction order. The returned
+    population is trimmed to the real clients, on every process.
+
+    Checkpoints are the scanned engine's ``"sync"`` family with the
+    population trimmed to the real clients, so a snapshot resumes under
+    any shard count and in either engine. On a process-group mesh rank 0
+    writes them."""
+    from repro_torch.launch.mesh import make_client_mesh
+
+    return _run_selection_engine(
+        key, sel_cfg, pop, sel_state, energy_model, model_bytes, local_steps,
+        batch_size, rounds, deadline_s, up_bytes, faults, checkpoint_every,
+        checkpoint_path, resume_from,
+        make_client_mesh(n_shards) if mesh is None else mesh)
 
 
 # ------------------------------------------------------------------- async
@@ -839,12 +993,12 @@ def run_async_scanned(key: torch.Tensor, sel_cfg: SelectorConfig,
 # -------------------------------------------------------------- dispatcher
 # One front door over the four round engines. The pick is a pure function
 # of (n, device_count, mode, async knobs), the reference's, so dispatch
-# decisions match between the packages. The sharded twins are ROADMAP.md
-# queue 1 item 13: their legs raise until it lands.
+# decisions match between the packages. The async sharded twin is
+# ROADMAP.md queue 1 item 13: its leg raises until it lands.
 
 #: Population size at or above which a multi-device run dispatches to the
 #: sharded engines. The reference's value (its CPU-mesh measurement); it
-#: was not measured on the H100, which item 13 does with the sharded twins.
+#: is not measured on H100s, which takes a machine of several cards.
 ENGINE_CUTOVER_N = 262_144
 
 SYNC_ENGINES = ("scanned", "sharded")
@@ -853,7 +1007,8 @@ ENGINES = SYNC_ENGINES + ASYNC_ENGINES
 
 #: Training engines behind ``run_fl``: the host round loop, the fused
 #: engine (``run_fl_scanned`` / ``run_fl_async_scanned``) and the sharded
-#: twin (item 13). Every name exists in both aggregation families.
+#: twin (``run_fl_sharded``; the async one is item 13). Every name exists
+#: in both aggregation families.
 TRAIN_ENGINES = ("host", "scanned", "sharded")
 
 def world_size() -> int:
@@ -950,11 +1105,13 @@ def run_rounds(key: torch.Tensor, sel_cfg: SelectorConfig,
     async from ``buffer_size``/``max_concurrency``) or, as an engine name,
     the engine; the population size against ``cutover_n`` on more than one
     device picks the placement, and ``mesh``/``n_shards`` upgrade an
-    auto-resolved engine to its sharded twin. The chosen name is recorded
-    as ``traj["engine"]``. The reference's checks, in its order: an
-    unknown mode, a forced single-device name with ``mesh``/``n_shards``,
-    async knobs with a sync engine (each a ``ValueError``). The sharded
-    twins raise ``NotImplementedError`` (item 13)."""
+    auto-resolved engine to its sharded twin (``mesh``, a
+    ``launch/mesh.py::ClientMesh``, or a virtual mesh of ``n_shards``).
+    The chosen name is recorded as ``traj["engine"]``. The reference's
+    checks, in its order: an unknown mode, a forced single-device name
+    with ``mesh``/``n_shards``, async knobs with a sync engine (each a
+    ``ValueError``). The async sharded twin raises ``NotImplementedError``
+    (item 13)."""
     if mesh is not None:
         devices = mesh.size()
     elif n_shards is not None:
@@ -978,10 +1135,10 @@ def run_rounds(key: torch.Tensor, sel_cfg: SelectorConfig,
             f"async knobs (buffer_size/max_concurrency) with the "
             f"synchronous {engine!r} engine; use mode='async' or drop "
             f"the knobs")
-    if engine in ("sharded", "async-sharded"):
+    if engine == "async-sharded":
         raise NotImplementedError(
-            f"the {engine!r} engine is not ported yet (ROADMAP.md, queue 1 "
-            f"item 13)")
+            "the 'async-sharded' engine (run_async_sharded) is not ported "
+            "yet (ROADMAP.md, queue 1 item 13)")
 
     common = dict(deadline_s=deadline_s, up_bytes=up_bytes, faults=faults,
                   checkpoint_every=checkpoint_every,
@@ -990,6 +1147,9 @@ def run_rounds(key: torch.Tensor, sel_cfg: SelectorConfig,
             local_steps, batch_size, rounds)
     if engine == "scanned":
         fpop, st, traj = run_rounds_scanned(*args, **common)
+    elif engine == "sharded":
+        fpop, st, traj = run_rounds_sharded(*args, **common, mesh=mesh,
+                                            n_shards=n_shards)
     else:
         fpop, st, traj = run_async_scanned(
             *args, buffer_size=buffer_size, max_concurrency=max_concurrency,

@@ -65,8 +65,9 @@ def PRNGKey(seed: int, device: DeviceLike = None) -> torch.Tensor:
                         device=resolve_device(device)) * (int(seed) & MASK)
 
 
-def _counters(n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    i = torch.arange(n, dtype=torch.int64, device=device)
+def _counters(n: int, device,
+              offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    i = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     return i >> 32, i & MASK
 
 
@@ -91,11 +92,14 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([b0, b1], dim=-1)
 
 
-def bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+def bits(key: torch.Tensor, shape: Shape, offset: int = 0) -> torch.Tensor:
     """32 random bits per element (``jax.random.bits``, uint32), as int64.
-    Output shape is ``key.shape[:-1] + shape``."""
+    Output shape is ``key.shape[:-1] + shape``. The stream is
+    counter-based and prefix-stable: ``offset`` draws the elements at
+    flat positions ``[offset, offset + prod(shape))`` of a longer draw
+    (one shard's slice of a population-wide stream)."""
     shape = _shape(shape)
-    hi, lo = _counters(math.prod(shape), key.device)
+    hi, lo = _counters(math.prod(shape), key.device, offset)
     lead = key.shape[:-1]
     k0 = key[..., 0].reshape(*lead, 1)
     k1 = key[..., 1].reshape(*lead, 1)
@@ -104,19 +108,22 @@ def bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
 
 
 def uniform(key: torch.Tensor, shape: Shape = (), minval=0.0,
-            maxval=1.0) -> torch.Tensor:
+            maxval=1.0, offset: int = 0) -> torch.Tensor:
     """``jax.random.uniform`` in float32 (bit-exact; the reference's
-    ``floats * (max - min) + min`` is one fused multiply-add)."""
-    b = bits(key, shape)
+    ``floats * (max - min) + min`` is one fused multiply-add); ``offset``
+    as in :func:`bits`."""
+    b = bits(key, shape, offset)
     fb = ((b >> 9) | 0x3F800000).to(torch.int32)
     floats = fb.view(torch.float32) - 1.0
     lo, hi = f32(minval, key), f32(maxval, key)
     return torch.maximum(lo, fma(floats, hi - lo, lo))
 
 
-def bernoulli(key: torch.Tensor, p: float, shape: Shape) -> torch.Tensor:
-    """``jax.random.bernoulli`` with a scalar ``p`` (bit-exact)."""
-    return uniform(key, shape) < f32(p, key)
+def bernoulli(key: torch.Tensor, p: float, shape: Shape,
+              offset: int = 0) -> torch.Tensor:
+    """``jax.random.bernoulli`` with a scalar ``p`` (bit-exact); ``offset``
+    as in :func:`bits`."""
+    return uniform(key, shape, offset=offset) < f32(p, key)
 
 
 def randint(key: torch.Tensor, shape: Shape, minval: int,

@@ -2,9 +2,10 @@
 ``resolve_train_engine``, ``run_rounds``) against the reference's.
 
 Mirrors every test of ``tests/test_dispatch.py`` that needs no mesh, on
-the port; the sharded legs (a forced name, ``n_shards``, an auto pick on
-more than one device) raise ``NotImplementedError`` naming ROADMAP.md
-queue 1 item 13. The resolvers are pure functions and must return the
+the port. The sync sharded leg (a forced name, ``n_shards``) runs
+``run_rounds_sharded`` and equals the scanned engine; the async sharded
+leg raises ``NotImplementedError`` naming ROADMAP.md queue 1 item 13.
+The resolvers are pure functions and must return the
 reference's answer on every case of its matrix and of a wider one
 (devices 1-8). Forced engine names give trajectories index for index
 equal to direct calls of the engines, and (converted population, the
@@ -177,8 +178,22 @@ def test_run_rounds_rejects_bad_combinations():
     ("auto", {"n_shards": 1}), ("auto", {"n_shards": 2, "buffer_size": 2}),
     ("sync", {"n_shards": 4})])
 def test_sharded_legs_raise_item_13(mode, kw):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run_rounds(*_args(), mode=mode, **kw)
+    """The async sharded legs still raise (item 13); the sync ones run the
+    sharded engine, equal to the scanned one (a virtual mesh of
+    ``n_shards`` shards, one by default)."""
+    if mode == "async-sharded" or "buffer_size" in kw:
+        with pytest.raises(NotImplementedError, match="item 13"):
+            run_rounds(*_args(), mode=mode, **kw)
+        return
+    _, st, t = run_rounds(*_args(), mode=mode, **kw)
+    _, st0, t0 = run_rounds(*_args(), mode="scanned")
+    assert t["engine"] == "sharded"
+    for f in ("selected", "chosen", "succeeded", "total_dropped",
+              "new_dropouts", "round_duration"):
+        np.testing.assert_array_equal(t[f], t0[f], f)
+    np.testing.assert_allclose(t["mean_battery"], t0["mean_battery"],
+                               rtol=1e-6)
+    assert float(st.util_ema) == float(st0.util_ema)
 
 
 # --------------------------------------------- forced-engine trajectories
@@ -232,7 +247,8 @@ def test_auto_with_async_knobs_runs_async():
 
 
 @pytest.mark.parametrize("mode,kw", [("scanned", {}),
-                                     ("async-scanned", ASYNC)])
+                                     ("async-scanned", ASYNC),
+                                     ("sharded", {})])
 def test_run_rounds_matches_the_reference(mode, kw):
     """The same population and key through both packages' front doors:
     the engine's name and the selection columns index for index."""
@@ -310,8 +326,12 @@ def test_run_selection_scanned_reports_engine():
     _, traj = run_selection_scanned(_flcfg(buffer_size=2), rounds=3,
                                     device="cpu")
     assert traj["engine"] == "async-scanned"
+    _, traj = run_selection_scanned(_flcfg(), rounds=3, n_shards=2,
+                                    device="cpu")
+    assert traj["engine"] == "sharded"
     with pytest.raises(NotImplementedError, match="item 13"):
-        run_selection_scanned(_flcfg(), rounds=3, n_shards=1, device="cpu")
+        run_selection_scanned(_flcfg(buffer_size=2), rounds=3, n_shards=1,
+                              device="cpu")
 
 
 def test_no_item_12_or_14_refusal_is_left():

@@ -641,6 +641,38 @@ def test_chip_faults_async_faults_replace_live_functions():
         assert not torch.equal(make_fault(sound)(*args), sound(*args)), attr
 
 
+def test_chip_faults_shard_faults_replace_live_functions():
+    """Each planted fault of the sharded engines names a function each of
+    its modules reads, and changes what that function returns."""
+    import importlib
+    from repro_torch.launch.mesh import ClientMesh
+    _chip_smoke()
+    faults = _load("chip_faults").SHARD_FAULTS
+    assert set(faults) == {"per_shard_leg_index_offset_dropped",
+                           "merge_ties_highest_index_first",
+                           "slot_gather_two_owners"}
+    a, b = torch.tensor([0.5, 0.9, 0.1]), torch.tensor([0.2, 0.3, 0.4])
+    # (args, keywords, the part of the result the fault changes)
+    inputs = {
+        "topk_reward": ((a, b, torch.ones(3, dtype=torch.bool)),
+                        dict(f=0.25, k=2, index_offset=6), lambda r: r[1]),
+        # equal values in both shards: the merge keeps the lower index
+        "_merge_candidates": ((torch.tensor([[2.0, 1.0], [2.0, 0.0]]),
+                               torch.tensor([[0, 1], [2, 3]]), 2,
+                               ClientMesh(2)), {}, lambda r: r),
+        "_slot_owner": ((torch.tensor([0, 3]), torch.tensor([0, 2]), 2), {},
+                        lambda r: r[0]),
+    }
+    for modules, attr, make_fault, phase in faults.values():
+        assert phase == "6k"
+        sound = getattr(importlib.import_module(modules[0]), attr)
+        for module in modules:
+            assert getattr(importlib.import_module(module), attr) is sound
+        args, kw, part = inputs[attr]
+        assert not torch.equal(part(make_fault(sound)(*args, **kw)),
+                               part(sound(*args, **kw))), attr
+
+
 def test_chip_smoke_reads_each_rounds_pulled_k():
     """Phase 6h holds each round's top-k launch at the k its pulled arm
     sets, the config's where the arm inherits it."""

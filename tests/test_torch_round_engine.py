@@ -114,12 +114,13 @@ def test_run_selection_scanned():
     pop, out = tserver.run_selection_scanned(cfg, device="cpu")
     assert out["engine"] == "scanned" and int(out["state"].round) == 3
     assert out["selected"].shape == (3, 4) and pop.n == 30
-    # the sharded twins, by a shard count or by name, raise from the
-    # run_rounds front door (ROADMAP.md queue 1 item 13)
-    for bad, match in ((dict(n_shards=2), "item 13"),
-                       (dict(mode="sharded"), "item 13")):
-        with pytest.raises(NotImplementedError, match=match):
-            tserver.run_selection_scanned(cfg, device="cpu", **bad)
+    # the sharded twin, by a shard count or by name, runs from the
+    # run_rounds front door and equals the scanned engine index for index
+    for kw in (dict(n_shards=2), dict(mode="sharded")):
+        _, sh = tserver.run_selection_scanned(cfg, device="cpu", **kw)
+        assert sh["engine"] == "sharded"
+        for f in ("selected", "chosen", "succeeded", "total_dropped"):
+            np.testing.assert_array_equal(sh[f], out[f], f)
     # async is ported: it runs the async event engine
     _, out = tserver.run_selection_scanned(cfg, device="cpu", mode="async")
     assert out["engine"] == "async-scanned"

@@ -113,8 +113,8 @@ def test_run_fl_matches_reference(case, monkeypatch):
 # The async knobs and the knob controller are ported now (the controller
 # runs in the sync host loop: tests/test_torch_controller.py). The case
 # keeps its id and holds the reference's order of refusals: a controller
-# with any engine but the host loop is the reference's ValueError, raised
-# before the sharded engine's NotImplementedError (item 13).
+# with any engine but the host loop is the reference's ValueError, the
+# sharded engine's too.
 @pytest.mark.parametrize("change,match", [
     pytest.param(dict(controller=ControllerConfig(arms=(Arm(),))),
                  "synchronous host loop", id="change1-item 12"),
@@ -144,11 +144,14 @@ def test_async_knobs_route_to_the_async_engines(monkeypatch):
 
 @pytest.mark.parametrize("engine", ["sharded"])
 def test_unported_engines_raise(engine):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserver.run_fl(_cfgs("eafl")[1], engine=engine, device="cpu")
+    """The sync sharded engine runs (``run_fl_sharded``, equal to the
+    fused engine on one shard); the async one still raises (item 13)."""
+    cfg = _cfgs("eafl")[1]
+    out = tserver.run_fl(cfg, engine=engine, device="cpu")
+    ref = tserver.run_fl_scanned(cfg, device="cpu")
+    assert out.as_dict() == ref.as_dict()
     with pytest.raises(NotImplementedError, match="item 13"):
-        tserver.run_fl(_cfgs("eafl")[1], mode="async", engine=engine,
-                       device="cpu")
+        tserver.run_fl(cfg, mode="async", engine=engine, device="cpu")
 
 
 def test_port_runs_on_its_own_draws():

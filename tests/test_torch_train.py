@@ -64,8 +64,9 @@ def test_quickstart_twin_runs_run_fl():
 def test_million_client_selection_twin_checks_itself():
     from repro_torch.examples import million_client_selection as mcs
     times = mcs.main(["--n", "4099", "--k", "20", "--rounds", "2",
-                      "--device", "cpu"])
-    assert {"kernel_s", "select_s", "select_host_s", "scan_s"} <= set(times)
+                      "--devices", "3", "--device", "cpu"])
+    assert {"kernel_s", "select_s", "select_host_s", "scan_s",
+            "shard_s"} <= set(times)
 
 
 def test_async_fedbuff_twin_parity_leg():

@@ -191,7 +191,10 @@ def test_round_step_reads_nothing_on_the_host(case):
 def test_rejections():
     with pytest.raises(ValueError, match="async"):
         tserver.run_fl_scanned(_cfg(buffer_size=2), device="cpu")
+    # the sync sharded engine runs; its async twin is item 13
+    assert tserver.run_fl(_cfg(), engine="sharded", device="cpu").round \
+        == [1, 2, 3]
     with pytest.raises(NotImplementedError, match="item 13"):
-        tserver.run_fl(_cfg(), engine="sharded", device="cpu")
+        tserver.run_fl(_cfg(), mode="async", engine="sharded", device="cpu")
     with pytest.raises(ValueError, match="unknown training engine"):
         tserver.run_fl(_cfg(), engine="fused", device="cpu")

@@ -1,0 +1,23 @@
+"""One rank of the two-rank gloo test in ``test_torch_sharded.py``.
+
+A module of its own, importing only the port, so that a spawned rank
+starts without JAX."""
+import torch
+import torch.distributed as dist
+
+from repro_torch.federated import server, simulation
+
+
+def run_rank(rank, world, init, queue, sel_args, sel_kw, fl_cfg):
+    """The selection engine (``run_rounds_sharded(*sel_args, **sel_kw)``)
+    and the trainer (``run_fl(fl_cfg, engine="sharded")``) on the
+    process-group mesh, one shard a rank; the results go to ``queue``."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        pop, _, traj = simulation.run_rounds_sharded(*sel_args, **sel_kw)
+        hist = server.run_fl(fl_cfg, engine="sharded", device="cpu")
+        queue.put((rank, traj, pop.battery_pct.numpy(), hist.as_dict()))
+    finally:
+        dist.destroy_process_group()
