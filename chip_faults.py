@@ -47,11 +47,17 @@ highest index first, the snapshot ring's lookup one version off, and the
 damping with its exponent dropped. ``SHARD_FAULTS`` do the same to the
 sharded engines: the per-shard top-k leg with ``index_offset`` dropped,
 the candidate merge with ties highest index first, and the
-one-owner-per-slot gather summing two owners. The sound engines must
+one-owner-per-slot gather summing two owners; ``ASYNC_SHARD_FAULTS`` to
+the sharded async engine: the flush's cross-shard merge taking the
+shards in reversed order, and the completers' start versions read from
+the first shard without the one-owner gather. The sound engines must
 pass phases 6e (async selection at 1,048,576 clients), 6f (plain, the
-fused engine against the host loop at full width) and 6k (sharded
+fused engine against the host loop at full width), 6k (sharded selection
+at 1,048,576 clients on 1, 2 and 8 shards) and 6n (sharded async
 selection at 1,048,576 clients on 1, 2 and 8 shards) of
-``chip_smoke.py``, and each fault must fail the phase it names.
+``chip_smoke.py``, and each fault must fail the phase it names: the
+reversed merge on ``completed``, the local start versions on
+``staleness``.
 
 Exits 1 unless each sound kernel and engine passes its check (bitwise for
 top-k, the tight check for the others) and every fault fails it. The last
@@ -217,6 +223,29 @@ def _two_owners(sound):
     return slot_owner
 
 
+def _merge_shards_reversed(sound):
+    """The async flush's cross-shard merge with the shards' candidates
+    gathered in reversed shard order (each keeps its own indices), so that
+    equal arrival times go highest shard first."""
+    return lambda g_loc, k, k_loc, base, axis: sound(g_loc.flip(0), k, k_loc,
+                                                     base.flip(0), axis)
+
+
+def _start_version_read_locally(sound):
+    """The async flush's int32 gather (the completers' start versions)
+    read from this process's first shard at the slot's clamped local
+    position, with no owner and no sum over the mesh."""
+    def slot_gather(x, idx, mask, axis=None, **kw):
+        import torch
+        if axis is None or kw.get("dtype") is not torch.int32:
+            return sound(x, idx, mask, axis, **kw)
+        n_loc = x.shape[-1]
+        loc = torch.clamp(idx, 0, n_loc - 1)
+        return torch.where(mask, x[0].gather(0, loc), torch.zeros_like(loc)
+                           ).to(torch.int32)
+    return slot_gather
+
+
 # the sharded engines' planted faults, in the same form; a name imported
 # by several modules is replaced in each
 SHARD_FAULTS = {
@@ -231,16 +260,29 @@ SHARD_FAULTS = {
          "repro_torch.federated.server"), "_slot_owner", _two_owners,
         "6k"),
 }
+# the sharded async engine's, in the same form, with the column the first
+# failure must name
+ASYNC_SHARD_FAULTS = {
+    "async_flush_merge_shards_reversed": (
+        ("repro_torch.federated.simulation",), "_merge_topk",
+        _merge_shards_reversed, "6n", "completed"),
+    "async_start_version_read_locally": (
+        ("repro_torch.federated.simulation",), "_slot_gather",
+        _start_version_read_locally, "6n", "staleness"),
+}
 
 
 def async_phase(torch, ops, ref, dev, phase):
-    """Run phase 6e, 6f (plain only) or 6k of ``chip_smoke.py``; returns
-    ``{"fails": bool, "first_failure": text}``."""
+    """Run phase 6e, 6f (plain only), 6k or 6n of ``chip_smoke.py``;
+    returns ``{"fails": bool, "first_failure": text}``."""
     try:
         if phase == "6e":
             cs.phase_async_selection(torch, ops, ref, dev, 1_048_576, 4)
         elif phase == "6k":
             cs.phase_sharded_selection(torch, ops, ref, dev, 1_048_576, 3)
+        elif phase == "6n":
+            cs.phase_async_sharded_selection(torch, ops, ref, dev,
+                                             1_048_576, 4)
         else:
             cs.phase_async_parity(
                 torch, ops, ref, dev,
@@ -253,14 +295,18 @@ def async_phase(torch, ops, ref, dev, phase):
 
 
 def async_readings(torch, ops, ref, dev):
-    """The sound engines on phases 6e, 6f and 6k, then each planted fault
-    of the async and the sharded engines on the phase it names."""
+    """The sound engines on phases 6e, 6f, 6k and 6n, then each planted
+    fault of the async and the sharded engines on the phase it names (a
+    fault of the sharded async engine must fail on the column
+    ``ASYNC_SHARD_FAULTS`` gives)."""
     import importlib
     out = {"sound": {ph: async_phase(torch, ops, ref, dev, ph)
-                     for ph in ("6e", "6f", "6k")}}
+                     for ph in ("6e", "6f", "6k", "6n")}}
     faults = {name: ((module,), attr, make, phase) for name, (
         module, attr, make, phase) in ASYNC_FAULTS.items()}
     faults.update(SHARD_FAULTS)
+    faults.update({name: spec[:4] for name, spec in
+                   ASYNC_SHARD_FAULTS.items()})
     for name, (modules, attr, make_fault, phase) in faults.items():
         mods = [importlib.import_module(m) for m in modules]
         sound = getattr(mods[0], attr)
@@ -268,6 +314,10 @@ def async_readings(torch, ops, ref, dev):
             setattr(mod, attr, make_fault(sound))
         try:
             out[name] = {phase: async_phase(torch, ops, ref, dev, phase)}
+            if name in ASYNC_SHARD_FAULTS:
+                reading = out[name][phase]
+                reading["fails"] = reading["fails"] and \
+                    ASYNC_SHARD_FAULTS[name][4] in reading["first_failure"]
         finally:
             for mod in mods:
                 setattr(mod, attr, sound)
@@ -508,8 +558,8 @@ def main(argv=None) -> int:
                          "selective_scan")
     del scan_in, all_libs, libs
 
-    # the async and sharded engines: the sound ones pass phases 6e, 6f and
-    # 6k, each fault fails the phase it names
+    # the async and sharded engines: the sound ones pass phases 6e, 6f, 6k
+    # and 6n, each fault fails the phase it names
     asyn = async_readings(torch, ops, ref, dev)
 
     readings = {"topk_reward": topk, "flash_attention": attn,
@@ -526,7 +576,13 @@ def main(argv=None) -> int:
                         "6f": "fused engine against the host loop",
                         "6k": "sharded selection on 1, 2 and 8 shards "
                               "against the single-device engine, every "
-                              "launch against the plain version"}}
+                              "launch against the plain version",
+                        "6n": "sharded async selection on 1, 2 and 8 "
+                              "shards against the single-device engine "
+                              "and an all-ties aggregation; the faults "
+                              "must fail on " + json.dumps(
+                                  {k: v[4] for k, v in
+                                   ASYNC_SHARD_FAULTS.items()})}}
     fail_key = {"topk_reward": "bitwise_fails"}
     ok = all(not r["sound"][fail_key.get(k, "tight_fails")] and all(
         v[fail_key.get(k, "tight_fails")] for n, v in r.items()

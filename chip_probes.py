@@ -34,6 +34,14 @@ times them in the same turns (first in the first turn, last in the
 second) and reads the SASS loop counts of both checkouts' kernels as
 ``chip_smoke.py``'s phase 1 does. The last line is one JSON object with
 all the readings; without a CUDA device it exits 2.
+
+``--engines DIR`` probes no kernel: it times each replayed step of the
+fused engines (``run_fl_scanned`` and ``run_fl_async_scanned`` at phases
+6c's and 6g's settings: 10,000 clients, k = 100, full width, buffer 25
+and concurrency 100 for the async one, cuDNN's default algorithms, TF32
+off) of DIR's package and of this checkout's, in turns (DIR, this, this,
+DIR), each in a process of its own, two runs of 3 replays each, with
+``chip_smoke.py``'s ``replay_timing``.
 """
 from __future__ import annotations
 
@@ -159,6 +167,59 @@ def f32_excess(torch, ref, libs, launch, args):
     return out
 
 
+def engine_replays(tree, rounds=4, runs=2):
+    """Seconds of each replayed step of the fused engines of the checkout
+    at ``tree`` (its package put first on the path, so ``chip_smoke``'s
+    helpers time it), in this process: ``{engine: [replays of each
+    run]}``."""
+    sys.path.insert(0, str(Path(tree).resolve() / "src"))
+    import torch
+    from repro_torch.federated import replay
+    from repro_torch.federated.async_server import run_fl_async_scanned
+    from repro_torch.federated.server import run_fl_scanned
+    from repro_torch.kernels import ops
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops.load_library("topk_select")
+    dev = torch.device("cuda")
+    engines = {
+        "run_fl_scanned": (run_fl_scanned,
+                           cs.fl_config(10_000, 100, rounds)),
+        "run_fl_async_scanned": (run_fl_async_scanned, cs.fl_config(
+            10_000, 100, rounds, buffer_size=cs.ASYNC_BUFFER,
+            max_concurrency=cs.ASYNC_CONCURRENCY,
+            staleness_power=cs.ASYNC_POWER))}
+    out = {}
+    for name, (fn, cfg) in engines.items():
+        out[name] = []
+        for _ in range(runs):
+            times = []
+            with cs.replay_timing(torch, replay, times):
+                fn(cfg, device=dev)
+            out[name].append(times[1:])
+    return out
+
+
+def engines_in_turns(other) -> int:
+    """``--engines``: :func:`engine_replays` of ``other`` and of this
+    checkout in turns, a process each."""
+    readings = []
+    for tree in (other, cs.ROOT, cs.ROOT, other):
+        proc = subprocess.run(
+            [sys.executable, __file__, "--engine-run", str(tree)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-3000:], file=sys.stderr)
+            return proc.returncode
+        readings.append({"tree": str(tree), **json.loads(
+            proc.stdout.strip().splitlines()[-1])})
+        cs.log(json.dumps(readings[-1]))
+    cs.log(json.dumps({"card": cs.card_name_power(),
+                       "engine_replays_s": readings}))
+    return 0
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser()
@@ -167,12 +228,22 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", metavar="DIR", default=None,
                     help="another checkout whose SSD and scan kernels are "
                     "timed beside this one's")
+    ap.add_argument("--engines", metavar="DIR", default=None,
+                    help="time the fused engines' replayed steps of "
+                    "another checkout and of this one in turns instead")
+    ap.add_argument("--engine-run", metavar="DIR", default=None,
+                    help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
     seed = opts.seed
     import torch
     if not torch.cuda.is_available():
         print("chip_probes: no CUDA device", file=sys.stderr)
         return 2
+    if opts.engine_run:
+        print(json.dumps(engine_replays(opts.engine_run)))
+        return 0
+    if opts.engines:
+        return engines_in_turns(opts.engines)
     sys.path.insert(0, str(cs.SRC))
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref

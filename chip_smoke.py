@@ -127,12 +127,43 @@ one card, or a ``torch.distributed`` process group):
    round of the 4-shard engine (idle share); the fused engine's
    ``train-sync`` snapshot after round 2 resumed on 4 shards.
 6m. A ``torch.distributed`` NCCL group of world size 1 (a ``FileStore``,
-   bootstrap on the loopback) and ``run_rounds_sharded`` over its
-   process-group mesh at 1,048,576 clients: the collectives run through
-   NCCL and are captured in the round's graph (counted during capture),
-   and the run is bitwise the virtual one-shard mesh's.
+   bootstrap on the loopback) and ``run_rounds_sharded`` and
+   ``run_async_sharded`` over its process-group mesh at 1,048,576
+   clients: the collectives run through NCCL and are captured in the
+   round's and the aggregation's graphs (counted during capture), and
+   each run is bitwise the virtual one-shard mesh's.
 
-In phases 3 to 6m every call of the top-k kernel's wrapper is recorded,
+The sharded buffered-asynchronous (FedBuff) engines and the restart
+checker (buffer 25, concurrency 100, k = 100, as phases 6e-6g):
+
+6n. ``run_async_sharded`` at 1,048,576 clients (phase 6e's population,
+   where arrivals tie; eafl, 4 aggregations) on virtual meshes of 1, 2
+   and 8 shards, each aggregation one CUDA-graph replay that launches
+   the top-k kernel once a shard with its own ``index_offset`` (and the
+   fill once a shard): the flush, refill, staleness, damping, clock and
+   in-flight columns, the final event state and the selector state equal
+   to ``run_async_scanned`` with the same key, batteries and summed
+   statistics within rtol 1e-6; then one aggregation in which every
+   arrival ties, across shard boundaries, which must complete the lowest
+   indices with each one's own staleness on every mesh; each replayed
+   aggregation timed alone beside the single device's, in turns, set-up
+   and capture apart; one profiled aggregation of the single device and
+   of 8 shards (top device operations, idle share).
+6o. ``run_fl(mode="async", engine="sharded")`` (one shard) and
+   ``run_fl_async_sharded`` on 4 shards at phase 6g's settings (10,000
+   clients, full width, 3 aggregations) against ``run_fl_async_scanned``
+   (cuDNN's deterministic algorithms): the flush, refill and version
+   columns equal, one shard bitwise, four within tests/test_torch_
+   training_engines.py's tolerances; each replayed aggregation timed alone
+   beside the fused engine's, capture and peak memory apart; one profiled
+   4-shard aggregation (idle share); the fused engine's ``train-async``
+   snapshot after aggregation 2 resumed on 4 shards.
+6p. ``launch/elastic_check.py``'s round-engine matrix on a 2-shard mesh
+   at its default size, in this process: resume parity of the sync and
+   async engines (single device and sharded), faults and the corruption
+   smoke.
+
+In phases 3 to 6p every call of the top-k kernel's wrapper is recorded,
 inputs and outputs, and its outputs are held against the plain version on
 the same inputs. Under capture the records are copies captured into the
 graph, read after each replay; each replayed launch is also held against
@@ -920,14 +951,15 @@ def graphs_made(replay):
 
 
 @contextlib.contextmanager
-def replay_timing(torch, replay, times):
-    """Append the wall seconds of each ``"round"`` step of the fused engine
-    to ``times``, the device drained before and after it (the first
-    includes its warm-up and capture)."""
+def replay_timing(torch, replay, times, step="round"):
+    """Append the wall seconds of each ``step`` step of a fused engine
+    (``"round"``, or the async selection engine's ``"agg"``) to ``times``,
+    the device drained before and after it (the first includes its warm-up
+    and capture)."""
     run = replay.StepGraphs.run
 
     def timed_run(self, name):
-        if name != "round":
+        if name != step:
             return run(self, name)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -995,15 +1027,16 @@ def round_split(events, name, top=10):
                     for k, v in totals.most_common(top)]}
 
 
-def fused_steps(torch, replay):
+def fused_steps(torch, replay, step="round"):
     """A ``step_hook`` for :func:`trace_round` that steps the profiler as
-    each ``"round"`` step of a fused engine starts."""
+    each ``step`` step of a fused engine starts (``"round"``, or the
+    async selection engine's ``"agg"``)."""
     @contextlib.contextmanager
     def hook(prof):
         run = replay.StepGraphs.run
 
         def stepping(self, name):
-            if name == "round":       # the last round's device work is done
+            if name == step:          # the last step's device work is done
                 torch.cuda.synchronize()
                 prof.step()
             return run(self, name)
@@ -1371,22 +1404,9 @@ def phase_async_scale(torch, ops, ref, dev, cfg):
         finally:
             async_server._async_engine = make
 
-    @contextlib.contextmanager
-    def fused_steps(prof):
-        run = replay.StepGraphs.run
-
-        def stepping(self, name):
-            if name == "round":       # the fused engine's aggregation step
-                torch.cuda.synchronize()
-                prof.step()
-            return run(self, name)
-        replay.StepGraphs.run = stepping
-        try:
-            yield
-        finally:
-            replay.StepGraphs.run = run
-
-    for engine, hook in (("host", host_steps), ("scanned", fused_steps)):
+    # the fused engine's aggregation is its "round" step
+    for engine, hook in (("host", host_steps),
+                         ("scanned", fused_steps(torch, replay))):
         with tempfile.TemporaryDirectory() as tmp:
             rows[engine]["profile"] = trace_round(
                 torch, lambda: run_fl(cfg, mode="async", engine=engine,
@@ -1925,16 +1945,17 @@ def phase_sharded_training(torch, ops, ref, dev, cfg, counts=(1, 4)):
 def phase_process_group(torch, ops, ref, dev, n, rounds):
     """6m: a ``torch.distributed`` NCCL group of world size 1 (a
     ``FileStore``, bootstrap on the loopback) and ``run_rounds_sharded``
-    over its process-group mesh at fleet scale: the collectives run
-    through NCCL and are captured in the round's CUDA graph (counted
-    during capture); the run equals the virtual one-shard mesh's
-    bitwise."""
+    and ``run_async_sharded`` over its process-group mesh at fleet scale:
+    the collectives run through NCCL and are captured in the round's and
+    the aggregation's CUDA graphs (counted during capture); each run
+    equals the virtual one-shard mesh's bitwise."""
     import torch.distributed as dist
     from repro_torch import prng
     from repro_torch.core.energy import EnergyModel
     from repro_torch.core.selection import SelectorConfig, SelectorState
     from repro_torch.federated import replay
-    from repro_torch.federated.simulation import run_rounds_sharded
+    from repro_torch.federated.simulation import (run_async_sharded,
+                                                  run_rounds_sharded)
     from repro_torch.launch.mesh import make_client_mesh
 
     pop = fleet_population(torch, dev, n)
@@ -1942,6 +1963,13 @@ def phase_process_group(torch, ops, ref, dev, n, rounds):
     args = (prng.PRNGKey(19, dev), cfg, pop, SelectorState.create(cfg),
             EnergyModel(busy_fraction=0.02), 3.0e6, 10, 20, rounds)
     virtual = run_rounds_sharded(*args, mesh=make_client_mesh(1))
+    # the async engine (phase 6e's population, where arrivals tie)
+    aargs = (prng.PRNGKey(31, dev), cfg, async_fleet(torch, dev, n),
+             SelectorState.create(cfg), EnergyModel(busy_fraction=0.02),
+             3.0e6, 10, 20, rounds)
+    akw = dict(buffer_size=ASYNC_BUFFER, max_concurrency=ASYNC_CONCURRENCY,
+               staleness_power=ASYNC_POWER)
+    avirtual = run_async_sharded(*aargs, **akw, mesh=make_client_mesh(1))
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     torch.cuda.set_device(torch.cuda.current_device()
                           if dev.index is None else dev.index)
@@ -1970,26 +1998,369 @@ def phase_process_group(torch, ops, ref, dev, n, rounds):
                 got, secs, graphs = timed_engine(
                     torch, replay, run_rounds_sharded, *args, mesh=mesh)
                 launches = ops.LAUNCHES["topk_reward"]
+                sync_captured = Counter(captured)
+                captured.clear()
+                ops.LAUNCHES["topk_reward"] = 0
+                agot, asecs, agraphs = timed_engine(
+                    torch, replay, run_async_sharded, *aargs, **akw,
+                    mesh=mesh)
+                alaunches = ops.LAUNCHES["topk_reward"]
         finally:
             for name, fn in sound.items():
                 setattr(dist, name, fn)
             dist.destroy_process_group()
     check(launches == 1 + rounds, f"phase 6m: the kernel launched "
           f"{launches} times")
-    check(captured["all_reduce"] > 0 and captured["all_gather"] > 0,
-          f"phase 6m: collectives captured {dict(captured)}")
+    check(alaunches == 2 + rounds, f"phase 6m async: the kernel launched "
+          f"{alaunches} times")
+    for label, counted in (("", sync_captured), (" async", captured)):
+        check(counted["all_reduce"] > 0 and counted["all_gather"] > 0,
+              f"phase 6m{label}: collectives captured {dict(counted)}")
     check_sharded_rounds(torch, got, virtual, "phase 6m", exact_floats=True)
+    check_async_rounds(torch, agot, avirtual, "phase 6m async",
+                       exact_floats=True)
     err = check_replayed(torch, ops, ref, calls, replayed, "phase 6m",
-                         rounds)
+                         2 * rounds)
     row = {"run_s": secs, "capture_s": graphs.capture_s.get("round", 0.0),
-           "launches": launches, "captured_collectives": dict(captured),
+           "launches": launches, "captured_collectives": dict(sync_captured),
+           "async_run_s": asecs,
+           "async_capture_s": agraphs.capture_s.get("agg", 0.0),
+           "async_launches": alaunches,
+           "async_captured_collectives": dict(captured),
            "card": card_name_power()}
-    log(f"phase 6m: run_rounds_sharded N={n} over an NCCL process group "
-        f"of world size 1 on {row['card']}: {dict(captured)} collective "
-        f"calls captured in the round's CUDA graph, the trajectory, "
-        f"batteries and state bitwise equal to the virtual one-shard "
-        f"mesh's; kernel launches {launches}, each == plain; {secs:.4f} s "
-        f"with warm-up and capture {row['capture_s']:.4f} s")
+    log(f"phase 6m: run_rounds_sharded and run_async_sharded N={n} over an "
+        f"NCCL process group of world size 1 on {row['card']}: "
+        f"{dict(sync_captured)} and {dict(captured)} collective calls "
+        f"captured in the round's and the aggregation's CUDA graphs, the "
+        f"trajectories, batteries, event and selector states bitwise "
+        f"equal to the virtual one-shard mesh's; kernel launches "
+        f"{launches} and {alaunches}, each == plain; {secs:.4f} s with "
+        f"warm-up and capture {row['capture_s']:.4f} s, and {asecs:.4f} s "
+        f"with {row['async_capture_s']:.4f} s")
+    return row, err
+
+
+# ------------------------------- the sharded async engines (6n, 6o, 6p)
+ASYNC_SHARD_EXACT = ("completed", "comp_chosen", "succeeded", "staleness",
+                     "selected", "chosen", "fill_selected", "fill_chosen",
+                     "total_dropped", "n_inflight", "round_duration",
+                     "server_clock", "agg_weight")
+ASYNC_SUMMED = ("mean_battery", "energy_spent_pct", "energy_spent_j")
+
+
+def check_async_rounds(torch, got, base, label, exact_floats=False):
+    """A ``run_async_sharded`` result against a ``run_async_scanned`` one
+    on the same key: the flush, refill and count columns, the wall clock,
+    the damping weights, dropouts, the event state's clocks and versions
+    and the selector state equal; the summed statistics, batteries and
+    spent joules within rtol 1e-6 (equal too with ``exact_floats``)."""
+    (p, st, t), (bp, bst, bt) = got, base
+    for f in ASYNC_SHARD_EXACT + (ASYNC_SUMMED if exact_floats else ()):
+        check(np.array_equal(t[f], bt[f]), f"{label}: {f} differs")
+    for f in ASYNC_SUMMED:
+        np.testing.assert_allclose(t[f], bt[f], rtol=1e-6,
+                                   err_msg=f"{label}: {f}")
+    np.testing.assert_allclose(p.battery_pct.cpu().numpy(),
+                               bp.battery_pct.cpu().numpy(), rtol=1e-6,
+                               err_msg=f"{label}: batteries")
+    check(torch.equal(p.dropped, bp.dropped), f"{label}: dropouts differ")
+    e, be = t["final_event_state"], bt["final_event_state"]
+    for f in ("t_done", "start_version", "server_clock", "server_version",
+              "exhausted_round") + (("spent_j",) if exact_floats else ()):
+        check(torch.equal(getattr(e, f), getattr(be, f)),
+              f"{label}: event state {f} differs")
+    np.testing.assert_allclose(float(e.spent_j), float(be.spent_j),
+                               rtol=1e-6, err_msg=f"{label}: spent_j")
+    for f in ("round", "epsilon", "pacer_T", "util_ema"):
+        check(float(getattr(st, f)) == float(getattr(bst, f)),
+              f"{label}: state.{f} differs")
+
+
+def async_ties_step(torch, dev, n, cfg, em, kw, counts, key):
+    """One eager aggregation in which every arrival ties: 40 clients in
+    flight, 5 at the head of each eighth of the population, all due at
+    the same offset, each with its own start version. On one device and
+    on each mesh the flush must complete the 25 lowest indices (the merge
+    keeps lax.top_k's order across shards) with the staleness of each
+    one's own start version (gathered from its owner)."""
+    from repro_torch.core.selection import SelectorState
+    from repro_torch.federated.simulation import (AsyncEventState,
+                                                  _astate_put,
+                                                  make_async_round_engine)
+    from repro_torch.launch.mesh import make_client_mesh
+    from repro_torch.launch.sharding import population_sharding
+
+    pop = async_fleet(torch, dev, n)
+    flying = (torch.arange(8, device=dev)[:, None] * (n // 8)
+              + torch.arange(5, device=dev)).reshape(-1)
+    a = AsyncEventState.create(n, dev)
+    version = (torch.arange(40, device=dev) % 5 + 1).to(torch.int32)
+    a = a._replace(t_done=a.t_done.index_fill(0, flying, 120.0),
+                   start_version=a.start_version.index_copy(0, flying,
+                                                            version),
+                   server_version=torch.full((), 6, dtype=torch.int32,
+                                             device=dev))
+    want = flying[:ASYNC_BUFFER]
+    want_stale = 6 - version[:ASYNC_BUFFER]
+    st = SelectorState.create(cfg).canonical(dev)
+    go = torch.ones((), dtype=torch.bool, device=dev)
+    for d in (None,) + tuple(counts):
+        if d is None:
+            step = make_async_round_engine(cfg, em, 3.0e6, 10, 20, **kw)[1]
+            flush = step(key, pop, st, a, go)[3]
+        else:
+            mesh = make_client_mesh(d)
+            step = make_async_round_engine(cfg, em, 3.0e6, 10, 20, **kw,
+                                           mesh=mesh, n_real=n)[1]
+            flush = step(key, population_sharding(mesh)(pop), st,
+                         _astate_put(a, mesh), go)[3]
+        label = "one device" if d is None else f"D={d}"
+        check(torch.equal(flush["completed"].long(), want),
+              f"phase 6n ties {label}: completed "
+              f"{flush['completed'][:8].tolist()}..., expected "
+              f"{want[:8].tolist()}...")
+        check(torch.equal(flush["staleness"], want_stale),
+              f"phase 6n ties {label}: staleness "
+              f"{flush['staleness'].tolist()}, expected "
+              f"{want_stale.tolist()}")
+
+
+def phase_async_sharded_selection(torch, ops, ref, dev, n, rounds,
+                                  counts=(1, 2, 8)):
+    """6n: ``run_async_sharded`` at fleet scale (phase 6e's population,
+    arrivals tie) on virtual ``clients`` meshes of ``counts`` shards, one
+    card, each aggregation one CUDA-graph replay, against
+    ``run_async_scanned`` with the same key. The fill launches the top-k
+    kernel once a shard at k = 100 and each replay once a shard at k =
+    25, each with its shard's ``index_offset``; every launch is held
+    against the plain version and each replayed one against an eager
+    launch. The count is set to 0 just before each mesh's run and read
+    just after. Each aggregation step is timed alone, in turns (single
+    device, the meshes, the single device again), set-up (padding,
+    layout, the fill, the fetch) and capture apart, and one aggregation
+    of the single device and of the largest mesh is profiled. Then one
+    aggregation in which every arrival ties (:func:`async_ties_step`)."""
+    from repro_torch import prng
+    from repro_torch.core.energy import EnergyModel
+    from repro_torch.core.selection import SelectorConfig, SelectorState
+    from repro_torch.federated import replay
+    from repro_torch.federated.simulation import (run_async_scanned,
+                                                  run_async_sharded)
+    from repro_torch.launch.mesh import make_client_mesh
+
+    pop = async_fleet(torch, dev, n)
+    em = EnergyModel(busy_fraction=0.02)
+    cfg = SelectorConfig("eafl", k=100)
+    kw = dict(buffer_size=ASYNC_BUFFER, max_concurrency=ASYNC_CONCURRENCY,
+              staleness_power=ASYNC_POWER)
+    args = (prng.PRNGKey(29, dev), cfg, pop, SelectorState.create(cfg), em,
+            3.0e6, 10, 20, rounds)
+    rows = {}
+
+    def timed(fn, **mkw):
+        """The run with each aggregation step timed alone: the first holds
+        the warm-up and the capture, the others are replays; the rest of
+        the run (padding, layout, the fill, key split, fetch) is its
+        set-up."""
+        times = []
+        with replay_timing(torch, replay, times, "agg"):
+            out, secs, graphs = timed_engine(torch, replay, fn, *args,
+                                             **kw, **mkw)
+        return out, graphs, {
+            "run_s": secs, "setup_s": secs - sum(times),
+            "first_step_s": times[0],
+            "capture_s": graphs.capture_s.get("agg", 0.0),
+            "replay_s": times[1:]}
+
+    base, _, rows["scanned"] = timed(run_async_scanned)
+    launches = {}
+    with graph_recording(torch, ops, replay) as (calls, replayed):
+        for d in counts:
+            mesh = make_client_mesh(d)
+            ops.LAUNCHES["topk_reward"] = 0
+            got, graphs, rows[f"D={d}"] = timed(run_async_sharded, mesh=mesh)
+            launches[d] = ops.LAUNCHES["topk_reward"]
+            # one launch a shard in the fill, the warm-up and each replay
+            check(launches[d] == d * (2 + rounds), f"phase 6n D={d}: the "
+                  f"kernel launched {launches[d]} times")
+            held = graphs.launches.get("agg")
+            check(held == {"topk_reward": d},
+                  f"phase 6n D={d}: the aggregation graph holds {held}")
+            check_async_rounds(torch, got, base, f"phase 6n D={d}")
+        fills = [kw_["k"] for _, kw_, _ in calls
+                 if kw_["k"] == ASYNC_CONCURRENCY]
+        check(len(fills) == sum(counts), f"phase 6n: {len(fills)} fill "
+              f"launches at k = {ASYNC_CONCURRENCY}, {sum(counts)} expected")
+        check(all(kw_["k"] == ASYNC_BUFFER for _, kw_, _ in replayed),
+              "phase 6n: a replayed launch not at the buffer's k")
+        async_ties_step(torch, dev, n, cfg, em, kw, counts,
+                        prng.PRNGKey(37, dev))
+    _, _, rows["scanned, again"] = timed(run_async_scanned)
+    # one profiled aggregation (the second) of the single device and of
+    # the largest mesh: the device operations that set their times
+    for name, fn, mkw in (("scanned", run_async_scanned, {}),
+                          (f"D={counts[-1]}", run_async_sharded,
+                           {"mesh": make_client_mesh(counts[-1])})):
+        with tempfile.TemporaryDirectory() as tmp:
+            rows[name]["profile"] = trace_round(
+                torch, lambda: fn(*args, **kw, **mkw),
+                fused_steps(torch, replay, "agg"), Path(tmp),
+                f"async_selection_{name}")
+    err = check_replayed(torch, ops, ref, calls, replayed, "phase 6n",
+                         sum(d * rounds for d in counts))
+    offsets = sorted({kw_.get("index_offset", 0)
+                      for _, kw_, _ in calls + replayed})
+    want = sorted({s * (n // d) for d in counts for s in range(d)})
+    check(offsets == want, f"phase 6n: index offsets {offsets}, {want} "
+          f"expected")
+    out = {"rows": rows, "launches": launches, "card": card_name_power()}
+    log(f"phase 6n: run_async_sharded N={n} eafl k=100 buffer "
+        f"{ASYNC_BUFFER} concurrency {ASYNC_CONCURRENCY} x{rounds} "
+        f"aggregations on virtual meshes of {list(counts)} shards on "
+        f"{out['card']}, each aggregation one CUDA-graph replay: the flush, "
+        f"refill, staleness, damping, clock and in-flight columns, the "
+        f"event state and the selector state equal to run_async_scanned's, "
+        f"batteries and summed statistics within rtol 1e-6; the all-ties "
+        f"aggregation completes the lowest indices on every mesh; kernel "
+        f"launches {launches} (one a shard in the fill, the warm-up and "
+        f"each replay, index offsets {offsets}), each == plain and each "
+        f"replayed one == an eager launch; seconds (the run, its set-up, "
+        f"the first step with warm-up and capture, the capture alone, "
+        f"each replayed aggregation alone): {rows}")
+    return out, err
+
+
+def phase_async_sharded_training(torch, ops, ref, dev, cfg, counts=(1, 4)):
+    """6o: ``run_fl(mode="async", engine="sharded")`` (one shard) and
+    ``run_fl_async_sharded`` on a 4-shard virtual mesh at phase 6g's
+    settings, against ``run_fl_async_scanned`` on the card, cuDNN's
+    deterministic algorithms: the flush, refill and version columns equal
+    aggregation for aggregation, the history at tests/test_torch_
+    training_engines.py's tolerances (one shard bitwise). Each
+    aggregation replay is timed alone beside the fused engine's, in turns
+    (fused, 1 shard, 4 shards, fused), warm-up and capture apart, with
+    each run's peak device memory; one aggregation of the 4-shard engine
+    is profiled (idle share). A ``train-async`` snapshot of the fused
+    engine after aggregation 2 resumes in the 4-shard engine."""
+    from repro_torch.federated import replay
+    from repro_torch.federated.async_server import (run_fl_async_scanned,
+                                                    run_fl_async_sharded)
+    from repro_torch.federated.server import run_fl
+    from repro_torch.launch.mesh import make_client_mesh
+
+    cols = ASYNC_TRACE + ("agg_weight", "server_version", "n_inflight",
+                          "round_duration", "server_clock")
+    rows, launches, out = {}, {}, {}
+
+    def timed(fn, *a, **kw):
+        times = []
+        torch.cuda.reset_peak_memory_stats()
+        with replay_timing(torch, replay, times):
+            hist, secs, graphs = timed_engine(torch, replay, fn, *a, **kw)
+        return hist, graphs, {
+            "run_s": secs, "capture_s": graphs.capture_s,
+            "first_step_s": times[0], "replay_s": times[1:],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "async-{round}.ckpt")
+            base, graphs, rows["scanned"] = timed(
+                run_fl_async_scanned, dataclasses.replace(
+                    cfg, checkpoint_path=path, checkpoint_every=2),
+                device=dev)
+            base_cols = {f: graphs.traj[f].cpu().numpy() for f in cols}
+            # each run's peak memory is its own: the last engine freed
+            del graphs
+            for d in counts:
+                with graph_recording(torch, ops, replay) as (calls,
+                                                             replayed):
+                    ops.LAUNCHES["topk_reward"] = 0
+                    if d == 1:
+                        hist, graphs, row = timed(
+                            run_fl, cfg, mode="async", engine="sharded",
+                            device=dev)
+                    else:
+                        hist, graphs, row = timed(
+                            run_fl_async_sharded, cfg,
+                            mesh=make_client_mesh(d), device=dev)
+                    launches[d] = ops.LAUNCHES["topk_reward"]
+                check(launches[d] == d * (2 + cfg.rounds),
+                      f"phase 6o D={d}: the kernel launched {launches[d]} "
+                      f"times")
+                out[f"max_abs_err_D={d}"] = check_replayed(
+                    torch, ops, ref, calls, replayed, f"phase 6o D={d}",
+                    d * cfg.rounds)
+                for f in cols:
+                    check(np.array_equal(graphs.traj[f].cpu().numpy(),
+                                         base_cols[f]),
+                          f"phase 6o D={d}: {f} differs from the fused "
+                          f"engine's")
+                if d == 1:
+                    check(same_history(base, hist), "phase 6o D=1: the "
+                          "history differs from the fused engine's")
+                check_engines_agree(base, hist, f"phase 6o D={d}",
+                                    cfg.eval_samples)
+                rows[f"D={d}"] = dict(row, train_loss=hist.train_loss,
+                                      test_acc=hist.test_acc)
+                del graphs, calls, replayed
+            resumed = run_fl_async_sharded(dataclasses.replace(
+                cfg, resume_from=path.format(round=2)), n_shards=counts[-1],
+                device=dev)
+            check_engines_agree(base, resumed, f"phase 6o: the fused "
+                                f"engine's snapshot resumed on "
+                                f"{counts[-1]} shards", cfg.eval_samples)
+            again, _, rows["scanned, again"] = timed(run_fl_async_scanned,
+                                                     cfg, device=dev)
+            check(same_history(base, again), "phase 6o: the fused engine "
+                  "did not repeat itself")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    d = counts[-1]
+    with tempfile.TemporaryDirectory() as tmp:
+        rows[f"D={d}"]["profile"] = trace_round(
+            torch, lambda: run_fl_async_sharded(cfg, n_shards=d, device=dev),
+            fused_steps(torch, replay), Path(tmp), f"async_sharded{d}")
+    out.update({"rows": rows, "launches": launches,
+                "card": card_name_power()})
+    log(f"phase 6o: run_fl async sharded (D in {list(counts)}) against "
+        f"run_fl_async_scanned, {cfg.n_clients} clients, k="
+        f"{cfg.selector.k}, buffer {cfg.buffer_size}, concurrency "
+        f"{cfg.max_concurrency}, {cfg.rounds} aggregations, full width, on "
+        f"{out['card']}: flush, refill and version columns equal, D=1 "
+        f"bitwise, the history within the tests' tolerances; the fused "
+        f"engine's snapshot after aggregation 2 resumed on {d} shards "
+        f"within them; kernel launches {launches}; seconds (run, warm-up + "
+        f"capture, each replayed aggregation alone), peak memory and the "
+        f"{d}-shard aggregation's profile: {rows}")
+    return out, max(v for k, v in out.items() if k.startswith("max_abs"))
+
+
+def phase_elastic(torch, ops, ref, dev, shards=2):
+    """6p: ``python -m repro_torch.launch.elastic_check --devices 2``'s
+    round-engine matrix in this process, on the card: resume parity of
+    the sync and async engines, single-device and on a 2-shard virtual
+    mesh, the faults leg and the corruption smoke. Every top-k launch it
+    makes, eager or replayed, is held against the plain version."""
+    from repro_torch.federated import replay
+    from repro_torch.launch import elastic_check
+    from repro_torch.launch.mesh import make_client_mesh
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            graph_recording(torch, ops, replay) as (calls, replayed):
+        t0 = time.perf_counter()
+        elastic_check.check_engines(make_client_mesh(shards), dev, tmp)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    err = check_recorded(torch, ref, calls + replayed, "phase 6p")
+    row = {"run_s": secs, "launches_checked": len(calls) + len(replayed),
+           "card": card_name_power()}
+    log(f"phase 6p: elastic_check's round-engine matrix on {shards} "
+        f"shards on {row['card']}: every engine resumed bitwise, the "
+        f"corrupt snapshots refused; {row['launches_checked']} top-k "
+        f"launches, each == plain; {secs:.2f} s")
     return row, err
 
 
@@ -2937,6 +3308,17 @@ def main(argv=None) -> int:
         fl_config(10_000, 100, 3))
     pg_row, pg_err = timed("phase 6m", phase_process_group, torch, ops,
                            ref, dev, 1_048_576, 3)
+    # the sharded async engines and the restart checker; counts set to 0
+    # just before each mesh's run and read just after (inside the phases)
+    ashsel_row, ashsel_err = timed("phase 6n", phase_async_sharded_selection,
+                                   torch, ops, ref, dev, 1_048_576, 4)
+    ashtrain_row, ashtrain_err = timed(
+        "phase 6o", phase_async_sharded_training, torch, ops, ref, dev,
+        fl_config(10_000, 100, 3, buffer_size=ASYNC_BUFFER,
+                  max_concurrency=ASYNC_CONCURRENCY,
+                  staleness_power=ASYNC_POWER))
+    elastic_row, elastic_err = timed("phase 6p", phase_elastic, torch, ops,
+                                     ref, dev)
 
     attn_errs, attn_shapes, attn_rel = timed(
         "phase 7", phase_attn_vs_plain, torch, ops, ref, dev)
@@ -2985,7 +3367,7 @@ def main(argv=None) -> int:
         "max_abs_err": max(sel_err, par_err, main_err, fsel_err, fpar_err,
                            fused_err, asel_err, apar_err, async_err,
                            ctrl_err, disp_err, shsel_err, shtrain_err,
-                           pg_err),
+                           pg_err, ashsel_err, ashtrain_err, elastic_err),
         "ms": main["ms"], "kernel_ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -3020,7 +3402,13 @@ def main(argv=None) -> int:
                               "sharded_run_fl_10k_by_shards":
                                   shtrain_row["launches"],
                               "process_group_selection_1M":
-                                  pg_row["launches"]},
+                                  pg_row["launches"],
+                              "process_group_async_selection_1M":
+                                  pg_row["async_launches"],
+                              "async_sharded_selection_1M_by_shards":
+                                  ashsel_row["launches"],
+                              "async_sharded_run_fl_10k_by_shards":
+                                  ashtrain_row["launches"]},
     }]}
     summary["fused"] = {"selection_1M_3_rounds": fsel_row,
                         "training_10k": fused_row, "profile": profile_rows}
@@ -3030,7 +3418,10 @@ def main(argv=None) -> int:
                               "train_cli": cli_row}
     summary["sharded"] = {"selection_1M": shsel_row,
                           "training_10k": shtrain_row,
-                          "process_group": pg_row}
+                          "process_group": pg_row,
+                          "async_selection_1M": ashsel_row,
+                          "async_training_10k": ashtrain_row,
+                          "elastic_check": elastic_row}
     for name, source, replaces, errs, shapes, row, n, by_phase, rel in (
             ("flash_attention", ATTN_SOURCE, ATTN_REPLACES, attn_errs,
              attn_shapes, lm_rows["flash_attention"],

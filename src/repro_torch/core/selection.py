@@ -231,7 +231,9 @@ def _slot_gather(x: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
     n_loc = x.shape[-1]
     own, loc = _slot_owner(idx, axis.bases(n_loc, x.device), n_loc)
     vals = x.gather(-1, loc).to(dtype)
-    return axis.psum(torch.where(own & mask, vals, torch.zeros_like(vals)))
+    # (a sum of integers widens to int64: cast back)
+    return axis.psum(torch.where(own & mask, vals,
+                                 torch.zeros_like(vals))).to(dtype)
 
 
 def _exploit_kernel(a, b, mask, ucb, cfg: SelectorConfig, mode: str, k: int,

@@ -1,7 +1,8 @@
 """Device resolution shared by every entry point of the port."""
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -29,3 +30,27 @@ def stream_handle(device: torch.device) -> int:
     but it builds a Stream object first, which takes a small kernel's
     launch more host time than the kernel itself."""
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+@contextlib.contextmanager
+def deterministic_float32(device: torch.device) -> Iterator[None]:
+    """On a CUDA ``device``, cuDNN's deterministic float32 algorithms for
+    the block (TF32 off for convolutions and matmuls), the flags restored
+    after; elsewhere nothing. cuDNN's default algorithms sum with atomics
+    in an order that changes from run to run, and training amplifies the
+    difference past a parity check's tolerance."""
+    if device.type != "cuda":
+        yield
+        return
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags

@@ -48,21 +48,25 @@ from repro_torch.checkpoint import load_engine_checkpoint
 from repro_torch.core.clients import scatter_stat_util
 from repro_torch.core.fairness import jains_index
 from repro_torch.core.rewards import stat_utility
-from repro_torch.core.selection import SelectorState
+from repro_torch.core.selection import (SelectorState, _slot_gather,
+                                        _slot_owner)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.federated.aggregation import (finite_rows, server_update,
                                                tree_finite, weighted_delta,
                                                zero_nonfinite_rows)
-from repro_torch.federated.server import (FLConfig, FLHistory,
+from repro_torch.federated.server import (FLConfig, FLHistory, _SlotSplit,
                                           _accuracy_fn, _cohort_train_fn,
                                           _fused_setup, _print_fused_history,
                                           _recharge_device, _recharge_step,
                                           _record_test_acc,
                                           _run_fused_elastic, _train_meta)
-from repro_torch.federated.simulation import (AsyncEventState, _async_knobs,
+from repro_torch.federated.simulation import (AsyncEventState, _astate_put,
+                                              _async_knobs,
                                               _make_checkpointer,
                                               make_async_round_engine,
-                                              scatter_drop)
+                                              scatter_drop_rows)
+from repro_torch.launch.mesh import asum
+from repro_torch.launch.sharding import population_sharding, shard_clients
 
 _I32_MAX = int(np.iinfo(np.int32).max)
 
@@ -214,20 +218,21 @@ def _flush_train_keys(tkeys: torch.Tensor, key_ix: torch.Tensor,
 
 
 def _canonical_order(version_before: torch.Tensor, flush: Dict[str, Any],
-                     slot_rank: torch.Tensor):
+                     ranks: torch.Tensor):
     """The fused engine's flush rows in the canonical order: by start
-    version, then by selection-slot rank, masked rows last (they carry
-    ``_I32_MAX`` and their own row number). Two completers of one version
-    came from one selection batch, so their ranks differ and the order has
-    no ties: the host loop's ``np.lexsort((rk, v_eff))`` and the
-    reference's two-key ``lax.sort``, here one sort on ``v_eff * 2**32 +
-    rk``. Returns ``(perm, v_eff[perm])``."""
+    version, then by selection-slot rank (``ranks``, each flush row's
+    client's), masked rows last (they carry ``_I32_MAX`` and their own row
+    number). Two completers of one version came from one selection batch,
+    so their ranks differ and the order has no ties: the host loop's
+    ``np.lexsort((rk, v_eff))`` and the reference's two-key ``lax.sort``,
+    here one sort on ``v_eff * 2**32 + rk``. Returns ``(perm,
+    v_eff[perm])``."""
     chosen = flush["comp_chosen"]
     rows = torch.arange(chosen.shape[0], dtype=torch.int32,
                         device=chosen.device)
     v_eff = torch.where(chosen, version_before - flush["staleness"],
                         torch.full_like(rows, _I32_MAX))
-    rk = torch.where(chosen, slot_rank[flush["completed"].long()], rows)
+    rk = torch.where(chosen, ranks, rows)
     perm = torch.sort(v_eff.to(torch.int64) * 2**32 + rk.to(torch.int64),
                       stable=True).indices
     return perm, v_eff[perm]
@@ -278,21 +283,23 @@ def _async_train_meta(cfg: FLConfig, family: str) -> Dict[str, Any]:
 
 
 def _async_engine(cfg: FLConfig, energy_model, sim_steps: int,
-                  model_bytes: float, up_bytes):
-    """The event engine both training engines step."""
+                  model_bytes: float, up_bytes, mesh=None,
+                  n_real: Optional[int] = None):
+    """The event engine both training engines step (the fused engine over
+    its ``clients`` ``mesh``)."""
     return make_async_round_engine(
         cfg.selector, energy_model, model_bytes, sim_steps, cfg.batch_size,
         buffer_size=cfg.buffer_size, max_concurrency=cfg.max_concurrency,
         staleness_power=cfg.staleness_power, deadline_s=cfg.deadline_s,
-        up_bytes=up_bytes, energy_budget_j=cfg.energy_budget_j)
+        up_bytes=up_bytes, energy_budget_j=cfg.energy_budget_j, mesh=mesh,
+        n_real=n_real)
 
 
-def _fill(init_fill, kloop, params, pop, st, ring_size: int):
-    """Prime the concurrency slots at version 0: ``(kloop, krech, st,
-    astate, ring, idx0, chosen0)``."""
+def _fill(init_fill, kloop, params, pop, st, ring_size: int, astate):
+    """Prime the concurrency slots at version 0 from the idle event state
+    ``astate``: ``(kloop, krech, st, astate, ring, idx0, chosen0)``."""
     kloop, ksel, ktrain, krecharge = prng.split(kloop, 4).unbind(-2)
-    st, astate, idx0, chosen0 = init_fill(
-        ksel, pop, st, AsyncEventState.create(pop.n, pop.device))
+    st, astate, idx0, chosen0 = init_fill(ksel, pop, st, astate)
     ring = _ring_retain(_ring_create(params, ring_size),
                         astate.server_version, params,
                         chosen0.sum().to(torch.int32), ktrain)
@@ -300,11 +307,14 @@ def _fill(init_fill, kloop, params, pop, st, ring_size: int):
 
 
 def _slot_ranks(slot_rank: torch.Tensor, idx: torch.Tensor,
-                chosen: torch.Tensor) -> torch.Tensor:
-    """``slot_rank`` with each chosen slot's client set to its slot."""
-    return scatter_drop(slot_rank, idx, chosen,
-                        torch.arange(idx.shape[0], dtype=torch.int32,
-                                     device=idx.device))
+                chosen: torch.Tensor, mesh) -> torch.Tensor:
+    """``slot_rank`` (shard blocks on ``mesh``) with each chosen slot's
+    client set to its slot, by the slot's one owner."""
+    n_loc = slot_rank.shape[-1]
+    own, loc = _slot_owner(idx, mesh.bases(n_loc, idx.device), n_loc)
+    return scatter_drop_rows(slot_rank, loc, own & chosen,
+                             torch.arange(idx.shape[0], dtype=torch.int32,
+                                          device=idx.device))
 
 
 # ------------------------------------------------------- host event loop
@@ -383,7 +393,8 @@ def run_fl_async(cfg: FLConfig, verbose: bool = False,
         cum_drop = 0
         last_loss = float("nan")
         kloop, krech, sel_state, astate, ring, idx0, chosen0 = _fill(
-            init_fill, kloop, params, pop, sel_state, ring_size)
+            init_fill, kloop, params, pop, sel_state, ring_size,
+            AsyncEventState.create(n, dev))
         idx0, chosen0 = idx0.cpu().numpy(), chosen0.cpu().numpy()
         slot_rank = np.zeros((n,), np.int32)
         slot_rank[idx0[chosen0]] = np.where(chosen0)[0]
@@ -526,6 +537,19 @@ def run_fl_async(cfg: FLConfig, verbose: bool = False,
 # full width from the ring (masked rows ride along with weight exactly
 # 0), which the host loop's compacted training matches within float
 # tolerance; integer and index outputs are equal.
+#
+# The step runs over a ``clients`` mesh (``launch/mesh.py``; one shard for
+# run_fl_async_scanned), the reference's ``_sharded_async_fused_runner``:
+# the event step shard-local (``make_async_round_engine`` with the mesh),
+# the selection ranks held in shard blocks and gathered from their owner
+# for the canonical order, the flush's data reassembled by one-owner
+# sums, the flush axis padded to a multiple of the shard count and split
+# evenly (shard i trains rows [i*b_per, (i+1)*b_per)), each shard's
+# weighted partial delta summed over the mesh, and the server update, the
+# snapshot ring and the eval on replicated state. The flush, refill and
+# version columns are the same on any mesh; the aggregate is a float32
+# reduction reordered by shard, so the parameters and what follows them
+# agree within a tolerance across shard counts.
 
 _ASYNC_CARRY = ("params", "opt_state", "pop", "st", "astate", "ring",
                 "slot_rank", "krech", "kloop", "last_acc")
@@ -577,27 +601,33 @@ def _async_history(cfg: FLConfig, init_acc: float,
 
 
 def _async_fused_runner(cfg: FLConfig, energy_model, sim_steps: int,
-                        model_bytes: float, up_bytes, opt,
+                        model_bytes: float, up_bytes, opt, mesh,
                         data_x, data_y, test_x, test_y):
-    """The fused engine: ``(fill, agg_fn, eval_fn)``. ``fill(kloop,
-    params, opt_state, pop, st, last_acc)`` primes the slots (eagerly,
-    once) and returns the carry, a dict laid out as ``_ASYNC_CARRY``;
-    ``agg_fn`` and ``eval_fn`` are steps ``fn(carry, ctr) -> (carry,
-    outs)`` (``federated/replay.py``)."""
-    _, max_concurrency, ring_size = _async_geometry(cfg)
+    """The fused engine on the ``clients`` ``mesh``: ``(fill, agg_fn,
+    eval_fn)``, the population and ``data_x``/``data_y`` in shard blocks
+    ``(S, n_loc, ...)``. ``fill(kloop, params, opt_state, pop, st,
+    last_acc)`` primes the slots (eagerly, once) and returns the carry, a
+    dict laid out as ``_ASYNC_CARRY`` (the event state and the selection
+    ranks in shard blocks); ``agg_fn`` and ``eval_fn`` are steps
+    ``fn(carry, ctr) -> (carry, outs)`` (``federated/replay.py``)."""
+    b_width, max_concurrency, ring_size = _async_geometry(cfg)
     cohort = _cohort_train_fn(cfg.model, cfg.local_steps, cfg.batch_size,
                               cfg.client_lr, cfg.fedprox_mu, cfg.compression,
                               cfg.compression_sparsity, params_axis=0)
+    n_real = cfg.n_clients
     init_fill, step = _async_engine(cfg, energy_model, sim_steps,
-                                    model_bytes, up_bytes)
+                                    model_bytes, up_bytes, mesh, n_real)
     eval_acc = _accuracy_fn(cfg.model, {"x": test_x, "y": test_y})
+    S, n_loc = data_y.shape[:2]
+    split = _SlotSplit(b_width, mesh, S)    # the flush rows over the mesh
 
     def fill(kloop, params, opt_state, pop, st, last_acc):
+        dev = pop.device
         kloop, krech, st, astate, ring, idx0, chosen0 = _fill(
-            init_fill, kloop, params, pop, st, ring_size)
-        slot_rank = _slot_ranks(torch.zeros(pop.n, dtype=torch.int32,
-                                            device=pop.device),
-                                idx0, chosen0)
+            init_fill, kloop, params, pop, st, ring_size,
+            _astate_put(AsyncEventState.create(n_real, dev), mesh))
+        slot_rank = _slot_ranks(torch.zeros((S, n_loc), dtype=torch.int32,
+                                            device=dev), idx0, chosen0, mesh)
         return dict(params=params, opt_state=opt_state, pop=pop, st=st,
                     astate=astate, ring=ring, slot_rank=slot_rank,
                     krech=krech, kloop=kloop, last_acc=last_acc)
@@ -605,16 +635,22 @@ def _async_fused_runner(cfg: FLConfig, energy_model, sim_steps: int,
     def agg_fn(carry, ctr):
         (params, opt_state, pop, st, astate, ring, slot_rank, krech, kloop,
          last_acc) = (carry[k] for k in _ASYNC_CARRY)
+        dev = pop.device
         kloop, ksel, ktrain, krecharge = prng.split(kloop, 4).unbind(-2)
         version_before = astate.server_version
         pop, st, astate, flush, (ridx, rchosen) = step(
-            ksel, pop, st, astate,
-            torch.ones((), dtype=torch.bool, device=pop.device))
-        perm, v_s = _canonical_order(version_before, flush, slot_rank)
+            ksel, pop, st, astate, torch.ones((), dtype=torch.bool,
+                                              device=dev))
+        # the completers' selection ranks, read from their owner before the
+        # refill's ranks are written
+        perm, v_s = _canonical_order(version_before, flush, _slot_gather(
+            slot_rank, flush["completed"], flush["comp_chosen"], mesh,
+            dtype=torch.int32))
         cidx_s = flush["completed"][perm].long()
         chosen_s, succ_s = flush["comp_chosen"][perm], flush["succeeded"][perm]
         stale_s, aggw_s = flush["staleness"][perm], flush["agg_weight"][perm]
-        pop = _recharge_device(cfg, pop, krech, flush["round_duration"])
+        pop = _recharge_device(cfg, pop, krech, flush["round_duration"],
+                               mesh, n_real)
         krech = krecharge
         # every flush row trains from the ring slot of the version it
         # downloaded, with its version-anchored success-rank key
@@ -624,27 +660,37 @@ def _async_fused_runner(cfg: FLConfig, energy_model, sim_steps: int,
                              + _within_version_rank(v_s, succ_s),
                              0, max_concurrency - 1)
         keys = _flush_train_keys(ring.tkey[slot_i], key_ix, max_concurrency)
+        # the flush's data: one shard owns each row's client
+        own, loc = _slot_owner(cidx_s, mesh.bases(n_loc, dev), n_loc)
         deltas, per_sample, mean_losses = cohort(
-            start_params, data_x[cidx_s], data_y[cidx_s], keys)
-        finite = finite_rows(deltas)
-        good = succ_s & finite
-        zero = torch.zeros_like(aggw_s)
-        w = torch.where(good, pop.n_samples[cidx_s].to(torch.float32)
-                        * aggw_s, zero)
-        agg = weighted_delta(zero_nonfinite_rows(deltas, finite), w)
+            tree_map(split.local, start_params),
+            split.local(split.owned(data_x, own, loc)),
+            split.local(split.owned(data_y, own, loc)), split.local(keys))
+        # quarantine on this process's rows, gathered back in flush order
+        fin_loc = finite_rows(deltas)
+        deltas = zero_nonfinite_rows(deltas, fin_loc)
+        fin = split.whole(fin_loc)
+        good = succ_s & fin
+        w = torch.where(good, _slot_gather(pop.n_samples, cidx_s, chosen_s,
+                                           mesh) * aggw_s,
+                        torch.zeros_like(aggw_s))
+        agg = split.weighted_delta(deltas, w)
         new_params, new_opt = server_update(params, agg, opt, opt_state)
         ok = good.any() & tree_finite(agg)
         params = tree_map(lambda a, b: torch.where(ok, a, b), new_params,
                           params)
         opt_state = tree_map(lambda a, b: torch.where(ok, a, b), new_opt,
                              opt_state)
-        pop = scatter_stat_util(pop, cidx_s, good, stat_utility(per_sample, w))
+        su = split.whole(stat_utility(per_sample, split.local(w)))
+        losses = split.whole(mean_losses)
+        pop = pop.replace(stat_util=scatter_drop_rows(pop.stat_util, loc,
+                                                      own & good, su))
         # ring turnover: the flushed holders release, the refill batch
         # retains the (possibly just bumped) version
         ring = _ring_release(ring, v_s, chosen_s, succ_s)
         ring = _ring_retain(ring, astate.server_version, params,
                             rchosen.sum().to(torch.int32), ktrain)
-        slot_rank = _slot_ranks(slot_rank, ridx, rchosen)
+        slot_rank = _slot_ranks(slot_rank, ridx, rchosen, mesh)
         zero_i = torch.zeros_like(v_s)
         out = {
             "completed": cidx_s.to(torch.int32),
@@ -659,14 +705,14 @@ def _async_fused_runner(cfg: FLConfig, energy_model, sim_steps: int,
             "new_dropouts": flush["new_dropouts"],
             "server_clock": astate.server_clock,
             "server_version": astate.server_version,
-            "n_inflight": astate.in_flight.sum().to(torch.int32),
-            "mean_battery": pop.battery_pct.mean(),
-            "fairness": jains_index(pop.times_selected),
-            "slot_losses": torch.where(succ_s, mean_losses,
-                                       torch.zeros_like(mean_losses)),
+            "n_inflight": asum(astate.in_flight, mesh).to(torch.int32),
+            "mean_battery": asum(pop.battery_pct, mesh) / n_real,
+            "fairness": jains_index(pop.times_selected, mesh, n_real),
+            "slot_losses": torch.where(succ_s, losses,
+                                       torch.zeros_like(losses)),
             # the last evaluation; the eval step overwrites it where it runs
             "test_acc": last_acc,
-            "quarantined": (succ_s & ~finite).sum().to(torch.int32),
+            "quarantined": (succ_s & ~fin).sum().to(torch.int32),
             "update_skipped": (~ok).to(torch.int32),
             "energy_spent_j": astate.spent_j,
             "budget_exhausted": astate.exhausted_round,
@@ -682,6 +728,37 @@ def _async_fused_runner(cfg: FLConfig, energy_model, sim_steps: int,
     return fill, agg_fn, eval_fn
 
 
+def _async_fused_engine(cfg: FLConfig, dev: torch.device, mesh):
+    """The fused async engine's steps and fresh carry for ``cfg`` on
+    ``dev`` over the ``clients`` ``mesh``: ``((agg_fn, eval_fn), carry0)``,
+    the population and the clients' data in shard blocks."""
+    _check_async_cfg(cfg)
+    (kloop, data, test, params, opt, opt_state, pop, sim_steps, up_bytes,
+     energy_model, model_bytes) = _fused_setup(cfg, dev)
+    if "t" in opt_state:          # the step count rides in the graph too
+        opt_state = dict(opt_state, t=opt_state["t"].to(dev))
+    fill, agg_fn, eval_fn = _async_fused_runner(
+        cfg, energy_model, sim_steps, model_bytes, up_bytes, opt, mesh,
+        shard_clients(data["x"], mesh), shard_clients(data["y"], mesh),
+        test["x"], test["y"])
+    acc0 = _accuracy_fn(cfg.model, test)(params)
+    carry0 = fill(kloop, params, opt_state, population_sharding(mesh)(pop),
+                  SelectorState.create(cfg.selector).canonical(dev), acc0)
+    return (agg_fn, eval_fn), carry0
+
+
+def _run_async_fused(cfg: FLConfig, verbose: bool, device: DeviceLike, mesh,
+                     capture: Optional[dict]) -> FLHistory:
+    steps, carry0 = _async_fused_engine(cfg, resolve_device(device), mesh)
+    hist = _run_fused_elastic(cfg, steps, carry0,
+                              meta=_async_train_meta(cfg, "train-async"),
+                              history_fn=_async_history, capture=capture,
+                              mesh=mesh)
+    if verbose:
+        _print_fused_history(cfg, hist)
+    return hist
+
+
 def run_fl_async_scanned(cfg: FLConfig, verbose: bool = False,
                          device: DeviceLike = None,
                          _capture: Optional[dict] = None) -> FLHistory:
@@ -689,7 +766,8 @@ def run_fl_async_scanned(cfg: FLConfig, verbose: bool = False,
     and no host read inside it (flush, stale-start cohort SGD from the
     snapshot ring, damped aggregation, server update, refill; an eval step
     on the scheduled aggregations): on the card each step is captured once
-    in a CUDA graph and replayed, on the CPU it runs eagerly.
+    in a CUDA graph and replayed, on the CPU it runs eagerly. It is
+    :func:`run_fl_async_sharded` on a mesh of one shard.
 
     The host loop is the oracle: flush, refill and version trajectories
     equal index for index, the damping weights bit for bit, the history's
@@ -699,21 +777,32 @@ def run_fl_async_scanned(cfg: FLConfig, verbose: bool = False,
     carry, so segmented and resumed runs equal the uninterrupted one
     bitwise. ``_capture`` (tests only): a dict that receives the whole
     trajectory under ``"traj"``."""
-    _check_async_cfg(cfg)
-    dev = resolve_device(device)
-    (kloop, data, test, params, opt, opt_state, pop, sim_steps, up_bytes,
-     energy_model, model_bytes) = _fused_setup(cfg, dev)
-    if "t" in opt_state:          # the step count rides in the graph too
-        opt_state = dict(opt_state, t=opt_state["t"].to(dev))
-    fill, agg_fn, eval_fn = _async_fused_runner(
-        cfg, energy_model, sim_steps, model_bytes, up_bytes, opt,
-        data["x"], data["y"], test["x"], test["y"])
-    acc0 = _accuracy_fn(cfg.model, test)(params)
-    carry0 = fill(kloop, params, opt_state, pop,
-                  SelectorState.create(cfg.selector).canonical(dev), acc0)
-    hist = _run_fused_elastic(cfg, (agg_fn, eval_fn), carry0,
-                              meta=_async_train_meta(cfg, "train-async"),
-                              history_fn=_async_history, capture=_capture)
-    if verbose:
-        _print_fused_history(cfg, hist)
-    return hist
+    from repro_torch.launch.mesh import ClientMesh
+
+    return _run_async_fused(cfg, verbose, device, ClientMesh(1), _capture)
+
+
+def run_fl_async_sharded(cfg: FLConfig, verbose: bool = False, mesh=None,
+                         n_shards: Optional[int] = None,
+                         device: DeviceLike = None,
+                         _capture: Optional[dict] = None) -> FLHistory:
+    """:func:`run_fl_async_scanned` over a ``clients`` mesh (``mesh``, or
+    one of ``n_shards`` shards from ``launch/mesh.py::make_client_mesh``):
+    the population, its data and the event state in shard blocks, the
+    snapshot ring replicated, the flush's local SGD split evenly over the
+    shards and their weighted deltas summed. Each aggregation is one step
+    with no host read, replayed from a CUDA graph on the card.
+
+    ``run_fl_async_scanned`` (one shard) is the oracle: the flush, refill
+    and version columns, dropouts, durations and participation equal;
+    parameters, accuracy, loss, battery and fairness within float32
+    reduction order. Its ``"train-async"`` snapshots hold the population,
+    the event state and the selection ranks trimmed to the real clients,
+    so they resume under any shard count and in ``run_fl_async_scanned``,
+    and the other way round; rank 0 of a process-group mesh writes
+    them."""
+    from repro_torch.launch.mesh import make_client_mesh
+
+    return _run_async_fused(
+        cfg, verbose, device,
+        make_client_mesh(n_shards) if mesh is None else mesh, _capture)

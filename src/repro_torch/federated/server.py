@@ -20,10 +20,10 @@ selection, dropout and battery trajectories follow the reference's:
 ``mode="async"`` (or ``"auto"`` with ``buffer_size`` or
 ``max_concurrency`` set) runs the buffered-asynchronous (FedBuff) twins
 of ``federated/async_server.py``: the host event loop for
-``engine="host"``, the fused engine otherwise. Mode and engine resolve
+``engine="host"``, the fused engine (``"scanned"``) or its twin over a
+``clients`` mesh (``"sharded"``) otherwise. Mode and engine resolve
 through the reference's dispatch (``simulation.resolve_aggregation``,
-``resolve_train_engine``). The async sharded twin raises and names its
-ROADMAP.md item (queue 1 item 13).
+``resolve_train_engine``).
 """
 from __future__ import annotations
 
@@ -344,9 +344,11 @@ def run_fl(cfg: FLConfig, verbose: bool = False, mode: str = "auto",
     :func:`run_fl_scanned`; in the async family ``"host"`` runs the host
     event loop ``run_fl_async`` and ``"scanned"`` (and ``"auto"`` on one
     device) ``run_fl_async_scanned``; ``"sharded"`` runs
-    :func:`run_fl_sharded` in the sync family and raises in the async one
-    (ROADMAP.md queue 1 item 13). The engines of a family produce the same
-    trajectory within float tolerance.
+    :func:`run_fl_sharded` in the sync family and ``run_fl_async_sharded``
+    in the async one (``"auto"`` on more than one device), over a mesh of
+    the initialised ``torch.distributed`` group's ranks, else of one
+    shard. The engines of a family produce the same trajectory within
+    float tolerance.
 
     ``cfg.controller`` runs only in the sync host loop (a ``ValueError``
     elsewhere, as the reference's): before each round the UCB bandit
@@ -370,18 +372,16 @@ def run_fl(cfg: FLConfig, verbose: bool = False, mode: str = "auto",
             f"cfg.controller runs only in the synchronous host loop "
             f"(resolved mode={mode!r}, engine={engine!r}); use "
             f"run_fl(cfg, mode='sync', engine='host')")
-    if engine == "sharded":
-        if mode == "async":
-            raise NotImplementedError(
-                "mode='async' with engine='sharded' (run_fl_async_sharded) "
-                "is not ported yet (ROADMAP.md, queue 1 item 13)")
-        return run_fl_sharded(cfg, verbose=verbose, device=device)
     if mode == "async":
         from repro_torch.federated.async_server import (
-            run_fl_async, run_fl_async_scanned)
+            run_fl_async, run_fl_async_scanned, run_fl_async_sharded)
         if engine == "host":
             return run_fl_async(cfg, verbose=verbose, device=device)
+        if engine == "sharded":
+            return run_fl_async_sharded(cfg, verbose=verbose, device=device)
         return run_fl_async_scanned(cfg, verbose=verbose, device=device)
+    if engine == "sharded":
+        return run_fl_sharded(cfg, verbose=verbose, device=device)
     if engine == "scanned":
         return run_fl_scanned(cfg, verbose=verbose, device=device)
     dev = resolve_device(device)
@@ -663,6 +663,57 @@ def _recharge_device(cfg: FLConfig, pop: ClientPopulation,
     return pop.replace(battery_pct=battery, dropped=pop.dropped & ~rejoin)
 
 
+class _SlotSplit:
+    """A trainer's slot axis of ``n`` rows over a ``clients`` mesh: padded
+    to a multiple of the shard count and split evenly, shard i training
+    rows ``[i*per, (i+1)*per)`` (the padded rows train with weight 0), so
+    this process's ``S`` shards train rows ``[lo, hi)``. The slots' data
+    come from their clients' one owner (:meth:`owned`), per-row results go
+    back in slot order (:meth:`whole`), and the aggregate is
+    ``weighted_delta``'s arithmetic with its reduction split by shard
+    (:meth:`weighted_delta`; on one shard, ``weighted_delta`` itself)."""
+
+    def __init__(self, n: int, mesh, S: int):
+        self.n, self.mesh, self.S = n, mesh, S
+        self.pad = (-n) % mesh.size()
+        self.per = (n + self.pad) // mesh.size()
+        self.lo, self.hi = mesh.first * self.per, (mesh.first + S) * self.per
+
+    def local(self, a: torch.Tensor) -> torch.Tensor:
+        """This process's rows of the slot-major ``a``, padded with 0."""
+        if self.pad:
+            a = torch.cat([a, a.new_zeros((self.pad, *a.shape[1:]))])
+        return a[self.lo:self.hi]
+
+    def whole(self, x_loc: torch.Tensor) -> torch.Tensor:
+        """Per-row values of this process's rows, gathered over the mesh
+        in slot order and cut to the ``n`` slots."""
+        return self.mesh.all_gather(x_loc.reshape(self.S, self.per)
+                                    ).reshape(-1)[:self.n]
+
+    def owned(self, a_loc: torch.Tensor, own: torch.Tensor,
+              loc: torch.Tensor) -> torch.Tensor:
+        """The slots' rows of a per-client ``(S, n_loc, ...)`` block: each
+        from its one owner (``_slot_owner``'s ``own``, ``loc``), the
+        others' zeros summed over the mesh, which changes no value."""
+        rows = torch.arange(self.S, device=a_loc.device)[:, None]
+        vals = a_loc[rows, loc]
+        keep = own.reshape(*own.shape, *(1,) * (vals.ndim - 2))
+        return self.mesh.psum(torch.where(keep, vals,
+                                          torch.zeros_like(vals)))
+
+    def weighted_delta(self, deltas, w: torch.Tensor):
+        """``weighted_delta(deltas, w)`` over the whole slot axis, from this
+        process's rows of ``deltas``: normalised by the global weight, each
+        shard's partial product summed over the mesh."""
+        wn = self.local(w / torch.clamp_min(w.sum(), 1e-9)).reshape(
+            self.S, self.per)
+        return tree_map(lambda d: self.mesh.psum(torch.stack([
+            torch.tensordot(wn[s].to(d.dtype), d_s, dims=1)
+            for s, d_s in enumerate(d.reshape(self.S, self.per,
+                                              *d.shape[1:]))])), deltas)
+
+
 def _fused_runner(cfg: FLConfig, sel_cfg: SelectorConfig, agg_k: int,
                   energy_model: EnergyModel, opt, mesh, data_x, data_y,
                   test_x, test_y, t_total, cost):
@@ -680,16 +731,8 @@ def _fused_runner(cfg: FLConfig, sel_cfg: SelectorConfig, agg_k: int,
     n_real = cfg.n_clients
     S, n_loc = cost.shape
     n_slots = min(sel_cfg.k, n_real)
-    # the slot axis padded to a multiple of the shard count and split
-    # evenly: shard i trains slots [i*n_per, (i+1)*n_per)
-    pad_s = (-n_slots) % mesh.size()
-    n_per = (n_slots + pad_s) // mesh.size()
-    lo, hi = mesh.first * n_per, (mesh.first + S) * n_per
+    split = _SlotSplit(n_slots, mesh, S)
     neg_inf = f32(float("-inf"), cost)
-
-    def pad_slots(a):
-        return a if pad_s == 0 else torch.cat(
-            [a, a.new_zeros((pad_s, *a.shape[1:]))])
 
     def round_fn(carry, ctr):
         params, opt_state, pop, st, kloop, last_acc, ledger = (
@@ -713,41 +756,25 @@ def _fused_runner(cfg: FLConfig, sel_cfg: SelectorConfig, agg_k: int,
                                n_real)
         # the cohort's data: one shard owns each slot's client
         own, loc = _slot_owner(idx, mesh.bases(n_loc, cost.device), n_loc)
-        rows = torch.arange(S, device=cost.device)[:, None]
-
-        def gather(a_loc):
-            vals = a_loc[rows, loc]
-            keep = own.reshape(*own.shape, *(1,) * (vals.ndim - 2))
-            return mesh.psum(torch.where(keep, vals, torch.zeros_like(vals)))
-
         w = _slot_gather(pop.n_samples, idx, mask, mesh)
         # masked fixed-width cohort: every slot trains, the success-rank key
         # assignment reproduces the host's split bitwise
         ranks = torch.clamp(torch.cumsum(mask.to(torch.int64), 0) - 1, 0,
                             n_slots - 1)
-        keys = pad_slots(prng.split(ktrain, n_slots)[ranks])[lo:hi]
         deltas, per_sample, mean_losses = cohort(
-            params, pad_slots(gather(data_x))[lo:hi],
-            pad_slots(gather(data_y))[lo:hi], keys)
+            params, split.local(split.owned(data_x, own, loc)),
+            split.local(split.owned(data_y, own, loc)),
+            split.local(prng.split(ktrain, n_slots)[ranks]))
         if faulty:
             bad = _slot_gather(corrupt, idx, chosen, mesh) > 0
-            deltas = _poison(deltas, pad_slots(bad & mask)[lo:hi])
+            deltas = _poison(deltas, split.local(bad & mask))
         # quarantine on this process's slots, gathered back in slot order
         fin_loc = finite_rows(deltas)
         deltas = zero_nonfinite_rows(deltas, fin_loc)
-        fin = mesh.all_gather(fin_loc.reshape(S, n_per)).reshape(-1)[:n_slots]
+        fin = split.whole(fin_loc)
         good = mask & fin
         wq = torch.where(fin, w, torch.zeros_like(w))
-        w_loc = pad_slots(wq)[lo:hi]
-        # weighted_delta's arithmetic with the reduction split by shard:
-        # normalised by the global weight, each shard's partial product
-        # summed over the mesh (on one shard, weighted_delta itself)
-        wn = pad_slots(wq / torch.clamp_min(wq.sum(), 1e-9))[lo:hi]
-        wn = wn.reshape(S, n_per)
-        agg = tree_map(lambda d: mesh.psum(torch.stack([
-            torch.tensordot(wn[s].to(d.dtype), d_s, dims=1)
-            for s, d_s in enumerate(d.reshape(S, n_per, *d.shape[1:]))])),
-            deltas)
+        agg = split.weighted_delta(deltas, wq)
         new_params, new_opt = server_update(params, agg, opt, opt_state)
         # the update is kept where some non-quarantined slot succeeded and
         # the aggregate is finite, as the host's gate
@@ -756,10 +783,8 @@ def _fused_runner(cfg: FLConfig, sel_cfg: SelectorConfig, agg_k: int,
                           params)
         opt_state = tree_map(lambda a, b: torch.where(ok, a, b), new_opt,
                              opt_state)
-        su = mesh.all_gather(stat_utility(per_sample, w_loc).reshape(
-            S, n_per)).reshape(-1)[:n_slots]
-        losses = mesh.all_gather(mean_losses.reshape(S, n_per)).reshape(
-            -1)[:n_slots]
+        su = split.whole(stat_utility(per_sample, split.local(wq)))
+        losses = split.whole(mean_losses)
         pop = pop.replace(stat_util=scatter_drop_rows(
             pop.stat_util, loc, own & good, su))
         out = {
@@ -870,21 +895,36 @@ def _run_fused_elastic(cfg: FLConfig, steps, carry0: Dict[str, Any],
     a segment. ``meta`` and ``history_fn(cfg, init_acc, traj)`` default
     to the sync family's; ``capture``, a dict, receives the whole
     trajectory under ``"traj"`` (a test hook). With a ``clients``
-    ``mesh`` the carry's population is in shard blocks: a snapshot holds
-    it trimmed to the real clients (so it resumes under any shard count
-    and in the single-device engine too), and on a process-group mesh
-    rank 0 writes it."""
-    from repro_torch.launch.sharding import population_sharding
+    ``mesh`` the carry's per-client entries (the population; the async
+    family's event state and selection ranks) are in shard blocks: a
+    snapshot holds them trimmed to the real clients (so it resumes under
+    any shard count), and on a process-group mesh rank 0 writes it."""
+    from repro_torch.federated.simulation import (_astate_gather,
+                                                  _astate_put)
+    from repro_torch.launch.sharding import (population_sharding,
+                                             shard_clients)
 
     if meta is None:
         meta = _train_meta(cfg, "train-sync")
     if history_fn is None:
         history_fn = _history_from_traj
+    n = cfg.n_clients
 
     def to_file(carry):
         if mesh is None:
             return carry
-        return dict(carry, pop=mesh.gather(carry["pop"], cfg.n_clients))
+        out = dict(carry, pop=mesh.gather(carry["pop"], n))
+        if "astate" in carry:
+            out.update(astate=_astate_gather(carry["astate"], mesh, n),
+                       slot_rank=mesh.gather(carry["slot_rank"], n))
+        return out
+
+    def from_file(carry):
+        out = dict(carry, pop=population_sharding(mesh)(carry["pop"]))
+        if "astate" in carry:
+            out.update(astate=_astate_put(carry["astate"], mesh),
+                       slot_rank=shard_clients(carry["slot_rank"], mesh))
+        return out
 
     ck = _make_checkpointer(cfg.checkpoint_path, cfg.checkpoint_every,
                             cfg.rounds, meta)
@@ -893,7 +933,7 @@ def _run_fused_elastic(cfg: FLConfig, steps, carry0: Dict[str, Any],
         start, carry, saved, _ = load_engine_checkpoint(
             cfg.resume_from, to_file(carry0), expect_meta=meta)
         if mesh is not None:
-            carry = dict(carry, pop=population_sharding(mesh)(carry["pop"]))
+            carry = from_file(carry)
         parts.append(saved["traj"])
         init_acc = float(saved["init_acc"])
     else:

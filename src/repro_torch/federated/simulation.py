@@ -13,9 +13,9 @@ composes predicted cost, selection and simulation into one step with no
 host read, and :func:`run_rounds_scanned` advances it for R rounds,
 replayed from a CUDA graph on the card; :func:`run_rounds_sharded` is its
 twin over a ``clients`` mesh (``launch/mesh.py``).
-:func:`make_async_round_engine` and :func:`run_async_scanned` are the
-buffered-asynchronous (FedBuff) twins: one step is one server
-aggregation.
+:func:`make_async_round_engine`, :func:`run_async_scanned` and
+:func:`run_async_sharded` are the buffered-asynchronous (FedBuff) twins:
+one step is one server aggregation.
 """
 from __future__ import annotations
 
@@ -32,8 +32,9 @@ from repro_torch.checkpoint import (CarryCheckpointer, load_engine_checkpoint,
 from repro_torch.core.clients import ClientPopulation, round_times
 from repro_torch.core.energy import EnergyModel, pct_to_joules
 from repro_torch.core.selection import (SelectorConfig, SelectorState,
-                                        _device_select, _slot_gather,
-                                        _slot_owner, _top_k_idx)
+                                        _device_select, _merge_topk,
+                                        _slot_gather, _slot_owner,
+                                        _top_k_idx)
 from repro_torch.federated.faults import (FaultConfig, FaultDraw,
                                           faults_for_round)
 from repro_torch.federated.replay import StepGraphs
@@ -637,6 +638,15 @@ def run_rounds_sharded(key: torch.Tensor, sel_cfg: SelectorConfig,
 # With buffer_size == max_concurrency == k and staleness_power = 0 every
 # flush completes exactly the cohort the previous refill started, so the
 # engine reproduces run_rounds_scanned's selection trajectory.
+#
+# Over a ``clients`` mesh the same step runs on shard blocks, as the sync
+# round does: the flush takes each shard's earliest arrivals and merges
+# them in lax.top_k's order, the completers' start versions and outcomes
+# come from their one owner, the refill is _device_select's tournament,
+# and a slot's clock is armed by its owner. Every per-client update is
+# elementwise and every cross-shard reduction exact (max, integer sums,
+# one-owner gathers) or a float sum reordered by shard, so the trajectory
+# is index for index run_async_scanned's (run_async_sharded).
 
 
 def _async_knobs(sel_cfg: SelectorConfig, buffer_size: Optional[int],
@@ -692,15 +702,51 @@ class AsyncEventState(NamedTuple):
 
 
 def _start_clients(astate: AsyncEventState, idx: torch.Tensor,
-                   chosen: torch.Tensor,
-                   t_total: torch.Tensor) -> AsyncEventState:
+                   chosen: torch.Tensor, t_total: torch.Tensor,
+                   axis=None) -> AsyncEventState:
     """Arm the event clock of the chosen slots' clients: they start at the
     current aggregation point, so their remaining time is their round
-    time."""
-    t_done = scatter_drop(astate.t_done, idx, chosen, t_total[idx])
-    start_v = scatter_drop(astate.start_version, idx, chosen,
-                           astate.server_version.expand(idx.shape[0]))
-    return astate._replace(t_done=t_done, start_version=start_v)
+    time. On a ``clients`` mesh (``axis``) each shard arms the slots it
+    owns, from its own block of ``t_total``."""
+    if axis is None:
+        return astate._replace(
+            t_done=scatter_drop(astate.t_done, idx, chosen, t_total[idx]),
+            start_version=scatter_drop(
+                astate.start_version, idx, chosen,
+                astate.server_version.expand(idx.shape[0])))
+    n_loc = t_total.shape[-1]
+    own, loc = _slot_owner(idx, axis.bases(n_loc, idx.device), n_loc)
+    keep = own & chosen
+    return astate._replace(
+        t_done=scatter_drop_rows(astate.t_done, loc, keep,
+                                 t_total.gather(-1, loc)),
+        start_version=scatter_drop_rows(
+            astate.start_version, loc, keep,
+            astate.server_version.expand(idx.shape[0])))
+
+
+def _astate_put(astate: AsyncEventState, mesh) -> AsyncEventState:
+    """An event state of the real clients laid out on ``mesh``: padded
+    with idle slots (+inf, version 0; pad clients are dead, never started,
+    so they keep these values through a run) to this process's ``(S,
+    n_loc)`` blocks. The reference's ``_pad_astate``."""
+    n = astate.t_done.shape[0]
+    pad = mesh.n_padded(n) - n
+    return astate._replace(
+        t_done=mesh.put(torch.cat([astate.t_done,
+                                   astate.t_done.new_full((pad,),
+                                                          float("inf"))])),
+        start_version=mesh.put(torch.cat([
+            astate.start_version, astate.start_version.new_zeros((pad,))])))
+
+
+def _astate_gather(astate: AsyncEventState, mesh,
+                   n: int) -> AsyncEventState:
+    """The inverse of :func:`_astate_put`: the whole event state trimmed
+    to the ``n`` real clients, on every process."""
+    return astate._replace(t_done=mesh.gather(astate.t_done, n),
+                           start_version=mesh.gather(astate.start_version,
+                                                     n))
 
 
 def make_async_round_engine(sel_cfg: SelectorConfig,
@@ -712,7 +758,8 @@ def make_async_round_engine(sel_cfg: SelectorConfig,
                             staleness_power: float = 0.5,
                             deadline_s: Optional[float] = None,
                             up_bytes: Optional[float] = None,
-                            energy_budget_j: Optional[float] = None):
+                            energy_budget_j: Optional[float] = None,
+                            mesh=None, n_real: Optional[int] = None):
     """The FedBuff event engine: ``(init_fill, step)``, neither reading a
     value on the host. The top-k kernel runs on CUDA and the
     affine-folded plain route on the CPU, as in ``select``.
@@ -734,7 +781,17 @@ def make_async_round_engine(sel_cfg: SelectorConfig,
     in-flight client plus the batch's predicted cost must fit, so the
     debits can never overshoot. ``deadline_s`` abandons an arrival more
     than ``deadline_s`` seconds after the previous aggregation (it still
-    pays its energy), the sync engine's deadline."""
+    pays its energy), the sync engine's deadline.
+
+    With a ``clients`` ``mesh`` both take the population and the event
+    state's per-client fields in shard blocks, padded from ``n_real``
+    clients (:func:`_astate_put`), and their outputs are index for index
+    the single-device ones (the reference's ``make_sharded_async_engine``):
+    the flush merges each shard's earliest arrivals in ``lax.top_k``'s
+    order, selection is ``_device_select``'s tournament, and the slots'
+    per-client values come from their one owner. The round cost is
+    computed in the step from the (elementwise) population, in both
+    layouts, as the sync selection engine does."""
     buffer_size, _, fill_cfg, refill_cfg = _async_knobs(
         sel_cfg, buffer_size, max_concurrency)
 
@@ -743,17 +800,18 @@ def make_async_round_engine(sel_cfg: SelectorConfig,
         # candidates through `dropped` (a copy for the selection only)
         sel_pop = pop.replace(dropped=pop.dropped | astate.in_flight)
         return _device_select(key, cfg, sel_state, sel_pop, cost,
-                              pop.device.type == "cuda")
+                              pop.device.type == "cuda", axis=mesh,
+                              n_real=n_real)
 
     def _admit_batch(astate, pop, cost, idx, chosen, rnd):
         """The gated ``chosen`` and the astate with ``exhausted_round``
-        stamped at the first refusal."""
+        stamped at the first refusal; the decision is replicated."""
         if energy_budget_j is None:
             return chosen, astate
         cost_j = pct_to_joules(pop.category, cost)
-        zero = torch.zeros_like(cost_j)
-        committed = torch.where(astate.in_flight, cost_j, zero).sum()
-        batch_j = torch.where(chosen, cost_j[idx], zero[idx]).sum()
+        committed = asum(torch.where(astate.in_flight, cost_j,
+                                     torch.zeros_like(cost_j)), mesh)
+        batch_j = _slot_gather(cost_j, idx, chosen, mesh).sum()
         admit = (astate.spent_j + committed + batch_j
                  <= f32(energy_budget_j, cost_j))
         refused = chosen.any() & ~admit
@@ -769,25 +827,29 @@ def make_async_round_engine(sel_cfg: SelectorConfig,
                                          cost, astate)
         chosen, astate = _admit_batch(astate, pop, cost, idx, chosen,
                                       astate.server_version + 1)
-        astate = _start_clients(astate, idx, chosen, t_total)
+        astate = _start_clients(astate, idx, chosen, t_total, mesh)
         return sel_state, astate, idx, chosen
 
     def step(key, pop: ClientPopulation, sel_state: SelectorState,
              astate: AsyncEventState, do_refill: torch.Tensor):
-        n = pop.n
         t_total, cost = _round_cost(pop, energy_model, model_bytes,
                                     local_steps, batch_size, up_bytes)
+        n_loc = cost.shape[-1]
 
         # ---- flush: the buffer_size earliest arrivals, ties (equal times,
-        # survivors clamped to 0) lowest index first, as lax.top_k
+        # survivors clamped to 0) lowest index first, as lax.top_k; on a
+        # mesh each shard's earliest min(buffer_size, n_loc), merged
         in_flight = astate.in_flight
-        n_if = in_flight.sum().to(torch.int32)
-        neg_inf = f32(float("-inf"), cost)
-        cidx = _top_k_idx(torch.where(in_flight, -astate.t_done, neg_inf),
-                          buffer_size)
+        n_if = asum(in_flight, mesh).to(torch.int32)
+        g = torch.where(in_flight, -astate.t_done, f32(float("-inf"), cost))
+        if mesh is None:
+            cidx = _top_k_idx(g, buffer_size)
+        else:
+            cidx = _merge_topk(g, buffer_size, min(buffer_size, n_loc),
+                               mesh.bases(n_loc, cost.device), mesh)
         comp_chosen = torch.arange(cidx.shape[0], device=cost.device) < \
             torch.clamp_max(n_if, buffer_size)
-        comp_mask = slot_mask(cidx, comp_chosen, n)
+        comp_mask = slot_mask(cidx, comp_chosen, n_loc, mesh)
 
         # remaining offsets from the previous aggregation play the sync
         # engine's round times: the slowest successful arrival advances the
@@ -796,11 +858,16 @@ def make_async_round_engine(sel_cfg: SelectorConfig,
         rnd = astate.server_version + 1
         pop, dev = simulate_round_device(pop, comp_mask, astate.t_done,
                                          cost, rnd, energy_model,
-                                         deadline_s, busy_mask=busy)
+                                         deadline_s, busy_mask=busy,
+                                         axis=mesh)
 
-        staleness = torch.clamp_min(
-            astate.server_version - astate.start_version[cidx], 0)
-        succeeded = dev.succeeded[cidx] & comp_chosen
+        # the completers' start versions and outcomes from their one owner
+        # (exact: int32 versions, 0/1 flags)
+        start_v = _slot_gather(astate.start_version, cidx, comp_chosen, mesh,
+                               dtype=torch.int32)
+        staleness = torch.clamp_min(astate.server_version - start_v, 0)
+        succeeded = (_slot_gather(dev.succeeded, cidx, comp_chosen, mesh)
+                     > 0) & comp_chosen
         agg_weight = torch.where(
             succeeded, staleness_damping(staleness, staleness_power),
             f32(0.0, cost))
@@ -842,19 +909,23 @@ def make_async_round_engine(sel_cfg: SelectorConfig,
             torch.where(do_refill, getattr(new_st, f.name),
                         getattr(old, f.name))
             for f in dataclasses.fields(SelectorState)))
-        astate = _start_clients(astate, ridx, rchosen, t_total)
+        astate = _start_clients(astate, ridx, rchosen, t_total, mesh)
         return pop, sel_state, astate, flush, (ridx, rchosen)
 
     return init_fill, step
 
 
 def _async_graphs(step, keys: torch.Tensor, refill: torch.Tensor,
-                  carry: Dict[str, Any], rounds: int,
-                  start: int) -> StepGraphs:
+                  carry: Dict[str, Any], rounds: int, start: int,
+                  mesh=None, n_real: Optional[int] = None) -> StepGraphs:
     """The selection-only async engine's aggregation over the carry
     ``{"pop", "st", "astate"}`` (the twin of the reference's
-    ``_async_scanned_runner`` scan); aggregation ``ctr`` uses key row
+    ``_async_scanned_runner`` scan and, with a ``clients`` ``mesh`` and
+    the carry in shard blocks padded from ``n_real`` clients, of its
+    ``_sharded_async_runner``); aggregation ``ctr`` uses key row
     ``keys[ctr]`` and refills where ``refill[ctr]``."""
+    n_real = carry["pop"].n if mesh is None else n_real
+    n_pad = 0 if mesh is None else mesh.n_padded(n_real) - n_real
 
     def agg_fn(carry, ctr):
         at = ctr.reshape(1)
@@ -866,9 +937,10 @@ def _async_graphs(step, keys: torch.Tensor, refill: torch.Tensor,
             "selected": ridx.to(torch.int32),
             "chosen": rchosen,
             "server_clock": astate.server_clock,
-            "n_inflight": astate.in_flight.sum().to(torch.int32),
-            "mean_battery": pop.battery_pct.mean(),
-            "total_dropped": pop.dropped.sum().to(torch.int32),
+            "n_inflight": asum(astate.in_flight, mesh).to(torch.int32),
+            "mean_battery": asum(pop.battery_pct, mesh) / n_real,
+            # pad clients are dead from the start
+            "total_dropped": asum(pop.dropped, mesh).to(torch.int32) - n_pad,
             "budget_spent_j": astate.spent_j,
             "budget_exhausted": astate.exhausted_round,
         }
@@ -903,6 +975,91 @@ def _async_fill_prepend(traj: Dict[str, Any], idx0, chosen0,
     traj["chosen"] = np.concatenate([chosen0[None, :b],
                                      np.asarray(traj["chosen"])[:-1]])
     return traj
+
+
+def _run_async_engine(key: torch.Tensor, sel_cfg: SelectorConfig,
+                      pop: ClientPopulation, sel_state: SelectorState,
+                      energy_model: EnergyModel, model_bytes: float,
+                      local_steps: int, batch_size: int, rounds: int,
+                      buffer_size: Optional[int],
+                      max_concurrency: Optional[int],
+                      staleness_power: float, deadline_s: Optional[float],
+                      up_bytes: Optional[float],
+                      faults: Optional[FaultConfig],
+                      checkpoint_every: Optional[int],
+                      checkpoint_path: Optional[str],
+                      resume_from: Optional[str], mesh=None):
+    """The async selection engine's fill, segment, checkpoint and resume
+    loop, on one device or over a ``clients`` ``mesh`` (the population
+    and the event state padded and laid out in shard blocks for the run,
+    and trimmed to the real clients in snapshots and in the result, on
+    every process; rank 0 of a process-group mesh writes the snapshots).
+    The snapshots are the ``"async"`` family whatever the layout, so they
+    resume under any shard count and in either engine."""
+    from repro_torch.launch.sharding import population_sharding
+
+    if faults is not None and faults.active:
+        raise ValueError(
+            "fault injection is not supported by the async event engines "
+            "(no per-round fault boundary); use the sync engines")
+    n_real = pop.n
+    init_fill, step = make_async_round_engine(
+        sel_cfg, energy_model, float(model_bytes), int(local_steps),
+        int(batch_size), buffer_size, max_concurrency,
+        float(staleness_power),
+        None if deadline_s is None else float(deadline_s),
+        None if up_bytes is None else float(up_bytes), mesh=mesh,
+        n_real=n_real)
+    b, c, _, _ = _async_knobs(sel_cfg, buffer_size, max_concurrency)
+    key0, keys, refill = _async_xs(key, rounds)
+    dev = pop.device
+    st = sel_state.canonical(dev)
+    meta = _engine_meta("async", sel_cfg, n_real, rounds, deadline_s, faults,
+                        buffer_size=b, max_concurrency=c,
+                        staleness_power=float(staleness_power))
+    start, parts = 0, []
+    astate = AsyncEventState.create(n_real, dev)
+    if resume_from is not None:
+        start, state, data, _ = load_engine_checkpoint(
+            resume_from, {"pop": pop, "st": st, "astate": astate},
+            expect_meta=meta)
+        pop, st, astate = state["pop"], state["st"], state["astate"]
+        idx0, chosen0 = data["fill_selected"], data["fill_chosen"]
+        if data.get("traj"):
+            parts.append(data["traj"])
+    if mesh is not None:
+        pop = population_sharding(mesh)(pop)
+        astate = _astate_put(astate, mesh)
+
+    def to_file(carry):
+        if mesh is None:
+            return carry
+        return dict(carry, pop=mesh.gather(carry["pop"], n_real),
+                    astate=_astate_gather(carry["astate"], mesh, n_real))
+
+    if resume_from is None:
+        st, astate, idx0, chosen0 = init_fill(key0, pop, st, astate)
+        idx0 = idx0.to(torch.int32).cpu().numpy()
+        chosen0 = chosen0.cpu().numpy()
+    ck = _make_checkpointer(checkpoint_path, checkpoint_every, rounds, meta)
+    graphs = _async_graphs(step, keys, refill,
+                           {"pop": pop, "st": st, "astate": astate}, rounds,
+                           start, mesh, n_real)
+    for a, e in segment_bounds(start, rounds,
+                               ck.every if ck is not None else None):
+        for _ in range(a, e):
+            graphs.run("agg")
+        parts.append(graphs.fetch(a, e))
+        if ck is not None and ck.due(e):
+            state = to_file(graphs.carry())
+            if mesh is None or mesh.rank == 0:
+                ck.save(e, state, {"traj": _concat_traj(parts),
+                                   "fill_selected": idx0,
+                                   "fill_chosen": chosen0})
+    carry = to_file(graphs.carry())
+    traj = _async_fill_prepend(_concat_traj(parts), idx0, chosen0, b)
+    traj["final_event_state"] = carry["astate"]
+    return carry["pop"], carry["st"], traj
 
 
 def run_async_scanned(key: torch.Tensor, sel_cfg: SelectorConfig,
@@ -940,61 +1097,61 @@ def run_async_scanned(key: torch.Tensor, sel_cfg: SelectorConfig,
     aggregations; a resumed run is bitwise the uninterrupted one.
     ``faults`` are rejected: the event engine has no round boundary for
     the per-round fault draws."""
-    if faults is not None and faults.active:
-        raise ValueError(
-            "fault injection is not supported by the async event engines "
-            "(no per-round fault boundary); use the sync engines")
-    init_fill, step = make_async_round_engine(
-        sel_cfg, energy_model, float(model_bytes), int(local_steps),
-        int(batch_size), buffer_size, max_concurrency,
-        float(staleness_power),
-        None if deadline_s is None else float(deadline_s),
-        None if up_bytes is None else float(up_bytes))
-    b, c, _, _ = _async_knobs(sel_cfg, buffer_size, max_concurrency)
-    key0, keys, refill = _async_xs(key, rounds)
-    dev = pop.device
-    st = sel_state.canonical(dev)
-    meta = _engine_meta("async", sel_cfg, pop.n, rounds, deadline_s, faults,
-                        buffer_size=b, max_concurrency=c,
-                        staleness_power=float(staleness_power))
-    start, parts = 0, []
-    if resume_from is not None:
-        templates = {"pop": pop, "st": st,
-                     "astate": AsyncEventState.create(pop.n, dev)}
-        start, state, data, _ = load_engine_checkpoint(
-            resume_from, templates, expect_meta=meta)
-        carry = state
-        idx0, chosen0 = data["fill_selected"], data["fill_chosen"]
-        if data.get("traj"):
-            parts.append(data["traj"])
-    else:
-        st, astate, idx0, chosen0 = init_fill(
-            key0, pop, st, AsyncEventState.create(pop.n, dev))
-        carry = {"pop": pop, "st": st, "astate": astate}
-        idx0 = idx0.to(torch.int32).cpu().numpy()
-        chosen0 = chosen0.cpu().numpy()
-    ck = _make_checkpointer(checkpoint_path, checkpoint_every, rounds, meta)
-    graphs = _async_graphs(step, keys, refill, carry, rounds, start)
-    for a, e in segment_bounds(start, rounds,
-                               ck.every if ck is not None else None):
-        for _ in range(a, e):
-            graphs.run("agg")
-        parts.append(graphs.fetch(a, e))
-        if ck is not None and ck.due(e):
-            ck.save(e, graphs.carry(), {"traj": _concat_traj(parts),
-                                        "fill_selected": idx0,
-                                        "fill_chosen": chosen0})
-    carry = graphs.carry()
-    traj = _async_fill_prepend(_concat_traj(parts), idx0, chosen0, b)
-    traj["final_event_state"] = carry["astate"]
-    return carry["pop"], carry["st"], traj
+    return _run_async_engine(
+        key, sel_cfg, pop, sel_state, energy_model, model_bytes, local_steps,
+        batch_size, rounds, buffer_size, max_concurrency, staleness_power,
+        deadline_s, up_bytes, faults, checkpoint_every, checkpoint_path,
+        resume_from)
+
+
+def run_async_sharded(key: torch.Tensor, sel_cfg: SelectorConfig,
+                      pop: ClientPopulation, sel_state: SelectorState,
+                      energy_model: EnergyModel, model_bytes: float,
+                      local_steps: int, batch_size: int, rounds: int,
+                      buffer_size: Optional[int] = None,
+                      max_concurrency: Optional[int] = None,
+                      staleness_power: float = 0.5,
+                      deadline_s: Optional[float] = None,
+                      up_bytes: Optional[float] = None,
+                      mesh=None, n_shards: Optional[int] = None,
+                      faults: Optional[FaultConfig] = None,
+                      checkpoint_every: Optional[int] = None,
+                      checkpoint_path: Optional[str] = None,
+                      resume_from: Optional[str] = None,
+                      ) -> Tuple[ClientPopulation, SelectorState,
+                                 Dict[str, Any]]:
+    """:func:`run_async_scanned` over a ``clients`` mesh (``mesh``, or one
+    of ``n_shards`` shards from ``launch/mesh.py::make_client_mesh``).
+
+    Pads the population and the event state to a multiple of the shard
+    count (pad clients are dead, never selected, never in flight), lays
+    them out in shard blocks, and runs every aggregation shard-local,
+    replayed from a CUDA graph on the card. The trajectory (completion
+    order, staleness, damping weights, refills, the wall clock, in-flight
+    and dropout counts) and the selector state equal
+    :func:`run_async_scanned`'s on the same key index for index; the
+    summed statistics (``energy_spent_pct``, ``mean_battery``) agree
+    within float32 reduction order. The returned population and
+    ``final_event_state`` are trimmed to the real clients, on every
+    process.
+
+    Snapshots are the ``"async"`` family with the population and event
+    state trimmed, so a snapshot resumes under any shard count and in
+    either engine; rank 0 of a process-group mesh writes them. ``faults``
+    are rejected, as in :func:`run_async_scanned`."""
+    from repro_torch.launch.mesh import make_client_mesh
+
+    return _run_async_engine(
+        key, sel_cfg, pop, sel_state, energy_model, model_bytes, local_steps,
+        batch_size, rounds, buffer_size, max_concurrency, staleness_power,
+        deadline_s, up_bytes, faults, checkpoint_every, checkpoint_path,
+        resume_from, make_client_mesh(n_shards) if mesh is None else mesh)
 
 
 # -------------------------------------------------------------- dispatcher
 # One front door over the four round engines. The pick is a pure function
 # of (n, device_count, mode, async knobs), the reference's, so dispatch
-# decisions match between the packages. The async sharded twin is
-# ROADMAP.md queue 1 item 13: its leg raises until it lands.
+# decisions match between the packages.
 
 #: Population size at or above which a multi-device run dispatches to the
 #: sharded engines. The reference's value (its CPU-mesh measurement); it
@@ -1007,7 +1164,7 @@ ENGINES = SYNC_ENGINES + ASYNC_ENGINES
 
 #: Training engines behind ``run_fl``: the host round loop, the fused
 #: engine (``run_fl_scanned`` / ``run_fl_async_scanned``) and the sharded
-#: twin (``run_fl_sharded``; the async one is item 13). Every name exists
+#: twin (``run_fl_sharded`` / ``run_fl_async_sharded``). Every name exists
 #: in both aggregation families.
 TRAIN_ENGINES = ("host", "scanned", "sharded")
 
@@ -1110,8 +1267,7 @@ def run_rounds(key: torch.Tensor, sel_cfg: SelectorConfig,
     The chosen name is recorded as ``traj["engine"]``. The reference's
     checks, in its order: an unknown mode, a forced single-device name
     with ``mesh``/``n_shards``, async knobs with a sync engine (each a
-    ``ValueError``). The async sharded twin raises ``NotImplementedError``
-    (item 13)."""
+    ``ValueError``)."""
     if mesh is not None:
         devices = mesh.size()
     elif n_shards is not None:
@@ -1135,11 +1291,6 @@ def run_rounds(key: torch.Tensor, sel_cfg: SelectorConfig,
             f"async knobs (buffer_size/max_concurrency) with the "
             f"synchronous {engine!r} engine; use mode='async' or drop "
             f"the knobs")
-    if engine == "async-sharded":
-        raise NotImplementedError(
-            "the 'async-sharded' engine (run_async_sharded) is not ported "
-            "yet (ROADMAP.md, queue 1 item 13)")
-
     common = dict(deadline_s=deadline_s, up_bytes=up_bytes, faults=faults,
                   checkpoint_every=checkpoint_every,
                   checkpoint_path=checkpoint_path, resume_from=resume_from)
@@ -1151,8 +1302,13 @@ def run_rounds(key: torch.Tensor, sel_cfg: SelectorConfig,
         fpop, st, traj = run_rounds_sharded(*args, **common, mesh=mesh,
                                             n_shards=n_shards)
     else:
-        fpop, st, traj = run_async_scanned(
-            *args, buffer_size=buffer_size, max_concurrency=max_concurrency,
-            staleness_power=staleness_power, **common)
+        knobs = dict(buffer_size=buffer_size,
+                     max_concurrency=max_concurrency,
+                     staleness_power=staleness_power, **common)
+        if engine == "async-scanned":
+            fpop, st, traj = run_async_scanned(*args, **knobs)
+        else:
+            fpop, st, traj = run_async_sharded(*args, **knobs, mesh=mesh,
+                                               n_shards=n_shards)
     traj["engine"] = engine
     return fpop, st, traj

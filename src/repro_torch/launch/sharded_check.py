@@ -15,7 +15,15 @@ unless ``--device cpu``:
   - the kernel's per-shard leg (``topk_reward`` with each shard's
     ``index_offset``) against the single-device kernel leg;
   - the R-round trajectory, ``run_rounds_sharded`` against
-    ``run_rounds_scanned``, index for index on selected/chosen/succeeded.
+    ``run_rounds_scanned``, index for index on selected/chosen/succeeded;
+  - the async matrix, ``run_async_sharded`` against ``run_async_scanned``
+    on the same key: every kind buffered (buffer 3, concurrency 9,
+    staleness damping on) and in the sync limit (buffer = concurrency =
+    k, power 0); a tight deadline (400 s) that must abandon an arrival;
+    a flush in which every client dies (batteries 1-12 %, a loose
+    deadline, 1600 local steps). Completion order, staleness, refills,
+    the event clocks and the wall clock equal, the damping weights bit
+    for bit, the summed statistics and batteries within rtol 1e-6.
 
 ``--train`` runs the end-to-end training matrix instead:
 ``run_fl_sharded`` against ``run_fl_scanned`` (four configurations,
@@ -26,8 +34,7 @@ reduction; on a card both engines run cuDNN's deterministic float32
 algorithms for it); it prints ``training parity OK``.
 
 Exits non-zero at the first mismatch; prints ``parity OK`` when the whole
-matrix passes. The reference's async matrix (``run_async_sharded``) is
-not ported yet (ROADMAP.md, queue 1 item 13).
+matrix passes.
 
   python -m repro_torch.launch.sharded_check --devices 8 [--device cpu]
   python -m repro_torch.launch.sharded_check --devices 8 --train
@@ -46,8 +53,10 @@ from repro_torch.core.energy import EnergyModel
 from repro_torch.core.selection import (SelectorConfig, SelectorState,
                                         _device_select,
                                         make_sharded_select_step)
-from repro_torch.device import resolve_device
-from repro_torch.federated.simulation import (run_rounds_scanned,
+from repro_torch.device import deterministic_float32, resolve_device
+from repro_torch.federated.simulation import (run_async_scanned,
+                                              run_async_sharded,
+                                              run_rounds_scanned,
                                               run_rounds_sharded)
 from repro_torch.launch.mesh import make_client_mesh
 
@@ -166,6 +175,96 @@ def check_selection(mesh, dev, n_main: int = 999, rounds: int = 4) -> None:
     print("  scan trajectory: OK")
 
 
+ASYNC_EXACT = ("completed", "comp_chosen", "succeeded", "staleness",
+               "selected", "chosen", "fill_selected", "fill_chosen",
+               "total_dropped", "n_inflight", "round_duration",
+               "server_clock", "agg_weight")
+
+
+def _check_async(label, mesh, cfg, pop, key, em, rounds=4,
+                 buffer_size=None, max_concurrency=None,
+                 staleness_power=0.5, deadline_s=None,
+                 require_abandoned=False, local_steps=400):
+    """``run_async_sharded`` against ``run_async_scanned`` on the same
+    key: the event trajectory equal (the wall clock and the damping
+    weights bit for bit), the summed statistics, batteries and spent
+    joules within rtol 1e-6, the rest of the final event state and the
+    selector state equal.
+    ``require_abandoned`` keeps a failure case from going vacuous: some
+    chosen arrival must have failed (deadline or battery)."""
+    kw = dict(energy_model=em, model_bytes=85e6, local_steps=local_steps,
+              batch_size=20, rounds=rounds, buffer_size=buffer_size,
+              max_concurrency=max_concurrency,
+              staleness_power=staleness_power, deadline_s=deadline_s)
+    p1, s1, t1 = run_async_scanned(key, cfg, pop, SelectorState.create(cfg),
+                                   **kw)
+    p2, s2, t2 = run_async_sharded(key, cfg, pop, SelectorState.create(cfg),
+                                   mesh=mesh, **kw)
+    for f in ASYNC_EXACT:
+        a, b = np.asarray(t1[f]), np.asarray(t2[f])
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"{label}: async trajectory diverged on "
+                                 f"{f}\n{a}\n{b}")
+    for f in ("mean_battery", "energy_spent_pct", "energy_spent_j"):
+        np.testing.assert_allclose(t1[f], t2[f], rtol=1e-6,
+                                   err_msg=f"{label}: {f}")
+    np.testing.assert_allclose(p1.battery_pct.cpu().numpy(),
+                               p2.battery_pct.cpu().numpy(), rtol=1e-6,
+                               err_msg=f"{label}: battery")
+    if not torch.equal(p1.dropped, p2.dropped):
+        raise AssertionError(f"{label}: dropped diverged")
+    e1, e2 = t1["final_event_state"], t2["final_event_state"]
+    for f in ("t_done", "start_version", "server_clock", "server_version",
+              "exhausted_round"):
+        if not torch.equal(getattr(e1, f), getattr(e2, f)):
+            raise AssertionError(f"{label}: event state {f} diverged")
+    np.testing.assert_allclose(float(e1.spent_j), float(e2.spent_j),
+                               rtol=1e-6, err_msg=f"{label}: spent_j")
+    for f in ("round", "epsilon", "pacer_T", "util_ema"):
+        a, b = float(getattr(s1, f)), float(getattr(s2, f))
+        if a != b:
+            raise AssertionError(f"{label}: state.{f} {a} != {b}")
+    if require_abandoned:
+        failed = t1["comp_chosen"] & ~t1["succeeded"]
+        if not failed.any():
+            raise AssertionError(f"{label}: no arrival was abandoned; the "
+                                 f"case is vacuous")
+    print(f"  {label}: OK")
+
+
+def check_async(mesh, dev, n: int = 999, rounds: int = 4) -> None:
+    """The async matrix (module docstring) on ``mesh``: the reference's
+    cases, on the port's population maker."""
+    key = prng.PRNGKey(7, dev)
+    em = EnergyModel()
+    pop = mixed_pop(key, n).replace(
+        dropped=torch.zeros(n, dtype=torch.bool, device=dev))
+    kasync = prng.fold_in(key, 6)
+    for kind in ALL_KINDS:
+        cfg = SelectorConfig(kind, k=10)
+        _check_async(f"async buffered {kind}", mesh, cfg, pop, kasync, em,
+                     rounds=rounds, buffer_size=3, max_concurrency=9)
+        _check_async(f"async sync-limit {kind}", mesh, cfg, pop, kasync, em,
+                     rounds=rounds, buffer_size=10, max_concurrency=10,
+                     staleness_power=0.0)
+    # a tight deadline that abandons arrivals (400 s cuts through this
+    # workload's arrival offsets), and a flush in which every client dies
+    # (drained batteries under a loose deadline: the duration's fallback
+    # and the survivors' re-base clamped at 0)
+    _check_async("async tight-deadline eafl", mesh, SelectorConfig("eafl",
+                                                                  k=10),
+                 pop, kasync, em, rounds=rounds, buffer_size=3,
+                 max_concurrency=9, deadline_s=400.0,
+                 require_abandoned=True)
+    low = make_population(key, 256, init_battery_low=1.0,
+                          init_battery_high=12.0).replace(
+        stat_util=prng.uniform(prng.fold_in(key, 8), (256,)) * 10)
+    _check_async("async flush-dies eafl", mesh, SelectorConfig("eafl", k=8),
+                 low, kasync, em, rounds=rounds, buffer_size=2,
+                 max_concurrency=8, deadline_s=1e6, require_abandoned=True,
+                 local_steps=1600)
+
+
 def check_training(mesh, dev, rounds: int = 4) -> None:
     """End-to-end training parity: ``run_fl_sharded`` against
     ``run_fl_scanned`` (itself held against the host loop). The selection,
@@ -175,20 +274,8 @@ def check_training(mesh, dev, rounds: int = 4) -> None:
     difference left is the sharded aggregate's reduction order: cuDNN's
     default algorithms differ from run to run by more than that, and
     training amplifies it."""
-    if dev.type == "cuda":
-        flags = (torch.backends.cudnn.deterministic,
-                 torch.backends.cudnn.allow_tf32,
-                 torch.backends.cuda.matmul.allow_tf32)
-        torch.backends.cudnn.deterministic = True
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            return _check_training(mesh, dev, rounds)
-        finally:
-            (torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32) = flags
-    return _check_training(mesh, dev, rounds)
+    with deterministic_float32(dev):
+        _check_training(mesh, dev, rounds)
 
 
 def _check_training(mesh, dev, rounds: int) -> None:
@@ -235,10 +322,9 @@ def _check_training(mesh, dev, rounds: int) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=(
-        "The synchronous parity matrix of the sharded engines (selection, "
-        "or training with --train) on a clients mesh of --devices virtual "
-        "shards. The reference's async legs (run_async_sharded) are not "
-        "ported yet (ROADMAP.md, queue 1 item 13)."))
+        "The parity matrix of the sharded engines (selection, sync and "
+        "async, or training with --train) on a clients mesh of --devices "
+        "virtual shards."))
     ap.add_argument("--devices", type=int, default=None,
                     help="virtual shards of the clients mesh (default 1)")
     ap.add_argument("--n", type=int, default=999,
@@ -247,9 +333,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--train", action="store_true",
                     help="run the training matrix (run_fl_sharded against "
-                         "run_fl_scanned) instead of the selection matrix; "
-                         "the async matrix is not ported yet (ROADMAP.md, "
-                         "queue 1 item 13)")
+                         "run_fl_scanned) instead of the selection and "
+                         "async matrices")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
@@ -264,6 +349,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"training parity OK ({s} shards)")
     else:
         check_selection(mesh, dev, args.n, args.rounds)
+        check_async(mesh, dev, args.n, args.rounds)
         print(f"parity OK ({s} shards)")
     return 0
 

@@ -38,6 +38,7 @@ from repro_torch.federated import async_server as tasync  # noqa: E402
 from repro_torch.federated import server as tserver  # noqa: E402
 from repro_torch.federated.faults import FaultConfig  # noqa: E402
 from repro_torch.federated.replay import StepGraphs  # noqa: E402
+from repro_torch.launch.mesh import ClientMesh  # noqa: E402
 
 BASE = dict(n_clients=24, rounds=6, local_steps=3, batch_size=8,
             samples_per_client=24, eval_every=3, eval_samples=70,
@@ -204,15 +205,8 @@ def test_sync_limit_reproduces_the_sync_engine():
 
 def test_aggregation_step_reads_nothing_on_the_host():
     cfg = _cfg(**BUDGET, deadline_s=900.0)
-    dev = torch.device("cpu")
-    (kloop, data, test, params, opt, opt_state, pop, sim_steps, up_bytes,
-     energy_model, model_bytes) = tserver._fused_setup(cfg, dev)
-    fill, agg_fn, eval_fn = tasync._async_fused_runner(
-        cfg, energy_model, sim_steps, model_bytes, up_bytes, opt,
-        data["x"], data["y"], test["x"], test["y"])
-    st = tserver.SelectorState.create(cfg.selector).canonical(dev)
-    carry = fill(kloop, params, opt_state, pop, st,
-                 tserver._accuracy_fn(cfg.model, test)(params))
+    (agg_fn, eval_fn), carry = tasync._async_fused_engine(
+        cfg, torch.device("cpu"), ClientMesh(1))
     graphs = StepGraphs(carry, cfg.rounds)
     graphs.add("agg", agg_fn, advance=True)
     graphs.add("eval", eval_fn, row=-1)
@@ -243,7 +237,11 @@ def test_run_fl_routes_async():
 
 
 @pytest.mark.parametrize("change,engine,exc,match", [
-    ({}, "sharded", NotImplementedError, "item 13"),
+    # the sharded engine, which raised until it was ported, refuses faults
+    # with the reference's text (the case keeps its id)
+    pytest.param({"faults": FaultConfig(seed=1, crash_prob=0.3)},
+                 "sharded", ValueError, "fault",
+                 id="change0-sharded-NotImplementedError-item 13"),
     ({"faults": FaultConfig(seed=1, crash_prob=0.3)}, "auto", ValueError,
      "fault"),
     ({"overcommit": 1.5}, "host", ValueError, "overcommit"),
@@ -254,6 +252,22 @@ def test_run_fl_routes_async():
 def test_async_rejections(change, engine, exc, match):
     with pytest.raises(exc, match=match):
         tserver.run_fl(_cfg(**change), engine=engine, device="cpu")
+
+
+def test_sharded_engine_runs_through_run_fl():
+    """``run_fl(mode="async", engine="sharded")``, which raised until the
+    engine was ported, runs ``run_fl_async_sharded`` on one shard: bitwise
+    the fused engine, whose flush and refill columns equal the host
+    loop's."""
+    host, trace, fused, _ = _engines("budget+recharge")
+    cap = {}
+    kind, kw = CASES["budget+recharge"]
+    out = tasync.run_fl_async_sharded(_cfg(kind, **kw), device="cpu",
+                                      _capture=cap)
+    _assert_bitwise(fused, out)
+    _assert_traces_equal(trace, _rows(cap["traj"], len(host.round)))
+    _assert_bitwise(out, tserver.run_fl(_cfg(kind, **kw), mode="async",
+                                        engine="sharded", device="cpu"))
 
 
 def test_engine_names_are_not_modes():

@@ -2,9 +2,9 @@
 ``resolve_train_engine``, ``run_rounds``) against the reference's.
 
 Mirrors every test of ``tests/test_dispatch.py`` that needs no mesh, on
-the port. The sync sharded leg (a forced name, ``n_shards``) runs
-``run_rounds_sharded`` and equals the scanned engine; the async sharded
-leg raises ``NotImplementedError`` naming ROADMAP.md queue 1 item 13.
+the port. The sharded legs (a forced name, ``n_shards``) run
+``run_rounds_sharded`` and ``run_async_sharded`` and equal the scanned
+engines (the async leg once raised ``NotImplementedError``).
 The resolvers are pure functions and must return the
 reference's answer on every case of its matrix and of a wider one
 (devices 1-8). Forced engine names give trajectories index for index
@@ -176,20 +176,24 @@ def test_run_rounds_rejects_bad_combinations():
 @pytest.mark.parametrize("mode,kw", [
     ("sharded", {}), ("async-sharded", {"buffer_size": 2}),
     ("auto", {"n_shards": 1}), ("auto", {"n_shards": 2, "buffer_size": 2}),
-    ("sync", {"n_shards": 4})])
+    ("sync", {"n_shards": 4}), ("async", {"n_shards": 2})])
 def test_sharded_legs_raise_item_13(mode, kw):
-    """The async sharded legs still raise (item 13); the sync ones run the
-    sharded engine, equal to the scanned one (a virtual mesh of
-    ``n_shards`` shards, one by default)."""
-    if mode == "async-sharded" or "buffer_size" in kw:
-        with pytest.raises(NotImplementedError, match="item 13"):
-            run_rounds(*_args(), mode=mode, **kw)
-        return
+    """The sharded legs, which raised while their engines were not
+    ported, run the sharded engine of their family, equal to the scanned
+    one (a virtual mesh of ``n_shards`` shards, one by default)."""
+    asyn = mode in ("async", "async-sharded") or "buffer_size" in kw
     _, st, t = run_rounds(*_args(), mode=mode, **kw)
-    _, st0, t0 = run_rounds(*_args(), mode="scanned")
-    assert t["engine"] == "sharded"
-    for f in ("selected", "chosen", "succeeded", "total_dropped",
-              "new_dropouts", "round_duration"):
+    _, st0, t0 = run_rounds(*_args(), mode="async-scanned" if asyn
+                            else "scanned",
+                            **({"buffer_size": kw.get("buffer_size")}
+                               if asyn else {}))
+    assert t["engine"] == ("async-sharded" if asyn else "sharded")
+    cols = ("selected", "chosen", "total_dropped", "new_dropouts",
+            "round_duration")
+    cols += (("completed", "comp_chosen", "succeeded", "staleness",
+              "agg_weight", "server_clock", "n_inflight") if asyn
+             else ("succeeded",))
+    for f in cols:
         np.testing.assert_array_equal(t[f], t0[f], f)
     np.testing.assert_allclose(t["mean_battery"], t0["mean_battery"],
                                rtol=1e-6)
@@ -329,9 +333,15 @@ def test_run_selection_scanned_reports_engine():
     _, traj = run_selection_scanned(_flcfg(), rounds=3, n_shards=2,
                                     device="cpu")
     assert traj["engine"] == "sharded"
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run_selection_scanned(_flcfg(buffer_size=2), rounds=3, n_shards=1,
-                              device="cpu")
+    for d in (1, 2):
+        _, traj = run_selection_scanned(_flcfg(buffer_size=2), rounds=3,
+                                        n_shards=d, device="cpu")
+        _, base = run_selection_scanned(_flcfg(buffer_size=2), rounds=3,
+                                        device="cpu")
+        assert traj["engine"] == "async-sharded"
+        for f in ("completed", "comp_chosen", "selected", "chosen",
+                  "staleness", "round_duration"):
+            np.testing.assert_array_equal(traj[f], base[f], f)
 
 
 def test_no_item_12_or_14_refusal_is_left():

@@ -19,6 +19,7 @@ from repro_torch.federated import simulation as tsim  # noqa: E402
 from repro_torch.federated.faults import FaultConfig  # noqa: E402
 from repro_torch.federated.replay import StepGraphs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch.mesh import ClientMesh  # noqa: E402
 
 FAULTS = FaultConfig(seed=2, crash_prob=0.3, max_retries=2,
                      straggle_prob=0.3, corrupt_prob=0.2)
@@ -134,15 +135,8 @@ def test_async_training_replay_equals_eager():
                            recharge_pct_per_hour=30.0)
 
     def make():
-        (kloop, data, test, params, opt, opt_state, pop, sim_steps,
-         up_bytes, energy_model, model_bytes) = tserver._fused_setup(cfg, dev)
-        opt_state = dict(opt_state, t=opt_state["t"].to(dev))
-        fill, agg_fn, eval_fn = tasync._async_fused_runner(
-            cfg, energy_model, sim_steps, model_bytes, up_bytes, opt,
-            data["x"], data["y"], test["x"], test["y"])
-        carry = fill(kloop, params, opt_state, pop,
-                     SelectorState.create(cfg.selector).canonical(dev),
-                     tserver._accuracy_fn(cfg.model, test)(params))
+        (agg_fn, eval_fn), carry = tasync._async_fused_engine(
+            cfg, dev, ClientMesh(1))
         graphs = StepGraphs(carry, cfg.rounds)
         graphs.add("agg", agg_fn, advance=True)
         graphs.add("eval", eval_fn, row=-1)

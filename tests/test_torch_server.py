@@ -44,6 +44,18 @@ EXTRA = {"eafl": {}, "random": {},
                              overcommit=1.5, compression="int8")}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread while a module that uses this runs: its tests
+    are many small operators, which a team of threads in each of pytest's
+    worker processes only slows (the teams spin against each other); as
+    fast alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(case):
     kind = case.split("-")[0]
     extra = EXTRA[case]
@@ -144,14 +156,19 @@ def test_async_knobs_route_to_the_async_engines(monkeypatch):
 
 @pytest.mark.parametrize("engine", ["sharded"])
 def test_unported_engines_raise(engine):
-    """The sync sharded engine runs (``run_fl_sharded``, equal to the
-    fused engine on one shard); the async one still raises (item 13)."""
+    """The sharded engines, which raised while they were not ported, run:
+    ``run_fl_sharded`` and ``run_fl_async_sharded``, each equal to its
+    family's fused engine on one shard."""
+    from repro_torch.federated import async_server
     cfg = _cfgs("eafl")[1]
     out = tserver.run_fl(cfg, engine=engine, device="cpu")
     ref = tserver.run_fl_scanned(cfg, device="cpu")
     assert out.as_dict() == ref.as_dict()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tserver.run_fl(cfg, mode="async", engine=engine, device="cpu")
+    acfg = dataclasses.replace(cfg, buffer_size=2, max_concurrency=4)
+    out = tserver.run_fl(acfg, mode="async", engine=engine, device="cpu")
+    ref = async_server.run_fl_async_scanned(acfg, device="cpu")
+    assert out.round == [1, 2, 3]
+    assert out.as_dict() == ref.as_dict()
 
 
 def test_port_runs_on_its_own_draws():
