@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Plant faults in the top-k, tensor-core attention and both scan
-kernels and in the async (FedBuff) engines, and read what
-``chip_smoke.py``'s checks make of them, on one GPU.
+"""Plant faults in the top-k, tensor-core attention (forward and
+backward) and both scan kernels and in the async (FedBuff) engines, and
+read what ``chip_smoke.py``'s checks make of them, on one GPU.
 
     python3 chip_faults.py [--seed N]   # needs one CUDA device
 
@@ -11,7 +11,13 @@ a temporary directory (the checkout is left as it is): ``TOPK_FAULTS``
 edit ``topk_select`` in ``topk_select.cu`` (2), ``FAULTS``
 ``flash_fwd_wgmma`` in ``flash_attention.cu`` (5), ``SSD_FAULTS`` the
 tensor-core ``ssd_fwd_mma`` in ``ssd_chunk.cu`` (6) and ``SCAN_FAULTS``
-``scan_fwd`` in ``selective_scan.cu`` (6).
+``scan_fwd`` in ``selective_scan.cu`` (6). ``BWD_FAULTS`` (3) are one or
+more edits each of the training path's attention: the backward kernel
+``flash_bwd_mma`` with dK not summed over the query heads of a KV head,
+and with the last, ragged key tile's rows past S read (as the last key)
+and not masked; and the tensor-core forward's log-sum-exp left in base 2.
+Phase 17 of ``chip_smoke.py`` must pass with the sound libraries and fail
+with each fault.
 
 For the sound top-k kernel and each of its faults it runs phase 2 of
 ``chip_smoke.py`` (the 105-case matrix and the edge cases, indices exact,
@@ -164,6 +170,39 @@ SCAN_FAULTS = {
         "const double a2 = (double)aj * kLog2e;",
         "const double a2 = (double)aj;"),
 }
+# Faults of the training path's attention, each one or more edits of one
+# library: (library, [(text, replacement), ...]); phase 17 of
+# chip_smoke.py (the backward against its plain version, the forward's
+# log-sum-exp against the plain one) must fail on each.
+BWD_FAULTS = {
+    # each KV head's dK keeps only its last query head's share
+    "dk_without_group_sum": ("flash_attention_bwd", [(
+        "    const int h = kh * G + gi;\n",
+        "    const int h = kh * G + gi;\n"
+        "#pragma unroll\n    for (int nt = 0; nt < NT; ++nt)\n"
+        "#pragma unroll\n"
+        "      for (int e = 0; e < 4; ++e) dka[nt][e] = 0.f;\n")]),
+    # the tensor-core forward's log-sum-exp left in base 2, its running
+    # max's
+    "lse_in_base_2": ("flash_attention", [(
+        "      if (row0 < S) lrow[row0] = (m0 + log2f(d0)) * kLn2;\n"
+        "      if (row1 < S) lrow[row1] = (m1 + log2f(d1)) * kLn2;\n",
+        "      if (row0 < S) lrow[row0] = m0 + log2f(d0);\n"
+        "      if (row1 < S) lrow[row1] = m1 + log2f(d1);\n")]),
+    # the last, ragged key tile's rows past S read as the last key (in
+    # bounds) and not masked
+    "ragged_k_tile_not_masked": ("flash_attention_bwd", [
+        ("if (key < S && row < S && (!causal || key <= row))\n"
+         "            p = exp2f(",
+         "if (row < S && (!causal || key <= row))\n"
+         "            p = exp2f("),
+        ("    if (t < S) val = *reinterpret_cast<const uint4*>(src + t * ss "
+         "+ 8 * ch);\n",
+         "    val = *reinterpret_cast<const uint4*>(\n"
+         "        src + (t < S ? t : S - 1) * ss + 8 * ch);\n")]),
+}
+
+
 # library: (its faults, the kernel function they edit)
 def _ties_reversed(sound):
     """The flush's ``_top_k_idx`` with equal values highest index first."""
@@ -332,12 +371,16 @@ KERNEL_FAULTS = {"topk_select": (TOPK_FAULTS, "topk_select("),
 
 
 def build_fault(ops, lib, name, old, new, tmp):
-    """Compile library ``lib`` with one fault planted; returns its path."""
+    """Compile library ``lib`` with one fault planted: ``old`` replaced by
+    ``new``, or, with ``new`` None, each ``(text, replacement)`` pair of
+    the list ``old``; returns its path."""
     src = (ops.CSRC / f"{lib}.cu").read_text()
-    cs.check(src.count(old) == 1, f"fault {name}: its text occurs "
-             f"{src.count(old)} times in {lib}.cu, not once")
+    for text, repl in ([(old, new)] if new is not None else old):
+        cs.check(src.count(text) == 1, f"fault {name}: its text occurs "
+                 f"{src.count(text)} times in {lib}.cu, not once")
+        src = src.replace(text, repl)
     cu = Path(tmp) / f"{lib}-{name}.cu"
-    cu.write_text(src.replace(old, new))
+    cu.write_text(src)
     out = Path(tmp) / f"lib{lib}-{name}.so"
     proc = subprocess.run([ops._nvcc(), *ops.nvcc_flags(lib),
                            "-o", str(out), str(cu)],
@@ -365,21 +408,51 @@ def fails(tight, limits):
 
 def build_all(ops, tmp):
     """The sound libraries and every fault, one nvcc each, all at once;
-    returns ``{lib: {"sound" or fault name: bound library}}``."""
-    jobs = sum(len(faults) + 1 for faults, _ in KERNEL_FAULTS.values())
+    returns ``{lib: {"sound" or fault name: bound library}}`` and
+    ``{fault name: (library, bound library)}`` of ``BWD_FAULTS``."""
+    jobs = sum(len(faults) + 1 for faults, _ in KERNEL_FAULTS.values()) \
+        + len(BWD_FAULTS) + 1
     with ThreadPoolExecutor(jobs) as pool:
         sound = {lib: pool.submit(ops.build_library, lib)
-                 for lib in KERNEL_FAULTS}
+                 for lib in (*KERNEL_FAULTS, "flash_attention_bwd")}
         built = {lib: {n: pool.submit(build_fault, ops, lib, n, o, w, tmp)
                        for n, (o, w) in faults.items()}
                  for lib, (faults, _) in KERNEL_FAULTS.items()}
+        bwd_built = {n: (lib, pool.submit(build_fault, ops, lib, n, edits,
+                                          None, tmp))
+                     for n, (lib, edits) in BWD_FAULTS.items()}
         libs = {}
         for lib in KERNEL_FAULTS:
             sound[lib].result()
             libs[lib] = {"sound": ops.load_library(lib)}
             libs[lib].update({n: ops._BINDERS[lib](ctypes.CDLL(str(
                 f.result()))) for n, f in built[lib].items()})
-    return libs
+        sound["flash_attention_bwd"].result()
+        ops.load_library("flash_attention_bwd")
+        bwd = {n: (lib, ops._BINDERS[lib](ctypes.CDLL(str(f.result()))))
+               for n, (lib, f) in bwd_built.items()}
+    return libs, bwd
+
+
+def bwd_readings(torch, ops, ref, dev, faulty):
+    """Phase 17 of chip_smoke.py with the sound libraries and with each of
+    ``BWD_FAULTS`` swapped in: ``{name: {"fails", "first_failure"}}``."""
+    out = {}
+    for name, (lib, bound) in [("sound", (None, None)), *faulty.items()]:
+        sound = ops._LIBS.get(lib)
+        if lib is not None:
+            ops._LIBS[lib] = bound
+        try:
+            cs.phase_attn_bwd_vs_plain(torch, ops, ref, dev)
+            out[name] = {"fails": False}
+        except cs.SmokeFailure as err:
+            out[name] = {"fails": True, "first_failure": str(err)[:300]}
+        finally:
+            if lib is not None:
+                ops._LIBS[lib] = sound
+        torch.cuda.empty_cache()
+        cs.log(json.dumps({"flash_attention_bwd": {name: out[name]}}))
+    return out
 
 
 def scan_readings(torch, libs, launch, inputs, limits, label):
@@ -474,7 +547,7 @@ def main(argv=None) -> int:
     bf16 = torch.bfloat16
 
     with tempfile.TemporaryDirectory() as tmp:
-        all_libs = build_all(ops, tmp)
+        all_libs, bwd_libs = build_all(ops, tmp)
 
     # top-k: phase 2 of chip_smoke.py (the 105-case matrix and the edge
     # cases, indices exact and values bitwise) on each library
@@ -558,12 +631,18 @@ def main(argv=None) -> int:
                          "selective_scan")
     del scan_in, all_libs, libs
 
+    # the training path's attention: the sound libraries pass phase 17,
+    # each fault fails it
+    bwd = bwd_readings(torch, ops, ref, dev, bwd_libs)
+    del bwd_libs
+
     # the async and sharded engines: the sound ones pass phases 6e, 6f, 6k
     # and 6n, each fault fails the phase it names
     asyn = async_readings(torch, ops, ref, dev)
 
     readings = {"topk_reward": topk, "flash_attention": attn,
-                "ssd_chunk": ssd, "selective_scan": scan, "async": asyn}
+                "ssd_chunk": ssd, "selective_scan": scan,
+                "flash_attention_bwd": bwd, "async": asyn}
     limits = {"topk_reward": {"bitwise": "indices exact, values bitwise"},
               "flash_attention": {"tight": cs.ATTN_BF16_REL_L2,
                                   "route_ratio": cs.BF16_ROUTE_RATIO,
@@ -571,6 +650,12 @@ def main(argv=None) -> int:
               "ssd_chunk": {"tight": cs.SSD_BF16_REL_L2,
                             "tight_slow_decay": cs.SSD_BF16_REL_L2_SLOW},
               "selective_scan": {"tight": cs.SCAN_BF16_REL_L2},
+              "flash_attention_bwd": {
+                  "17": "the backward against its plain version (tolerance "
+                        + json.dumps(cs.ATTN_TOL) + ", bf16 also the tight "
+                        f"check at {cs.ATTN_BWD_BF16_REL_L2}) and both "
+                        "forward designs' log-sum-exp against the plain "
+                        "one"},
               "async": {"6e": "flush, staleness and damping against the "
                               "event clock recomputed on the host",
                         "6f": "fused engine against the host loop",
@@ -583,7 +668,8 @@ def main(argv=None) -> int:
                               "must fail on " + json.dumps(
                                   {k: v[4] for k, v in
                                    ASYNC_SHARD_FAULTS.items()})}}
-    fail_key = {"topk_reward": "bitwise_fails"}
+    fail_key = {"topk_reward": "bitwise_fails",
+                "flash_attention_bwd": "fails"}
     ok = all(not r["sound"][fail_key.get(k, "tight_fails")] and all(
         v[fail_key.get(k, "tight_fails")] for n, v in r.items()
         if n != "sound") for k, r in readings.items() if k != "async")

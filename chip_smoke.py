@@ -6,8 +6,9 @@
 Phases (any mismatch exits non-zero; nothing is caught and swallowed):
 
 1. Device: the card's name, power limit and maximum SM clock; build the
-   four Hopper kernels from the sources in this checkout, one ``nvcc``
-   each, all at once, and time the build; log each main-path kernel's
+   five Hopper kernel libraries (top-k, attention and its backward, SSD,
+   selective scan) from the sources in this checkout, one ``nvcc`` each,
+   all at once, and time the build; log each main-path kernel's
    registers a thread and spill bytes from ptxas's report of the build,
    and the SASS loop counts of both scan kernels.
 2. The top-k kernel against its plain PyTorch version on the card, on
@@ -216,6 +217,40 @@ The Mamba1 serving path (falcon-mamba-7b, full width, random weights from
    f32 every replay step against the forward.
 16. Timing of the scan on the inputs the prefill gave it, beside its plain
    version and its bound.
+
+LM training (olmo-1b, full width, random weights from ``--seed``; falcon's
+weights are freed first):
+
+17. The attention backward kernel against its plain version (the
+   explicit formulas in f32) on phase 7's shapes, the train step's
+   (4, 4096, 16 heads of 128) and GQA with 24 query heads over 8 at a
+   ragged S, bf16 and f32, causal and not, on the o and log-sum-exp that
+   the forward kernel wrote: dq, dk, dv at the JAX package's attention
+   tolerances, bf16 also by the tight check against the f32 backward of
+   the same inputs; the log-sum-exp of both forward designs against the
+   plain forward's.
+18. The main path: ``make_train_step(get_config("olmo-1b"),
+   default_optimizer())`` on ``lm_batch`` at 4 x 4096 (a cut of
+   ``train_4k``'s 256 x 4096), 3 steps, counts set to 0 just before each
+   step and read just after: 32 attention launches (the forward and the
+   remat recompute) and 16 backward launches a step; the losses finite;
+   a fourth step profiled (device time by layer, idle share). The first
+   backward call held against its plain version and by the tight check.
+   The routes: one step's loss and gradients in f32 (TF32 off) at full
+   width, depth 2, on 2 x 1024 tokens, kernel route against the plain
+   route (autograd through the query-chunked attention); in bf16 at full
+   depth the kernel route's gradient no further from the f32 gradient
+   than ``BF16_ROUTE_RATIO`` times the plain route's. A zamba2 and a
+   falcon ``loss_fn`` under grad on the card must raise
+   ``NotImplementedError`` (the scan kernels have no backward kernel).
+19. ``python -m repro_torch.launch.train cohort --steps 10`` (reduced
+   olmo-1b, as the reference) and ``python -m
+   repro_torch.examples.federated_llm_cohort``, each in its own process:
+   both exit 0.
+20. Timing, on the inputs the train step gave the backward kernel: the
+   kernel, its plain version and ``scaled_dot_product_attention``'s
+   backward (its forward and backward less its forward) in turns, beside
+   the bound; the forward kernel with and without the log-sum-exp.
 
 Each phase's wall time is logged. The last two lines of standard output
 are the kernels' JSON summary and ``{"ok": true, "device": {...}}``.
@@ -2626,9 +2661,9 @@ def phase_ssd_vs_plain(torch, ops, ref, dev):
 
 @contextlib.contextmanager
 def first_calls(ops, names):
-    """Keep a copy of the inputs (and the output) of the first call of each
-    wrapper in ``names`` while the block runs; the launch counters stay
-    the wrappers' own."""
+    """Keep a copy of the inputs (and the output, or each output of a
+    tuple) of the first call of each wrapper in ``names`` while the block
+    runs; the launch counters stay the wrappers' own."""
     seen = {}
     saved = {n: getattr(ops, n) for n in names}
 
@@ -2639,7 +2674,8 @@ def first_calls(ops, names):
             out = wrapper(*args, **kw)
             if name not in seen:
                 seen[name] = (tuple(clone_strided(a) for a in args),
-                              dict(kw), out.clone())
+                              dict(kw), tuple(t.clone() for t in out)
+                              if isinstance(out, tuple) else out.clone())
             return out
         return call
 
@@ -3019,6 +3055,7 @@ def phase_mamba1_routes(torch, ops, dev, cfg, params, tokens):
 # aligned rows)
 MAIN_ENTRIES = {"topk_select": "topk_select",
                 "flash_attention": "flash_fwd_wgmma",
+                "flash_attention_bwd": "flash_bwd_mmaILi128E",
                 "ssd_chunk": "ssd_fwd_mmaILi32ELi64ELb1E",
                 "selective_scan": "scan_fwdI13__nv_bfloat16Li16E"}
 
@@ -3182,6 +3219,420 @@ def phase_scan_timing(torch, ops, ref, seen, l2_bytes, sms, clock_hz):
     return row
 
 
+# ---------------------------------------- LM training (phases 17-20)
+BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+# no Pallas kernel: the reference differentiates its pure-jnp attention
+BWD_REPLACES = "src/repro/models/attention.py:38"
+# B, S, H, KH, hd: phase 7's shapes (pad 0) and the olmo-1b train step's
+# (4, 4096, 16 heads of 128), GQA with 24 query heads over 8 at a ragged S
+BWD_SHAPES = [s[:5] for s in ATTN_SHAPES if s[5] == 0] + [
+    (4, 4096, 16, 16, 128), (2, 1000, 24, 8, 128)]
+# The tight check of the bf16 backward: the relative L2 distance of each of
+# dq, dk, dv from the f32 backward (the plain version) of the same inputs,
+# q, k, v, o, lse and do as the kernel read them, so that it sees the
+# kernel's own arithmetic: P and dS rounded to bf16 as operands of the
+# tensor-core products (as the forward rounds P before P V), and each
+# gradient rounded to bf16 once. (Measured from the f32 forward's o
+# instead, D = rowsum(dO o O) carries o's bf16 rounding, which the
+# cancellation in dP - D amplifies: dq read 7.4e-3 on the train step's
+# first call.) On an H100 the sound kernel read 2.32e-3 to 2.39e-3 in
+# phase 17 and 2.19e-3 on the train step's first call; the planted faults
+# (chip_faults.py) fail phase 17's elementwise checks.
+ATTN_BWD_BF16_REL_L2 = 3.5e-3
+TRAIN_BATCH, TRAIN_LEN = 4, 4096   # a cut of train_4k's 256 x 4096
+TRAIN_STEPS = 3
+ROUTE_DEPTH, ROUTE_BATCH, ROUTE_TOKENS = 2, 2, 1024
+# f32 (TF32 off) one step's loss and gradients, kernel route against the
+# plain route (autograd through the query-chunked attention), at full
+# width and depth 2 on 2 x 1024 tokens
+F32_LOSS_RTOL = 1e-5
+F32_GRAD_REL_L2 = 1e-4
+
+
+def attn_bwd_inputs(torch, B, S, H, KH, D, dtype, dev, seed):
+    """q, k, v and an output gradient do."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(B, S, h, D, generator=g).to(dtype).to(dev)
+            for h in (H, KH, KH, H)]
+
+
+def bwd_rel_l2(torch, ref, grads, q, k, v, o, lse, do, causal):
+    """Each gradient's relative L2 distance from the f32 backward (the
+    plain version, TF32 off) of the same inputs: q, k, v, o, lse and do as
+    the kernel read them."""
+    exact = ref.flash_attention_bwd(*(t.float() for t in (q, k, v, o)),
+                                    lse, do.float(), causal=causal)
+    return {name: rel_l2(torch, g, e)
+            for name, g, e in zip(("dq", "dk", "dv"), grads, exact)}
+
+
+def phase_attn_bwd_vs_plain(torch, ops, ref, dev, shapes=None):
+    """17: the backward kernel against its plain version on the same q, k,
+    v, o, log-sum-exp and do (o and the log-sum-exp from the forward
+    kernel), and the log-sum-exp of both forward designs against the plain
+    forward's, at the JAX package's attention tolerances; bf16 gradients
+    also by the tight check."""
+    from repro_torch.kernels import flash_attention as fa
+
+    errs, lse_errs, shapes_run, rel = {}, {}, [], {}
+    fwd = ops.load_library("flash_attention")
+    for i, (B, S, H, KH, D) in enumerate(shapes or BWD_SHAPES):
+        for dt in (torch.bfloat16, torch.float32):
+            name = dtype_name(dt)
+            q, k, v, do = attn_bwd_inputs(torch, B, S, H, KH, D, dt, dev,
+                                          300 + i)
+            for causal in (True, False):
+                what = f"attention backward B={B} S={S} H={H} KH={KH} " \
+                       f"hd={D} {name} causal={causal}"
+                o, lse = fa.launch(fwd, q, k, v, causal=causal,
+                                   with_lse=True)
+                _, plain_lse = ref.flash_attention_fwd_lse(q, k, v,
+                                                           causal=causal)
+                lse_errs[name] = max(lse_errs.get(name, 0.0), close(
+                    torch, lse, plain_lse, ATTN_TOL[name],
+                    f"log-sum-exp of the forward, {what}"))
+                grads = ops.flash_attention_bwd(q, k, v, o, lse, do,
+                                                causal=causal)
+                exp = ref.flash_attention_bwd(q, k, v, o, lse, do,
+                                              causal=causal)
+                for gname, g, e in zip(("dq", "dk", "dv"), grads, exp):
+                    check(g.dtype == dt and g.shape == e.shape,
+                          f"{gname} {g.dtype} {tuple(g.shape)}: {what}")
+                    errs[name] = max(errs.get(name, 0.0), close(
+                        torch, g, e, ATTN_TOL[name], f"{gname}, {what}"))
+                del exp
+                if dt == torch.bfloat16:
+                    case = f"{B}x{S}x{H}x{KH}x{D} causal={causal}"
+                    rel[case] = held(bwd_rel_l2(torch, ref, grads, q, k, v,
+                                                o, lse, do, causal),
+                                     ATTN_BWD_BF16_REL_L2, what)
+                shapes_run.append([B, S, H, KH, D, name, causal])
+                del grads, o, lse, plain_lse
+            del q, k, v, do
+    torch.cuda.synchronize()
+    log(f"phase 17: flash_attention_bwd kernel == plain on "
+        f"{len(shapes_run)} cases (B,S,H,KH,hd) in {shapes or BWD_SHAPES}, "
+        f"bf16 and f32, causal and not: max abs err {errs} (tol {ATTN_TOL}, "
+        f"TF32 off); the log-sum-exp of both forward designs == plain, max "
+        f"abs err {lse_errs}; bf16 gradients vs the f32 backward of their "
+        f"inputs, relative L2 {rel} (limit {ATTN_BWD_BF16_REL_L2})")
+    return errs, lse_errs, shapes_run, max(rel.values())
+
+
+def step_kind(name):
+    """The layer a device operation of a train step belongs to, by its
+    kernel's name."""
+    low = name.lower()
+    if "flash_bwd" in name or "bwd_prep" in name or "cast_dq" in name:
+        return "attention backward kernel"
+    if "flash_fwd" in name:
+        return "attention forward kernel"
+    if any(w in low for w in ("gemm", "xmma", "cutlass", "sm90_", "nvjet")):
+        return "matmuls (cuBLAS)"
+    return "other (elementwise, reductions, copies)"
+
+
+def profile_step(torch, run, out_dir, top=10):
+    """A ``torch.profiler`` trace of one call of ``run()`` (a train step):
+    :func:`round_split`'s span, busy time, idle share and top device
+    operations, and the device time by :func:`step_kind`."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    trace = out_dir / "trace_train_step.json"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=0, active=1, repeat=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(str(trace))
+                 ) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+    events = json.loads(trace.read_text())["traceEvents"]
+    row = round_split(events, "train_step", top)
+    t0 = min(e["ts"] for e in events if e.get("ph") == "X" and
+             str(e.get("name", "")).startswith("ProfilerStep#"))
+    kinds = Counter()
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in (
+                "kernel", "gpu_memcpy", "gpu_memset") and e["ts"] >= t0:
+            kinds[step_kind(str(e["name"]))] += e["dur"] / 1e3
+    row["by_kind_ms"] = dict(kinds.most_common())
+    return row
+
+
+def grad_diff(torch, got, exact):
+    """The largest relative L2 distance of a gradient leaf of ``got`` from
+    the same leaf of ``exact``, and of the whole gradient (all leaves as
+    one vector)."""
+    worst = max(rel_l2(torch, g, e.float()) for g, e in zip(got, exact))
+    num = math.sqrt(sum(float((g.float() - e.float()).norm()) ** 2
+                        for g, e in zip(got, exact)))
+    den = math.sqrt(sum(float(e.float().norm()) ** 2 for e in exact))
+    return {"worst_leaf_rel_l2": worst, "rel_l2": num / den}
+
+
+def loss_and_grads(torch, cfg, params, batch, dev, use_kernel):
+    """``loss_fn``'s loss and the gradient of every parameter leaf."""
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+
+    from repro_torch.models.transformer import loss_fn
+
+    leaves, spec = tree_flatten(params)
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    loss, _ = loss_fn(cfg, tree_unflatten(leaves, spec), batch, device=dev,
+                      use_kernel=use_kernel)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss), grads
+
+
+def phase_train_step(torch, ops, ref, dev, seed):
+    """18: the main path of the attention kernels in training:
+    ``make_train_step(get_config("olmo-1b"), default_optimizer())`` on
+    ``lm_batch`` at 4 x 4096, 3 steps (counts set to 0 just before each,
+    read just after); the first backward call held against its plain
+    version; then the routes (f32 at depth 2, bf16 at full depth), and a
+    zamba2 and a falcon ``loss_fn`` under grad must raise."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.data import lm_batch
+    from repro_torch.launch.steps import default_optimizer, make_train_step
+    from repro_torch.models.transformer import init_params, loss_fn
+
+    cfg = get_config("olmo-1b")
+    params = init_params(seed, cfg, device=dev)
+    opt = default_optimizer()
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, device=dev)
+    key = prng.PRNGKey(seed, dev)
+    names = ("flash_attention", "flash_attention_bwd")
+    losses, secs, launches = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with first_calls(ops, ("flash_attention_bwd",)) as seen:
+        for i in range(TRAIN_STEPS):
+            batch = lm_batch(prng.fold_in(key, i), cfg, TRAIN_BATCH,
+                             TRAIN_LEN)
+            torch.cuda.synchronize()
+            for n in names:
+                ops.LAUNCHES[n] = 0
+            t0 = time.perf_counter()
+            params, state, loss, metrics = step(params, state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            launches.append({n: ops.LAUNCHES[n] for n in names})
+            losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
+    check(all(n == want for n in launches),
+          f"olmo-1b train steps launched {launches}; expected {want} a step "
+          f"(the forward and the remat recompute, and the backward)")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(int(state["t"]) == TRAIN_STEPS, f"optimizer step {state['t']}")
+    with tempfile.TemporaryDirectory() as tmp:   # a trace passes 64 MiB
+        profile = profile_step(torch, lambda: step(params, state, batch),
+                               Path(tmp))
+    del params, state, step
+    torch.cuda.empty_cache()
+    (q, k, v, o, lse, do), kw, grads = seen["flash_attention_bwd"]
+    check(q.dtype == torch.bfloat16 and tuple(q.shape) == (
+        TRAIN_BATCH, TRAIN_LEN, cfg.n_heads, cfg.resolved_head_dim),
+        f"the step's backward call: {q.dtype} {tuple(q.shape)}")
+    exp = ref.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    err = max(close(torch, g, e, ATTN_TOL["bfloat16"],
+                    f"the step's first backward call, {n}")
+              for n, g, e in zip(("dq", "dk", "dv"), grads, exp))
+    del exp
+    call_rel = held(bwd_rel_l2(torch, ref, grads, q, k, v, o, lse, do,
+                               kw.get("causal", True)),
+                    ATTN_BWD_BF16_REL_L2, "phase 18: the first backward call")
+    timed_secs = secs[1:]
+    tok_s = TRAIN_BATCH * TRAIN_LEN / statistics.median(timed_secs)
+
+    # the routes: f32 (TF32 off) at depth 2, bf16 at full depth
+    g = torch.Generator(device="cpu").manual_seed(seed + 2)
+    tokens = torch.randint(0, cfg.vocab_size, (ROUTE_BATCH, ROUTE_TOKENS + 1),
+                           generator=g).to(dev)
+    rbatch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    cfg2 = cfg.with_(n_layers=ROUTE_DEPTH, compute_dtype=torch.float32)
+    p2 = init_params(seed + 1, cfg2, device=dev)
+    kl, kg = loss_and_grads(torch, cfg2, p2, rbatch, dev, True)
+    pl, pg = loss_and_grads(torch, cfg2, p2, rbatch, dev, False)
+    f32 = {"loss_rel": abs(kl - pl) / abs(pl), **grad_diff(torch, kg, pg)}
+    del p2, kg, pg
+    check(f32["loss_rel"] <= F32_LOSS_RTOL
+          and f32["worst_leaf_rel_l2"] <= F32_GRAD_REL_L2,
+          f"f32 olmo-1b depth {ROUTE_DEPTH}, kernel vs plain route: {f32} "
+          f"(limits {F32_LOSS_RTOL} loss, {F32_GRAD_REL_L2} a leaf)")
+    params = init_params(seed + 1, cfg, device=dev)
+    _, exact = loss_and_grads(torch, cfg.with_(compute_dtype=torch.float32),
+                              params, rbatch, dev, False)
+    _, kern = loss_and_grads(torch, cfg, params, rbatch, dev, True)
+    bf16 = {"kernel_vs_f32": grad_diff(torch, kern, exact)}
+    del kern
+    _, plain = loss_and_grads(torch, cfg, params, rbatch, dev, False)
+    bf16["plain_vs_f32"] = grad_diff(torch, plain, exact)
+    del plain, exact, params
+    torch.cuda.empty_cache()
+    ratio = bf16["kernel_vs_f32"]["rel_l2"] / bf16["plain_vs_f32"]["rel_l2"]
+    check(ratio <= BF16_ROUTE_RATIO,
+          f"bf16 olmo-1b: the kernel route's gradient lies {ratio} x as far "
+          f"from f32 as the plain route's (limit {BF16_ROUTE_RATIO}): {bf16}")
+
+    # the scan kernels have no backward kernel: under grad they raise
+    refused = {}
+    for arch in ("zamba2-1.2b", "falcon-mamba-7b"):
+        rcfg = get_reduced(arch)
+        rp = init_params(seed, rcfg, device=dev)
+        for t in tree_leaves(rp):
+            if t is not None:
+                t.requires_grad_(True)
+        b = lm_batch(key, rcfg, 2, 64)
+        try:
+            loss_fn(rcfg, rp, b, device=dev)
+        except NotImplementedError as e:
+            refused[arch] = str(e)[:80]
+        check(arch in refused, f"{arch}: loss_fn under grad on the card did "
+                               f"not raise")
+        with torch.no_grad():
+            loss_fn(rcfg, rp, b, device=dev)   # the forward alone runs
+    row = {"step_s": secs, "tokens_per_s": tok_s, "peak_gib": peak,
+           "profile": profile,
+           "losses": losses, "launches": launches, "max_abs_err": err,
+           "call_rel_l2": call_rel, "f32_routes": f32, "bf16_routes": bf16,
+           "bf16_route_ratio": ratio, "refused": refused,
+           "card": card_name_power()}
+    log(f"phase 18: olmo-1b full width ({cfg.param_count():,} params) "
+        f"train steps (make_train_step, AdamW) on {TRAIN_BATCH} x "
+        f"{TRAIN_LEN} tokens (a cut of train_4k's 256 x 4096) on "
+        f"{row['card']}: s a step {secs} ({tok_s:.0f} tokens/s over steps "
+        f"2-{TRAIN_STEPS}), peak memory {peak:.2f} GiB, losses {losses}, "
+        f"launches a step {launches}; one profiled step: span "
+        f"{profile['span_ms']:.2f} ms, device busy "
+        f"{profile['device_busy_ms']:.2f} ms, idle share "
+        f"{profile['idle_share']:.4f}, {profile['device_ops']} device "
+        f"operations, ms by layer {profile['by_kind_ms']}, top "
+        f"{profile['top'][:5]}; the first backward call == plain, max "
+        f"abs err {err}, vs the f32 backward relative L2 {call_rel}; f32 "
+        f"depth {ROUTE_DEPTH} on {ROUTE_BATCH} x {ROUTE_TOKENS}, kernel vs "
+        f"plain route: {f32}; bf16 full depth: {bf16}, ratio {ratio} (limit "
+        f"{BF16_ROUTE_RATIO}); under grad the scan kernels raise: {refused}")
+    return row, seen
+
+
+def phase_cohort_cli(torch):
+    """19: ``python -m repro_torch.launch.train cohort --steps 10`` (reduced
+    olmo-1b, as the reference) and the federated LLM cohort example, each
+    in its own process on the card; both must exit 0."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
+    row = {}
+    for name, cmd in (
+            ("train_cohort", ["-m", "repro_torch.launch.train", "cohort",
+                              "--steps", "10"]),
+            ("federated_llm_cohort",
+             ["-m", "repro_torch.examples.federated_llm_cohort"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *cmd], capture_output=True,
+                              text=True, env=env, cwd=str(ROOT),
+                              timeout=600)
+        secs = time.perf_counter() - t0
+        check(proc.returncode == 0, f"phase 19: {' '.join(cmd)} exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        last = proc.stdout.strip().splitlines()[-1]
+        row[name] = {"s": secs, "last_line": last}
+    log(f"phase 19: train cohort --steps 10 and the federated LLM cohort "
+        f"example on the card, each in its own process: {row}")
+    return row
+
+
+def bwd_bound(q, k, v, causal=True):
+    """Least time of the backward: q, k, v, o, do read and dq, dk, dv
+    written once at the HBM rate; five products (s recomputed, dP, dV, dK,
+    dQ) over the pairs the mask keeps, 2 * hd FLOP a pair each, at the peak
+    rate of the dtype."""
+    B, S, H, D = q.shape
+    nbytes = 3 * q.nbytes + 2 * q.nbytes + 2 * (k.nbytes + v.nbytes)
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 5 * 2 * D * pairs * B * H
+    rate = BF16_FLOP_PER_S if q.element_size() == 2 else F32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def sdpa_bwd_ms(torch, sets, causal, reps=5, trials=5):
+    """``scaled_dot_product_attention`` forward and backward minus its
+    forward alone, on the (B, H, S, hd) layout of each set (q, k, v, do);
+    ms a call."""
+    F = torch.nn.functional
+    leaves = [tuple(t.transpose(1, 2).contiguous().requires_grad_(i < 3)
+                    for i, t in enumerate(s)) for s in sets]
+
+    def fwd(q, k, v, do):
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+    def fwd_bwd(q, k, v, do):
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        torch.autograd.grad(out, (q, k, v), do)
+
+    both = cuda_ms(torch, fwd_bwd, leaves, reps=reps, trials=trials)
+    alone = cuda_ms(torch, fwd, leaves, reps=reps, trials=trials)
+    return both - alone, both, alone
+
+
+def phase_train_timing(torch, ops, ref, seen, l2_bytes):
+    """20: the backward kernel on the inputs the train step gave it
+    (kernel, plain version, SDPA's backward, in turns, two turns) beside
+    its bound; the attention forward with and without the log-sum-exp."""
+    from repro_torch.kernels import flash_attention as fa
+
+    (q, k, v, o, lse, do), kw, _ = seen["flash_attention_bwd"]
+    causal = kw.get("causal", True)
+    sets, cold = copies((q, k, v, o, lse, do), l2_bytes)
+    runs = {"ms": [], "plain_ms": [], "library_ms": []}
+    sdpa = []
+    for _ in range(2):
+        runs["ms"].append(cuda_ms(
+            torch, lambda *a: ops.flash_attention_bwd(*a, causal=causal),
+            sets, reps=5))
+        runs["plain_ms"].append(cuda_ms(
+            torch, lambda *a: ref.flash_attention_bwd(*a, causal=causal),
+            sets[:2], reps=1, trials=3))
+        lib = sdpa_bwd_ms(torch, [(s[0], s[1], s[2], s[5]) for s in sets[:4]],
+                          causal)
+        runs["library_ms"].append(lib[0])
+        sdpa.append(lib)
+    row = {key: statistics.median(val) for key, val in runs.items()}
+    row["bound_ms"], row["bound_by"] = bwd_bound(q, k, v, causal)
+    row.update(shape=list(q.shape), kv_heads=int(k.shape[2]),
+               dtype=dtype_name(q.dtype), l2_cold=cold,
+               sdpa_fwd_bwd_and_fwd_ms=sdpa)
+    fwd = ops.load_library("flash_attention")
+    fsets = [s[:3] for s in sets]
+    with_lse, without = [], []
+    for _ in range(2):
+        without.append(cuda_ms(torch, lambda *a: fa.launch(
+            fwd, *a, causal=causal), fsets))
+        with_lse.append(cuda_ms(torch, lambda *a: fa.launch(
+            fwd, *a, causal=causal, with_lse=True), fsets))
+    row["forward_ms"] = {"without_lse": statistics.median(without),
+                         "with_lse": statistics.median(with_lse)}
+    row["card"] = card_name_power()
+    log(f"phase 20: flash_attention_bwd at the olmo-1b step's shape "
+        f"{row['shape']} {row['dtype']} causal={causal} on {row['card']}: "
+        f"kernel {row['ms']:.5f} ms, plain {row['plain_ms']:.5f} ms, "
+        f"scaled_dot_product_attention's backward {row['library_ms']:.5f} "
+        f"ms (forward + backward less forward: {sdpa}), bound "
+        f"{row['bound_ms']:.6f} ms ({row['bound_by']}); the forward kernel "
+        f"at that shape without / with the log-sum-exp "
+        f"{row['forward_ms']['without_lse']:.5f} / "
+        f"{row['forward_ms']['with_lse']:.5f} ms")
+    return row
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser()
@@ -3221,7 +3672,8 @@ def main(argv=None) -> int:
     log("phase 1: TF32 off for cuDNN convolutions and matmuls "
         "(parity phases compare float32 with the CPU)")
     t0 = time.perf_counter()
-    names = ("topk_select", "flash_attention", "ssd_chunk", "selective_scan")
+    names = ("topk_select", "flash_attention", "flash_attention_bwd",
+             "ssd_chunk", "selective_scan")
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         paths = list(pool.map(ops.build_library, names))
     for name in names:
@@ -3360,6 +3812,18 @@ def main(argv=None) -> int:
                      l2, sms, clock_hz)
     del seen
 
+    # LM training (olmo-1b): the backward kernel against its plain
+    # version, then the train step's main path, counts set to 0 just
+    # before each step and read just after (inside the phase)
+    bwd_errs, lse_errs, bwd_shapes, bwd_rel = timed(
+        "phase 17", phase_attn_bwd_vs_plain, torch, ops, ref, dev)
+    train_row, seen = timed("phase 18", phase_train_step, torch, ops, ref,
+                            dev, seed)
+    cohort_row = timed("phase 19", phase_cohort_cli, torch)
+    bwd_row = timed("phase 20", phase_train_timing, torch, ops, ref, seen,
+                    l2)
+    del seen
+
     summary = {"kernels": [{
         "name": "topk_reward", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "checked": True,
@@ -3461,6 +3925,30 @@ def main(argv=None) -> int:
             "launches_by_phase": by_phase, "bf16_rel_l2_vs_f32": rel,
             "build": regs[name],
         })
+    summary["kernels"][1]["launches_by_phase"]["olmo_train_step"] = \
+        train_row["launches"][0]["flash_attention"]
+    summary["kernels"][1]["lse_max_abs_err_by_dtype"] = lse_errs
+    summary["kernels"].append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": BWD_SOURCE, "replaces": BWD_REPLACES, "checked": True,
+        "launches": sum(n["flash_attention_bwd"]
+                        for n in train_row["launches"]),
+        "max_abs_err": max(max(bwd_errs.values()),
+                           train_row["max_abs_err"]),
+        "max_abs_err_by_dtype": bwd_errs,
+        "ms": bwd_row["ms"], "kernel_ms": bwd_row["ms"],
+        "plain_ms": bwd_row["plain_ms"], "bound_ms": bwd_row["bound_ms"],
+        "bound_by": bwd_row["bound_by"],
+        "library_ms": bwd_row["library_ms"], "shape": bwd_row,
+        "checked_shapes": bwd_shapes,
+        "launches_by_phase": {"olmo_train_step_by_step": [
+            n["flash_attention_bwd"] for n in train_row["launches"]]},
+        "bf16_rel_l2_vs_f32": {"phase17_max": bwd_rel,
+                               "train_call": train_row["call_rel_l2"],
+                               "limit": ATTN_BWD_BF16_REL_L2},
+        "build": regs["flash_attention_bwd"],
+    })
+    summary["olmo_1b"] = {"train": train_row, "cohort_cli": cohort_row}
     summary["sass"] = sass
     summary["zamba2_1_2b"] = {"prefill": prefill, "serve": serve}
     summary["falcon_mamba_7b"] = {"prefill": falcon_prefill,

@@ -14,7 +14,10 @@ each leaf, done by the caller); nothing here imports JAX. Layouts:
   keeps its shape and dtype (bf16 leaves, which numpy holds as
   ``ml_dtypes.bfloat16``, go through float32 exactly); the stacked
   ``(n, ...)`` leaves of each run of layers are unstacked into a list of
-  ``n`` per-layer dicts, the layout the port's layer loop walks.
+  ``n`` per-layer dicts, the layout the port's layer loop walks. A tree
+  without norm weights (olmo's non-parametric LayerNorm) converts the
+  same way. The LM's AdamW state converts its moment trees as LM
+  parameters (:func:`lm_optimizer_state`).
 """
 from __future__ import annotations
 
@@ -127,3 +130,14 @@ def lm_cache(caches: list, cfg, device: DeviceLike = None) -> list:
     return [_tree(c, device) if kind == "shared_attn" else
             _unstack(c, n, device)
             for (kind, n), c in zip(build_stages(cfg), caches)]
+
+
+def lm_optimizer_state(state: Mapping, cfg,
+                       device: DeviceLike = None) -> Dict:
+    """The reference's optimizer state of an LM (``{"m", "v", "t"}`` of
+    ``adamw``, or ``{"mu"}``, or ``{}``): each moment tree as
+    :func:`lm_params` (its stacked stage leaves unstacked), ``t`` a 0-d
+    CPU int32."""
+    return {name: torch.as_tensor(np.array(v), dtype=torch.int32)
+            if name == "t" else lm_params(v, cfg, device)
+            for name, v in state.items()}

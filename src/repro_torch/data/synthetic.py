@@ -1,9 +1,14 @@
-"""Deterministic synthetic speech-commands-like data, in PyTorch.
+"""Deterministic synthetic datasets, in PyTorch.
 
-35 keyword classes, 1x32x32 mel-spectrogram-like inputs. Each class is a
-fixed smooth random prototype; samples are prototype + noise, so the small
-CNN genuinely learns. Same keys and same draws as the reference; the
-normal draws differ from it only in ``erfinv``'s last bits.
+1. Speech-commands-like classification (the paper's workload): 35 keyword
+   classes, 1x32x32 mel-spectrogram-like inputs. Each class is a fixed
+   smooth random prototype; samples are prototype + noise, so the small
+   CNN genuinely learns. Same keys and same draws as the reference; the
+   normal draws differ from it only in ``erfinv``'s last bits.
+
+2. LM token streams: an order-1 Markov chain over the vocabulary (the next
+   token depends on the previous token's bucket), equal to the
+   reference's streams bit for bit.
 """
 from __future__ import annotations
 
@@ -61,3 +66,44 @@ def sample_speech_like(key: torch.Tensor, n_samples: int, n_classes: int = 35,
                                       hw)
     y = prng.randint(kl, (n_samples,), 0, n_classes)
     return {"x": make_classification_set(kn, y, prototypes, noise), "y": y}
+
+
+def markov_lm_tokens(key: torch.Tensor, batch: int, seq_len: int,
+                     vocab: int, order_vocab: int = 64) -> torch.Tensor:
+    """Learnable token stream ``(batch, seq_len)`` int64 on ``key``'s
+    device: the next token depends on the previous token's bucket.
+
+    The transition table is fixed (drawn from ``PRNGKey(42)``), so
+    successive batches sample the same stationary process. As in the
+    reference, the first token is drawn from ``key`` itself, and ``key`` is
+    then split into one key a step, whose draw ``randint(k, (batch,), 0,
+    8)`` picks the column of the table. The draws of all steps are made at
+    once; the chain of table lookups runs on the host (``seq_len`` tiny
+    gathers, which would be as many kernel launches on a card)."""
+    trans = prng.randint(prng.PRNGKey(42, key.device), (order_vocab, 8), 0,
+                         vocab)
+    choice = prng.randint(prng.split(key, seq_len), (batch,), 0, 8)
+    tok = prng.randint(key, (batch,), 0, vocab).cpu()
+    trans, choice = trans.cpu(), choice.cpu()
+    out = torch.empty((seq_len, batch), dtype=torch.int64)
+    for t in range(seq_len):
+        tok = trans[tok % order_vocab, choice[t]]
+        out[t] = tok
+    return out.T.contiguous().to(key.device)
+
+
+def lm_batch(key: torch.Tensor, cfg, batch: int,
+             seq_len: int) -> Dict[str, torch.Tensor]:
+    """Train batch ``{"tokens", "labels"}``, each ``(batch, seq_len)``
+    int64 (labels are the next-token shift), on ``key``'s device. The
+    vision and multi-codebook batches raise until their models are
+    ported."""
+    if cfg.frontend == "vision":
+        raise NotImplementedError(
+            "vision batches are not ported yet (ROADMAP.md queue 1 item 16)")
+    if cfg.n_codebooks > 1:
+        raise NotImplementedError(
+            "multi-codebook batches are not ported yet (ROADMAP.md queue 1 "
+            "item 16)")
+    toks = markov_lm_tokens(key, batch, seq_len + 1, cfg.vocab_size)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -26,6 +26,15 @@
 // tile) is masked in the kernel: missing K rows score -1e30 and missing
 // query rows are not written.
 //
+// For training, both designs also write each query row's log-sum-exp of
+// its scaled, masked scores, in f32 and in the natural base (lse = m +
+// ln l), to a (B, H, S) tensor when the caller passes one (the backward
+// kernel, flash_attention_bwd.cu, recomputes the probabilities from it);
+// the prefill and serve paths pass a null pointer and write none. The
+// tensor-core design keeps its running max in base 2 (scores times
+// scale * log2 e), so it converts once per row at the end: lse = (m2 +
+// log2 l) * ln 2.
+//
 // flash_fwd_wgmma (bf16 inputs, D = 64 or 128; base pointers and strides
 // 16-byte aligned, which the wrapper checks): a warp-specialised Hopper
 // kernel. One CTA takes BQ query rows of one (batch, head): 64 rows for
@@ -88,8 +97,8 @@ constexpr int smem_bytes() {
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ o, int S, int H,
-          int G,
+          const float* __restrict__ v, float* __restrict__ o,
+          float* __restrict__ lse, int S, int H, int G,
           Strides qs, Strides ks, Strides vs, float scale, int causal) {
   constexpr int LD = HD + 1;
   constexpr int CJ = HD / 16;  // output columns per thread
@@ -209,6 +218,9 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     float* orow = o + (((long long)b * S + row) * H + h) * HD;
 #pragma unroll
     for (int j = 0; j < CJ; ++j) orow[cg + 16 * j] = acc[i][j] / denom;
+    // m and l are the row's own in all 16 lanes that share it
+    if (lse != nullptr && cg == 0)
+      lse[((long long)b * H + h) * S + row] = m[i] + logf(denom);
   }
 }
 
@@ -217,6 +229,7 @@ constexpr int kWgBK = 128;          // K/V rows per tile
 constexpr int kBox = 64;            // bf16 columns of one 128-byte TMA box
 constexpr int kBoxBytes = kWgBK * kBox * 2;  // one 128-row box: 16 KB
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int HD>
 struct WgTraits {
@@ -452,8 +465,8 @@ __global__ void __launch_bounds__(WgTraits<HD>::kThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap,
-                __nv_bfloat16* __restrict__ o, int S, int H, int G,
-                float scale_log2, int causal) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int S, int H, int G, float scale_log2, int causal) {
   using T = WgTraits<HD>;
   constexpr int kStages = T::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -637,6 +650,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
         *reinterpret_cast<uint32_t*>(ob + (long long)row1 * H * HD + 8 * j) =
             pack_bf16(oacc[4 * j + 2] / d1, oacc[4 * j + 3] / d1);
     }
+    // the running max m0, m1 is in base 2, the same in the 4 lanes of a
+    // row; the log-sum-exp is stored in the natural base
+    if (lse != nullptr && c == 0) {
+      float* lrow = lse + ((long long)b * H + h) * S;
+      if (row0 < S) lrow[row0] = (m0 + log2f(d0)) * kLn2;
+      if (row1 < S) lrow[row1] = (m1 + log2f(d1)) * kLn2;
+    }
   }
 }
 
@@ -686,7 +706,8 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int B,
 
 template <int HD>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* o, int B, int S, int H, int KH, Strides qs,
+                         void* o, float* lse, int B, int S, int H, int KH,
+                         Strides qs,
                          Strides ks, Strides vs, float scale, int causal,
                          cudaStream_t stream) {
   static bool ready[64] = {false};  // shared-memory limit raised, per device
@@ -711,7 +732,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const dim3 grid(B * H, (S + T::kBQ - 1) / T::kBQ);
   flash_fwd_wgmma<HD><<<grid, T::kThreads, T::kSmemBytes,
                         stream>>>(qm, km, vm,
-                                  static_cast<__nv_bfloat16*>(o), S, H,
+                                  static_cast<__nv_bfloat16*>(o), lse, S, H,
                                   H / KH, scale * kLog2e, causal);
   return cudaGetLastError();
 }
@@ -719,7 +740,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 // ------------------------------------------------------------- scalar path
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int KH, Strides qs, Strides ks,
+                   float* lse, int B, int S, int H, int KH, Strides qs,
+                   Strides ks,
                    Strides vs, float scale, int causal, cudaStream_t stream) {
   static bool ready[64] = {false};  // shared-memory limit raised, per device
   int dev = 0;
@@ -735,8 +757,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
   flash_fwd<HD><<<grid, kThreads, smem_bytes<HD>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, H / KH, qs,
-      ks, vs, scale, causal);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, H / KH,
+      qs, ks, vs, scale, causal);
   return cudaGetLastError();
 }
 
@@ -746,12 +768,15 @@ extern "C" {
 
 // dtype: 0 float32 (scalar FMAs), 1 bfloat16 (tensor cores; the base
 // pointers and every stride must be 16-byte aligned for TMA: the wrapper
-// checks). Strides are in elements. Returns a CUDA error code (0 on
+// checks). Strides are in elements. lse: null, or a contiguous f32
+// (B, H, S) tensor that receives each query row's natural-log
+// log-sum-exp. Returns a CUDA error code (0 on
 // success); cudaErrorInvalidValue for a head size or type the library was
 // not built for, or strides TMA refuses; cudaErrorNotSupported where
 // cuTensorMapEncodeTiled cannot be found.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int B, int S, int H, int KH, int D,
+                           void* o, void* lse_, int B, int S, int H, int KH,
+                           int D,
                            int dtype, int causal, float scale,
                            long long q_sb, long long q_ss, long long q_sh,
                            long long k_sb, long long k_ss, long long k_sh,
@@ -760,17 +785,19 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_);
   if (dtype == 0 && D == 64)
-    return launch<64>(q, k, v, o, B, S, H, KH, qs, ks, vs, scale, causal, st);
+    return launch<64>(q, k, v, o, lse, B, S, H, KH, qs, ks, vs, scale,
+                      causal, st);
   if (dtype == 0 && D == 128)
-    return launch<128>(q, k, v, o, B, S, H, KH, qs, ks, vs, scale, causal,
-                       st);
+    return launch<128>(q, k, v, o, lse, B, S, H, KH, qs, ks, vs, scale,
+                       causal, st);
   if (dtype == 1 && D == 64)
-    return launch_wgmma<64>(q, k, v, o, B, S, H, KH, qs, ks, vs, scale,
+    return launch_wgmma<64>(q, k, v, o, lse, B, S, H, KH, qs, ks, vs, scale,
                             causal, st);
   if (dtype == 1 && D == 128)
-    return launch_wgmma<128>(q, k, v, o, B, S, H, KH, qs, ks, vs, scale,
-                             causal, st);
+    return launch_wgmma<128>(q, k, v, o, lse, B, S, H, KH, qs, ks, vs,
+                             scale, causal, st);
   return cudaErrorInvalidValue;
 }
 

@@ -16,6 +16,13 @@ that its launch function builds from these strides), and returns a
 contiguous ``(B, S, H, hd)`` tensor in q's dtype. The reference's wrapper
 takes ``(B, H, S, D)``; the math is the same: scale ``hd**-0.5``, causal
 mask ``-1e30``, f32 accumulation, denominator clamped at ``1e-30``.
+
+For training the forward also writes each query row's log-sum-exp
+(natural log, f32 ``(B, H, S)``), and :func:`launch_bwd` runs the
+backward kernel of ``csrc/flash_attention_bwd.cu`` (a library of its own;
+the reference has no Pallas backward: it differentiates its pure-jnp
+attention) on the saved q, k, v, o and log-sum-exp and the output's
+gradient, returning dq, dk and dv.
 """
 from __future__ import annotations
 
@@ -28,7 +35,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)     # the head sizes the library is built for
 MAX_GRID_Y = 65535        # one CTA row per (batch, head)
 
-__all__ = ["DTYPES", "HEAD_DIMS", "bind", "check_inputs", "launch"]
+__all__ = ["DTYPES", "HEAD_DIMS", "bind", "bind_bwd", "check_inputs",
+           "check_bwd_inputs", "launch", "launch_bwd", "kernel_ready"]
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -36,8 +44,18 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i32, i64, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_float)
     lib.flash_attention_launch.argtypes = (
-        [p, p, p, p] + [i32] * 7 + [f] + [i64] * 9 + [p])
+        [p] * 5 + [i32] * 7 + [f] + [i64] * 9 + [p])
     lib.flash_attention_launch.restype = i32
+    return lib
+
+
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the backward library's C signature."""
+    p, i32, i64, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_float)
+    lib.flash_attention_bwd_launch.argtypes = (
+        [p] * 11 + [i32] * 7 + [f] + [i64] * 15 + [p])
+    lib.flash_attention_bwd_launch.restype = i32
     return lib
 
 
@@ -57,25 +75,60 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     if D not in HEAD_DIMS:
         raise ValueError(f"head size {D} not built; built: {HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype not in DTYPES or t.dtype != q.dtype:
-            raise TypeError(f"{name} must be float32 or bfloat16, as q; got "
-                            f"{t.dtype}")
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.stride(3) != 1:
-            raise ValueError(f"{name}'s last dimension must be contiguous")
-        # the tensor-core kernel copies bf16 tiles by TMA: base address and
-        # byte strides multiples of 16
-        if t.dtype == torch.bfloat16 and (
-                t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
-            raise ValueError(f"{name}'s bf16 rows must be 16-byte aligned "
-                             f"(base pointer and strides)")
+        _check_operand(name, t, q)
+
+
+def _check_operand(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
+    if t.dtype not in DTYPES or t.dtype != q.dtype:
+        raise TypeError(f"{name} must be float32 or bfloat16, as q; got "
+                        f"{t.dtype}")
+    if t.device != q.device:
+        raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if not kernel_ready(t):
+        raise ValueError(f"{name}'s last dimension must be contiguous, and "
+                         f"bf16 rows 16-byte aligned (base pointer and "
+                         f"strides)")
+
+
+def kernel_ready(t: torch.Tensor) -> bool:
+    """Whether the kernels take ``t``'s layout: the last dimension
+    contiguous and, in bf16, the base address and byte strides multiples
+    of 16 (the tensor-core forward copies bf16 tiles by TMA). A gradient
+    that arrives from a ``reshape`` or a ``view`` may fail this; the
+    backward's caller makes it contiguous first."""
+    if t.stride(-1) != 1:
+        return False
+    return t.dtype != torch.bfloat16 or not (
+        t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:-1]))
+
+
+def check_bwd_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     o: torch.Tensor, lse: torch.Tensor,
+                     do: torch.Tensor) -> None:
+    """Raise on what the backward kernel does not take: q, k, v as the
+    forward's; o and do shaped and typed as q, under q's rules; lse a
+    contiguous f32 ``(B, H, S)``."""
+    check_inputs(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape:
+            raise ValueError(f"{name} must have q's shape {tuple(q.shape)}, "
+                             f"got {tuple(t.shape)}")
+        _check_operand(name, t, q)
+    B, S, H, _ = q.shape
+    if (lse.shape != (B, H, S) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 {(B, H, S)} "
+                         f"tensor on {q.device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
 
 
 def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
-           v: torch.Tensor, *, causal: bool = True) -> torch.Tensor:
-    """Launch on PyTorch's current stream (no synchronise). Raises on what
-    the kernel does not take and on a launch error."""
+           v: torch.Tensor, *, causal: bool = True, with_lse: bool = False):
+    """Launch on PyTorch's current stream (no synchronise). Returns the
+    output, or ``(out, lse)`` with ``with_lse`` (each query row's
+    natural-log log-sum-exp, f32 ``(B, H, S)``; without it the kernel is
+    passed a null pointer and writes none). Raises on what the kernel does
+    not take and on a launch error."""
     if q.device.type != "cuda":
         raise ValueError(f"the flash_attention kernel runs on CUDA, got "
                          f"{q.device}")
@@ -83,12 +136,49 @@ def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
     B, S, H, D = q.shape
     KH = k.shape[2]
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     stream = stream_handle(q.device)
     err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, S, H,
         KH, D, DTYPES[q.dtype], int(bool(causal)), D ** -0.5,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    return out
+    return (out, lse) if with_lse else out
+
+
+def launch_bwd(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+               do: torch.Tensor, *, causal: bool = True):
+    """The backward kernel on PyTorch's current stream (no synchronise):
+    ``(dq, dk, dv)``, contiguous, in q's dtype and q's / k's shapes.
+    Allocates the f32 scratch: the rows' ``rowsum(do * o)`` and, for bf16,
+    dq's f32 accumulator (an f32 dq is accumulated in place). Raises on
+    what the kernel does not take and on a launch error."""
+    if q.device.type != "cuda":
+        raise ValueError(f"the flash_attention_bwd kernel runs on CUDA, "
+                         f"got {q.device}")
+    check_bwd_inputs(q, k, v, o, lse, do)
+    B, S, H, D = q.shape
+    KH = k.shape[2]
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, S, KH, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    dq_acc = dq if q.dtype == torch.float32 else torch.empty(
+        (B, S, H, D), dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    stream = stream_handle(q.device)
+    err = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dq_acc.data_ptr(), delta.data_ptr(), B, S, H, KH, D,
+        DTYPES[q.dtype], int(bool(causal)), D ** -0.5,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        *do.stride()[:3], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
+                           f"CUDA error {err}")
+    return dq, dk, dv

@@ -7,6 +7,13 @@ nothing falls back. Each wrapper counts its kernel launches in
 main path went through the kernel (a call under CUDA graph capture counts
 in :data:`CAPTURED` instead, and each replay of the graph adds it).
 
+``flash_attention`` is differentiable: under grad it is a
+``torch.autograd.Function`` whose forward saves the kernel's log-sum-exp
+and whose backward is a kernel of its own (``flash_attention_bwd``). The
+scan kernels have no backward kernel yet, and on CUDA they refuse to run
+under grad rather than hand back outputs that drop every gradient
+upstream of them.
+
 The CUDA sources under ``csrc/`` are compiled at first use with ``nvcc``
 into ``build/`` at the repository root, one shared library per source
 with a plain C interface, loaded with ``ctypes``. Each library has its own
@@ -41,19 +48,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # and must not let nvcc contract anything else; the other kernels only have
 # to agree within a tolerance and keep FMA contraction
 EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
-    "topk_select": ("-fmad=false",), "flash_attention": (), "ssd_chunk": (),
-    "selective_scan": ()}
+    "topk_select": ("-fmad=false",), "flash_attention": (),
+    "flash_attention_bwd": (), "ssd_chunk": (), "selective_scan": ()}
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
 LAUNCHES: Dict[str, int] = {"topk_reward": 0, "flash_attention": 0,
-                            "ssd_chunk": 0, "selective_scan": 0}
+                            "flash_attention_bwd": 0, "ssd_chunk": 0,
+                            "selective_scan": 0}
 # wrapper calls made while a CUDA graph was being captured: they launch
 # nothing then. ``federated/replay.py`` adds a graph's captured calls to
 # LAUNCHES at each replay, where the kernel really runs.
 CAPTURED: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 _BINDERS = {"topk_select": _tk.bind,   # declares each library's C signatures
-            "flash_attention": _fa.bind, "ssd_chunk": _sc.bind,
+            "flash_attention": _fa.bind,
+            "flash_attention_bwd": _fa.bind_bwd, "ssd_chunk": _sc.bind,
             "selective_scan": _ss.bind}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -157,13 +166,51 @@ def topk_reward(a: torch.Tensor, b: torch.Tensor, valid: torch.Tensor, *,
     return out
 
 
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention with its backward: the forward kernel writes each row's
+    log-sum-exp, saved with q, k, v and o; the backward runs
+    :func:`flash_attention_bwd`. On the CPU both are the plain versions."""
+
+    @staticmethod
+    def forward(q, k, v, causal):
+        if q.device.type == "cpu":
+            return ref.flash_attention_fwd_lse(q, k, v, causal=causal)
+        out = _fa.launch(load_library("flash_attention"), q, k, v,
+                         causal=causal, with_lse=True)
+        _count("flash_attention")
+        return out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal = inputs
+        o, lse = output
+        ctx.causal = causal
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, o, lse)
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Softmax attention forward in the model's layout: q ``(B, S, H, hd)``,
     k and v ``(B, S, KH, hd)`` with ``H % KH == 0``; returns
     ``(B, S, H, hd)`` in q's dtype. Scale ``hd**-0.5``, causal mask
     ``-1e30``. CPU tensors take the plain version; CUDA tensors the Hopper
-    kernel (f32 softmax and accumulation)."""
+    kernel (f32 softmax and accumulation). Under grad, with an input that
+    requires it, it is differentiable (:class:`_FlashAttention`): the
+    kernel then also writes the log-sum-exp the backward reads."""
+    if _needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal)[0]
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal)
     out = _fa.launch(load_library("flash_attention"), q, k, v, causal=causal)
@@ -171,14 +218,47 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True):
+    """The gradient of :func:`flash_attention`: ``(dq, dk, dv)`` in the
+    inputs' dtypes, from the forward's inputs, its output ``o``, its f32
+    log-sum-exp ``lse`` ``(B, H, S)`` and the output's gradient ``do``.
+    CPU tensors take the plain version; CUDA tensors the Hopper kernel (a
+    ``do`` whose layout the kernel does not take is made contiguous
+    first)."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    if not _fa.kernel_ready(do):
+        do = do.contiguous()
+    out = _fa.launch_bwd(load_library("flash_attention_bwd"), q, k, v, o,
+                         lse, do, causal=causal)
+    _count("flash_attention_bwd")
+    return out
+
+
+def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """A scan kernel's output carries no gradient: under grad, with an
+    input that requires it, raise rather than silently drop every gradient
+    upstream of the kernel."""
+    if _needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{name} cannot be differentiated on CUDA: its backward kernel "
+            f"is not ported yet (ROADMAP.md queue 1 item 16: the backward "
+            f"kernels of ssd_chunk and selective_scan); train on the CPU or "
+            f"run the forward under torch.no_grad()")
+
+
 def ssd_chunk(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
               dt: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     """Mamba2 SSD scan: x ``(B, S, nh, hd)``, Bm/Cm ``(B, S, ds)``, dt
     ``(B, S, nh)`` (after softplus), A ``(nh,)`` negative; returns y
     ``(B, S, nh, hd)`` in x's dtype, with no D skip. CPU tensors take the
-    plain (sequential) version; CUDA tensors the Hopper kernel."""
+    plain (sequential) version, differentiable by autograd; CUDA tensors
+    the Hopper kernel, which raises under grad (no backward kernel yet)."""
     if x.device.type == "cpu":
         return ref.ssd_chunk(x, Bm, Cm, dt, A)
+    _refuse_grad("ssd_chunk", x, Bm, Cm, dt, A)
     out = _sc.launch(load_library("ssd_chunk"), x, Bm, Cm, dt, A)
     _count("ssd_chunk")
     return out
@@ -190,9 +270,11 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     """Mamba1 selective scan: x, dt ``(B, S, di)`` (dt after softplus), Bm/Cm
     ``(B, S, ds)``, A ``(di, ds)`` negative, D ``(di,)``; returns y
     ``(B, S, di)`` in x's dtype, with the D skip. CPU tensors take the plain
-    (sequential) version; CUDA tensors the Hopper kernel."""
+    (sequential) version, differentiable by autograd; CUDA tensors the
+    Hopper kernel, which raises under grad (no backward kernel yet)."""
     if x.device.type == "cpu":
         return ref.selective_scan(x, dt, Bm, Cm, A, D)
+    _refuse_grad("selective_scan", x, dt, Bm, Cm, A, D)
     out = _ss.launch(load_library("selective_scan"), x, dt, Bm, Cm, A, D)
     _count("selective_scan")
     return out

@@ -4,7 +4,10 @@ truth, and the path a wrapper takes for tensors on the CPU).
 ``flash_attention``, ``ssd_chunk`` and ``selective_scan`` are the
 reference's oracles (``repro/kernels/ref.py``: ``flash_attention_ref``,
 ``ssd_chunk_ref``, ``selective_scan_ref``) with their casts, taken to the
-model's layouts."""
+model's layouts. ``flash_attention_fwd_lse`` and ``flash_attention_bwd``
+are the plain versions of the attention kernel's forward with its saved
+log-sum-exp and of its backward kernel, which has no Pallas counterpart
+(the reference differentiates its pure-jnp attention)."""
 from __future__ import annotations
 
 import torch
@@ -49,6 +52,22 @@ def topk_reward(a: torch.Tensor, b: torch.Tensor, valid: torch.Tensor, *,
     return score[top], top.to(torch.int32) + int(index_offset)
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """f32 ``(B, H, S, S)`` scores of q ``(B, S, H, hd)`` against k
+    ``(B, S, H, hd)`` (KV heads already repeated): the product in the
+    input dtype, then f32 times ``hd**-0.5``, the causal mask at -1e30."""
+    S, hd = q.shape[1], q.shape[3]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * hd ** -0.5
+    if causal:
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        scores = torch.where(mask, scores, f32(-1e30, scores))
+    return scores
+
+
+def _repeat_kv(t: torch.Tensor, G: int) -> torch.Tensor:
+    return t.repeat_interleave(G, dim=2) if G > 1 else t
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Plain softmax attention. q: ``(B, S, H, hd)``; k, v:
@@ -57,17 +76,52 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     As ``flash_attention_ref``: scores in the input dtype, then f32 times
     ``hd**-0.5``, causal mask ``-1e30``, f32 softmax, weights cast back to
     the input dtype before the product with v."""
-    S, H, hd = q.shape[1], q.shape[2], q.shape[3]
-    G = H // k.shape[2]
-    if G > 1:
-        k = k.repeat_interleave(G, dim=2)
-        v = v.repeat_interleave(G, dim=2)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * hd ** -0.5
-    if causal:
-        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-        scores = torch.where(mask, scores, f32(-1e30, scores))
+    G = q.shape[2] // k.shape[2]
+    w = torch.softmax(_scores(q, _repeat_kv(k, G), causal),
+                      dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, _repeat_kv(v, G))
+
+
+def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True):
+    """:func:`flash_attention` and the natural-log log-sum-exp of each
+    query row's scaled, masked scores: ``(o, lse)``, lse f32 ``(B, H, S)``
+    (the kernel's forward saves it for the backward)."""
+    G = q.shape[2] // k.shape[2]
+    scores = _scores(q, _repeat_kv(k, G), causal)
+    lse = torch.logsumexp(scores, dim=-1)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", w, v)
+    return torch.einsum("bhqk,bkhd->bqhd", w, _repeat_kv(v, G)), lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True):
+    """The gradient of :func:`flash_attention`: ``(dq, dk, dv)`` in the
+    inputs' dtypes, from the explicit formulas in f32 (the function it
+    differentiates rounds nothing in f32): P = exp(s - lse) recomputed
+    from the scores and the forward's ``lse``, dV = P^T dO, D_i =
+    rowsum(dO o O), dS = P o (dO V^T - D), dQ = scale dS K, dK = scale
+    dS^T Q, with dK and dV summed over each KV head's H / KH query
+    heads. The plain version of the backward kernel; the model's plain
+    route differentiates its own attention by autograd instead."""
+    B, S, H, hd = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    scale = hd ** -0.5
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    kr, vr = _repeat_kv(kf, G), _repeat_kv(vf, G)
+    p = torch.exp(_scores(qf, kr, causal) - lse.float()[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    delta = (dof * of).sum(-1).transpose(1, 2)                # (B, H, S)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    if G > 1:
+        dk = dk.reshape(B, S, KH, G, hd).sum(3)
+        dv = dv.reshape(B, S, KH, G, hd).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def ssd_chunk(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,

@@ -3,14 +3,18 @@
   fl      the paper's workload: energy-aware federated training of the
           ResNet speech classifier over the simulated edge population
           (EAFL / Oort / Random), writing ``history.json``;
-  cohort  the datacenter cohort step of an LLM architecture: its
-          arguments parse, and it raises until LM training is ported
-          (ROADMAP.md, queue 1 item 16).
+  cohort  the datacenter cohort step of an LLM architecture, at its
+          reduced config (as the reference): ``make_train_step``'s AdamW
+          steps on ``lm_batch`` token streams, on one device; the loss
+          must decrease; ``--out`` writes ``cohort.msgpack``. The archs
+          not ported yet raise.
 
 Runs on the CUDA card unless ``--device cpu`` is given:
 
   python -m repro_torch.launch.train fl --selector eafl --rounds 100 \\
       --out runs/eafl [--device cpu]
+  python -m repro_torch.launch.train cohort --arch olmo-1b --steps 10 \\
+      [--device cpu]
 """
 from __future__ import annotations
 
@@ -18,10 +22,17 @@ import argparse
 import json
 import os
 import time
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
+from repro_torch import prng
+from repro_torch.checkpoint import save_checkpoint
+from repro_torch.configs import get_reduced
 from repro_torch.core.selection import SelectorConfig
+from repro_torch.data import lm_batch
+from repro_torch.device import resolve_device
 from repro_torch.federated import FLConfig, FLHistory, run_fl
+from repro_torch.launch.steps import default_optimizer, make_train_step
+from repro_torch.models.transformer import init_params
 
 
 def fl_config(args: argparse.Namespace) -> FLConfig:
@@ -48,11 +59,35 @@ def main_fl(args: argparse.Namespace) -> FLHistory:
     return hist
 
 
-def main_cohort(args: argparse.Namespace) -> None:
-    raise NotImplementedError(
-        f"train cohort --arch {args.arch}: LM training (loss_fn, "
-        f"make_train_step, lm_batch) is not ported yet (ROADMAP.md, queue "
-        f"1 item 16)")
+def main_cohort(args: argparse.Namespace) -> List[float]:
+    """``--steps`` AdamW steps of the reduced ``--arch`` on batch ``i``'s
+    ``lm_batch(fold_in(PRNGKey(seed), i))``; returns the losses. Raises if
+    the mean of the last three losses is not below the first (the
+    reference's assertion)."""
+    cfg = get_reduced(args.arch)
+    dev = resolve_device(args.device)
+    opt = default_optimizer(lr=args.lr)
+    key = prng.PRNGKey(args.seed, dev)
+    params = init_params(args.seed, cfg, device=dev)
+    opt_state = opt.init(params)
+    step = make_train_step(cfg, opt, device=dev)
+    losses = []
+    for i in range(args.steps):
+        batch = lm_batch(prng.fold_in(key, i), cfg, args.batch, args.seq)
+        params, opt_state, loss, metrics = step(params, opt_state, batch)
+        losses.append(float(loss))
+        print(f"step {i}: loss={losses[-1]:.4f} "
+              f"ce={float(metrics['ce']):.4f}", flush=True)
+    tail = losses[-3:] if len(losses) >= 3 else losses[-1:]
+    if not sum(tail) / len(tail) < losses[0]:
+        raise AssertionError(f"loss must decrease over the cohort steps: "
+                             f"{losses}")
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        save_checkpoint(os.path.join(args.out, "cohort.msgpack"), params,
+                        step=args.steps)
+    print(f"[cohort:{args.arch}] loss {losses[0]:.3f} -> {losses[-1]:.3f}")
+    return losses
 
 
 def parser() -> argparse.ArgumentParser:

@@ -210,8 +210,11 @@ def _ssd_chunked(cfg, xh, Bm, Cm, dt, A):
     G = torch.einsum("bcqs,bcks->bcqk", Cc, Bc)                   # (B,nc,Q,Q)
     delta = lcum[:, :, :, None, :] - lcum[:, :, None, :, :]       # (B,nc,Q,Q,nh)
     mask = torch.ones(Q, Q, dtype=torch.bool, device=xh.device).tril()
-    M = torch.where(mask[None, None, :, :, None], torch.exp(delta),
-                    torch.zeros((), dtype=delta.dtype, device=xh.device))
+    mask = mask[None, None, :, :, None]
+    zero = torch.zeros((), dtype=delta.dtype, device=xh.device)
+    # the exponent is masked too: above the diagonal exp(delta) may
+    # overflow, and its backward would then be 0 * inf = NaN
+    M = torch.where(mask, torch.exp(torch.where(mask, delta, zero)), zero)
     att = G[..., None] * M * dtc[:, :, None, :, :]
     y_intra = torch.einsum("bcqkh,bckhd->bcqhd", att.to(cd), xc)
 

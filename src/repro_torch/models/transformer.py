@@ -6,28 +6,36 @@ weight-shared attention block. The reference runs each run with
 ``lax.scan`` over stacked parameters; here it is a Python loop, and the
 parameters of a run are a list of per-layer dicts (the converter unstacks
 the reference's stacked leaves, :func:`repro_torch.convert.lm_params`).
-The cache is laid out the same way.
+The cache is laid out the same way. The reference's ``jax.checkpoint``
+around each scan body (``remat``) is ``torch.utils.checkpoint`` around
+each layer of a run.
 
 Public API (entry points take ``device``: the CUDA card unless
 ``device="cpu"`` is passed, and they raise with no card and no explicit
 CPU):
   init_params(seed, cfg, device=None)
   forward_logits(cfg, params, batch, device=None)   prefill -> logits
+  loss_fn(cfg, params, batch, remat=True, device=None) -> (loss, metrics)
   init_cache(cfg, batch, cache_len, dtype, device=None)
   decode_step(cfg, params, batch, cache, cache_index, ring, device=None)
-``loss_fn`` comes with the training slice; the vision frontend and
-multi-codebook heads raise.
+The vision frontend and multi-codebook heads raise. ``loss_fn`` is
+differentiable by autograd on both routes: the attention kernel has a
+backward kernel; the scan kernels refuse to run under grad on CUDA
+(``kernels/ops.py``), so zamba2 and falcon train on the CPU only.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.blocks import (block_decode, block_forward,
                                        init_block, init_block_cache)
-from repro_torch.models.common import apply_norm, init_norm, normal_init
+from repro_torch.models.common import (apply_norm, cross_entropy, init_norm,
+                                       normal_init)
 
 Params = Dict[str, Any]
 
@@ -105,13 +113,30 @@ def output_logits(cfg, params: Params, h: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- forward
+def _layer(cfg, kind: str, use_kernel: Optional[bool], h, positions,
+           layer_p):
+    return block_forward(cfg, kind, layer_p, h, positions,
+                         use_kernel=use_kernel)[0]
+
+
 def _run_stages(cfg, params: Params, h, positions,
-                use_kernel: Optional[bool] = None):
+                use_kernel: Optional[bool] = None, remat: bool = False):
+    """The layers in order. With ``remat`` each layer of a run keeps only
+    its input for the backward and runs again there (the reference's
+    ``jax.checkpoint`` around its scan body); the one ``shared_attn``
+    call is not rematerialised, as in the reference."""
     for (kind, _), sp in zip(build_stages(cfg), params["stages"]):
-        layers = [params["shared_attn"]] if kind == "shared_attn" else sp
-        for layer_p in layers:
-            h, _ = block_forward(cfg, kind, layer_p, h, positions,
-                                 use_kernel=use_kernel)
+        if kind == "shared_attn":
+            h = _layer(cfg, kind, use_kernel, h, positions,
+                       params["shared_attn"])
+            continue
+        body = partial(_layer, cfg, kind, use_kernel)
+        for layer_p in sp:
+            if remat:
+                h = checkpoint(body, h, positions, layer_p,
+                               use_reentrant=False)
+            else:
+                h = body(h, positions, layer_p)
     return h
 
 
@@ -137,6 +162,25 @@ def forward_logits(cfg, params: Params, batch, device: DeviceLike = None,
     h = _run_stages(cfg, params, h, positions, use_kernel)
     h = apply_norm(cfg, params, h, "final_norm")
     return output_logits(cfg, params, h)
+
+
+def loss_fn(cfg, params: Params, batch, remat: bool = True,
+            device: DeviceLike = None, use_kernel: Optional[bool] = None):
+    """Train forward: ``(loss, {"ce", "aux"})``, f32 0-d tensors.
+
+    ``batch``: ``tokens`` and ``labels`` (B, S), labels -100 ignored,
+    moved to ``device``, where ``params`` must lie. ``loss = ce + aux``;
+    ``aux`` (the MoE router's loss in the reference) is 0 for the block
+    kinds ported. ``remat`` rematerialises each layer in the backward;
+    ``use_kernel`` as in :func:`forward_logits`."""
+    dev = resolve_device(device)
+    h, positions = _embed_batch(cfg, params, batch, dev)
+    h = _run_stages(cfg, params, h, positions, use_kernel, remat)
+    h = apply_norm(cfg, params, h, "final_norm")
+    logits = output_logits(cfg, params, h)
+    ce = cross_entropy(logits, torch.as_tensor(batch["labels"], device=dev))
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ----------------------------------------------------------------- decode

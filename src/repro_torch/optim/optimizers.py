@@ -24,13 +24,20 @@ class Optimizer(NamedTuple):
     update: Callable[[PyTree, PyTree, Optional[PyTree]], Tuple[PyTree, PyTree]]
 
 
+def _map(fn, tree: PyTree, *rest: PyTree) -> PyTree:
+    """``tree_map`` over the tensors of ``tree``; a ``None`` leaf (an LM
+    stage whose weights live elsewhere, which JAX's trees hold as an
+    empty subtree) stays ``None``."""
+    return tree_map(lambda x, *r: None if x is None else fn(x, *r), tree,
+                    *rest)
+
+
 def apply_updates(params: PyTree, updates: PyTree) -> PyTree:
-    return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
+    return _map(lambda p, u: p + u.to(p.dtype), params, updates)
 
 
 def _zeros_like_f32(params):
-    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
-                    params)
+    return _map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
 
 
 def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
@@ -39,10 +46,10 @@ def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
 
     def update(grads, state, params=None):
         if momentum:
-            mu = tree_map(lambda m, g: momentum * m + g.float(),
+            mu = _map(lambda m, g: momentum * m + g.float(),
                           state["mu"], grads)
-            return tree_map(lambda m: -lr * m, mu), {"mu": mu}
-        return tree_map(lambda g: -lr * g.float(), grads), state
+            return _map(lambda m: -lr * m, mu), {"mu": mu}
+        return _map(lambda g: -lr * g.float(), grads), state
 
     return Optimizer(init, update)
 
@@ -56,7 +63,7 @@ def _adaptive(lr, b1, b2, eps, variant: str) -> Optimizer:
 
     def update(grads, state, params=None):
         t = state["t"] + 1
-        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.float(),
+        m = _map(lambda m_, g: b1 * m_ + (1 - b1) * g.float(),
                      state["m"], grads)
 
         def upd_v(v_, g):
@@ -69,7 +76,7 @@ def _adaptive(lr, b1, b2, eps, variant: str) -> Optimizer:
                 return v_ + g2
             raise ValueError(variant)
 
-        v = tree_map(upd_v, state["v"], grads)
+        v = _map(upd_v, state["v"], grads)
         if variant == "adagrad":
             def step(m_, v_):
                 return -lr * m_ / (torch.sqrt(v_) + eps)
@@ -83,7 +90,7 @@ def _adaptive(lr, b1, b2, eps, variant: str) -> Optimizer:
                 vhat = v_ / bc2
                 return -lr * mhat / (torch.sqrt(vhat) + eps)
 
-        return tree_map(step, m, v), {"m": m, "v": v, "t": t}
+        return _map(step, m, v), {"m": m, "v": v, "t": t}
 
     return Optimizer(init, update)
 
@@ -108,7 +115,7 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     def update(grads, state, params):
         updates, state2 = base.update(grads, state, params)
         if weight_decay:
-            updates = tree_map(lambda u, p: u - lr * weight_decay * p.float(),
+            updates = _map(lambda u, p: u - lr * weight_decay * p.float(),
                                updates, params)
         return updates, state2
 

@@ -1,5 +1,6 @@
-"""The Hopper kernels (``topk_reward``, ``flash_attention``, ``ssd_chunk``,
-``selective_scan``) against their plain versions, on the card. Skips with
+"""The Hopper kernels (``topk_reward``, ``flash_attention`` and its
+backward, ``ssd_chunk``, ``selective_scan``) against their plain versions,
+on the card. Skips with
 a reason where no CUDA device is present (the kernels have no CPU or
 interpret mode); ``python3 chip_smoke.py`` runs the full matrix.
 
@@ -455,7 +456,8 @@ def test_each_library_builds_with_its_own_flags(monkeypatch):
     """Only the top-k library keeps -fmad=false (its bitwise FMA); each
     library's cached build follows its own source and flags alone."""
     assert "-fmad=false" in ops.nvcc_flags("topk_select")
-    for name in ("flash_attention", "ssd_chunk", "selective_scan"):
+    for name in ("flash_attention", "flash_attention_bwd", "ssd_chunk",
+                 "selective_scan"):
         assert "-fmad=false" not in ops.nvcc_flags(name)
         assert "arch=compute_90a,code=sm_90a" in ops.nvcc_flags(name)
     before = {n: ops.library_path(n) for n in ops.EXTRA_FLAGS}
@@ -466,5 +468,65 @@ def test_each_library_builds_with_its_own_flags(monkeypatch):
     assert after["topk_select"] == before["topk_select"]
     assert after["flash_attention"] == before["flash_attention"]
     assert after["selective_scan"] == before["selective_scan"]
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"]
     assert set(ops.LAUNCHES) == {"topk_reward", "flash_attention",
-                                 "ssd_chunk", "selective_scan"}
+                                 "flash_attention_bwd", "ssd_chunk",
+                                 "selective_scan"}
+
+
+# --------------------------------------------------- attention backward
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KH,D", [
+    (1, 32, 4, 4, 64), (2, 100, 8, 2, 128), (1, 385, 4, 2, 64),
+    (1, 1024, 16, 16, 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_backward_kernel(B, S, H, KH, D, dtype, causal):
+    """The forward's log-sum-exp and the backward kernel against their
+    plain versions on the same inputs, and the autograd.Function's
+    gradients on the card: counted once a call, no plain route taken."""
+    dev = _card()
+    g = torch.Generator(device="cpu").manual_seed(S + D)
+    q = torch.randn(B, S, H, D, generator=g).to(dtype).to(dev)
+    k, v = (torch.randn(B, S, KH, D, generator=g).to(dtype).to(dev)
+            for _ in range(2))
+    do = torch.randn(B, S, H, D, generator=g).to(dtype).to(dev)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = {n: ops.LAUNCHES[n] for n in ("flash_attention",
+                                            "flash_attention_bwd")}
+    out = ops.flash_attention(*leaves, causal=causal)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert {n: ops.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_attention": 1, "flash_attention_bwd": 1}
+    o, lse = ref.flash_attention_fwd_lse(q, k, v, causal=causal)
+    tol = ATTN_TOL[dtype]
+    _, kernel_lse = out.grad_fn.saved_tensors[3:5]
+    torch.testing.assert_close(kernel_lse, lse, atol=tol, rtol=tol)
+    exp = ref.flash_attention_bwd(q, k, v, out.detach(), kernel_lse, do,
+                                  causal=causal)
+    for got, want in zip(grads, exp):
+        assert got.dtype == dtype and got.is_contiguous()
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.gpu
+def test_scan_kernels_refuse_grad():
+    """The scan kernels have no backward kernel: under grad they raise on
+    the card (and run under no_grad)."""
+    dev = _card()
+    g = torch.Generator(device="cpu").manual_seed(0)
+    x = torch.randn(1, 64, 4, 64, generator=g).to(dev).requires_grad_(True)
+    bc = torch.randn(1, 64, 32, generator=g).to(dev)
+    dt = F.softplus(torch.randn(1, 64, 4, generator=g)).to(dev)
+    A = -torch.exp(torch.randn(4, generator=g)).to(dev)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        ops.ssd_chunk(x, bc[..., :16], bc[..., 16:], dt, A)
+    with torch.no_grad():
+        ops.ssd_chunk(x, bc[..., :16], bc[..., 16:], dt, A)
+    xs = torch.randn(1, 64, 96, generator=g).to(dev).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        ops.selective_scan(xs, F.softplus(xs.detach()), bc[..., :16],
+                           bc[..., 16:], -torch.ones(96, 16, device=dev),
+                           torch.ones(96, device=dev))

@@ -9,6 +9,8 @@ numpy with a seed:
   ``shared_attn`` call.
 - falcon-mamba-7b: 2 Mamba1 layers, d_model 256, ds 8; at (2, 256) the
   forward runs the selective scan over 256 steps in each layer.
+- olmo-1b: 2 dense layers (GQA with 4 heads of 64, SwiGLU), d_model 256,
+  the non-parametric LayerNorm, tied embeddings.
 
 Tolerances: f32 logits within 2e-4 (abs and rel; sums run in another order,
 measured max 7e-5 on logits of magnitude ~5); f32 decode steps and caches
@@ -39,11 +41,13 @@ from repro_torch.launch.steps import make_prefill_step  # noqa: E402
 from repro_torch.models import (decode_step, forward_logits,  # noqa: E402
                                 init_cache, init_params)
 
-ARCHS = ("zamba2-1.2b", "falcon-mamba-7b")
+ARCHS = ("zamba2-1.2b", "falcon-mamba-7b", "olmo-1b")
 PARAM_COUNTS = {"zamba2-1.2b": 1_104_535_296,
-                "falcon-mamba-7b": 7_005_536_256}
+                "falcon-mamba-7b": 7_005_536_256,
+                "olmo-1b": 1_176_764_416}
 # cache leaves of the reduced configs: 2 per ssm layer, 2 per attention call
-CACHE_LEAVES = {"zamba2-1.2b": 2 * 2 + 2, "falcon-mamba-7b": 2 * 2}
+CACHE_LEAVES = {"zamba2-1.2b": 2 * 2 + 2, "falcon-mamba-7b": 2 * 2,
+                "olmo-1b": 2 * 2}
 B, S = 2, 256
 
 
