@@ -7,17 +7,19 @@ read what ``chip_smoke.py``'s checks make of them, on one GPU.
 
 Each fault is one edit of a kernel source under
 ``src/repro_torch/kernels/csrc/``, built with the library's own flags into
-a temporary directory (the checkout is left as it is): ``TOPK_FAULTS``
+a temporary directory (the checkout is left as it is; the sources'
+directory is on the include path for ``hopper.cuh``): ``TOPK_FAULTS``
 edit ``topk_select`` in ``topk_select.cu`` (2), ``FAULTS``
 ``flash_fwd_wgmma`` in ``flash_attention.cu`` (5), ``SSD_FAULTS`` the
 tensor-core ``ssd_fwd_mma`` in ``ssd_chunk.cu`` (6) and ``SCAN_FAULTS``
-``scan_fwd`` in ``selective_scan.cu`` (6). ``BWD_FAULTS`` (3) are one or
+``scan_fwd`` in ``selective_scan.cu`` (6). ``BWD_FAULTS`` (4) are one or
 more edits each of the training path's attention: the backward kernel
-``flash_bwd_mma`` with dK not summed over the query heads of a KV head,
-and with the last, ragged key tile's rows past S read (as the last key)
-and not masked; and the tensor-core forward's log-sum-exp left in base 2.
-Phase 17 of ``chip_smoke.py`` must pass with the sound libraries and fail
-with each fault.
+``flash_bwd_wgmma`` with dK not summed over the query heads of a KV head,
+with the last, ragged key tile's rows past S read (K and V mapped as one
+sequence over the batches) and not masked, and with dS^T stored without
+the swizzle that dQ's descriptor reads; and the tensor-core forward's
+log-sum-exp left in base 2. Phase 17 of ``chip_smoke.py`` must pass with
+the sound libraries and fail with each fault.
 
 For the sound top-k kernel and each of its faults it runs phase 2 of
 ``chip_smoke.py`` (the 105-case matrix and the edge cases, indices exact,
@@ -177,11 +179,12 @@ SCAN_FAULTS = {
 BWD_FAULTS = {
     # each KV head's dK keeps only its last query head's share
     "dk_without_group_sum": ("flash_attention_bwd", [(
-        "    const int h = kh * G + gi;\n",
-        "    const int h = kh * G + gi;\n"
-        "#pragma unroll\n    for (int nt = 0; nt < NT; ++nt)\n"
+        "      mbar_wait_bounded(full(st), ph);\n",
+        "      mbar_wait_bounded(full(st), ph);\n"
+        "      if (it % n_qt == 0) {\n"
         "#pragma unroll\n"
-        "      for (int e = 0; e < 4; ++e) dka[nt][e] = 0.f;\n")]),
+        "        for (int i = 0; i < HD / 2; ++i) dka[i] = 0.f;\n"
+        "      }\n")]),
     # the tensor-core forward's log-sum-exp left in base 2, its running
     # max's
     "lse_in_base_2": ("flash_attention", [(
@@ -189,17 +192,28 @@ BWD_FAULTS = {
         "      if (row1 < S) lrow[row1] = (m1 + log2f(d1)) * kLn2;\n",
         "      if (row0 < S) lrow[row0] = m0 + log2f(d0);\n"
         "      if (row1 < S) lrow[row1] = m1 + log2f(d1);\n")]),
-    # the last, ragged key tile's rows past S read as the last key (in
-    # bounds) and not masked
+    # the last, ragged key tile's rows past S read (K and V mapped as one
+    # sequence of B * S rows: the next batch's first keys, zeros after the
+    # last batch) and not masked
     "ragged_k_tile_not_masked": ("flash_attention_bwd", [
-        ("if (key < S && row < S && (!causal || key <= row))\n"
-         "            p = exp2f(",
-         "if (row < S && (!causal || key <= row))\n"
-         "            p = exp2f("),
-        ("    if (t < S) val = *reinterpret_cast<const uint4*>(src + t * ss "
-         "+ 8 * ch);\n",
-         "    val = *reinterpret_cast<const uint4*>(\n"
-         "        src + (t < S ? t : S - 1) * ss + 8 * ch);\n")]),
+        ("k0 + key0 + 8 * hr < S ? rlim : 0);", "rlim);"),
+        ("          tma_load(sk + c * T::kKVBox, &kmap, full_kv, c * kBox, kh, "
+         "k0, b);\n"
+         "          tma_load(sv + c * T::kKVBox, &vmap, full_kv, c * kBox, kh, "
+         "k0, b);\n",
+         "          tma_load(sk + c * T::kKVBox, &kmap, full_kv, c * kBox, kh,\n"
+         "                   b * S + k0, 0);\n"
+         "          tma_load(sv + c * T::kKVBox, &vmap, full_kv, c * kBox, kh,\n"
+         "                   b * S + k0, 0);\n"),
+        ("      !make_map(&km, encode, k, B, S, KH, HD, T::kBK, ks) ||\n"
+         "      !make_map(&vm, encode, v, B, S, KH, HD, T::kBK, vs) ||\n",
+         "      !make_map(&km, encode, k, 1, B * S, KH, HD, T::kBK, ks) ||\n"
+         "      !make_map(&vm, encode, v, 1, B * S, KH, HD, T::kBK, vs) ||\n")]),
+    # dS^T stored without the 128-byte swizzle that the descriptors of dK
+    # and dQ read
+    "ds_tile_unswizzled": ("flash_attention_bwd", [(
+        "st_shared(dsb + key * 128 + ((j ^ (key & 7)) << 4) + 4 * c,",
+        "st_shared(dsb + key * 128 + (j << 4) + 4 * c,")]),
 }
 
 
@@ -382,8 +396,8 @@ def build_fault(ops, lib, name, old, new, tmp):
     cu = Path(tmp) / f"{lib}-{name}.cu"
     cu.write_text(src)
     out = Path(tmp) / f"lib{lib}-{name}.so"
-    proc = subprocess.run([ops._nvcc(), *ops.nvcc_flags(lib),
-                           "-o", str(out), str(cu)],
+    proc = subprocess.run([ops._nvcc(), *ops.nvcc_flags(lib), "-I",
+                           str(ops.CSRC), "-o", str(out), str(cu)],
                           capture_output=True, text=True)
     cs.check(proc.returncode == 0, f"nvcc failed for fault {name}:\n"
              f"{proc.stderr}")

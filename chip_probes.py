@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Design probes of the two bf16 scan kernels, and their times beside
-another checkout's kernels, on one GPU.
+"""Design probes of the two bf16 scan kernels, and their times and the
+attention backward's beside another checkout's kernels, on one GPU.
 
-    python3 chip_probes.py [--seed N] [--parent DIR]   # one CUDA device
+    python3 chip_probes.py [--seed N] [--parent DIR] [--only PART]
 
 A developer's tool: it decides nothing, and neither ``chip_smoke.py`` nor
 ``chip_faults.py`` runs it. Each probe is one edit of a sound kernel
@@ -27,13 +27,23 @@ the f32 route's largest error on the prefill shape with slow decay
 against ``SCAN_TOL``'s f32 tolerance. A probe whose text no longer occurs
 once in its source stops the script.
 
-``--parent DIR`` also builds the SSD and scan sources of another checkout
-(say the parent commit's, unpacked by ``git archive``) with this
-checkout's flags, launches them through that checkout's own launchers,
-times them in the same turns (first in the first turn, last in the
-second) and reads the SASS loop counts of both checkouts' kernels as
-``chip_smoke.py``'s phase 1 does. The last line is one JSON object with
-all the readings; without a CUDA device it exits 2.
+``--parent DIR`` also builds the SSD, scan and attention backward
+sources of another checkout (say the parent commit's, unpacked by ``git
+archive``) with this checkout's flags, launches them through that
+checkout's own launchers, times them in the same turns (first in the
+first turn, last in the second) and reads the SASS loop counts of both
+checkouts' kernels as ``chip_smoke.py``'s phase 1 does.
+
+The attention backward is timed at the olmo-1b train step's shape (4,
+4096, 16 heads of 128, bf16, causal; o and the log-sum-exp from the
+forward kernel) as phase 20 times it, this checkout's kernel beside the
+parent's in turns, with both kernels' tight readings (relative L2 from
+the f32 backward of the same inputs), dk and dv against each other and
+the static SASS counts of each backward entry (wgmma, TMA, ``mma.sync``,
+atomics). ``--only scans`` or ``--only attention_bwd`` runs one part.
+
+The last line is one JSON object with all the readings; without a CUDA
+device it exits 2.
 
 ``--engines DIR`` probes no kernel: it times each replayed step of the
 fused engines (``run_fl_scanned`` and ``run_fl_async_scanned`` at phases
@@ -92,6 +102,14 @@ PROBES = {"ssd_chunk": SSD_PROBES, "selective_scan": SCAN_PROBES}
 # the first SSD kernel's bf16 entry (one CTA of full hd a (batch, head),
 # scalar FMAs), counted where a checkout has no tensor-core kernel
 FIRST_SSD_ENTRY = "ssd_fwdI13__nv_bfloat16Li64ELi64E"
+# library: (its launcher module, binder, launch function) in a checkout
+LAUNCHERS = {"ssd_chunk": ("ssd_chunk", "bind", "launch"),
+             "selective_scan": ("selective_scan", "bind", "launch"),
+             "flash_attention_bwd": ("flash_attention", "bind_bwd",
+                                     "launch_bwd")}
+# the bf16 backward entries at hd 128, of this design and of the mma.sync
+# one before it
+BWD_ENTRIES = ("flash_bwd_wgmmaILi128E", "flash_bwd_mmaILi128E")
 
 
 def build_probes(ops, tmp):
@@ -111,11 +129,11 @@ def build_probes(ops, tmp):
     return libs
 
 
-def load_parent(ops, root, out_dir, names=("ssd_chunk", "selective_scan")):
+def load_parent(ops, root, out_dir, names=tuple(LAUNCHERS)):
     """The kernels of another checkout ``root``: each library built from
     ``root``'s source with this checkout's flags into ``out_dir``, one nvcc
-    each, and launched by ``root``'s own launcher module. Returns
-    ``({name: fn(*args)}, {name: library path})``."""
+    each, and launched by ``root``'s own launcher module (``LAUNCHERS``).
+    Returns ``({name: fn(*args, **kw)}, {name: library path})``."""
     kdir = Path(root).resolve() / "src" / "repro_torch" / "kernels"
 
     def build(name):
@@ -131,12 +149,14 @@ def load_parent(ops, root, out_dir, names=("ssd_chunk", "selective_scan")):
         sos = dict(zip(names, pool.map(build, names)))
     fns = {}
     for name in names:
-        spec = importlib.util.spec_from_file_location(f"parent_{name}",
-                                                      kdir / f"{name}.py")
+        module, binder, launcher = LAUNCHERS[name]
+        spec = importlib.util.spec_from_file_location(f"parent_{module}",
+                                                      kdir / f"{module}.py")
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
-        lib = mod.bind(ctypes.CDLL(str(sos[name])))
-        fns[name] = (lambda m, lb: lambda *a: m.launch(lb, *a))(mod, lib)
+        lib = getattr(mod, binder)(ctypes.CDLL(str(sos[name])))
+        fns[name] = (lambda f, lb: lambda *a, **kw: f(lb, *a, **kw))(
+            getattr(mod, launcher), lib)
     return fns, sos
 
 
@@ -151,6 +171,67 @@ def times(torch, fns, args, l2_bytes):
         for name in order:
             runs[name].append(cs.cuda_ms(torch, fns[name], sets))
     return {name: statistics.median(ms) for name, ms in runs.items()}
+
+
+def bwd_sass(ops, paths):
+    """Static ``chip_smoke.BWD_SASS_OPS`` counts of each bf16 hd-128
+    backward entry in the libraries at ``paths`` (``{checkout: path}``)."""
+    tool = Path(ops._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return "no cuobjdump"
+    out = {}
+    for who, path in paths.items():
+        sass = subprocess.run([str(tool), "-sass", str(path)],
+                              capture_output=True, text=True).stdout
+        for entry in BWD_ENTRIES:
+            if entry in sass:
+                counts = next(iter(cs.sass_ops(sass, entry).values()))
+                out[who] = {"entry": entry, **{
+                    op: counts.get(op, 0) for op in cs.BWD_SASS_OPS}}
+    return out
+
+
+def attention_bwd_turns(torch, ops, ref, parent, l2_bytes):
+    """The backward at the olmo-1b step's shape, this checkout's kernel and
+    (``parent``: a launch function, or None) the parent's, timed in turns;
+    each one's tight readings, and dk, dv of the two against each other
+    (dq's additions arrive in no fixed order)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    B, S, H, KH, D = next(c for c in cs.BWD_SHAPES if c[:2] == (4, 4096))
+    q, k, v, do = cs.attn_bwd_inputs(torch, B, S, H, KH, D, torch.bfloat16,
+                                     dev, 300 + cs.BWD_SHAPES.index(
+                                         (B, S, H, KH, D)))
+    o, lse = fa.launch(ops.load_library("flash_attention"), q, k, v,
+                       causal=True, with_lse=True)
+    lib = ops.load_library("flash_attention_bwd")
+    fns = {"this": lambda *a: fa.launch_bwd(lib, *a, causal=True)}
+    if parent is not None:
+        fns = {"parent": lambda *a: parent(*a, causal=True), **fns}
+    args = (q, k, v, o, lse, do)
+    out = {"shape": [B, S, H, KH, D], "card": cs.card_name_power(),
+           "tight": {}, "bound_ms": cs.bwd_bound(q, k, v, True)}
+    grads = {}
+    for name, fn in fns.items():
+        grads[name] = fn(*args)
+        out["tight"][name] = cs.bwd_rel_l2(torch, ref, grads[name], *args,
+                                           True)
+    if parent is not None:
+        out["this_vs_parent_max_abs"] = {
+            g: float((grads["this"][i].float()
+                      - grads["parent"][i].float()).abs().max())
+            for i, g in enumerate(("dq", "dk", "dv"))}
+    del grads
+    torch.cuda.synchronize()
+    sets, _ = cs.copies(args, l2_bytes)
+    runs = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1], list(fns), list(fns)[::-1]):
+        for name in order:
+            runs[name].append(cs.cuda_ms(torch, fns[name], sets, reps=5))
+    out["ms_by_turn"] = runs
+    out["ms"] = {name: statistics.median(ms) for name, ms in runs.items()}
+    return out
 
 
 def f32_excess(torch, ref, libs, launch, args):
@@ -233,6 +314,8 @@ def main(argv=None) -> int:
                     "another checkout and of this one in turns instead")
     ap.add_argument("--engine-run", metavar="DIR", default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--only", choices=("scans", "attention_bwd"),
+                    default=None, help="run one part of the probes")
     opts = ap.parse_args(argv)
     seed = opts.seed
     import torch
@@ -245,29 +328,64 @@ def main(argv=None) -> int:
     if opts.engines:
         return engines_in_turns(opts.engines)
     sys.path.insert(0, str(cs.SRC))
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels import selective_scan as ss
-    from repro_torch.kernels import ssd_chunk as sc
-    from repro_torch.models.transformer import forward_logits, init_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     cs.log(f"card {cs.card_name_power()}")
-    parent, sass = {}, {}
+    scans, attn = opts.only != "attention_bwd", opts.only != "scans"
+    parts = tuple(n for n in LAUNCHERS
+                  if (attn if n == "flash_attention_bwd" else scans))
+    parent, sass, libs = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_probes(ops, tmp)
-        sass["this"] = cs.loop_counts(
-            ops, {n: ops.library_path(n) for n in PROBES})
+        if scans:
+            libs = build_probes(ops, tmp)
+            sass["this"] = cs.loop_counts(
+                ops, {n: ops.library_path(n) for n in PROBES})
+        if attn:
+            for lib in ("flash_attention", "flash_attention_bwd"):
+                ops.load_library(lib)
+            bwd_paths = {"this": ops.library_path("flash_attention_bwd")}
         if opts.parent:
-            parent, paths = load_parent(ops, opts.parent, tmp)
-            src = (Path(opts.parent) / "src" / "repro_torch" / "kernels" /
-                   "csrc" / "ssd_chunk.cu").read_text()
-            sass["parent"] = cs.loop_counts(
-                ops, paths, cs.MAIN_ENTRIES["ssd_chunk"]
-                if "ssd_fwd_mma" in src else FIRST_SSD_ENTRY)
+            parent, paths = load_parent(ops, opts.parent, tmp, parts)
+            if scans:
+                src = (Path(opts.parent) / "src" / "repro_torch" / "kernels" /
+                       "csrc" / "ssd_chunk.cu").read_text()
+                sass["parent"] = cs.loop_counts(
+                    ops, paths, cs.MAIN_ENTRIES["ssd_chunk"]
+                    if "ssd_fwd_mma" in src else FIRST_SSD_ENTRY)
+            if attn:
+                bwd_paths["parent"] = paths["flash_attention_bwd"]
+        if attn:
+            sass["attention_bwd"] = bwd_sass(ops, bwd_paths)
     cs.log(json.dumps({"sass": sass}))
     l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    readings = {}
+    if attn:
+        readings["flash_attention_bwd"] = attention_bwd_turns(
+            torch, ops, ref, parent.get("flash_attention_bwd"), l2)
+        cs.log(json.dumps({"flash_attention_bwd":
+                           readings["flash_attention_bwd"]}))
+    if scans:
+        scan_probes(torch, ops, ref, dev, seed, libs, parent, l2, readings)
+    cs.log(json.dumps({"limits": {"ssd_chunk": cs.SSD_BF16_REL_L2,
+                                  "ssd_chunk_slow_decay":
+                                      cs.SSD_BF16_REL_L2_SLOW,
+                                  "selective_scan": cs.SCAN_BF16_REL_L2,
+                                  "f32": cs.SCAN_TOL["float32"],
+                                  "flash_attention_bwd":
+                                      cs.ATTN_BWD_BF16_REL_L2},
+                       "readings": readings, "sass": sass}))
+    return 0
+
+
+def scan_probes(torch, ops, ref, dev, seed, libs, parent, l2, readings):
+    """The SSD and scan probes' tight readings and times (beside the
+    parent's kernels where ``parent`` has them) into ``readings``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.models.transformer import forward_logits, init_params
 
     def first_call(arch, lib):
         cfg = get_config(arch)
@@ -279,7 +397,6 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         return seen[lib][0]
 
-    readings = {}
     for lib, launch, cases, limits in (
             ("ssd_chunk", sc.launch, cf.ssd_cases, cf.ssd_limits),
             ("selective_scan", ss.launch, cf.scan_cases,
@@ -307,13 +424,6 @@ def main(argv=None) -> int:
     for name, r in f32_excess(torch, ref, libs["selective_scan"], ss.launch,
                               args32).items():
         readings["selective_scan"][name]["f32_slow_decay"] = r
-    cs.log(json.dumps({"limits": {"ssd_chunk": cs.SSD_BF16_REL_L2,
-                                  "ssd_chunk_slow_decay":
-                                      cs.SSD_BF16_REL_L2_SLOW,
-                                  "selective_scan": cs.SCAN_BF16_REL_L2,
-                                  "f32": cs.SCAN_TOL["float32"]},
-                       "readings": readings, "sass": sass}))
-    return 0
 
 
 if __name__ == "__main__":

@@ -3052,10 +3052,10 @@ def phase_mamba1_routes(torch, ops, dev, cfg, params, tokens):
 
 # The kernel each library runs on the main paths, as a fragment of its
 # mangled name in ptxas's report (the SSD's at 32 columns a slice, ds 64,
-# aligned rows)
+# aligned rows; the attention backward's at hd 64 and 128)
 MAIN_ENTRIES = {"topk_select": "topk_select",
                 "flash_attention": "flash_fwd_wgmma",
-                "flash_attention_bwd": "flash_bwd_mmaILi128E",
+                "flash_attention_bwd": "flash_bwd_wgmma",
                 "ssd_chunk": "ssd_fwd_mmaILi32ELi64ELb1E",
                 "selective_scan": "scan_fwdI13__nv_bfloat16Li16E"}
 
@@ -3161,6 +3161,45 @@ def loop_counts(ops, paths, ssd_entry=MAIN_ENTRIES["ssd_chunk"]):
     return out
 
 
+# The Hopper instructions counted in the backward kernel's SASS: wgmma
+# (HGMMA), the TMA loads (UTMALDG) and the TMA reduce-adds into dq
+# (UTMAREDG), beside the Ampere-era tensor-core products (HMMA) and the
+# per-element global atomics (REDG, ATOMG) that the design replaced
+BWD_SASS_OPS = ("HGMMA", "UTMALDG", "UTMAREDG", "HMMA", "REDG", "ATOMG")
+BWD_DESIGN = ("flash_bwd_wgmma: TMA loads, warp-specialised wgmma (a "
+              "producer and two consumer warpgroups over 128-key tiles), dQ "
+              "by TMA bulk reduce-add")
+
+
+def sass_ops(sass, fragment):
+    """Static count of each opcode (modifiers dropped) of every function in
+    ``cuobjdump -sass`` text whose name holds ``fragment``: ``{function:
+    {opcode: n}}``. Fails if there is none."""
+    out = {}
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = func.split("\n", 1)[0].strip()
+        if fragment in name:
+            out[name] = dict(Counter(re.findall(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                func)))
+    check(bool(out), f"no function like {fragment!r} in the SASS")
+    return out
+
+
+def bwd_sass_counts(ops, path, fragment=MAIN_ENTRIES["flash_attention_bwd"]):
+    """Phase 1's ``BWD_SASS_OPS`` counts of each backward entry like
+    ``fragment`` in the library at ``path`` (``cuobjdump -sass``); "no
+    cuobjdump" where the toolkit has none."""
+    tool = Path(ops._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return "no cuobjdump"
+    proc = subprocess.run([str(tool), "-sass", str(path)],
+                          capture_output=True, text=True)
+    check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr}")
+    return {name: {op: counts.get(op, 0) for op in BWD_SASS_OPS}
+            for name, counts in sass_ops(proc.stdout, fragment).items()}
+
+
 def max_sm_clock_hz(torch, dev):
     """The card's maximum SM clock: ``nvidia-smi``'s ``clocks.max.sm``, else
     the device properties' ``clock_rate`` (kHz)."""
@@ -3236,8 +3275,10 @@ BWD_SHAPES = [s[:5] for s in ATTN_SHAPES if s[5] == 0] + [
 # instead, D = rowsum(dO o O) carries o's bf16 rounding, which the
 # cancellation in dP - D amplifies: dq read 7.4e-3 on the train step's
 # first call.) On an H100 the sound kernel read 2.32e-3 to 2.39e-3 in
-# phase 17 and 2.19e-3 on the train step's first call; the planted faults
-# (chip_faults.py) fail phase 17's elementwise checks.
+# phase 17 and 2.19e-3 on the train step's first call, both the mma.sync
+# design and the wgmma one (flash_bwd_wgmma) that replaced it: they round
+# at the same places; the planted faults (chip_faults.py) fail phase 17's
+# checks.
 ATTN_BWD_BF16_REL_L2 = 3.5e-3
 TRAIN_BATCH, TRAIN_LEN = 4, 4096   # a cut of train_4k's 256 x 4096
 TRAIN_STEPS = 3
@@ -3619,7 +3660,8 @@ def phase_train_timing(torch, ops, ref, seen, l2_bytes):
         with_lse.append(cuda_ms(torch, lambda *a: fa.launch(
             fwd, *a, causal=causal, with_lse=True), fsets))
     row["forward_ms"] = {"without_lse": statistics.median(without),
-                         "with_lse": statistics.median(with_lse)}
+                         "with_lse": statistics.median(with_lse),
+                         "sdpa": statistics.median(s[2] for s in sdpa)}
     row["card"] = card_name_power()
     log(f"phase 20: flash_attention_bwd at the olmo-1b step's shape "
         f"{row['shape']} {row['dtype']} causal={causal} on {row['card']}: "
@@ -3629,7 +3671,9 @@ def phase_train_timing(torch, ops, ref, seen, l2_bytes):
         f"{row['bound_ms']:.6f} ms ({row['bound_by']}); the forward kernel "
         f"at that shape without / with the log-sum-exp "
         f"{row['forward_ms']['without_lse']:.5f} / "
-        f"{row['forward_ms']['with_lse']:.5f} ms")
+        f"{row['forward_ms']['with_lse']:.5f} ms, "
+        f"scaled_dot_product_attention's forward "
+        f"{row['forward_ms']['sdpa']:.5f} ms")
     return row
 
 
@@ -3693,6 +3737,20 @@ def main(argv=None) -> int:
     sass = loop_counts(ops, dict(zip(names, paths)))
     log(f"phase 1: SASS of the main-path SSD kernel's chunk loop (static "
         f"counts) and of the scan's inner loop: {sass}")
+    bwd_usage = ptxas_usage(ops.ptxas_log("flash_attention_bwd").read_text())
+    regs["flash_attention_bwd"]["by_head_size"] = {
+        hd: entry_usage(bwd_usage, f"{MAIN_ENTRIES['flash_attention_bwd']}"
+                                   f"ILi{hd}E") for hd in (64, 128)}
+    sass["flash_attention_bwd"] = bwd_sass_counts(
+        ops, paths[names.index("flash_attention_bwd")])
+    if sass["flash_attention_bwd"] != "no cuobjdump":
+        for name, counts in sass["flash_attention_bwd"].items():
+            check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+                  f"{name}: no wgmma or no TMA load in its SASS: {counts}")
+    log(f"phase 1: the attention backward ({BWD_DESIGN}): registers and "
+        f"spill bytes at hd 64 and 128 "
+        f"{regs['flash_attention_bwd']['by_head_size']}; static SASS counts "
+        f"{sass['flash_attention_bwd']}")
 
     topk_cases_run = timed("phase 2", phase_kernel_vs_plain, torch, ops,
                            ref, dev, TOPK_SIZES)
@@ -3928,9 +3986,14 @@ def main(argv=None) -> int:
     summary["kernels"][1]["launches_by_phase"]["olmo_train_step"] = \
         train_row["launches"][0]["flash_attention"]
     summary["kernels"][1]["lse_max_abs_err_by_dtype"] = lse_errs
+    # the forward at the train step's shape, beside SDPA's forward there
+    summary["kernels"][1]["olmo_train_shape"] = {
+        "shape": bwd_row["shape"], "kv_heads": bwd_row["kv_heads"],
+        **bwd_row["forward_ms"]}
     summary["kernels"].append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": BWD_SOURCE, "replaces": BWD_REPLACES, "checked": True,
+        "design": BWD_DESIGN,
         "launches": sum(n["flash_attention_bwd"]
                         for n in train_row["launches"]),
         "max_abs_err": max(max(bwd_errs.values()),

@@ -24,61 +24,94 @@
 // H = KH = 16, D = 128, causal: five products over the B*H*S^2/2 pairs the
 // mask keeps (s recomputed, dP, dV, dK, dQ), 10 * 68.7 G = 687 GFLOP, 0.695
 // ms at 989 TFLOP/s of bf16 tensor-core work; q, k, v, o, dO, dq, dk, dv in
-// bf16 are 537 MB, 0.16 ms at 3.35 TB/s: bound by operations.
+// bf16 are 537 MB, 0.16 ms at 3.35 TB/s: bound by operations, so the five
+// products must run on wgmma, the only way to the card's full bf16 rate,
+// with their operands fed by TMA and the softmax work hidden behind them.
 //
 // Three launches:
 //   1. bwd_prep: one warp a (batch, row, head): D = rowsum(dO o O) into an
 //      f32 (B, H, S) buffer, and the row of dq's f32 accumulator zeroed.
-//   2. the main kernel: one CTA per (KV head of a batch, 64-key tile), the
+//   2. the main kernel: one CTA per (KV head of a batch, key tile), the
 //      tiles with the most query tiles under the causal mask (the first
 //      keys) launched first. K and V stay in shared memory; dK and dV
 //      accumulate in f32 registers while the CTA loops over the G query
 //      heads of its KV head and, for each, over the 64-row query tiles
 //      from the diagonal on (all of them without the mask): so the GQA sum
-//      needs no atomics. A tile pair recomputes S^T and dP^T (keys x
-//      queries), turns them into P^T and dS^T, adds P^T dO and dS^T Q into
-//      dV and dK, and adds scale dS K into dq's f32 accumulator with
-//      atomics (red.add). Keys and queries past S load as zeros and get
-//      P = 0, so they add exactly 0; their dK, dV rows are not written.
+//      needs no atomics. dQ is a sum over key tiles, so CTAs add their
+//      shares into dq's f32 accumulator. Keys and queries past S load as
+//      zeros; pairs with a key or query past S get P = dS = 0; dK, dV rows
+//      past S are not written.
 //   3. cast_dq (bf16 only): dq's f32 accumulator to bf16. An f32 dq is
 //      accumulated in place.
 //
-// flash_bwd_mma (bf16): the five products on the tensor cores, mma.sync
-// m16n8k16 (bf16 operands, f32 sums), 4 warps, each owning 16 of the
-// tile's keys. K, V, Q, dO and dS sit in shared memory as bf16 rows padded
-// by 16 bytes (fragment loads and ldmatrix rows then fall on distinct
-// banks); the operands that the products need transposed (dO and Q for
-// dV and dK, K for dQ) are read with ldmatrix.trans, so no transposed
-// copy is kept. P^T and dS^T go from the f32 accumulator fragments of S^T
-// and dP^T straight into the A fragments of P^T dO and dS^T Q, rounded to
-// bf16 as the forward rounds P before P V; dS also goes to shared memory
-// (queries x keys), from which each warp takes 16 queries of scale dS K.
-// The softmax runs in base 2 (the log-sum-exp times log2 e, read once a
-// row). wgmma, TMA and a dQ pass without atomics are later designs.
-//
+// flash_bwd_wgmma (bf16, D = 64 or 128; base pointers and strides 16-byte
+// aligned, which the wrapper checks): a warp-specialised Hopper kernel
+// over 128-key tiles, 384 threads, 198,696 bytes of shared memory at D =
+// 128 (one CTA an SM).
+//   - Warpgroup 0 gives up its registers (setmaxnreg 24); its first thread
+//     issues the copies by TMA through CUtensorMaps that the launch
+//     function encodes per call over the strided 4-d tensors (q, dO: {D,
+//     H, S, B}; k, v: {D, KH, S, B}; 128-byte swizzled boxes of 64 columns,
+//     two at D = 128). K and V of the tile are loaded once; the (query
+//     head, 64-row query tile) pairs stream Q and dO through a ring of 2
+//     stages with full and empty mbarriers, and the producer warp's lanes
+//     put each tile's lse * log2 e and D beside them (0 past S).
+//   - Two consumer warpgroups (setmaxnreg 240: 2 x 128 x 240 + 128 x 24 <=
+//     65,536) own 64 keys each. On every stage: S^T = K Q^T and dP^T = V
+//     dO^T as wgmma m64n64k16 with both operands in shared memory
+//     (K-major); P^T = 2^(s scale log2 e - lse log2 e) (ex2.approx) and
+//     dS^T = P^T o (dP^T - D) on the f32 accumulator fragments; P^T and
+//     dS^T rounded to bf16 in registers as the A operands of dV += P^T dO
+//     and dK += dS^T Q (wgmma m64nDk16, dO and Q read as MN-major B
+//     operands), as the forward rounds P before P V. dK and dV (2 x D / 2
+//     f32 a thread) stay in registers over the whole loop.
+//   - Masks: only tiles that straddle the diagonal or pass S are masked,
+//     and by integer operations alone: a thread's kept pairs of a key row
+//     form one interval of query columns, a 64-bit mask from which each
+//     pair's exponent is set to -inf. A predicate a pair, or a trap in the
+//     mbarrier waits' loop (mbar_wait_bounded gives up instead), cost
+//     ptxas enough registers beside the 192 of the accumulators that it
+//     spilled dK and dV around every product and serialized the wgmmas.
+//   - dQ: each consumer also stores its dS^T (bf16, keys x queries) into a
+//     128-byte-swizzled tile (two, alternating by stage), fences it for
+//     the async proxy and meets the other consumer at a named barrier
+//     (the producer is not in it). Then each warpgroup computes a 64 x 64
+//     dQ partial with dS read through an M-major descriptor (the
+//     transpose 16-bit operands allow) and K as an N-major one, in the
+//     registers S^T and dP^T had: at D = 128 columns 64 w .. 64 w + 63 over
+//     all 128 keys, at D = 64 all columns over its own 64 keys. It writes
+//     the partial (times the scale) as two swizzled f32 boxes to its own
+//     shared buffer, fences it, and one thread adds each box into dq's
+//     accumulator with a TMA bulk reduce-add (cp.reduce.async.bulk.tensor
+//     ... add on an f32 map of the accumulator): two instructions where
+//     the mma.sync design before it issued 64 x 128 atomics a tile pair.
+//     The thread waits for the bulk group to have read its buffer before
+//     the buffer is written again. The additions into dq arrive in no
+//     fixed order, so dq's f32 sums (and at times its bf16 rounding) vary
+//     from run to run; dk and dv do not.
+//   - The stage's empty barrier is released once the products that read
+//     its Q and dO are complete (wgmma.wait_group 1: dQ reads K and dS
+//     only).
+
 // flash_bwd (f32): scalar f32 FMAs, 256 threads: each thread a 4 x 4 block
 // of S^T and dP^T (one pass over d for both) and a 4 x D/16 block of dK,
 // dV and dQ; P^T and dS^T through shared memory. At most 67 TFLOP/s of
 // f32, about a third of it reachable with one shared-memory load per two
 // FMAs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 #include <type_traits>
 
 namespace {
+
+using namespace hopper;
 
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;           // query rows a tile
 constexpr int kBK = 64;           // key rows a CTA
 constexpr int kLP = kBQ + 1;      // padded row of the P^T and dS^T tiles
 constexpr int kPrepWarps = 8;
-
-struct Strides {
-  long long b, s, h;
-};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -298,254 +331,339 @@ flash_bwd(const float* __restrict__ q, const float* __restrict__ k,
 
 // ----------------------------------------------- tensor-core bf16 path
 using bf16 = __nv_bfloat16;
-constexpr int kMmaWarps = 4;                 // 16 of the tile's keys each
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
-struct MmaTraits {
-  static constexpr int LR = HD + 8;           // padded row of a [64][HD] tile
-  static constexpr int LS = kBK + 8;          // padded row of dS [64][64]
-  static constexpr int TILE = kBQ * LR;       // K, V, Q, dO
-  static constexpr int BYTES = (4 * TILE + kBQ * LS) * 2 + 2 * kBQ * 4;
+struct WgTraits {
+  static constexpr int kBK = 128;             // keys a CTA, 64 a consumer
+  static constexpr int kBQ = 64;              // query rows a stage
+  static constexpr int kWGs = 2;              // consumer warpgroups
+  static constexpr int kThreads = 128 * (kWGs + 1);   // + the producer's
+  static constexpr int kConsumerRegs = 240;
+  static constexpr int kStages = 2;           // Q / dO ring depth
+  static constexpr int kBlocks = HD / kBox;   // 64-column boxes a row
+  static constexpr int kKVBox = kBK * 128;    // a 128-row box: 16 KB
+  static constexpr int kQBox = kBQ * 128;     // a 64-row box: 8 KB
+  static constexpr int kKVTile = kBlocks * kKVBox;
+  static constexpr int kQTile = kBlocks * kQBox;
+  static constexpr int kDS = kBK * kBQ * 2;   // dS^T, keys x queries, bf16
+  static constexpr int kDQBox = 64 * 32 * 4;  // 64 rows x 32 f32 columns
+  static constexpr int kDQ = 2 * kDQBox;      // a consumer's 64 x 64 partial
+  static constexpr int kDqSteps = HD == 128 ? 8 : 4;  // its k-steps of 16 keys
+  // byte offsets from the 1 KB-aligned base: K, V, the Q and dO stages,
+  // two dS^T tiles, the consumers' dQ partials, each stage's lse * log2 e
+  // and D (64 f32 each), the mbarriers; + 1 KB to align the base
+  static constexpr int kK = 0;
+  static constexpr int kV = kKVTile;
+  static constexpr int kQ = 2 * kKVTile;
+  static constexpr int kDO = kQ + kStages * kQTile;
+  static constexpr int kDSOff = kDO + kStages * kQTile;
+  static constexpr int kDQOff = kDSOff + 2 * kDS;
+  static constexpr int kVec = kDQOff + kWGs * kDQ;
+  static constexpr int kBar = kVec + kStages * 2 * kBQ * 4;
+  static constexpr int kSmemBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
 };
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-// four 8 x 8 bf16 matrices, transposed: lane l gives the row address of
-// matrix l / 8
-__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
-}
-// c += a b: m16n8k16, bf16 operands, f32 sums
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// the A fragment of the 16 x 16 block at p (rows ld elements apart)
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* p,
-                                       int ld, int g, int c) {
-  a[0] = ld32(p + g * ld + 2 * c);
-  a[1] = ld32(p + (g + 8) * ld + 2 * c);
-  a[2] = ld32(p + g * ld + 2 * c + 8);
-  a[3] = ld32(p + (g + 8) * ld + 2 * c + 8);
+__device__ __forceinline__ void st_shared(uint32_t addr, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(x),
+               "f"(y)
+               : "memory");
 }
 
-// 64 rows from row r0 of a (rows ss elements apart, 16-byte aligned) into
-// dst [64][HD + 8]; rows past S as zeros
-template <int HD>
-__device__ __forceinline__ void load_tile(const bf16* src, long long ss,
-                                          int r0, int S, bf16* dst,
-                                          int tid) {
-  constexpr int CH = HD / 8;  // 16-byte chunks a row
-  for (int i = tid; i < kBQ * CH; i += kMmaThreads) {
-    const int r = i / CH, ch = i % CH, t = r0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t < S) val = *reinterpret_cast<const uint4*>(src + t * ss + 8 * ch);
-    *reinterpret_cast<uint4*>(dst + r * (HD + 8) + 8 * ch) = val;
-  }
+// the bits u of [lo, hi), lo and hi clamped to [0, 64]
+__device__ __forceinline__ uint64_t bit_range(int lo, int hi) {
+  lo = max(lo, 0);
+  hi = min(hi, 64);
+  if (hi <= lo) return 0ull;
+  const uint64_t below_hi = hi == 64 ? ~0ull : (1ull << hi) - 1ull;
+  return below_hi & ~((1ull << lo) - 1ull);
+}
+// x where bit u of keep is set, else -inf (2^-inf = 0), by integer ops
+// alone (no predicate a pair)
+__device__ __forceinline__ float keep_or_neg_inf(float x, uint64_t keep,
+                                                 int u) {
+  const int m = -static_cast<int>((keep >> u) & 1ull);
+  return __int_as_float((__float_as_int(x) & m) | (~m & 0xff800000));
 }
 
 // grid (B * KH, key tiles); blockIdx.y = 0 holds the first keys
 template <int HD>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dO,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dq_acc, bf16* __restrict__ dk,
-              bf16* __restrict__ dv, int S, int H, int KH, Strides qs,
-              Strides ks, Strides vs, Strides dos, float scale, int causal) {
-  using L = MmaTraits<HD>;
-  constexpr int LR = L::LR, LS = L::LS;
-  constexpr int NT = HD / 8;    // n-tiles of 8 d columns
-  constexpr int KD = HD / 16;   // k-steps over d
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // [64 keys][LR]
-  bf16* sV = sK + L::TILE;                       // [64 keys][LR]
-  bf16* sQ = sV + L::TILE;                       // [64 queries][LR]
-  bf16* sdO = sQ + L::TILE;                      // [64 queries][LR]
-  bf16* sdS = sdO + L::TILE;                     // [64 queries][LS]: dS
-  float* slse = reinterpret_cast<float*>(sdS + kBQ * LS);  // times log2 e
-  float* sdelta = slse + kBQ;
+__global__ void __launch_bounds__(WgTraits<HD>::kThreads, 1)
+flash_bwd_wgmma(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                const __grid_constant__ CUtensorMap domap,
+                const __grid_constant__ CUtensorMap dqmap,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, bf16* __restrict__ dk,
+                bf16* __restrict__ dv, int S, int H, int KH, float scale,
+                int causal) {
+  using T = WgTraits<HD>;
+  constexpr int kStages = T::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* vec = reinterpret_cast<float*>(smem_raw + (base - raw) + T::kVec);
+  const uint32_t sk = base + T::kK, sv = base + T::kV, sq = base + T::kQ;
+  const uint32_t sdo = base + T::kDO, sds = base + T::kDSOff;
+  const uint32_t sdq = base + T::kDQOff, bars = base + T::kBar;
+  const uint32_t full_kv = bars;
+  auto full = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + kStages + s); };
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, c = lane & 3;  // fragment row, column pair
-  const int b = blockIdx.x / KH, kh = blockIdx.x % KH;
-  const int G = H / KH;
-  const int k0 = blockIdx.y * kBK;
-  const int key0 = 16 * warp;             // the warp's keys in the tile
-  const float scale_log2 = scale * kLog2e;
+  const int b = blockIdx.x / KH, kh = blockIdx.x % KH, G = H / KH;
+  const int k0 = blockIdx.y * T::kBK;
+  const int qt0 = causal ? k0 / T::kBQ : 0;  // query tiles above it see no key
+  const int n_qt = (S + T::kBQ - 1) / T::kBQ - qt0;  // a head's query tiles
+  const int n_it = G * n_qt;                          // stages of the CTA
 
-  load_tile<HD>(k + b * ks.b + kh * ks.h, ks.s, k0, S, sK, tid);
-  load_tile<HD>(v + b * vs.b + kh * vs.h, vs.s, k0, S, sV, tid);
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 33);  // the copies' expect_tx + the producer lanes
+      mbar_init(empty(s), 4 * T::kWGs);  // each consumer warp arrives
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  // dK, dV of the warp's 16 keys: rows g, g + 8, columns 8 nt + 2 c (+1)
-  float dka[NT][4], dva[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[nt][e] = dva[nt][e] = 0.f;
-
-  const int qt0 = causal ? k0 / kBQ : 0;  // query tiles above it see no key
-  const int n_qt = (S + kBQ - 1) / kBQ;
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = kh * G + gi;
-    const bf16* qb = q + b * qs.b + h * qs.h;
-    const bf16* dob = dO + b * dos.b + h * dos.h;
-    const float* lseb = lse + ((long long)b * H + h) * S;
-    const float* deltab = delta + ((long long)b * H + h) * S;
-    float* dqb = dq_acc + ((long long)b * S * H + h) * HD;
-    for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * kBQ;
-      __syncthreads();  // the last tile's readers are done (and K, V set)
-      load_tile<HD>(qb, qs.s, q0, S, sQ, tid);
-      load_tile<HD>(dob, dos.s, q0, S, sdO, tid);
-      if (tid < kBQ) {
-        const int t = q0 + tid;
-        slse[tid] = t < S ? lseb[t] * kLog2e : 0.f;
-        sdelta[tid] = t < S ? deltab[t] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys x 64 queries,
-      // n-tiles of 8 queries
-      float st[8][4], dpt[8][4];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
-#pragma unroll
-      for (int kd = 0; kd < KD; ++kd) {
-        uint32_t ak[4], av[4];
-        frag_a(ak, sK + key0 * LR + 16 * kd, LR, g, c);
-        frag_a(av, sV + key0 * LR + 16 * kd, LR, g, c);
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const bf16* bq = sQ + (8 * nt + g) * LR + 16 * kd + 2 * c;
-          const bf16* bd = sdO + (8 * nt + g) * LR + 16 * kd + 2 * c;
-          mma(st[nt], ak, ld32(bq), ld32(bq + 8));
-          mma(dpt[nt], av, ld32(bd), ld32(bd + 8));
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(full_kv, 2 * T::kKVTile);
+        for (int c = 0; c < T::kBlocks; ++c) {
+          tma_load(sk + c * T::kKVBox, &kmap, full_kv, c * kBox, kh, k0, b);
+          tma_load(sv + c * T::kKVBox, &vmap, full_kv, c * kBox, kh, k0, b);
         }
       }
-
-      // P^T and dS^T; masked pairs and rows or keys past S give exactly 0.
-      // dS also to shared memory, queries x keys, for dQ.
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kl = key0 + g + (e >= 2 ? 8 : 0);  // key in the tile
-          const int ql = 8 * nt + 2 * c + (e & 1);     // query in the tile
-          const int key = k0 + kl, row = q0 + ql;
-          float p = 0.f;
-          if (key < S && row < S && (!causal || key <= row))
-            p = exp2f(fmaf(st[nt][e], scale_log2, -slse[ql]));
-          st[nt][e] = p;
-          dpt[nt][e] = p * (dpt[nt][e] - sdelta[ql]);
-          sdS[ql * LS + kl] = __float2bfloat16_rn(dpt[nt][e]);
-        }
-      }
-      // the accumulator fragments (n-tiles of 8 queries) as A fragments
-      // (k-steps of 16 queries)
-      uint32_t pa[4][4], sa[4][4];
-#pragma unroll
-      for (int kq = 0; kq < 4; ++kq) {
-        pa[kq][0] = pack(st[2 * kq][0], st[2 * kq][1]);
-        pa[kq][1] = pack(st[2 * kq][2], st[2 * kq][3]);
-        pa[kq][2] = pack(st[2 * kq + 1][0], st[2 * kq + 1][1]);
-        pa[kq][3] = pack(st[2 * kq + 1][2], st[2 * kq + 1][3]);
-        sa[kq][0] = pack(dpt[2 * kq][0], dpt[2 * kq][1]);
-        sa[kq][1] = pack(dpt[2 * kq][2], dpt[2 * kq][3]);
-        sa[kq][2] = pack(dpt[2 * kq + 1][0], dpt[2 * kq + 1][1]);
-        sa[kq][3] = pack(dpt[2 * kq + 1][2], dpt[2 * kq + 1][3]);
-      }
-
-      // dV += P^T dO, dK += dS^T Q (the scale at the end): B operands dO
-      // and Q (queries x d, row-major) read transposed, two n-tiles a load
-#pragma unroll
-      for (int kq = 0; kq < 4; ++kq) {
-        const int row = 16 * kq + (lane & 15);
-#pragma unroll
-        for (int nt = 0; nt < NT; nt += 2) {
-          const int col = 8 * (nt + (lane >> 4));
-          uint32_t bd[4], bq[4];
-          ldsm4t(bd, sdO + row * LR + col);
-          ldsm4t(bq, sQ + row * LR + col);
-          mma(dva[nt], pa[kq], bd[0], bd[1]);
-          mma(dva[nt + 1], pa[kq], bd[2], bd[3]);
-          mma(dka[nt], sa[kq], bq[0], bq[1]);
-          mma(dka[nt + 1], sa[kq], bq[2], bq[3]);
-        }
-      }
-      __syncthreads();  // dS of all four warps in shared memory
-
-      // dQ += scale dS K: the warp's 16 queries x HD, over the 64 keys, in
-      // two halves of the columns; K (keys x d, row-major) read transposed
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float dqa[NT / 2][4];
-#pragma unroll
-        for (int nt = 0; nt < NT / 2; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dqa[nt][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          uint32_t a[4];
-          frag_a(a, sdS + key0 * LS + 16 * kk, LS, g, c);
-          const int row = 16 * kk + (lane & 15);
-#pragma unroll
-          for (int nt = 0; nt < NT / 2; nt += 2) {
-            uint32_t bk[4];
-            ldsm4t(bk, sK + row * LR + half * (HD / 2) +
-                           8 * (nt + (lane >> 4)));
-            mma(dqa[nt], a, bk[0], bk[1]);
-            mma(dqa[nt + 1], a, bk[2], bk[3]);
+      for (int it = 0; it < n_it; ++it) {
+        const int st = it % kStages;
+        const int h = kh * G + it / n_qt, q0 = (qt0 + it % n_qt) * T::kBQ;
+        if (it >= kStages)
+          mbar_wait_bounded(empty(st), ((it / kStages) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(full(st), 2 * T::kQTile);
+          for (int c = 0; c < T::kBlocks; ++c) {
+            tma_load(sq + st * T::kQTile + c * T::kQBox, &qmap, full(st),
+                     c * kBox, h, q0, b);
+            tma_load(sdo + st * T::kQTile + c * T::kQBox, &domap, full(st),
+                     c * kBox, h, q0, b);
           }
         }
-        const int r0 = q0 + key0 + g, r1 = r0 + 8;  // warp's query rows
-#pragma unroll
-        for (int nt = 0; nt < NT / 2; ++nt) {
-          const int d = half * (HD / 2) + 8 * nt + 2 * c;
-          if (r0 < S) {
-            float* p = dqb + (long long)r0 * H * HD + d;
-            atomicAdd(p, dqa[nt][0] * scale);
-            atomicAdd(p + 1, dqa[nt][1] * scale);
-          }
-          if (r1 < S) {
-            float* p = dqb + (long long)r1 * H * HD + d;
-            atomicAdd(p, dqa[nt][2] * scale);
-            atomicAdd(p + 1, dqa[nt][3] * scale);
-          }
+        // the tile's log-sum-exp (times log2 e) and D; rows past S as 0
+        const long long row = ((long long)b * H + h) * S;
+        float* sl = vec + st * 2 * T::kBQ;
+        for (int r = lane; r < T::kBQ; r += 32) {
+          const int t = q0 + r;
+          sl[r] = t < S ? lse[row + t] * kLog2e : 0.f;
+          sl[T::kBQ + r] = t < S ? delta[row + t] : 0.f;
         }
+        mbar_arrive(full(st));
       }
     }
-  }
+  } else {
+    // ------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+                     T::kConsumerRegs)
+                 : "memory");
+    // keys 64 wg .. 64 wg + 63; read through a shuffle so that the
+    // compiler knows it is uniform across the warp and keeps the shared
+    // addresses and descriptors that derive from it in uniform registers
+    const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0) - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, c = lane % 4;        // fragment row, col pair
+    const int key0 = 64 * wg + 16 * warp + g;    // rows key0, key0 + 8
+    const float scale_log2 = scale * kLog2e;
+    // K, V: the warpgroup's 64 rows of each 64-column box, K-major
+    const uint32_t ka = sk + wg * 64 * 128, va = sv + wg * 64 * 128;
+    // dQ: the partial's columns in dq and its k-steps' 16-key offset
+    const int dq_col = HD == 128 ? 64 * wg : 0;
+    const int ks0 = HD == 128 ? 0 : 4 * wg;
+    const uint32_t kb = sk + (HD == 128 ? wg * T::kKVBox : 0);
+    const uint32_t qb = sdq + wg * T::kDQ;
 
-  // dk, dv: contiguous (B, S, KH, HD); rows g and g + 8 of the warp's keys
+    float dka[HD / 2], dva[HD / 2];
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int key = k0 + key0 + g + 8 * hr;
-    if (key >= S) continue;
-    const long long off = (((long long)b * S + key) * KH + kh) * HD + 2 * c;
+    for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
+    mbar_wait_bounded(full_kv, 0);
+
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % kStages;
+      const uint32_t ph = (it / kStages) & 1;
+      const int h = kh * G + it / n_qt, q0 = (qt0 + it % n_qt) * T::kBQ;
+      const uint32_t qa = sq + st * T::kQTile, da = sdo + st * T::kQTile;
+      // opaque each stage, so that the descriptors of K and V are built at
+      // their products, not hoisted out of the loop and held in registers
+      uint32_t kas = ka, vas = va, kbs = kb;
+      asm volatile("" : "+r"(kas), "+r"(vas), "+r"(kbs));
+      mbar_wait_bounded(full(st), ph);
+
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, HD / 16
+      // k-steps of 32 bytes in a box; then dQ in the same registers
+      float acc[64];
+      float(&s)[32] = *reinterpret_cast<float(*)[32]>(acc);
+      float(&dp)[32] = *reinterpret_cast<float(*)[32]>(acc + 32);
+      pin(s);
+      pin(dp);
+      wg_fence();
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      *reinterpret_cast<uint32_t*>(dk + off + 8 * nt) =
-          pack(dka[nt][2 * hr] * scale, dka[nt][2 * hr + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + off + 8 * nt) =
-          pack(dva[nt][2 * hr], dva[nt][2 * hr + 1]);
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t col = (kk % 4) * 32;  // bytes into the 128-byte row
+        wgmma_ss_n64<0, 0>(s, wg_desc(kas + (kk / 4) * T::kKVBox + col, 16,
+                                      1024),
+                           wg_desc(qa + (kk / 4) * T::kQBox + col, 16, 1024),
+                           kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t col = (kk % 4) * 32;
+        wgmma_ss_n64<0, 0>(dp, wg_desc(vas + (kk / 4) * T::kKVBox + col, 16,
+                                       1024),
+                           wg_desc(da + (kk / 4) * T::kQBox + col, 16, 1024),
+                           kk > 0);
+      }
+      wg_commit();
+      wg_wait0();
+      pin(s);
+      pin(dp);
+
+      // P^T and dS^T in base 2, rows keys key0 (+8), columns queries u = 8 j
+      // + 2 c (+1): P = 2^(s scale log2 e - lse log2 e), dS = P (dP - D).
+      // On tiles that straddle the diagonal or pass S, a masked pair's
+      // exponent is -inf, so that its P and dS are 0: keep bit u - 2 c of
+      // row hr (key key0 + 8 hr) for u - 2 c in [lo, hi), lo from the
+      // diagonal, hi from S (0 for a key past S).
+      const float* sl = vec + st * 2 * T::kBQ;
+      const bool edge = (causal && k0 + 64 * wg + 63 > q0) ||
+                        k0 + 64 * wg + 64 > S || q0 + T::kBQ > S;
+      uint64_t keep[2] = {~0ull, ~0ull};
+      if (edge) {
+        const int dkr = k0 + key0 - q0 - 2 * c;  // key - query at u = 2 c
+        const int rlim = S - q0 - 2 * c;          // query < S: u - 2 c < rlim
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          keep[hr] = bit_range(causal ? dkr + 8 * hr : 0,
+                               k0 + key0 + 8 * hr < S ? rlim : 0);
+      }
+      // P^T and dS^T rounded to bf16 as the A fragments of P^T dO and dS^T
+      // Q (k-steps of 16 queries), as the forward rounds P before P V; dS^T
+      // also into this stage's tile of 128 key rows of 64 queries (128
+      // bytes), 16-byte chunk j of row r at chunk j ^ (r % 8), as the
+      // 128-byte swizzle reads it. Each 8 queries are read, computed and
+      // stored before the next, so that few registers beyond the
+      // accumulators are live.
+      const uint32_t dsb = sds + (it & 1) * T::kDS;
+      uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float* lj = sl + 8 * j + 2 * c;
+        const float2 l2 = *reinterpret_cast<const float2*>(lj);
+        const float2 dl = *reinterpret_cast<const float2*>(lj + T::kBQ);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e, col = e & 1;
+          float x = fmaf(s[i], scale_log2, -(col ? l2.y : l2.x));
+          if (edge) x = keep_or_neg_inf(x, keep[e >> 1], 8 * j + col);
+          const float pv = ex2(x);
+          s[i] = pv;
+          dp[i] = pv * (dp[i] - (col ? dl.y : dl.x));
+        }
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int key = key0 + 8 * hr, r = 2 * (j & 1) + hr;
+          pa[j / 2][r] = pack_bf16(s[4 * j + 2 * hr], s[4 * j + 2 * hr + 1]);
+          sa[j / 2][r] =
+              pack_bf16(dp[4 * j + 2 * hr], dp[4 * j + 2 * hr + 1]);
+          st_shared(dsb + key * 128 + ((j ^ (key & 7)) << 4) + 4 * c,
+                    sa[j / 2][r]);
+        }
+      }
+      fence_async_smem();
+
+      // dV += P^T dO, dK += dS^T Q (the scale at the end): dO and Q
+      // MN-major, 16 queries = two 8-row groups (1 KB apart) a k-step, the
+      // 64-column boxes a Q tile apart
+      pin(dva);
+      pin(dka);
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq) {
+        pin(pa[kq]);
+        pin(sa[kq]);
+      }
+      wg_fence();
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq) {
+        const uint32_t row = kq * 16 * 128;
+        wgmma_rs<HD>(dva, pa[kq], wg_desc(da + row, T::kQBox, 1024));
+        wgmma_rs<HD>(dka, sa[kq], wg_desc(qa + row, T::kQBox, 1024));
+      }
+      wg_commit();
+
+      // both consumers' dS^T in the tile: dQ (64 queries x 64 columns) =
+      // dS K, dS read M-major and K N-major, k-steps of 16 keys
+      bar_sync(1, 128 * T::kWGs);
+      float(&dq)[32] = *reinterpret_cast<float(*)[32]>(acc);
+      pin(dq);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < T::kDqSteps; ++kk) {
+        const int ks = ks0 + kk;
+        wgmma_ss_n64<1, 1>(dq, wg_desc(dsb + ks * 2048, T::kDS, 1024),
+                           wg_desc(kbs + ks * 2048, T::kKVBox, 1024), kk > 0);
+      }
+      wg_commit();
+      wg_wait1();  // dV and dK done: the stage's Q and dO are free
+      pin(dva);
+      pin(dka);
+      if (lane == 0) mbar_arrive(empty(st));
+      wg_wait0();
+      pin(dq);
+
+      // the partial (times the scale) into the warpgroup's buffer, once the
+      // last reduce-add has read it: two boxes of 64 rows x 32 f32
+      // (128-byte rows, 16-byte chunk k of row r at k ^ (r % 8))
+      if (tid == 0) bulk_wait_read0();
+      bar_sync(2 + wg, 128);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = 16 * warp + g + 8 * hr;
+          const int chunk = 2 * (j % 4) + (c >> 1);
+          st_shared(qb + (j / 4) * T::kDQBox + r * 128 +
+                        ((chunk ^ g) << 4) + 8 * (c & 1),
+                    dq[4 * j + 2 * hr] * scale,
+                    dq[4 * j + 2 * hr + 1] * scale);
+        }
+      fence_async_smem();
+      bar_sync(2 + wg, 128);
+      if (tid == 0) {
+        tma_reduce_add(&dqmap, qb, dq_col, h, q0, b);
+        tma_reduce_add(&dqmap, qb + T::kDQBox, dq_col + 32, h, q0, b);
+        bulk_commit();
+      }
+    }
+    if (tid == 0) bulk_wait0();
+
+    // dk, dv: contiguous (B, S, KH, HD); rows key0 and key0 + 8
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int key = k0 + key0 + 8 * hr;
+      if (key >= S) continue;
+      const long long off = (((long long)b * S + key) * KH + kh) * HD + 2 * c;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * j) = pack_bf16(
+            dka[4 * j + 2 * hr] * scale, dka[4 * j + 2 * hr + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * j) =
+            pack_bf16(dva[4 * j + 2 * hr], dva[4 * j + 2 * hr + 1]);
+      }
     }
   }
 }
@@ -557,6 +675,48 @@ __global__ void cast_dq(const float* __restrict__ acc,
     dq[i] = __float2bfloat16_rn(acc[i]);
 }
 
+// the shared-memory limit of `kernel` raised to `bytes` once per device
+// (`ready`: the flags of one kernel)
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, bool (&ready)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= 64 || ready[dev]) return err;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) ready[dev] = true;
+  return err;
+}
+
+template <int HD>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const void* dO, const float* lse,
+                         const float* delta, float* dq_acc, void* dk,
+                         void* dv, int B, int S, int H, int KH, int causal,
+                         float scale, Strides qs, Strides ks, Strides vs,
+                         Strides dos, cudaStream_t stream) {
+  using T = WgTraits<HD>;
+  static bool ready[64] = {false};
+  cudaError_t err = allow_smem(flash_bwd_wgmma<HD>, T::kSmemBytes, ready);
+  if (err != cudaSuccess) return err;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  // dq's accumulator: contiguous (B, S, H, HD) f32, boxes of 64 rows x 32
+  const Strides acc{(long long)S * H * HD, (long long)H * HD, HD};
+  CUtensorMap qm, km, vm, dom, dqm;
+  if (!make_map(&qm, encode, q, B, S, H, HD, T::kBQ, qs) ||
+      !make_map(&km, encode, k, B, S, KH, HD, T::kBK, ks) ||
+      !make_map(&vm, encode, v, B, S, KH, HD, T::kBK, vs) ||
+      !make_map(&dom, encode, dO, B, S, H, HD, T::kBQ, dos) ||
+      !make_map(&dqm, encode, dq_acc, B, S, H, HD, T::kBQ, acc, true))
+    return cudaErrorInvalidValue;
+  const dim3 grid(B * KH, (S + T::kBK - 1) / T::kBK);
+  flash_bwd_wgmma<HD><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
+      qm, km, vm, dom, dqm, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), S, H, KH, scale, causal);
+  return cudaGetLastError();
+}
+
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const float* lse, const void* dO, void* dq,
@@ -564,23 +724,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int S, int H, int KH, int causal, float scale, Strides qs,
                    Strides ks, Strides vs, Strides os, Strides dos,
                    cudaStream_t stream) {
-  constexpr bool kMma = std::is_same<T, bf16>::value;
-  constexpr int kSmem = kMma ? MmaTraits<HD>::BYTES : smem_bytes<HD>();
-  static bool ready[64] = {false};  // shared-memory limit raised, per device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 64 && !ready[dev]) {
-    if constexpr (kMma)
-      err = cudaFuncSetAttribute(flash_bwd_mma<HD>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kSmem);
-    else
-      err = cudaFuncSetAttribute(flash_bwd<HD>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kSmem);
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  cudaError_t err = cudaSuccess;
+  if constexpr (!kBf16) {
+    static bool ready[64] = {false};
+    err = allow_smem(flash_bwd<HD>, smem_bytes<HD>(), ready);
     if (err != cudaSuccess) return err;
-    ready[dev] = true;
   }
   const long long rows = (long long)B * S * H;
   bwd_prep<T><<<(unsigned)((rows + kPrepWarps - 1) / kPrepWarps),
@@ -589,29 +738,23 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       S, H, HD, os, dos);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * KH, (S + kBK - 1) / kBK);
-  if constexpr (kMma)
-    flash_bwd_mma<HD><<<grid, kMmaThreads, kSmem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dO), lse,
-        delta, dq_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H,
-        KH, qs, ks, vs, dos, scale, causal);
-  else
-    flash_bwd<HD><<<grid, kThreads, kSmem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dO), lse,
-        delta, dq_acc, static_cast<float*>(dk), static_cast<float*>(dv), S,
-        H, KH, qs, ks, vs, dos, scale, causal);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if constexpr (kMma) {
+  if constexpr (kBf16) {
+    err = launch_wgmma<HD>(q, k, v, dO, lse, delta, dq_acc, dk, dv, B, S, H,
+                           KH, causal, scale, qs, ks, vs, dos, stream);
+    if (err != cudaSuccess) return err;
     const long long n = rows * HD;
     const long long blocks = (n + 255) / 256;
     cast_dq<<<(unsigned)(blocks < 65536 ? blocks : 65536), 256, 0,
               stream>>>(dq_acc, static_cast<bf16*>(dq), n);
-    err = cudaGetLastError();
+  } else {
+    const dim3 grid(B * KH, (S + kBK - 1) / kBK);
+    flash_bwd<HD><<<grid, kThreads, smem_bytes<HD>(), stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dO), lse,
+        delta, dq_acc, static_cast<float*>(dk), static_cast<float*>(dv), S,
+        H, KH, qs, ks, vs, dos, scale, causal);
   }
-  return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -623,9 +766,10 @@ extern "C" {
 // contiguous, and for bfloat16 their rows 16-byte aligned (base pointer
 // and strides; the wrapper checks); lse and delta contiguous f32
 // (B, H, S); dq, dk, dv contiguous outputs; dq_acc a contiguous f32
-// (B, S, H, D) scratch, or dq itself for float32. Returns a CUDA error code (0 on success);
-// cudaErrorInvalidValue for a head size or type the library was not built
-// for.
+// (B, S, H, D) scratch, or dq itself for float32. Returns a CUDA error
+// code (0 on success); cudaErrorInvalidValue for a head size or type the
+// library was not built for, or strides TMA refuses; cudaErrorNotSupported
+// where cuTensorMapEncodeTiled cannot be found.
 int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dO, void* dq, void* dk, void* dv,

@@ -18,14 +18,16 @@ The CUDA sources under ``csrc/`` are compiled at first use with ``nvcc``
 into ``build/`` at the repository root, one shared library per source
 with a plain C interface, loaded with ``ctypes``. Each library has its own
 flags (``NVCC_FLAGS`` plus its entry in ``EXTRA_FLAGS``); the library name
-carries a hash of the source and of those flags, so an edited source or a
-changed flag is rebuilt.
+carries a hash of the source, of the ``csrc/`` headers it includes
+(``hopper.cuh``, shared by both attention libraries) and of those flags, so
+an edited source or header or a changed flag is rebuilt.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -81,11 +83,24 @@ def nvcc_flags(name: str) -> Tuple[str, ...]:
     return NVCC_FLAGS + EXTRA_FLAGS[name]
 
 
+def sources(name: str) -> Tuple[Path, ...]:
+    """``csrc/<name>.cu`` and, in the order first met, every header it
+    includes with ``#include "..."``, directly or through another one."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [path.parent / inc for inc in re.findall(
+            r'^\s*#\s*include\s*"([^"]+)"', path.read_text(), re.M)]
+    return tuple(found)
+
+
 def library_path(name: str) -> Path:
-    """``build/lib<name>-<hash>.so``, the hash over the source and the
-    library's own flags."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    """``build/lib<name>-<hash>.so``, the hash over the source, the headers
+    it includes (:func:`sources`) and the library's own flags."""
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources(name))
                             + " ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

@@ -463,9 +463,10 @@ def test_chip_probes_refuses_without_cuda(capsys):
 
 
 def test_chip_probes_builds_another_checkouts_kernels(monkeypatch, tmp_path):
-    """``--parent DIR`` builds DIR's SSD and scan sources with this
-    checkout's flags and launches them through DIR's own launchers (here
-    this checkout, so a CPU tensor reaches the launcher and is refused)."""
+    """``--parent DIR`` builds DIR's SSD, scan and attention backward
+    sources with this checkout's flags and launches them through DIR's own
+    launchers (here this checkout, so a CPU tensor reaches the launcher and
+    is refused)."""
     _chip_smoke()
     _load("chip_faults")
     probes = _load("chip_probes")
@@ -486,16 +487,101 @@ def test_chip_probes_builds_another_checkouts_kernels(monkeypatch, tmp_path):
     monkeypatch.setattr(probes.ctypes, "CDLL", lambda path: FakeLib())
     monkeypatch.setattr(ops, "_nvcc", lambda: "nvcc")
     fns, paths = probes.load_parent(ops, ROOT, tmp_path)
-    assert set(fns) == set(paths) == {"ssd_chunk", "selective_scan"}
+    assert set(fns) == set(paths) == {"ssd_chunk", "selective_scan",
+                                      "flash_attention_bwd"}
     assert all(p.parent == tmp_path for p in paths.values())
     srcs = sorted(Path(c[-1]).name for c in built)
-    assert srcs == ["selective_scan.cu", "ssd_chunk.cu"]
+    assert srcs == ["flash_attention_bwd.cu", "selective_scan.cu",
+                    "ssd_chunk.cu"]
     assert all(c[1:1 + len(ops.NVCC_FLAGS)] == list(ops.NVCC_FLAGS)
                for c in built)
     x = torch.zeros(1, 4, 2, 64)
     with pytest.raises(ValueError, match="runs on CUDA"):
         fns["ssd_chunk"](x, x[..., 0, :16], x[..., 0, :16], x[..., 0],
                          torch.ones(2))
+    q = torch.zeros(1, 4, 2, 64)
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        fns["flash_attention_bwd"](q, q, q, q, torch.zeros(1, 2, 4), q,
+                                   causal=True)
+
+
+@pytest.mark.parametrize("fault", ["dk_without_group_sum",
+                                   "ragged_k_tile_not_masked",
+                                   "ds_tile_unswizzled", "lse_in_base_2"])
+def test_chip_faults_plant_into_the_training_attention(fault):
+    """Each planted fault of the training path's attention edits text that
+    occurs once in its source, after the tensor-core kernel's definition
+    (the backward's ``flash_bwd_wgmma``, the forward's ``flash_fwd_wgmma``
+    for the log-sum-exp), so an edit of a kernel cannot leave a fault
+    unplanted."""
+    _chip_smoke()
+    lib, edits = _load("chip_faults").BWD_FAULTS[fault]
+    fn = {"flash_attention_bwd": "flash_bwd_wgmma(",
+          "flash_attention": "flash_fwd_wgmma("}[lib]
+    src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" /
+           f"{lib}.cu").read_text()
+    for old, new in edits:
+        assert src.count(old) == 1 and old != new
+        assert src.index(old) > src.index(fn)
+
+
+def test_library_hash_covers_included_headers(monkeypatch, tmp_path):
+    """A library's name hashes the ``csrc/`` headers its source includes,
+    so an edit of a shared header rebuilds every library that includes it
+    and no other."""
+    from repro_torch.kernels import ops
+    (tmp_path / "flash_attention_bwd.cu").write_text(
+        '#include "hopper.cuh"\n#include <stdint.h>\nint x;\n')
+    (tmp_path / "hopper.cuh").write_text('#include "more.cuh"\nint y;\n')
+    (tmp_path / "more.cuh").write_text("int z;\n")
+    (tmp_path / "ssd_chunk.cu").write_text("int w;\n")
+    monkeypatch.setattr(ops, "CSRC", tmp_path)
+    assert [p.name for p in ops.sources("flash_attention_bwd")] == [
+        "flash_attention_bwd.cu", "hopper.cuh", "more.cuh"]
+    before = {n: ops.library_path(n) for n in ("flash_attention_bwd",
+                                               "ssd_chunk")}
+    (tmp_path / "more.cuh").write_text("int z2;\n")
+    after = {n: ops.library_path(n) for n in before}
+    assert after["flash_attention_bwd"] != before["flash_attention_bwd"]
+    assert after["ssd_chunk"] == before["ssd_chunk"]
+
+
+def test_attention_libraries_share_the_hopper_header():
+    """Both attention libraries include ``hopper.cuh``; the others include
+    no header of ``csrc/``."""
+    from repro_torch.kernels import ops
+    assert {n: [p.name for p in ops.sources(n)[1:]]
+            for n in ops.EXTRA_FLAGS} == {
+        "topk_select": [], "flash_attention": ["hopper.cuh"],
+        "flash_attention_bwd": ["hopper.cuh"], "ssd_chunk": [],
+        "selective_scan": []}
+
+
+BWD_SASS = """\
+        code for sm_90a
+        Function : _ZN1a15flash_bwd_wgmmaILi128EEEv14CUtensorMap_st
+        /*0000*/                   UTMALDG.4D [UR8], [UR22] ;
+        /*0010*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR16], RZ, !UPT, gsb0 ;
+        /*0020*/                   HGMMA.64x128x16.F32.BF16 R24, R180, gdesc[UR16].tnspB, R24, gsb0 ;
+        /*0030*/               @P0 UTMAREDG.4D.ADD [UR24], [UR22] ;
+        /*0040*/                   EXIT ;
+        Function : _ZN1a13flash_bwd_mmaILi128EEEvPK
+        /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0010*/                   REDG.E.ADD.F32.FTZ.RN.STRONG.GPU [R2.64], R5 ;
+"""
+
+
+def test_chip_smoke_counts_the_backwards_hopper_instructions():
+    """Phase 1 counts wgmma, TMA loads and reduce-adds of each backward
+    entry from its SASS (modifiers and predicates dropped)."""
+    smoke = _chip_smoke()
+    new = smoke.sass_ops(BWD_SASS, "flash_bwd_wgmma")
+    assert list(new.values()) == [{"UTMALDG": 1, "HGMMA": 2, "UTMAREDG": 1,
+                                   "EXIT": 1}]
+    old = next(iter(smoke.sass_ops(BWD_SASS, "flash_bwd_mma").values()))
+    assert old == {"HMMA": 1, "REDG": 1}
+    with pytest.raises(smoke.SmokeFailure, match="no function like"):
+        smoke.sass_ops(BWD_SASS, "flash_fwd")
 
 
 def test_chip_smoke_checks_ragged_full_width_scans():

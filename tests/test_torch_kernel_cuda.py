@@ -478,13 +478,17 @@ def test_each_library_builds_with_its_own_flags(monkeypatch):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,KH,D", [
     (1, 32, 4, 4, 64), (2, 100, 8, 2, 128), (1, 385, 4, 2, 64),
-    (1, 1024, 16, 16, 128)])
+    (1, 1024, 16, 16, 128), (1, 32, 12, 4, 128), (2, 1000, 8, 2, 64),
+    (1, 1000, 12, 4, 128)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal", [True, False])
 def test_attention_backward_kernel(B, S, H, KH, D, dtype, causal):
     """The forward's log-sum-exp and the backward kernel against their
     plain versions on the same inputs, and the autograd.Function's
-    gradients on the card: counted once a call, no plain route taken."""
+    gradients on the card: counted once a call, no plain route taken. The
+    shapes hold the bf16 kernel's edges: S below one 128-key tile (32) and
+    ragged (100, 385, 1000), G = 1, 3 and 4 query heads a KV head, hd 64
+    and 128."""
     dev = _card()
     g = torch.Generator(device="cpu").manual_seed(S + D)
     q = torch.randn(B, S, H, D, generator=g).to(dtype).to(dev)
@@ -495,7 +499,8 @@ def test_attention_backward_kernel(B, S, H, KH, D, dtype, causal):
     before = {n: ops.LAUNCHES[n] for n in ("flash_attention",
                                             "flash_attention_bwd")}
     out = ops.flash_attention(*leaves, causal=causal)
-    grads = torch.autograd.grad(out, leaves, do)
+    # the graph kept, so that the saved log-sum-exp can be read below
+    grads = torch.autograd.grad(out, leaves, do, retain_graph=True)
     torch.cuda.synchronize()
     assert {n: ops.LAUNCHES[n] - before[n] for n in before} == {
         "flash_attention": 1, "flash_attention_bwd": 1}
