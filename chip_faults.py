@@ -19,7 +19,15 @@ with the last, ragged key tile's rows past S read (K and V mapped as one
 sequence over the batches) and not masked, and with dS^T stored without
 the swizzle that dQ's descriptor reads; and the tensor-core forward's
 log-sum-exp left in base 2. Phase 17 of ``chip_smoke.py`` must pass with
-the sound libraries and fail with each fault.
+the sound libraries and fail with each fault. ``SCAN_BWD_FAULTS`` (6)
+edit the scan backward kernels: in ``ssd_bwd`` (``ssd_chunk_bwd.cu``) the
+gradient carried into the chunk before not decayed across the chunk
+boundary, dA without its even steps' terms, and dB summed over one head's
+CTA only; in ``scan_bwd`` (``selective_scan_bwd.cu``) g carried into the
+tile before without the decay of the tile's first step, dA's terms
+without the step's decay, and dB summed over the first CTA's channels
+only. Phase 21 (the SSD's) or 23 (the selective scan's) of
+``chip_smoke.py`` must pass with the sound libraries and fail with each.
 
 For the sound top-k kernel and each of its faults it runs phase 2 of
 ``chip_smoke.py`` (the 105-case matrix and the edge cases, indices exact,
@@ -215,6 +223,45 @@ BWD_FAULTS = {
         "st_shared(dsb + key * 128 + ((j ^ (key & 7)) << 4) + 4 * c,",
         "st_shared(dsb + key * 128 + (j << 4) + 4 * c,")]),
 }
+
+# Faults of the scan backward kernels, in the same form; phase 21 of
+# chip_smoke.py (the SSD's) or 23 (the selective scan's) must fail on each:
+# the kernel against its plain version at the JAX package's tolerances,
+# and each gradient by the tight check against the f32 backward
+SCAN_BWD_FAULTS = {
+    # K, the gradient carried back into the chunk before, not decayed
+    # across the chunk boundary
+    "ssd_chunk_decay_dropped": ("ssd_chunk_bwd", [(
+        "          *p = fmaf(decay, *p, acc[i][j]);\n",
+        "          *p = *p + acc[i][j];\n")]),
+    # dA without its even steps' terms
+    "ssd_da_term_dropped": ("ssd_chunk_bwd", [(
+        "      da_acc = fmaf(sdt[s0], m0, fmaf(sdt[s1], m1, da_acc));",
+        "      da_acc = fmaf(sdt[s1], m1, da_acc);")]),
+    # dB summed over one CTA's head only
+    "ssd_db_one_head": ("ssd_chunk_bwd", [(
+        "          if (t < S) atomicAdd(dbb + (long long)t * DS + n, "
+        "d * (acc[i][j] + kxv));",
+        "          if (t < S && h == 0) atomicAdd(dbb + (long long)t * DS + "
+        "n, d * (acc[i][j] + kxv));")]),
+    # g carried into the tile before without the decay of the tile's first
+    # step
+    "scan_tile_decay_dropped": ("selective_scan_bwd", [(
+        "          g[j] *= da[u][j];\n",
+        "          if (u > 0 || sub > 0) g[j] *= da[u][j];\n")]),
+    # dA's terms without the step's decay a
+    "scan_da_term_dropped": ("selective_scan_bwd", [(
+        "          dacc[j] = fmaf(v.x, m, dacc[j]);",
+        "          dacc[j] = fmaf(v.x, g[j] * hp[u][j], dacc[j]);")]),
+    # dB summed over the first CTA's 32 channels only
+    "scan_db_one_cta": ("selective_scan_bwd", [(
+        "          atomicAdd(dbm + ((long long)b * S + t) * DS + n, sb_);",
+        "          if (blockIdx.x == 0)\n"
+        "            atomicAdd(dbm + ((long long)b * S + t) * DS + n, sb_);")]),
+}
+# the phase of chip_smoke.py that holds each scan backward library
+SCAN_BWD_PHASES = {"ssd_chunk_bwd": "phase_ssd_bwd_vs_plain",
+                   "selective_scan_bwd": "phase_scan_bwd_vs_plain"}
 
 
 # library: (its faults, the kernel function they edit)
@@ -423,26 +470,30 @@ def fails(tight, limits):
 def build_all(ops, tmp):
     """The sound libraries and every fault, one nvcc each, all at once;
     returns ``{lib: {"sound" or fault name: bound library}}`` and
-    ``{fault name: (library, bound library)}`` of ``BWD_FAULTS``."""
+    ``{fault name: (library, bound library)}`` of ``BWD_FAULTS`` and
+    ``SCAN_BWD_FAULTS``."""
     jobs = sum(len(faults) + 1 for faults, _ in KERNEL_FAULTS.values()) \
-        + len(BWD_FAULTS) + 1
+        + len(BWD_FAULTS) + len(SCAN_BWD_FAULTS) + 1 + len(SCAN_BWD_PHASES)
     with ThreadPoolExecutor(jobs) as pool:
         sound = {lib: pool.submit(ops.build_library, lib)
-                 for lib in (*KERNEL_FAULTS, "flash_attention_bwd")}
+                 for lib in (*KERNEL_FAULTS, "flash_attention_bwd",
+                             *SCAN_BWD_PHASES)}
         built = {lib: {n: pool.submit(build_fault, ops, lib, n, o, w, tmp)
                        for n, (o, w) in faults.items()}
                  for lib, (faults, _) in KERNEL_FAULTS.items()}
         bwd_built = {n: (lib, pool.submit(build_fault, ops, lib, n, edits,
                                           None, tmp))
-                     for n, (lib, edits) in BWD_FAULTS.items()}
+                     for n, (lib, edits) in {**BWD_FAULTS,
+                                             **SCAN_BWD_FAULTS}.items()}
         libs = {}
         for lib in KERNEL_FAULTS:
             sound[lib].result()
             libs[lib] = {"sound": ops.load_library(lib)}
             libs[lib].update({n: ops._BINDERS[lib](ctypes.CDLL(str(
                 f.result()))) for n, f in built[lib].items()})
-        sound["flash_attention_bwd"].result()
-        ops.load_library("flash_attention_bwd")
+        for lib in ("flash_attention_bwd", *SCAN_BWD_PHASES):
+            sound[lib].result()
+            ops.load_library(lib)
         bwd = {n: (lib, ops._BINDERS[lib](ctypes.CDLL(str(f.result()))))
                for n, (lib, f) in bwd_built.items()}
     return libs, bwd
@@ -466,6 +517,32 @@ def bwd_readings(torch, ops, ref, dev, faulty):
                 ops._LIBS[lib] = sound
         torch.cuda.empty_cache()
         cs.log(json.dumps({"flash_attention_bwd": {name: out[name]}}))
+    return out
+
+
+def scan_bwd_readings(torch, ops, ref, dev, faulty):
+    """Phases 21 and 23 of chip_smoke.py with the sound libraries (both
+    phases) and with each of ``SCAN_BWD_FAULTS`` swapped in (the phase of
+    its library): ``{name: {"fails", "first_failure"}}``."""
+    out = {}
+    runs = [("sound", None, None)] + [(n, lib, bound) for n, (lib, bound)
+                                      in faulty.items()]
+    for name, lib, bound in runs:
+        sound = ops._LIBS.get(lib)
+        if lib is not None:
+            ops._LIBS[lib] = bound
+        try:
+            for phase_lib, phase in SCAN_BWD_PHASES.items():
+                if lib in (None, phase_lib):
+                    getattr(cs, phase)(torch, ops, ref, dev)
+            out[name] = {"fails": False}
+        except cs.SmokeFailure as err:
+            out[name] = {"fails": True, "first_failure": str(err)[:300]}
+        finally:
+            if lib is not None:
+                ops._LIBS[lib] = sound
+        torch.cuda.empty_cache()
+        cs.log(json.dumps({"scan_bwd": {name: out[name]}}))
     return out
 
 
@@ -647,7 +724,12 @@ def main(argv=None) -> int:
 
     # the training path's attention: the sound libraries pass phase 17,
     # each fault fails it
-    bwd = bwd_readings(torch, ops, ref, dev, bwd_libs)
+    bwd = bwd_readings(torch, ops, ref, dev, {
+        n: v for n, v in bwd_libs.items() if n in BWD_FAULTS})
+    # the scans' backward: the sound libraries pass phases 21 and 23, each
+    # fault fails its library's phase
+    scan_bwd = scan_bwd_readings(torch, ops, ref, dev, {
+        n: v for n, v in bwd_libs.items() if n in SCAN_BWD_FAULTS})
     del bwd_libs
 
     # the async and sharded engines: the sound ones pass phases 6e, 6f, 6k
@@ -656,7 +738,8 @@ def main(argv=None) -> int:
 
     readings = {"topk_reward": topk, "flash_attention": attn,
                 "ssd_chunk": ssd, "selective_scan": scan,
-                "flash_attention_bwd": bwd, "async": asyn}
+                "flash_attention_bwd": bwd, "scan_bwd": scan_bwd,
+                "async": asyn}
     limits = {"topk_reward": {"bitwise": "indices exact, values bitwise"},
               "flash_attention": {"tight": cs.ATTN_BF16_REL_L2,
                                   "route_ratio": cs.BF16_ROUTE_RATIO,
@@ -670,6 +753,13 @@ def main(argv=None) -> int:
                         f"check at {cs.ATTN_BWD_BF16_REL_L2}) and both "
                         "forward designs' log-sum-exp against the plain "
                         "one"},
+              "scan_bwd": {
+                  "21": "the SSD backward against its plain version "
+                        "(tolerance " + json.dumps(cs.SSD_TOL) + ")",
+                  "23": "the selective-scan backward against its plain "
+                        "version (tolerance " + json.dumps(cs.SCAN_TOL) + ")",
+                  "tight": {"bf16": cs.SCAN_BWD_BF16_REL_L2,
+                            "f32": cs.SCAN_BWD_F32_REL_L2}},
               "async": {"6e": "flush, staleness and damping against the "
                               "event clock recomputed on the host",
                         "6f": "fused engine against the host loop",
@@ -683,7 +773,7 @@ def main(argv=None) -> int:
                                   {k: v[4] for k, v in
                                    ASYNC_SHARD_FAULTS.items()})}}
     fail_key = {"topk_reward": "bitwise_fails",
-                "flash_attention_bwd": "fails"}
+                "flash_attention_bwd": "fails", "scan_bwd": "fails"}
     ok = all(not r["sound"][fail_key.get(k, "tight_fails")] and all(
         v[fail_key.get(k, "tight_fails")] for n, v in r.items()
         if n != "sound") for k, r in readings.items() if k != "async")

@@ -6,8 +6,9 @@
 Phases (any mismatch exits non-zero; nothing is caught and swallowed):
 
 1. Device: the card's name, power limit and maximum SM clock; build the
-   five Hopper kernel libraries (top-k, attention and its backward, SSD,
-   selective scan) from the sources in this checkout, one ``nvcc`` each,
+   seven Hopper kernel libraries (top-k, attention, SSD and selective
+   scan, and the backward of the last three) from the sources in this
+   checkout, one ``nvcc`` each,
    all at once, and time the build; log each main-path kernel's
    registers a thread and spill bytes from ptxas's report of the build,
    and the SASS loop counts of both scan kernels.
@@ -240,17 +241,50 @@ weights are freed first):
    width, depth 2, on 2 x 1024 tokens, kernel route against the plain
    route (autograd through the query-chunked attention); in bf16 at full
    depth the kernel route's gradient no further from the f32 gradient
-   than ``BF16_ROUTE_RATIO`` times the plain route's. A zamba2 and a
-   falcon ``loss_fn`` under grad on the card must raise
-   ``NotImplementedError`` (the scan kernels have no backward kernel).
+   than ``BF16_ROUTE_RATIO`` times the plain route's. Reduced zamba2 and
+   falcon: the loss and every gradient under grad on the card, finite,
+   through each scan's forward (twice a layer) and backward kernel.
 19. ``python -m repro_torch.launch.train cohort --steps 10`` (reduced
-   olmo-1b, as the reference) and ``python -m
+   olmo-1b, as the reference; then ``--arch zamba2-1.2b`` and ``--arch
+   falcon-mamba-7b``) and ``python -m
    repro_torch.examples.federated_llm_cohort``, each in its own process:
-   both exit 0.
+   each exits 0.
 20. Timing, on the inputs the train step gave the backward kernel: the
    kernel, its plain version and ``scaled_dot_product_attention``'s
    backward (its forward and backward less its forward) in turns, beside
    the bound; the forward kernel with and without the log-sum-exp.
+
+Training of the SSM archs (olmo's weights are freed first):
+
+21. The SSD backward kernel against its plain version (the reverse
+   recurrence in f32) on ``SSD_BWD_SHAPES`` (S in {1, 63, 64, 65, 4000,
+   4096}, ds in {16, 64, 128}, slow decay), bf16 and f32, B and C
+   strided, on the chunk states the forward kernel wrote: dx, dB, dC,
+   ddt at the JAX package's SSD tolerances, and each gradient (dA, a sum
+   over the batch and sequence, by this alone) by the tight check against
+   the f32 backward of the same inputs.
+22. The main path: ``make_train_step(get_config("zamba2-1.2b"),
+   default_optimizer())`` at full width and depth on ``lm_batch`` at 4 x
+   4096, 3 steps, counts set to 0 just before each step and read just
+   after: 76 SSD launches (the forward and the remat recompute), 38 SSD
+   backward launches, 6 attention and 6 attention backward launches (the
+   shared block, not rematerialised) a step; the losses finite; a fourth
+   step profiled. The first SSD backward call held against its plain
+   version and by the tight check. The routes: f32 at depth 2 on 2 x
+   1024 tokens (kernel route against the plain chunked SSD), bf16 at full
+   depth by ``BF16_ROUTE_RATIO``.
+23. The selective-scan backward kernel against its plain version, as 21,
+   on ``SCAN_BWD_SHAPES`` (S as there, di in {96, 100, 256, 512}, ds in
+   {8, 16}).
+24. The main path of falcon-mamba-7b at full width, ``FALCON_TRAIN_DEPTH``
+   = 16 of its 64 layers (AdamW's f32 state for all 7.0B parameters
+   passes 80 GB), as 22: 32 scan and 16 scan backward launches a step;
+   the routes on 2 x ``ROUTE_LEN`` tokens (the plain route is a loop over
+   time), bf16 at the step's depth.
+25. Timing of both backward kernels on the inputs their train steps gave
+   them: the kernel (CUDA events around 5 back-to-back calls, median of
+   5 trials, two turns) and the plain version beside the bound; no single
+   PyTorch call computes either gradient.
 
 Each phase's wall time is logged. The last two lines of standard output
 are the kernels' JSON summary and ``{"ok": true, "device": {...}}``.
@@ -3057,7 +3091,9 @@ MAIN_ENTRIES = {"topk_select": "topk_select",
                 "flash_attention": "flash_fwd_wgmma",
                 "flash_attention_bwd": "flash_bwd_wgmma",
                 "ssd_chunk": "ssd_fwd_mmaILi32ELi64ELb1E",
-                "selective_scan": "scan_fwdI13__nv_bfloat16Li16E"}
+                "ssd_chunk_bwd": "ssd_bwdI13__nv_bfloat16Li64ELi64E",
+                "selective_scan": "scan_fwdI13__nv_bfloat16Li16E",
+                "selective_scan_bwd": "scan_bwdI13__nv_bfloat16Li16E"}
 
 
 def ptxas_usage(text):
@@ -3368,6 +3404,10 @@ def step_kind(name):
         return "attention backward kernel"
     if "flash_fwd" in name:
         return "attention forward kernel"
+    if "ssd_bwd" in name or "scan_bwd" in name:
+        return "scan backward kernel"
+    if "ssd_fwd" in name or "scan_fwd" in name:
+        return "scan forward kernel"
     if any(w in low for w in ("gemm", "xmma", "cutlass", "sm90_", "nvjet")):
         return "matmuls (cuBLAS)"
     return "other (elementwise, reductions, copies)"
@@ -3412,17 +3452,21 @@ def grad_diff(torch, got, exact):
 
 
 def loss_and_grads(torch, cfg, params, batch, dev, use_kernel):
-    """``loss_fn``'s loss and the gradient of every parameter leaf."""
+    """``loss_fn``'s loss and the gradient of every parameter leaf the
+    loss reads (a cut of zamba2's depth below ``attn_every`` leaves its
+    shared attention block unread)."""
     from torch.utils._pytree import tree_flatten, tree_unflatten
 
     from repro_torch.models.transformer import loss_fn
 
     leaves, spec = tree_flatten(params)
-    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    leaves = [None if t is None else t.detach().requires_grad_(True)
+              for t in leaves]
     loss, _ = loss_fn(cfg, tree_unflatten(leaves, spec), batch, device=dev,
                       use_kernel=use_kernel)
-    grads = torch.autograd.grad(loss, leaves)
-    return float(loss), grads
+    grads = torch.autograd.grad(loss, [t for t in leaves if t is not None],
+                                allow_unused=True)
+    return float(loss), [g for g in grads if g is not None]
 
 
 def phase_train_step(torch, ops, ref, dev, seed):
@@ -3430,15 +3474,15 @@ def phase_train_step(torch, ops, ref, dev, seed):
     ``make_train_step(get_config("olmo-1b"), default_optimizer())`` on
     ``lm_batch`` at 4 x 4096, 3 steps (counts set to 0 just before each,
     read just after); the first backward call held against its plain
-    version; then the routes (f32 at depth 2, bf16 at full depth), and a
-    zamba2 and a falcon ``loss_fn`` under grad must raise."""
-    from torch.utils._pytree import tree_leaves
-
+    version; then the routes (f32 at depth 2, bf16 at full depth), and
+    reduced zamba2 and falcon's loss and gradients through the scan
+    kernels (each forward twice a layer under remat, each backward
+    once)."""
     from repro_torch import prng
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.data import lm_batch
     from repro_torch.launch.steps import default_optimizer, make_train_step
-    from repro_torch.models.transformer import init_params, loss_fn
+    from repro_torch.models.transformer import init_params
 
     cfg = get_config("olmo-1b")
     params = init_params(seed, cfg, device=dev)
@@ -3521,28 +3565,31 @@ def phase_train_step(torch, ops, ref, dev, seed):
           f"bf16 olmo-1b: the kernel route's gradient lies {ratio} x as far "
           f"from f32 as the plain route's (limit {BF16_ROUTE_RATIO}): {bf16}")
 
-    # the scan kernels have no backward kernel: under grad they raise
-    refused = {}
-    for arch in ("zamba2-1.2b", "falcon-mamba-7b"):
+    # the scan kernels train: the reduced SSM archs' loss and gradients
+    # under grad on the card, through each scan's forward and backward
+    trained = {}
+    for arch, pair in (("zamba2-1.2b", ("ssd_chunk", "ssd_chunk_bwd")),
+                       ("falcon-mamba-7b",
+                        ("selective_scan", "selective_scan_bwd"))):
         rcfg = get_reduced(arch)
         rp = init_params(seed, rcfg, device=dev)
-        for t in tree_leaves(rp):
-            if t is not None:
-                t.requires_grad_(True)
         b = lm_batch(key, rcfg, 2, 64)
-        try:
-            loss_fn(rcfg, rp, b, device=dev)
-        except NotImplementedError as e:
-            refused[arch] = str(e)[:80]
-        check(arch in refused, f"{arch}: loss_fn under grad on the card did "
-                               f"not raise")
-        with torch.no_grad():
-            loss_fn(rcfg, rp, b, device=dev)   # the forward alone runs
+        for n in pair:
+            ops.LAUNCHES[n] = 0
+        rloss, rgrads = loss_and_grads(torch, rcfg, rp, b, dev, None)
+        counts = {n: ops.LAUNCHES[n] for n in pair}
+        check(math.isfinite(rloss)
+              and all(bool(torch.isfinite(t).all()) for t in rgrads)
+              and counts == {pair[0]: 2 * rcfg.n_layers,
+                             pair[1]: rcfg.n_layers},
+              f"reduced {arch} under grad on the card: loss {rloss}, "
+              f"launches {counts}")
+        trained[arch] = {"loss": rloss, "launches": counts}
     row = {"step_s": secs, "tokens_per_s": tok_s, "peak_gib": peak,
            "profile": profile,
            "losses": losses, "launches": launches, "max_abs_err": err,
            "call_rel_l2": call_rel, "f32_routes": f32, "bf16_routes": bf16,
-           "bf16_route_ratio": ratio, "refused": refused,
+           "bf16_route_ratio": ratio, "scan_archs_train": trained,
            "card": card_name_power()}
     log(f"phase 18: olmo-1b full width ({cfg.param_count():,} params) "
         f"train steps (make_train_step, AdamW) on {TRAIN_BATCH} x "
@@ -3558,20 +3605,26 @@ def phase_train_step(torch, ops, ref, dev, seed):
         f"abs err {err}, vs the f32 backward relative L2 {call_rel}; f32 "
         f"depth {ROUTE_DEPTH} on {ROUTE_BATCH} x {ROUTE_TOKENS}, kernel vs "
         f"plain route: {f32}; bf16 full depth: {bf16}, ratio {ratio} (limit "
-        f"{BF16_ROUTE_RATIO}); under grad the scan kernels raise: {refused}")
+        f"{BF16_ROUTE_RATIO}); reduced SSM archs under grad through the "
+        f"scan kernels: {trained}")
     return row, seen
 
 
 def phase_cohort_cli(torch):
     """19: ``python -m repro_torch.launch.train cohort --steps 10`` (reduced
-    olmo-1b, as the reference) and the federated LLM cohort example, each
-    in its own process on the card; both must exit 0."""
+    olmo-1b, as the reference), the same for ``--arch zamba2-1.2b`` and
+    ``--arch falcon-mamba-7b`` (through the scan kernels' backward
+    kernels), and the federated LLM cohort example, each in its own
+    process on the card; each must exit 0 (``train cohort`` raises unless
+    its loss falls)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
     row = {}
+    cohort = ["-m", "repro_torch.launch.train", "cohort", "--steps", "10"]
     for name, cmd in (
-            ("train_cohort", ["-m", "repro_torch.launch.train", "cohort",
-                              "--steps", "10"]),
+            ("train_cohort", cohort),
+            ("train_cohort_zamba2", cohort + ["--arch", "zamba2-1.2b"]),
+            ("train_cohort_falcon", cohort + ["--arch", "falcon-mamba-7b"]),
             ("federated_llm_cohort",
              ["-m", "repro_torch.examples.federated_llm_cohort"])):
         t0 = time.perf_counter()
@@ -3583,8 +3636,9 @@ def phase_cohort_cli(torch):
               f"{proc.returncode}: {proc.stderr[-2000:]}")
         last = proc.stdout.strip().splitlines()[-1]
         row[name] = {"s": secs, "last_line": last}
-    log(f"phase 19: train cohort --steps 10 and the federated LLM cohort "
-        f"example on the card, each in its own process: {row}")
+    log(f"phase 19: train cohort --steps 10 (olmo-1b, zamba2-1.2b, "
+        f"falcon-mamba-7b) and the federated LLM cohort example on the "
+        f"card, each in its own process: {row}")
     return row
 
 
@@ -3677,12 +3731,398 @@ def phase_train_timing(torch, ops, ref, seen, l2_bytes):
     return row
 
 
+# ------------------------------------ scan training (phases 21-25)
+SSD_BWD_SOURCE = "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu"
+SCAN_BWD_SOURCE = "src/repro_torch/kernels/csrc/selective_scan_bwd.cu"
+# no Pallas kernel: the reference differentiates its chunked SSD and its
+# lax.scan with jax.grad
+SSD_BWD_REPLACES = "src/repro/models/mamba.py:161"
+SCAN_BWD_REPLACES = "src/repro/models/mamba.py:84"
+# B, S, nh, hd, ds, dt shift: S below, at and past one 64-step chunk, the
+# three ds the library is built for, and rows of 4096 (slow decay too) and
+# 4000 (a ragged last chunk)
+SSD_BWD_SHAPES = [(1, 1, 4, 64, 16, 0.0), (2, 63, 8, 64, 64, 0.0),
+                  (1, 64, 4, 64, 128, 0.0), (2, 65, 8, 64, 16, 0.0),
+                  (1, 4096, 4, 64, 64, 0.0),
+                  (1, 4096, 4, 64, 64, SLOW_DT_SHIFT),
+                  (1, 4000, 2, 64, 128, SLOW_DT_SHIFT)]
+# B, S, di, ds, dt shift: S as above, ds 8 and 16, di not a multiple of
+# the kernel's 32 channels (96, 100), a ragged last tile (4095)
+SCAN_BWD_SHAPES = [(1, 1, 96, 16, 0.0), (2, 63, 96, 8, 0.0),
+                   (1, 64, 512, 16, 0.0), (2, 65, 100, 16, 0.0),
+                   (1, 4096, 512, 16, 0.0),
+                   (1, 4096, 512, 16, SLOW_DT_SHIFT),
+                   (2, 4095, 256, 8, 0.0)]
+# The tight checks of the scan backward kernels: each gradient's relative
+# L2 distance from the f32 backward (the plain version) of the same inputs
+# and output gradient. Both kernels compute in f32 and round each bf16
+# gradient once; on an H100 (phases 21 and 23) their bf16 gradients read
+# 1.51e-3 to 2.04e-3 (dx, dB, dC, the scan's ddt) and their f32 ones at
+# most 2.7e-5 (the SSD's dA). Every planted fault (chip_faults.py) fails
+# phase 21 or 23. The bf16 limit holds gradients of at least
+# TIGHT_MIN_SIZE entries: the rounding of a handful of values need not
+# average out (dB and dC at S = 1 hold 16).
+SCAN_BWD_BF16_REL_L2 = 2.2e-3
+SCAN_BWD_F32_REL_L2 = 1e-4
+TIGHT_MIN_SIZE = 1024
+SSD_BWD_NAMES = ("dx", "dBm", "dCm", "ddt", "dA")
+SCAN_BWD_NAMES = ("dx", "ddt", "dBm", "dCm", "dA", "dD")
+# The gradients of A and D sum a term of every (batch, step): the plain
+# version and the kernel add 4,096 and more f32 terms in other orders, so
+# the elementwise 1e-4 of the JAX package's tolerances, set for one output
+# of the scan, does not hold them (on an H100 the selective scan's f32 dA
+# missed it at S = 4096), while their relative L2 distance stays far below
+# SCAN_BWD_F32_REL_L2. These two are held by that relative L2 alone; the
+# per-step gradients also elementwise at the JAX package's tolerances.
+SUMMED_GRADS = ("dA", "dD")
+# falcon-mamba-7b's train step at full width keeps 16 of its 64 layers:
+# AdamW's f32 parameters, gradients and two moments take 16 bytes a
+# parameter, 112 GB for all 7,005,536,256, about 31 GB at 16 layers
+FALCON_TRAIN_DEPTH = 16
+# least float32 operations a (batch, step, channel, state) of the scan's
+# backward besides its exponential: the state's recurrence (the decay's
+# argument, the update's product and multiply-add), g's multiply-add and
+# decay, and the terms of dx, ddt (three), dB, dC and dA
+SCAN_BWD_FLOPS_PER_EXP = 12
+
+
+def grad_readings(torch, grads, exact, names):
+    """Each gradient's relative L2 distance from ``exact`` (float32), by
+    name: 0 where both are zero, inf where only ``exact`` is."""
+    out = {}
+    for name, g, e in zip(names, grads, exact):
+        num = float((g.float() - e.float()).norm())
+        den = float(e.float().norm())
+        out[name] = num / den if den > 0 else (0.0 if num == 0 else math.inf)
+    return out
+
+
+def hold_grads(torch, grads, exact, names, what):
+    """The tight check of a backward call: bf16 gradients of at least
+    ``TIGHT_MIN_SIZE`` entries within ``SCAN_BWD_BF16_REL_L2`` of the f32
+    backward of the same inputs, f32 gradients within
+    ``SCAN_BWD_F32_REL_L2``; returns the readings (a NaN fails)."""
+    rel = grad_readings(torch, grads, exact, names)
+    for name, g in zip(names, grads):
+        if g.dtype == torch.bfloat16:
+            if g.numel() >= TIGHT_MIN_SIZE:
+                held({name: rel[name]}, SCAN_BWD_BF16_REL_L2, what)
+        else:
+            held({name: rel[name]}, SCAN_BWD_F32_REL_L2, what)
+    return rel
+
+
+def output_grad(torch, shape, dtype, dev, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randn(*shape, generator=g).to(dtype).to(dev)
+
+
+def phase_ssd_bwd_vs_plain(torch, ops, ref, dev):
+    """21: the SSD backward kernel against its plain version on the same
+    inputs, output gradient and (for the kernel) the forward kernel's
+    chunk states, bf16 and f32: the per-step gradients at the JAX
+    package's SSD tolerances, and every gradient by the tight check
+    against the f32 backward of the same inputs (the plain version
+    computes in f32), dA (``SUMMED_GRADS``) by that alone."""
+    from repro_torch.kernels import ssd_chunk as sc
+
+    fwd = ops.load_library("ssd_chunk")
+    errs, rel, shapes = {}, {}, []
+    for i, (B, S, nh, hd, ds, shift) in enumerate(SSD_BWD_SHAPES):
+        for dt in (torch.bfloat16, torch.float32):
+            name = dtype_name(dt)
+            args = ssd_inputs(torch, B, S, nh, hd, ds, dt, dev, 500 + i,
+                              shift)
+            dy = output_grad(torch, (B, S, nh, hd), dt, dev, 600 + i)
+            what = f"ssd backward B={B} S={S} nh={nh} hd={hd} ds={ds} dt " \
+                   f"shift {shift} {name}"
+            _, states = sc.launch(fwd, *args, with_states=True)
+            grads = ops.ssd_chunk_bwd(*args, dy, states)
+            exact = ref.ssd_chunk_bwd(*(a.float() for a in args),
+                                      dy.float())
+            for gname, g, e, a in zip(SSD_BWD_NAMES, grads, exact, args):
+                want = a.dtype if gname in ("dx", "dBm", "dCm") else \
+                    torch.float32
+                check(g.dtype == want and g.shape == a.shape,
+                      f"{gname} {g.dtype} {tuple(g.shape)}: {what}")
+                if gname not in SUMMED_GRADS:
+                    errs[name] = max(errs.get(name, 0.0), close(
+                        torch, g, e, SSD_TOL[name], f"{gname}, {what}"))
+            rel[f"{B}x{S}x{nh}x{hd}x{ds} shift {shift} {name}"] = \
+                hold_grads(torch, grads, exact, SSD_BWD_NAMES, what)
+            shapes.append([B, S, nh, hd, ds, shift, name])
+            del grads, exact, states
+    torch.cuda.synchronize()
+    log(f"phase 21: ssd_chunk_bwd kernel == plain (the reverse recurrence) "
+        f"on {len(shapes)} cases (B,S,nh,hd,ds,dt shift) in "
+        f"{SSD_BWD_SHAPES}, bf16 and f32, B and C strided: max abs err "
+        f"{errs} (tol {SSD_TOL}); each gradient vs the f32 backward of its "
+        f"inputs, relative L2 {rel} (limits {SCAN_BWD_BF16_REL_L2} bf16 "
+        f"from {TIGHT_MIN_SIZE} entries, {SCAN_BWD_F32_REL_L2} f32)")
+    return errs, shapes, rel
+
+
+def phase_scan_bwd_vs_plain(torch, ops, ref, dev):
+    """23: the selective-scan backward kernel against its plain version,
+    as phase 21."""
+    from repro_torch.kernels import selective_scan as ss
+
+    fwd = ops.load_library("selective_scan")
+    errs, rel, shapes = {}, {}, []
+    for i, (B, S, di, ds, shift) in enumerate(SCAN_BWD_SHAPES):
+        for dt in (torch.bfloat16, torch.float32):
+            name = dtype_name(dt)
+            args = scan_inputs(torch, B, S, di, ds, dt, dev, 700 + i, shift)
+            dy = output_grad(torch, (B, S, di), dt, dev, 800 + i)
+            what = f"selective_scan backward B={B} S={S} di={di} ds={ds} " \
+                   f"dt shift {shift} {name}"
+            _, states = ss.launch(fwd, *args, with_states=True)
+            grads = ops.selective_scan_bwd(*args, dy, states)
+            exact = ref.selective_scan_bwd(*(a.float() for a in args),
+                                           dy.float())
+            for gname, g, e, a in zip(SCAN_BWD_NAMES, grads, exact, args):
+                want = torch.float32 if gname in ("dA", "dD") else a.dtype
+                check(g.dtype == want and g.shape == a.shape,
+                      f"{gname} {g.dtype} {tuple(g.shape)}: {what}")
+                if gname not in SUMMED_GRADS:
+                    errs[name] = max(errs.get(name, 0.0), close(
+                        torch, g, e, SCAN_TOL[name], f"{gname}, {what}"))
+            rel[f"{B}x{S}x{di}x{ds} shift {shift} {name}"] = hold_grads(
+                torch, grads, exact, SCAN_BWD_NAMES, what)
+            shapes.append([B, S, di, ds, shift, name])
+            del grads, exact, states
+    torch.cuda.synchronize()
+    log(f"phase 23: selective_scan_bwd kernel == plain (the reverse "
+        f"recurrence) on {len(shapes)} cases (B,S,di,ds,dt shift) in "
+        f"{SCAN_BWD_SHAPES}, bf16 and f32, B and C strided: max abs err "
+        f"{errs} (tol {SCAN_TOL}); each gradient vs the f32 backward of its "
+        f"inputs, relative L2 {rel} (limits {SCAN_BWD_BF16_REL_L2} bf16 "
+        f"from {TIGHT_MIN_SIZE} entries, {SCAN_BWD_F32_REL_L2} f32)")
+    return errs, shapes, rel
+
+
+def scan_step_plan(cfg, arch):
+    """The scan kernel pair of ``arch``, and the launches a train step
+    must make: each scan layer's forward twice (the step and the remat
+    recompute) and its backward once; zamba2's shared attention block,
+    not rematerialised, once each way an invocation."""
+    if arch == "zamba2-1.2b":
+        n_attn = cfg.n_layers // cfg.attn_every
+        return ("ssd_chunk", "ssd_chunk_bwd"), {
+            "ssd_chunk": 2 * cfg.n_layers, "ssd_chunk_bwd": cfg.n_layers,
+            "flash_attention": n_attn, "flash_attention_bwd": n_attn}
+    return ("selective_scan", "selective_scan_bwd"), {
+        "selective_scan": 2 * cfg.n_layers,
+        "selective_scan_bwd": cfg.n_layers}
+
+
+def phase_scan_train_step(torch, ops, ref, dev, seed, arch, phase):
+    """22 (zamba2-1.2b, full width and depth) / 24 (falcon-mamba-7b, full
+    width, ``FALCON_TRAIN_DEPTH`` layers): ``make_train_step(cfg,
+    default_optimizer())`` on ``lm_batch`` at 4 x 4096, 3 steps, counts
+    set to 0 just before each step and read just after; one profiled
+    step; the first backward call of the scan held against its plain
+    version (and by the tight check); then the routes: f32 (TF32 off) at
+    depth 2, bf16 at the step's depth, on 2 x 1024 tokens (zamba2) or 2 x
+    ``ROUTE_LEN`` (falcon: the plain Mamba1 route is a loop over time)."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.launch.steps import default_optimizer, make_train_step
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_config(arch)
+    if arch == "falcon-mamba-7b":
+        cfg = cfg.with_(n_layers=FALCON_TRAIN_DEPTH)
+    (fwd, bwd), want = scan_step_plan(cfg, arch)
+    torch.cuda.empty_cache()   # the last phase's cached blocks
+    params = init_params(seed, cfg, device=dev)
+    opt = default_optimizer()
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, device=dev)
+    key = prng.PRNGKey(seed, dev)
+    losses, secs, launches = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with first_calls(ops, (bwd,)) as seen:
+        for i in range(TRAIN_STEPS):
+            batch = lm_batch(prng.fold_in(key, i), cfg, TRAIN_BATCH,
+                             TRAIN_LEN)
+            torch.cuda.synchronize()
+            for n in want:
+                ops.LAUNCHES[n] = 0
+            t0 = time.perf_counter()
+            params, state, loss, metrics = step(params, state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            launches.append({n: ops.LAUNCHES[n] for n in want})
+            losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(n == want for n in launches),
+          f"{arch} train steps launched {launches}; expected {want} a step")
+    check(all(math.isfinite(x) for x in losses), f"{arch} losses {losses}")
+    check(int(state["t"]) == TRAIN_STEPS, f"optimizer step {state['t']}")
+    with tempfile.TemporaryDirectory() as tmp:   # a trace passes 64 MiB
+        profile = profile_step(torch, lambda: step(params, state, batch),
+                               Path(tmp))
+    del params, state, step
+    torch.cuda.empty_cache()
+
+    args, _, grads = seen[bwd]
+    names = SSD_BWD_NAMES if fwd == "ssd_chunk" else SCAN_BWD_NAMES
+    check(args[0].dtype == torch.bfloat16 and args[0].shape[:2] == (
+        TRAIN_BATCH, TRAIN_LEN),
+        f"the {arch} step's backward call: {args[0].dtype} "
+        f"{tuple(args[0].shape)}")
+    plain = getattr(ref, bwd)
+    exact = plain(*(a.float() for a in args[:-1]))   # f32 inside
+    tol = SSD_TOL if fwd == "ssd_chunk" else SCAN_TOL
+    err = max(close(torch, g, e, tol["bfloat16"],
+                    f"the {arch} step's first backward call, {n}")
+              for n, g, e in zip(names, grads, exact)
+              if n not in SUMMED_GRADS)
+    call_rel = hold_grads(torch, grads, exact, names,
+                          f"phase {phase}: the first backward call")
+    del exact
+    torch.cuda.empty_cache()
+    tok_s = TRAIN_BATCH * TRAIN_LEN / statistics.median(secs[1:])
+
+    # the routes: f32 (TF32 off) at depth 2, bf16 at the step's depth
+    route_len = ROUTE_TOKENS if arch == "zamba2-1.2b" else ROUTE_LEN
+    g = torch.Generator(device="cpu").manual_seed(seed + 2)
+    tokens = torch.randint(0, cfg.vocab_size, (ROUTE_BATCH, route_len + 1),
+                           generator=g).to(dev)
+    rbatch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    cfg2 = cfg.with_(n_layers=ROUTE_DEPTH, compute_dtype=torch.float32)
+    p2 = init_params(seed + 1, cfg2, device=dev)
+    kl, kg = loss_and_grads(torch, cfg2, p2, rbatch, dev, True)
+    pl, pg = loss_and_grads(torch, cfg2, p2, rbatch, dev, False)
+    f32 = {"loss_rel": abs(kl - pl) / abs(pl), **grad_diff(torch, kg, pg)}
+    del p2, kg, pg
+    check(f32["loss_rel"] <= F32_LOSS_RTOL
+          and f32["worst_leaf_rel_l2"] <= F32_GRAD_REL_L2,
+          f"f32 {arch} depth {ROUTE_DEPTH}, kernel vs plain route: {f32} "
+          f"(limits {F32_LOSS_RTOL} loss, {F32_GRAD_REL_L2} a leaf)")
+    params = init_params(seed + 1, cfg, device=dev)
+    _, exact = loss_and_grads(torch, cfg.with_(compute_dtype=torch.float32),
+                              params, rbatch, dev, False)
+    _, kern = loss_and_grads(torch, cfg, params, rbatch, dev, True)
+    bf16 = {"kernel_vs_f32": grad_diff(torch, kern, exact)}
+    del kern
+    _, plain_g = loss_and_grads(torch, cfg, params, rbatch, dev, False)
+    bf16["plain_vs_f32"] = grad_diff(torch, plain_g, exact)
+    del plain_g, exact, params
+    torch.cuda.empty_cache()
+    ratio = bf16["kernel_vs_f32"]["rel_l2"] / bf16["plain_vs_f32"]["rel_l2"]
+    check(ratio <= BF16_ROUTE_RATIO,
+          f"bf16 {arch}: the kernel route's gradient lies {ratio} x as far "
+          f"from f32 as the plain route's (limit {BF16_ROUTE_RATIO}): {bf16}")
+    row = {"arch": arch, "params": cfg.param_count(), "layers": cfg.n_layers,
+           "step_s": secs, "tokens_per_s": tok_s, "peak_gib": peak,
+           "profile": profile, "losses": losses, "launches": launches,
+           "max_abs_err": err, "call_rel_l2": call_rel,
+           "f32_routes": f32, "bf16_routes": bf16, "bf16_route_ratio": ratio,
+           "route_tokens": [ROUTE_BATCH, route_len],
+           "card": card_name_power()}
+    log(f"phase {phase}: {arch} full width, {cfg.n_layers} layers "
+        f"({cfg.param_count():,} params) train steps (make_train_step, "
+        f"AdamW, per-layer remat) on {TRAIN_BATCH} x {TRAIN_LEN} tokens on "
+        f"{row['card']}: s a step {secs} ({tok_s:.0f} tokens/s over steps "
+        f"2-{TRAIN_STEPS}), peak memory {peak:.2f} GiB, losses {losses}, "
+        f"launches a step {launches}; one profiled step: span "
+        f"{profile['span_ms']:.2f} ms, device busy "
+        f"{profile['device_busy_ms']:.2f} ms, idle share "
+        f"{profile['idle_share']:.4f}, {profile['device_ops']} device "
+        f"operations, ms by layer {profile['by_kind_ms']}, top "
+        f"{profile['top'][:5]}; the first {bwd} call == plain, max abs err "
+        f"{err}, vs the f32 backward relative L2 {call_rel}; f32 depth "
+        f"{ROUTE_DEPTH} on {ROUTE_BATCH} x {route_len}, kernel vs plain "
+        f"route: {f32}; bf16 at depth {cfg.n_layers}: {bf16}, ratio {ratio} "
+        f"(limit {BF16_ROUTE_RATIO})")
+    return row, seen
+
+
+def ssd_bwd_bound(x, Bm, Cm, dt, A, dy, chunk=64):
+    """Least time of the SSD backward: x, dy, B, C, dt, A read and dx, dB,
+    dC, ddt, dA written once at the HBM rate; the chunked form's nine
+    products a chunk and head (C B^T, dy x^T, Dm^T dy, B K, E dt B, dy
+    h0^T, E^T C, x K^T, C^T dy) at the peak rate of the dtype."""
+    B, S, nh, hd = x.shape
+    ds = Bm.shape[-1]
+    nbytes = 2 * x.nbytes + dy.nbytes + 2 * (Bm.nbytes + Cm.nbytes) \
+        + 2 * (dt.nbytes + A.nbytes)
+    n_chunks = -(-S // chunk)
+    flops = 2 * chunk * (chunk * (3 * ds + 2 * hd) + 4 * ds * hd) \
+        * n_chunks * B * nh
+    rate = BF16_FLOP_PER_S if x.element_size() == 2 else F32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def scan_bwd_bound(x, dt, Bm, Cm, A, D, dy, sms, clock_hz):
+    """Least time of the selective-scan backward: x, dt, dy, B, C, A, D
+    read and dx, ddt, dB, dC, dA, dD written once at the HBM rate; one
+    exponential per (batch, step, channel, state) on the special-function
+    units, and ``SCAN_BWD_FLOPS_PER_EXP`` float32 operations around each
+    at the peak rate."""
+    nbytes = 2 * (x.nbytes + dt.nbytes + Bm.nbytes + Cm.nbytes + A.nbytes
+                  + D.nbytes) + dy.nbytes
+    B, S, di = x.shape
+    exps = B * S * di * Bm.shape[-1]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(exps / (SFU_PER_CLOCK_PER_SM * sms * clock_hz),
+                SCAN_BWD_FLOPS_PER_EXP * exps / F32_FLOP_PER_S)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_scan_bwd_timing(torch, ops, ref, seen, l2_bytes, sms, clock_hz):
+    """25: each scan backward kernel on the inputs its train step gave it
+    (the first call, states included): the kernel (5 back-to-back calls a
+    trial, median of 5 trials, two turns) and the plain version (1 call a
+    trial, 3 trials, one turn: a sequential loop of several seconds)
+    beside the bound; no single PyTorch call computes either gradient."""
+    rows = {}
+    for name, bound in (("ssd_chunk_bwd", ssd_bwd_bound),
+                        ("selective_scan_bwd", scan_bwd_bound)):
+        args, _, _ = seen[name]
+        sets, cold = copies(args, l2_bytes)
+        kernel, plain = getattr(ops, name), getattr(ref, name)
+        runs = [cuda_ms(torch, kernel, sets, reps=5) for _ in range(2)]
+        row = {"ms": statistics.median(runs), "ms_turns": runs,
+               "plain_ms": cuda_ms(torch, lambda *a: plain(*a[:-1]),
+                                   sets[:1], reps=1, trials=3),
+               "library_ms": None}
+        extra = (sms, clock_hz) if name == "selective_scan_bwd" else ()
+        row["bound_ms"], row["bound_by"] = bound(*args[:-1], *extra)
+        row.update(shape=list(args[0].shape),
+                   ds=int(args[1 if name == "ssd_chunk_bwd" else 2].shape[-1]),
+                   dtype=dtype_name(args[0].dtype), l2_cold=cold,
+                   card=card_name_power())
+        rows[name] = row
+        log(f"phase 25: {name} at its train step's shape {row['shape']} "
+            f"ds={row['ds']} {row['dtype']} on {row['card']}: kernel "
+            f"{row['ms']:.5f} ms (turns {runs}), plain (sequential) "
+            f"{row['plain_ms']:.5f} ms, no single PyTorch call computes it, "
+            f"bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+        del sets
+    return rows
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=SEED,
                     help="weights and tokens of the LM phases")
     seed = ap.parse_args(argv).seed
+    # Expandable segments, set before torch starts its allocator: behind
+    # the olmo-1b phases, falcon-mamba-7b's train step (phase 24, peak
+    # about 60 GiB) ran out of memory with 36.8 GiB reserved but
+    # unallocated, free memory split across segments that long-lived
+    # tensors keep. CUDA graphs' private pools keep ordinary segments.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3717,7 +4157,8 @@ def main(argv=None) -> int:
         "(parity phases compare float32 with the CPU)")
     t0 = time.perf_counter()
     names = ("topk_select", "flash_attention", "flash_attention_bwd",
-             "ssd_chunk", "selective_scan")
+             "ssd_chunk", "ssd_chunk_bwd", "selective_scan",
+             "selective_scan_bwd")
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         paths = list(pool.map(ops.build_library, names))
     for name in names:
@@ -3882,6 +4323,23 @@ def main(argv=None) -> int:
                     l2)
     del seen
 
+    # zamba2-1.2b and falcon-mamba-7b training: each scan backward kernel
+    # against its plain version, then its train step's main path, counts
+    # set to 0 just before each step and read just after (inside the phase)
+    ssd_bwd_errs, ssd_bwd_shapes, ssd_bwd_rel = timed(
+        "phase 21", phase_ssd_bwd_vs_plain, torch, ops, ref, dev)
+    zamba_train, seen = timed("phase 22", phase_scan_train_step, torch, ops,
+                              ref, dev, seed, "zamba2-1.2b", 22)
+    scan_bwd_errs, scan_bwd_shapes, scan_bwd_rel = timed(
+        "phase 23", phase_scan_bwd_vs_plain, torch, ops, ref, dev)
+    falcon_train, falcon_seen = timed(
+        "phase 24", phase_scan_train_step, torch, ops, ref, dev, seed,
+        "falcon-mamba-7b", 24)
+    seen.update(falcon_seen)
+    scan_bwd_rows = timed("phase 25", phase_scan_bwd_timing, torch, ops, ref,
+                          seen, l2, sms, clock_hz)
+    del seen, falcon_seen
+
     summary = {"kernels": [{
         "name": "topk_reward", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "checked": True,
@@ -4011,11 +4469,44 @@ def main(argv=None) -> int:
                                "limit": ATTN_BWD_BF16_REL_L2},
         "build": regs["flash_attention_bwd"],
     })
+    by_name = {k["name"]: k["launches_by_phase"] for k in summary["kernels"]}
+    for name, train in (("flash_attention", zamba_train),
+                        ("flash_attention_bwd", zamba_train),
+                        ("ssd_chunk", zamba_train),
+                        ("selective_scan", falcon_train)):
+        by_name[name][f"{train['arch']}_train_step_by_step"] = [
+            n[name] for n in train["launches"]]
+    for name, source, replaces, errs, shapes, train, rel in (
+            ("ssd_chunk_bwd", SSD_BWD_SOURCE, SSD_BWD_REPLACES, ssd_bwd_errs,
+             ssd_bwd_shapes, zamba_train, ssd_bwd_rel),
+            ("selective_scan_bwd", SCAN_BWD_SOURCE, SCAN_BWD_REPLACES,
+             scan_bwd_errs, scan_bwd_shapes, falcon_train, scan_bwd_rel)):
+        row = scan_bwd_rows[name]
+        summary["kernels"].append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "checked": True,
+            "launches": sum(n[name] for n in train["launches"]),
+            "max_abs_err": max(max(errs.values()), train["max_abs_err"]),
+            "max_abs_err_by_dtype": errs,
+            "ms": row["ms"], "kernel_ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": row, "checked_shapes": shapes,
+            "launches_by_phase": {"train_step_by_step": [
+                n[name] for n in train["launches"]]},
+            "bf16_rel_l2_vs_f32": {"cases": rel,
+                                   "train_call": train["call_rel_l2"],
+                                   "limit_bf16": SCAN_BWD_BF16_REL_L2,
+                                   "limit_f32": SCAN_BWD_F32_REL_L2},
+            "build": regs[name],
+        })
     summary["olmo_1b"] = {"train": train_row, "cohort_cli": cohort_row}
+    summary["zamba2_1_2b"] = {"train": zamba_train}
+    summary["falcon_mamba_7b"] = {"train": falcon_train}
     summary["sass"] = sass
-    summary["zamba2_1_2b"] = {"prefill": prefill, "serve": serve}
-    summary["falcon_mamba_7b"] = {"prefill": falcon_prefill,
-                                  "routes": routes, "serve": falcon_serve}
+    summary["zamba2_1_2b"].update(prefill=prefill, serve=serve)
+    summary["falcon_mamba_7b"].update(prefill=falcon_prefill, routes=routes,
+                                      serve=falcon_serve)
     walls["total"] = time.perf_counter() - t_start
     summary["wall_s"] = walls
     log(card)

@@ -41,7 +41,9 @@
 // input) and are not stored; channels past di are masked. Inputs are
 // read through their batch and sequence strides (last dimension
 // contiguous), so B and C, slices of one packed projection in the model,
-// need no copy.
+// need no copy. Under grad the wrapper passes a states buffer, and the
+// kernel writes the f32 state entering each tile there for the backward
+// kernel (csrc/selective_scan_bwd.cu), which recomputes a tile from it.
 //
 // What a state-step costs, and what the design does about it (SASS of the
 // bf16 ds 16 inner loop, chip_smoke.py phase 1: 8.4 instructions a
@@ -145,8 +147,8 @@ __global__ void __launch_bounds__(kThreads)
 scan_fwd(const T* __restrict__ x, const T* __restrict__ dt,
          const T* __restrict__ bm, const T* __restrict__ cm,
          const float* __restrict__ A, const float* __restrict__ Dv,
-         T* __restrict__ y, int S, int DI, Strides xs, Strides dts,
-         Strides bs, Strides cs) {
+         T* __restrict__ y, float* __restrict__ states, int S, int DI,
+         Strides xs, Strides dts, Strides bs, Strides cs) {
   constexpr int SPL = DS / kLanes;                // states a lane
   constexpr int XPT = kT * kChannels / kThreads;  // x, dt loads a thread
   constexpr int BPT = (kT * DS + kThreads - 1) / kThreads;  // B, C loads
@@ -225,6 +227,13 @@ scan_fwd(const T* __restrict__ x, const T* __restrict__ dt,
   fetch(0);
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int t0 = tile * kT;
+    if (states && live) {  // under grad: the state entering this tile
+      float* out = states +
+                   (((long long)b * n_tiles + tile) * DI + d0 + ch) * DS +
+                   q * SPL;
+#pragma unroll
+      for (int j = 0; j < SPL; ++j) out[j] = h[j];
+    }
     __syncthreads();  // the last tile's readers of the shared tiles are done
 #pragma unroll
     for (int k = 0; k < XPT; ++k) {
@@ -296,27 +305,27 @@ scan_fwd(const T* __restrict__ x, const T* __restrict__ dt,
 template <typename T, int DS>
 cudaError_t launch(const void* x, const void* dt, const void* bm,
                    const void* cm, const float* A, const float* Dv, void* y,
-                   int B, int S, int DI, Strides xs, Strides dts, Strides bs,
-                   Strides cs, cudaStream_t stream) {
+                   float* states, int B, int S, int DI, Strides xs,
+                   Strides dts, Strides bs, Strides cs, cudaStream_t stream) {
   const dim3 grid((DI + kChannels - 1) / kChannels, B);
   scan_fwd<T, DS><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt),
       static_cast<const T*>(bm), static_cast<const T*>(cm), A, Dv,
-      static_cast<T*>(y), S, DI, xs, dts, bs, cs);
+      static_cast<T*>(y), states, S, DI, xs, dts, bs, cs);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* x, const void* dt, const void* bm,
                      const void* cm, const float* A, const float* Dv, void* y,
-                     int B, int S, int DI, int DS, Strides xs, Strides dts,
-                     Strides bs, Strides cs, cudaStream_t st) {
+                     float* states, int B, int S, int DI, int DS, Strides xs,
+                     Strides dts, Strides bs, Strides cs, cudaStream_t st) {
   if (DS == 8)
-    return launch<T, 8>(x, dt, bm, cm, A, Dv, y, B, S, DI, xs, dts, bs, cs,
-                        st);
+    return launch<T, 8>(x, dt, bm, cm, A, Dv, y, states, B, S, DI, xs, dts,
+                        bs, cs, st);
   if (DS == 16)
-    return launch<T, 16>(x, dt, bm, cm, A, Dv, y, B, S, DI, xs, dts, bs, cs,
-                         st);
+    return launch<T, 16>(x, dt, bm, cm, A, Dv, y, states, B, S, DI, xs, dts,
+                         bs, cs, st);
   return cudaErrorInvalidValue;
 }
 
@@ -327,12 +336,15 @@ extern "C" {
 // dtype (of x, dt, B, C and y): 0 float32, 1 bfloat16. Strides are in
 // elements, batch then sequence; each last dimension is contiguous. y is a
 // contiguous (B, S, DI) tensor, A a contiguous (DI, DS) and D a (DI,)
-// float32 tensor. Returns a CUDA error code (0 on success);
+// float32 tensor. states is null, or (under grad) a contiguous (B,
+// ceil(S / 64), DI, DS) float32 tensor that receives the state entering
+// each 64-step tile. Returns a CUDA error code (0 on success);
 // cudaErrorInvalidValue for a state size or type the library was not built
 // for.
 int selective_scan_launch(const void* x, const void* dt, const void* bm,
                           const void* cm, const void* A, const void* D,
-                          void* y, int B, int S, int DI, int DS, int dtype,
+                          void* y, void* states, int B, int S, int DI,
+                          int DS, int dtype,
                           long long x_sb, long long x_ss, long long dt_sb,
                           long long dt_ss, long long b_sb, long long b_ss,
                           long long c_sb, long long c_ss, void* stream) {
@@ -340,13 +352,14 @@ int selective_scan_launch(const void* x, const void* dt, const void* bm,
       cs{c_sb, c_ss};
   const float* Ap = static_cast<const float*>(A);
   const float* Dp = static_cast<const float*>(D);
+  float* sp = static_cast<float*>(states);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(x, dt, bm, cm, Ap, Dp, y, B, S, DI, DS, xs, dts,
-                           bs, cs, st);
+    return dispatch<float>(x, dt, bm, cm, Ap, Dp, y, sp, B, S, DI, DS, xs,
+                           dts, bs, cs, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(x, dt, bm, cm, Ap, Dp, y, B, S, DI, DS,
-                                   xs, dts, bs, cs, st);
+    return dispatch<__nv_bfloat16>(x, dt, bm, cm, Ap, Dp, y, sp, B, S, DI,
+                                   DS, xs, dts, bs, cs, st);
   return cudaErrorInvalidValue;
 }
 

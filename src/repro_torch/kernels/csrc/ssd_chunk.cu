@@ -14,7 +14,9 @@
 // to x's type. Rows past S load as zeros (dt = 0: no decay and no input)
 // and are not stored. x, B, C and dt are read through their batch,
 // sequence (and head) strides, so the model's slices of one packed
-// projection go in without a copy.
+// projection go in without a copy. Under grad the wrapper passes a states
+// buffer, and both kernels write the f32 state entering each chunk there
+// for the backward kernel (csrc/ssd_chunk_bwd.cu).
 //
 // Bound on an H100 SXM: at B = 2, S = 4096, nh = 64, hd = 64, ds = 64 in
 // bf16 the function reads x (67 MB), B, C and dt (about 4 MB) and writes y
@@ -100,8 +102,9 @@ template <typename T, int HD, int DS>
 __global__ void __launch_bounds__(kThreads)
 ssd_fwd(const T* __restrict__ x, const T* __restrict__ bm,
         const T* __restrict__ cm, const float* __restrict__ dt,
-        const float* __restrict__ A, T* __restrict__ y, int S, int NH,
-        Strides xs, Strides bs, Strides cs, Strides dts) {
+        const float* __restrict__ A, T* __restrict__ y,
+        float* __restrict__ states, int S, int NH, Strides xs, Strides bs,
+        Strides cs, Strides dts) {
   constexpr int LB = DS + 1;   // padded rows: reads down a column of B or
   constexpr int LA = kQ + 1;   // C, or two rows of att, hit distinct banks
   constexpr int CJ = HD / 16;  // columns of hd per thread
@@ -144,6 +147,11 @@ ssd_fwd(const T* __restrict__ x, const T* __restrict__ bm,
       sc[r * LB + n] = ok ? to_f32(cb[t * cs.s + n]) : 0.f;
     }
     if (tid < kQ) sdt[tid] = t0 + tid < S ? db[(t0 + tid) * dts.s] : 0.f;
+    if (states) {  // under grad: the state entering this chunk
+      float* out = states + (((long long)b * n_chunks + ch) * NH + h) * DS *
+                                HD;
+      for (int i = tid; i < DS * HD; i += kThreads) out[i] = sh[i];
+    }
     __syncthreads();
 
     if (tid < 32) {  // one warp: inclusive cumsum of dt A, two steps a lane
@@ -423,8 +431,9 @@ template <int HS, int DS, bool ALIGNED>
 __global__ void __launch_bounds__(kMmaThreads, min_ctas<HS, DS>())
 ssd_fwd_mma(const bf16* __restrict__ x, const bf16* __restrict__ bm,
             const bf16* __restrict__ cm, const float* __restrict__ dt,
-            const float* __restrict__ A, bf16* __restrict__ y, int S, int NH,
-            Strides xs, Strides bs, Strides cs, Strides dts) {
+            const float* __restrict__ A, bf16* __restrict__ y,
+            float* __restrict__ states, int S, int NH, Strides xs,
+            Strides bs, Strides cs, Strides dts) {
   using L = MmaSmem<HS, DS>;
   constexpr int NT = HS / 8;             // n-tiles of y and of the state
   constexpr int KD = DS / 16;            // k-steps over ds
@@ -589,6 +598,20 @@ ssd_fwd_mma(const bf16* __restrict__ x, const bf16* __restrict__ bm,
       // the row warps read this chunk's at the same time)
       const float decay = expf(lend);
       const int sw_id = warp - kRowWarps;
+      if (states) {  // under grad: the state entering this chunk, f32
+        float* out = states + (((long long)b * n_chunks + ch) * NH + h) *
+                                  DS * HD + d0;
+#pragma unroll
+        for (int i = 0; i < TPW; ++i) {
+          const int tile = sw_id + kStateWarps * i;
+          if (tile >= TILES) continue;
+          const int row = 16 * (tile / NT) + g, col = 8 * (tile % NT) + 2 * q;
+          *reinterpret_cast<float2*>(out + row * HD + col) =
+              make_float2(hr[i][0], hr[i][1]);
+          *reinterpret_cast<float2*>(out + (row + 8) * HD + col) =
+              make_float2(hr[i][2], hr[i][3]);
+        }
+      }
 #pragma unroll
       for (int i = 0; i < TPW; ++i)
 #pragma unroll
@@ -655,6 +678,7 @@ struct Args {
   const void *x, *bm, *cm;
   const float *dt, *A;
   void* y;
+  float* states;  // the state entering each chunk, or null
   int B, S, NH, HD;
   Strides xs, bs, cs, dts;
   cudaStream_t stream;
@@ -670,7 +694,7 @@ cudaError_t launch_f32(const Args& p) {
   ssd_fwd<float, HD, DS><<<grid, kThreads, smem_bytes<HD, DS>(), p.stream>>>(
       static_cast<const float*>(p.x), static_cast<const float*>(p.bm),
       static_cast<const float*>(p.cm), p.dt, p.A, static_cast<float*>(p.y),
-      p.S, p.NH, p.xs, p.bs, p.cs, p.dts);
+      p.states, p.S, p.NH, p.xs, p.bs, p.cs, p.dts);
   return cudaGetLastError();
 }
 
@@ -684,7 +708,7 @@ cudaError_t launch_mma(const Args& p) {
   ssd_fwd_mma<HS, DS, ALIGNED><<<grid, kMmaThreads, bytes, p.stream>>>(
       static_cast<const bf16*>(p.x), static_cast<const bf16*>(p.bm),
       static_cast<const bf16*>(p.cm), p.dt, p.A, static_cast<bf16*>(p.y),
-      p.S, p.NH, p.xs, p.bs, p.cs, p.dts);
+      p.states, p.S, p.NH, p.xs, p.bs, p.cs, p.dts);
   return cudaGetLastError();
 }
 
@@ -709,18 +733,23 @@ extern "C" {
 
 // dtype (of x, B, C and y): 0 float32 (the scalar kernel), 1 bfloat16 (the
 // tensor-core kernel). Strides are in elements; B and C have no head
-// stride. y is a contiguous (B, S, NH, HD) tensor. Returns a CUDA error
-// code (0 on success); cudaErrorInvalidValue for a head size, state size
-// or type the library was not built for.
+// stride. y is a contiguous (B, S, NH, HD) tensor. states is null, or
+// (under grad) a contiguous (B, ceil(S / 64), NH, DS, HD) float32 tensor
+// that receives the state entering each chunk, which the backward kernel
+// (csrc/ssd_chunk_bwd.cu) reads. Returns a CUDA error code (0 on
+// success); cudaErrorInvalidValue for a head size, state size or type the
+// library was not built for.
 int ssd_chunk_launch(const void* x, const void* bm, const void* cm,
-                     const void* dt, const void* A, void* y, int B, int S,
-                     int NH, int HD, int DS, int dtype, long long x_sb,
+                     const void* dt, const void* A, void* y, void* states,
+                     int B, int S, int NH, int HD, int DS, int dtype,
+                     long long x_sb,
                      long long x_ss, long long x_sh, long long b_sb,
                      long long b_ss, long long c_sb, long long c_ss,
                      long long dt_sb, long long dt_ss, long long dt_sh,
                      void* stream) {
   const Args p{x, bm, cm, static_cast<const float*>(dt),
-               static_cast<const float*>(A), y, B, S, NH, HD,
+               static_cast<const float*>(A), y,
+               static_cast<float*>(states), B, S, NH, HD,
                Strides{x_sb, x_ss, x_sh}, Strides{b_sb, b_ss, 0},
                Strides{c_sb, c_ss, 0}, Strides{dt_sb, dt_ss, dt_sh},
                static_cast<cudaStream_t>(stream)};

@@ -7,12 +7,14 @@ nothing falls back. Each wrapper counts its kernel launches in
 main path went through the kernel (a call under CUDA graph capture counts
 in :data:`CAPTURED` instead, and each replay of the graph adds it).
 
-``flash_attention`` is differentiable: under grad it is a
-``torch.autograd.Function`` whose forward saves the kernel's log-sum-exp
-and whose backward is a kernel of its own (``flash_attention_bwd``). The
-scan kernels have no backward kernel yet, and on CUDA they refuse to run
-under grad rather than hand back outputs that drop every gradient
-upstream of them.
+``flash_attention``, ``ssd_chunk`` and ``selective_scan`` are
+differentiable: under grad each is a ``torch.autograd.Function`` whose
+forward kernel also writes what its backward reads (the attention's
+log-sum-exp, the scans' f32 state entering each 64-step chunk or tile)
+and whose backward is a kernel of its own (``flash_attention_bwd``,
+``ssd_chunk_bwd``, ``selective_scan_bwd``). On the CPU the forward and the
+backward are the plain versions; on CUDA a failed build or launch raises,
+and nothing falls back to them.
 
 The CUDA sources under ``csrc/`` are compiled at first use with ``nvcc``
 into ``build/`` at the repository root, one shared library per source
@@ -51,13 +53,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # to agree within a tolerance and keep FMA contraction
 EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
     "topk_select": ("-fmad=false",), "flash_attention": (),
-    "flash_attention_bwd": (), "ssd_chunk": (), "selective_scan": ()}
+    "flash_attention_bwd": (), "ssd_chunk": (), "ssd_chunk_bwd": (),
+    "selective_scan": (), "selective_scan_bwd": ()}
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
 LAUNCHES: Dict[str, int] = {"topk_reward": 0, "flash_attention": 0,
                             "flash_attention_bwd": 0, "ssd_chunk": 0,
-                            "selective_scan": 0}
+                            "ssd_chunk_bwd": 0, "selective_scan": 0,
+                            "selective_scan_bwd": 0}
 # wrapper calls made while a CUDA graph was being captured: they launch
 # nothing then. ``federated/replay.py`` adds a graph's captured calls to
 # LAUNCHES at each replay, where the kernel really runs.
@@ -65,7 +69,8 @@ CAPTURED: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 _BINDERS = {"topk_select": _tk.bind,   # declares each library's C signatures
             "flash_attention": _fa.bind,
             "flash_attention_bwd": _fa.bind_bwd, "ssd_chunk": _sc.bind,
-            "selective_scan": _ss.bind}
+            "ssd_chunk_bwd": _sc.bind_bwd, "selective_scan": _ss.bind,
+            "selective_scan_bwd": _ss.bind_bwd}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -252,16 +257,30 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
-    """A scan kernel's output carries no gradient: under grad, with an
-    input that requires it, raise rather than silently drop every gradient
-    upstream of the kernel."""
-    if _needs_grad(*tensors):
-        raise NotImplementedError(
-            f"{name} cannot be differentiated on CUDA: its backward kernel "
-            f"is not ported yet (ROADMAP.md queue 1 item 16: the backward "
-            f"kernels of ssd_chunk and selective_scan); train on the CPU or "
-            f"run the forward under torch.no_grad()")
+class _SSDChunk(torch.autograd.Function):
+    """The SSD scan with its backward: the forward kernel writes the f32
+    state entering each 64-step chunk, saved with the inputs; the backward
+    runs :func:`ssd_chunk_bwd`. On the CPU both are the plain versions."""
+
+    @staticmethod
+    def forward(x, Bm, Cm, dt, A):
+        if x.device.type == "cpu":
+            return ref.ssd_chunk(x, Bm, Cm, dt, A), x.new_empty(0)
+        out = _sc.launch(load_library("ssd_chunk"), x, Bm, Cm, dt, A,
+                         with_states=True)
+        _count("ssd_chunk")
+        return out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output[1])
+        ctx.save_for_backward(*inputs, output[1])
+
+    @staticmethod
+    def backward(ctx, dy, _dstates):
+        x, Bm, Cm, dt, A, states = ctx.saved_tensors
+        dx, dB, dC, ddt, dA = ssd_chunk_bwd(x, Bm, Cm, dt, A, dy, states)
+        return dx, dB, dC, ddt.to(dt.dtype), dA.to(A.dtype)
 
 
 def ssd_chunk(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
@@ -269,14 +288,67 @@ def ssd_chunk(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     """Mamba2 SSD scan: x ``(B, S, nh, hd)``, Bm/Cm ``(B, S, ds)``, dt
     ``(B, S, nh)`` (after softplus), A ``(nh,)`` negative; returns y
     ``(B, S, nh, hd)`` in x's dtype, with no D skip. CPU tensors take the
-    plain (sequential) version, differentiable by autograd; CUDA tensors
-    the Hopper kernel, which raises under grad (no backward kernel yet)."""
+    plain (sequential) version; CUDA tensors the Hopper kernel. Under
+    grad, with an input that requires it, it is differentiable
+    (:class:`_SSDChunk`): the kernel then also writes the chunk states
+    the backward kernel reads."""
+    if _needs_grad(x, Bm, Cm, dt, A):
+        return _SSDChunk.apply(x, Bm, Cm, dt, A)[0]
     if x.device.type == "cpu":
         return ref.ssd_chunk(x, Bm, Cm, dt, A)
-    _refuse_grad("ssd_chunk", x, Bm, Cm, dt, A)
     out = _sc.launch(load_library("ssd_chunk"), x, Bm, Cm, dt, A)
     _count("ssd_chunk")
     return out
+
+
+def ssd_chunk_bwd(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                  dt: torch.Tensor, A: torch.Tensor, dy: torch.Tensor,
+                  states=None):
+    """The gradient of :func:`ssd_chunk`: ``(dx, dBm, dCm, ddt, dA)``, dx,
+    dBm and dCm in their inputs' dtypes, ddt and dA in f32, from the
+    forward's inputs, the output's gradient ``dy`` and (on CUDA) the
+    forward kernel's chunk states (``kernels/ssd_chunk.py::launch(...,
+    with_states=True)``). CPU tensors take the plain version (which
+    recomputes the states); CUDA tensors the Hopper kernel (a ``dy`` whose
+    last dimension is strided is made contiguous first)."""
+    if x.device.type == "cpu":
+        return ref.ssd_chunk_bwd(x, Bm, Cm, dt, A, dy)
+    if states is None:
+        raise ValueError("ssd_chunk_bwd on CUDA needs the forward's states")
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    out = _sc.launch_bwd(load_library("ssd_chunk_bwd"), x, Bm, Cm, dt, A,
+                         dy, states)
+    _count("ssd_chunk_bwd")
+    return out
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """The Mamba1 scan with its backward: the forward kernel writes the
+    f32 state entering each 64-step tile, saved with the inputs; the
+    backward runs :func:`selective_scan_bwd`. On the CPU both are the
+    plain versions."""
+
+    @staticmethod
+    def forward(x, dt, Bm, Cm, A, D):
+        if x.device.type == "cpu":
+            return ref.selective_scan(x, dt, Bm, Cm, A, D), x.new_empty(0)
+        out = _ss.launch(load_library("selective_scan"), x, dt, Bm, Cm, A, D,
+                         with_states=True)
+        _count("selective_scan")
+        return out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output[1])
+        ctx.save_for_backward(*inputs, output[1])
+
+    @staticmethod
+    def backward(ctx, dy, _dstates):
+        x, dt, Bm, Cm, A, D, states = ctx.saved_tensors
+        dx, ddt, dB, dC, dA, dD = selective_scan_bwd(x, dt, Bm, Cm, A, D, dy,
+                                                     states)
+        return dx, ddt, dB, dC, dA.to(A.dtype), dD.to(D.dtype)
 
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
@@ -285,11 +357,37 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     """Mamba1 selective scan: x, dt ``(B, S, di)`` (dt after softplus), Bm/Cm
     ``(B, S, ds)``, A ``(di, ds)`` negative, D ``(di,)``; returns y
     ``(B, S, di)`` in x's dtype, with the D skip. CPU tensors take the plain
-    (sequential) version, differentiable by autograd; CUDA tensors the
-    Hopper kernel, which raises under grad (no backward kernel yet)."""
+    (sequential) version; CUDA tensors the Hopper kernel. Under grad, with
+    an input that requires it, it is differentiable
+    (:class:`_SelectiveScan`): the kernel then also writes the tile states
+    the backward kernel reads."""
+    if _needs_grad(x, dt, Bm, Cm, A, D):
+        return _SelectiveScan.apply(x, dt, Bm, Cm, A, D)[0]
     if x.device.type == "cpu":
         return ref.selective_scan(x, dt, Bm, Cm, A, D)
-    _refuse_grad("selective_scan", x, dt, Bm, Cm, A, D)
     out = _ss.launch(load_library("selective_scan"), x, dt, Bm, Cm, A, D)
     _count("selective_scan")
+    return out
+
+
+def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
+                       Cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                       dy: torch.Tensor, states=None):
+    """The gradient of :func:`selective_scan`: ``(dx, ddt, dBm, dCm, dA,
+    dD)``, dx, ddt, dBm and dCm in their inputs' dtypes, dA and dD in f32,
+    from the forward's inputs, the output's gradient ``dy`` and (on CUDA)
+    the forward kernel's tile states (``kernels/selective_scan.py::launch(
+    ..., with_states=True)``). CPU tensors take the plain version (which
+    recomputes the states); CUDA tensors the Hopper kernel (a ``dy`` whose
+    last dimension is strided is made contiguous first)."""
+    if x.device.type == "cpu":
+        return ref.selective_scan_bwd(x, dt, Bm, Cm, A, D, dy)
+    if states is None:
+        raise ValueError("selective_scan_bwd on CUDA needs the forward's "
+                         "states")
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    out = _ss.launch_bwd(load_library("selective_scan_bwd"), x, dt, Bm, Cm,
+                         A, D, dy, states)
+    _count("selective_scan_bwd")
     return out

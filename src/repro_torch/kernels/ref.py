@@ -167,3 +167,89 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
         ys.append(torch.einsum("bds,bs->bd", h, Cm[:, t]))
     y = torch.stack(ys, dim=1) + x * D
     return y.to(out_dtype)
+
+
+def ssd_chunk_bwd(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                  dt: torch.Tensor, A: torch.Tensor, dy: torch.Tensor):
+    """The gradient of :func:`ssd_chunk`: ``(dx, dBm, dCm, ddt, dA)`` from
+    the forward's inputs and the output's gradient ``dy``, by the explicit
+    reverse recurrence in f32. With a = exp(dt_t A), the state h_t = a
+    h_{t-1} + dt_t B_t (x) x_t and g_t = C_t (x) dy_t + a_{t+1} g_{t+1}
+    (the gradient of the loss with respect to h_t): dx_t = dt_t B_t^T g_t,
+    dB_t = sum_h dt_t g_t x_t, dC_t = sum_h h_t dy_t, ddt_t = <g_t, A a
+    h_{t-1} + B_t (x) x_t>, dA = sum_{b,t} dt a <g_t, h_{t-1}>. dx, dBm
+    and dCm come in their inputs' dtypes, ddt and dA in f32 (the kernel
+    reads dt and A as f32). The plain version of the backward kernel
+    (``csrc/ssd_chunk_bwd.cu``), which has no Pallas counterpart: the
+    reference differentiates its pure-jnp SSD."""
+    Bsz, S, nh, hd = x.shape
+    xf, Bf, Cf, dtf, dyf = (t.float() for t in (x, Bm, Cm, dt, dy))
+    A = A.float()
+    h = torch.zeros(Bsz, nh, Bm.shape[-1], hd, dtype=torch.float32,
+                    device=x.device)
+    before = []                                   # h_{t-1} for each t
+    for t in range(S):
+        before.append(h)
+        h = (torch.exp(dtf[:, t] * A)[..., None, None] * h
+             + dtf[:, t, :, None, None] * Bf[:, t, None, :, None]
+             * xf[:, t, :, None, :])
+    dx, dB, dC, ddt = (torch.empty_like(t) for t in (xf, Bf, Cf, dtf))
+    dA = torch.zeros_like(A)
+    g = torch.zeros_like(h)
+    for t in reversed(range(S)):
+        a = torch.exp(dtf[:, t] * A)                              # (B, nh)
+        g = g + Cf[:, t, None, :, None] * dyf[:, t, :, None, :]
+        z = torch.einsum("bhsd,bs->bhd", g, Bf[:, t])             # B_t^T g
+        dx[:, t] = dtf[:, t, :, None] * z
+        dB[:, t] = torch.einsum("bhsd,bh,bhd->bs", g, dtf[:, t], xf[:, t])
+        dC[:, t] = torch.einsum("bhsd,bhd->bs", h, dyf[:, t])
+        gh = (g * before[t]).sum((-2, -1))              # <g_t, h_{t-1}>
+        ddt[:, t] = A * a * gh + (z * xf[:, t]).sum(-1)
+        dA += (dtf[:, t] * a * gh).sum(0)
+        h = before[t]
+        g = a[..., None, None] * g
+    return dx.to(x.dtype), dB.to(Bm.dtype), dC.to(Cm.dtype), ddt, dA
+
+
+def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
+                       Cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                       dy: torch.Tensor):
+    """The gradient of :func:`selective_scan`: ``(dx, ddt, dBm, dCm, dA,
+    dD)`` from the forward's inputs and the output's gradient ``dy``, by
+    the explicit reverse recurrence in f32. With a = exp(dt_t A), h_t = a
+    h_{t-1} + dt_t x_t B_t and g_t = C_t dy_t + a_{t+1} g_{t+1}: dx_t =
+    dt_t sum_s g_t B_t + D dy_t, ddt_t = sum_s g_t (A a h_{t-1} + x_t B_t),
+    dB_t = sum_d g_t dt_t x_t, dC_t = sum_d dy_t h_t, dA = sum_{b,t} g_t
+    dt_t a h_{t-1}, dD = sum_{b,t} dy_t x_t. dx, ddt, dBm and dCm come in
+    their inputs' dtypes, dA and dD in f32 (the kernel reads them as
+    f32). The plain version of the backward kernel
+    (``csrc/selective_scan_bwd.cu``), which has no Pallas counterpart: the
+    reference differentiates its ``lax.scan``."""
+    Bsz, S, di = x.shape
+    xf, dtf, Bf, Cf, dyf = (t.float() for t in (x, dt, Bm, Cm, dy))
+    A, D = A.float(), D.float()
+    h = torch.zeros(Bsz, di, Bm.shape[-1], dtype=torch.float32,
+                    device=x.device)
+    before = []                                   # h_{t-1} for each t
+    for t in range(S):
+        before.append(h)
+        h = (torch.exp(dtf[:, t, :, None] * A) * h
+             + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :])
+    dx, ddt, dB, dC = (torch.empty_like(t) for t in (xf, dtf, Bf, Cf))
+    dA = torch.zeros_like(A)
+    g = torch.zeros_like(h)
+    for t in reversed(range(S)):
+        a = torch.exp(dtf[:, t, :, None] * A)                     # (B,di,ds)
+        g = g + dyf[:, t, :, None] * Cf[:, t, None, :]
+        gb = (g * Bf[:, t, None, :]).sum(-1)                      # (B, di)
+        dx[:, t] = dtf[:, t] * gb + D * dyf[:, t]
+        gah = g * a * before[t]
+        ddt[:, t] = (gah * A).sum(-1) + xf[:, t] * gb
+        dB[:, t] = torch.einsum("bds,bd->bs", g, dtf[:, t] * xf[:, t])
+        dC[:, t] = torch.einsum("bds,bd->bs", h, dyf[:, t])
+        dA += (gah * dtf[:, t, :, None]).sum(0)
+        h = before[t]
+        g = a * g
+    dD = (dyf * xf).sum((0, 1))
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dB.to(Bm.dtype),
+            dC.to(Cm.dtype), dA, dD)

@@ -14,7 +14,16 @@ group shared by all heads); ``dt``: ``(B, S, nh)`` and ``A``: ``(nh,)``,
 both cast to float32 as the reference's wrapper does. Inputs are read
 through their strides (last dimension contiguous), so slices of the
 model's packed projection need no copy. Returns a contiguous
-``(B, S, nh, hd)`` tensor in x's dtype; all arithmetic is float32.
+``(B, S, nh, hd)`` tensor in x's dtype; all arithmetic is float32. With
+``with_states`` (under grad) it also returns the float32 state entering
+each 64-step chunk, ``(B, ceil(S / 64), nh, ds, hd)``, which the
+backward kernel reads.
+
+The backward kernel, ``csrc/ssd_chunk_bwd.cu`` (its own library, bound
+by :func:`bind_bwd`, launched by :func:`launch_bwd`; its header holds the
+design and the bound: about 419 MB moved at zamba2-1.2b's train step, B=4,
+S=4096, nh=64, hd=64, ds=64 in bf16, 0.125 ms at 3.35 TB/s), has no
+Pallas counterpart: the reference differentiates its pure-jnp SSD.
 """
 from __future__ import annotations
 
@@ -27,22 +36,31 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64,)          # hd the library is built for
 STATE_DIMS = (16, 64, 128)  # ds the library is built for
 MAX_GRID_Z = 65535          # the batch is the grid's z axis
+CHUNK = 64                  # the kernels' chunk: one state written each
 
-__all__ = ["DTYPES", "HEAD_DIMS", "STATE_DIMS", "bind", "launch"]
+__all__ = ["CHUNK", "DTYPES", "HEAD_DIMS", "STATE_DIMS", "bind",
+           "bind_bwd", "launch", "launch_bwd"]
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signature (pointers and the stream as ``c_void_p``)."""
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ssd_chunk_launch.argtypes = [p] * 6 + [i32] * 6 + [i64] * 10 + [p]
+    lib.ssd_chunk_launch.argtypes = [p] * 7 + [i32] * 6 + [i64] * 10 + [p]
     lib.ssd_chunk_launch.restype = i32
     return lib
 
 
-def launch(lib: ctypes.CDLL, x: torch.Tensor, Bm: torch.Tensor,
-           Cm: torch.Tensor, dt: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
-    """Launch on PyTorch's current stream (no synchronise). Raises on what
-    the kernel does not take and on a launch error."""
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the backward library's C signature."""
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ssd_chunk_bwd_launch.argtypes = ([p] * 12 + [i32] * 6 + [i64] * 13
+                                         + [p])
+    lib.ssd_chunk_bwd_launch.restype = i32
+    return lib
+
+
+def _check(x, Bm, Cm, dt, A):
+    """Raise on what the kernels do not take; returns dt and A as f32."""
     if x.device.type != "cuda":
         raise ValueError(f"the ssd_chunk kernel runs on CUDA, got {x.device}")
     if x.ndim != 4:
@@ -72,13 +90,71 @@ def launch(lib: ctypes.CDLL, x: torch.Tensor, Bm: torch.Tensor,
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s last dimension must be contiguous")
+    return dt, A
+
+
+def launch(lib: ctypes.CDLL, x: torch.Tensor, Bm: torch.Tensor,
+           Cm: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, *,
+           with_states: bool = False):
+    """Launch on PyTorch's current stream (no synchronise): y, or ``(y,
+    states)`` with ``with_states``. Raises on what the kernel does not
+    take and on a launch error."""
+    dt, A = _check(x, Bm, Cm, dt, A)
+    B, S, NH, HD = x.shape
+    DS = Bm.shape[-1]
     y = torch.empty((B, S, NH, HD), dtype=x.dtype, device=x.device)
+    states = (torch.empty((B, -(-S // CHUNK), NH, DS, HD),
+                          dtype=torch.float32, device=x.device)
+              if with_states else None)
     stream = stream_handle(x.device)
     err = lib.ssd_chunk_launch(
         x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(),
-        A.data_ptr(), y.data_ptr(), B, S, NH, HD, DS, DTYPES[x.dtype],
-        *x.stride()[:3], *Bm.stride()[:2], *Cm.stride()[:2],
-        *dt.stride(), stream)
+        A.data_ptr(), y.data_ptr(),
+        None if states is None else states.data_ptr(), B, S, NH, HD, DS,
+        DTYPES[x.dtype], *x.stride()[:3], *Bm.stride()[:2],
+        *Cm.stride()[:2], *dt.stride(), stream)
     if err != 0:
         raise RuntimeError(f"ssd_chunk kernel launch failed: CUDA error {err}")
-    return y
+    return (y, states) if with_states else y
+
+
+def launch_bwd(lib: ctypes.CDLL, x: torch.Tensor, Bm: torch.Tensor,
+               Cm: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+               dy: torch.Tensor, states: torch.Tensor):
+    """The backward kernel on PyTorch's current stream (no synchronise):
+    ``(dx, dBm, dCm, ddt, dA)``, dx in x's dtype, dBm and dCm in their
+    inputs' dtype (summed over the heads in f32, then cast), ddt and dA in
+    f32. ``states`` is the forward's (``launch(..., with_states=True)``);
+    ``dy`` is read through its strides (last dimension contiguous).
+    Raises on what the kernel does not take and on a launch error."""
+    dt, A = _check(x, Bm, Cm, dt, A)
+    B, S, NH, HD = x.shape
+    DS = Bm.shape[-1]
+    want = (B, -(-S // CHUNK), NH, DS, HD)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy must be {tuple(x.shape)} {x.dtype} on "
+                         f"{x.device}, got {tuple(dy.shape)} {dy.dtype} on "
+                         f"{dy.device}")
+    if dy.stride(-1) != 1:
+        raise ValueError("dy's last dimension must be contiguous")
+    if (tuple(states.shape) != want or states.dtype != torch.float32
+            or not states.is_contiguous() or states.device != x.device):
+        raise ValueError(f"states must be a contiguous float32 {want} on "
+                         f"{x.device}, got {states.dtype} "
+                         f"{tuple(states.shape)}")
+    dx = torch.empty((B, S, NH, HD), dtype=x.dtype, device=x.device)
+    dBf = torch.zeros((B, S, DS), dtype=torch.float32, device=x.device)
+    dCf = torch.zeros_like(dBf)
+    ddt = torch.empty((B, S, NH), dtype=torch.float32, device=x.device)
+    dA = torch.zeros((NH,), dtype=torch.float32, device=x.device)
+    stream = stream_handle(x.device)
+    err = lib.ssd_chunk_bwd_launch(
+        x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(),
+        A.data_ptr(), dy.data_ptr(), states.data_ptr(), dx.data_ptr(),
+        dBf.data_ptr(), dCf.data_ptr(), ddt.data_ptr(), dA.data_ptr(), B, S,
+        NH, HD, DS, DTYPES[x.dtype], *x.stride()[:3], *Bm.stride()[:2],
+        *Cm.stride()[:2], *dt.stride(), *dy.stride()[:3], stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_chunk_bwd kernel launch failed: CUDA error "
+                           f"{err}")
+    return dx, dBf.to(Bm.dtype), dCf.to(Cm.dtype), ddt, dA

@@ -12,6 +12,11 @@ runs a Hopper kernel in place of the reference's plain lines:
   lines (``:172-210``). Elsewhere it runs that chunked form
   (``SSD_CHUNK`` steps a chunk).
 
+Both kernels are differentiable: in training (under grad) each runs its
+own backward kernel on the card (``ops.ssd_chunk_bwd``,
+``ops.selective_scan_bwd``), where the reference differentiates its
+plain lines.
+
 ``use_kernel`` overrides the choice by device, so the plain routes can
 also run on the card. Decoding has no kernel in the reference and stays
 plain tensor code; it returns a new cache and leaves the given one as it

@@ -19,9 +19,9 @@ CPU):
   init_cache(cfg, batch, cache_len, dtype, device=None)
   decode_step(cfg, params, batch, cache, cache_index, ring, device=None)
 The vision frontend and multi-codebook heads raise. ``loss_fn`` is
-differentiable by autograd on both routes: the attention kernel has a
-backward kernel; the scan kernels refuse to run under grad on CUDA
-(``kernels/ops.py``), so zamba2 and falcon train on the CPU only.
+differentiable by autograd on both routes: the attention, SSD and
+selective-scan kernels each have a backward kernel (``kernels/ops.py``),
+so olmo-1b, zamba2 and falcon train on the card.
 """
 from __future__ import annotations
 

@@ -554,7 +554,7 @@ def test_attention_libraries_share_the_hopper_header():
             for n in ops.EXTRA_FLAGS} == {
         "topk_select": [], "flash_attention": ["hopper.cuh"],
         "flash_attention_bwd": ["hopper.cuh"], "ssd_chunk": [],
-        "selective_scan": []}
+        "ssd_chunk_bwd": [], "selective_scan": [], "selective_scan_bwd": []}
 
 
 BWD_SASS = """\
@@ -767,3 +767,105 @@ def test_chip_smoke_reads_each_rounds_pulled_k():
     arms = (Arm(k=5), Arm(), Arm(k=20, staleness_power=0.5))
     hist = FLHistory(controller_arm=[0, 1, 2, 1])
     assert _chip_smoke().pulled_k(hist, arms, 10) == [5, 10, 20, 10]
+
+
+def test_chip_smoke_scan_backward_bounds():
+    """The bounds chip_smoke prints for the scan backward kernels at their
+    train steps' shapes: the SSD's by its 419,430,400 bytes (0.1252 ms;
+    its nine products a chunk and head are 77.3 GFLOP), the selective
+    scan's by its 2,147,483,648 exponentials (0.5136 ms at 132 SMs and
+    1,980 MHz), above its 1.34 GB."""
+    smoke = _chip_smoke()
+    bf = dict(dtype=torch.bfloat16, device="meta")
+    f32 = dict(dtype=torch.float32, device="meta")
+    x = torch.empty(4, 4096, 64, 64, **bf)
+    bc = torch.empty(4, 4096, 128, **bf)
+    Bm, Cm = bc[..., :64], bc[..., 64:]
+    dt = torch.empty(4, 4096, 64, **f32)
+    A = torch.empty(64, **f32)
+    ms, by = smoke.ssd_bwd_bound(x, Bm, Cm, dt, A, x)
+    nbytes = 3 * x.nbytes + 4 * Bm.nbytes + 2 * dt.nbytes + 2 * A.nbytes
+    assert by == "bytes" and nbytes == 419_430_912
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+    flops = 2 * 64 * (64 * (3 * 64 + 2 * 64) + 4 * 64 * 64) * 64 * 4 * 64
+    assert flops == 77_309_411_328
+    xs = torch.empty(4, 4096, 8192, **bf)
+    packed = torch.empty(4, 4096, 288, **bf)
+    sA = torch.empty(8192, 16, **f32)
+    D = torch.empty(8192, **f32)
+    ms, by = smoke.scan_bwd_bound(xs, xs, packed[..., 256:272],
+                                  packed[..., 272:], sA, D, xs, 132, 1.98e9)
+    assert by == "operations"
+    assert ms == pytest.approx(2_147_483_648 / (16 * 132 * 1.98e9) * 1e3)
+    assert 5 * xs.nbytes == 1_342_177_280
+
+
+def test_chip_smoke_tight_backward_checks():
+    """The tight check of a backward call: the f32 gradients of bf16
+    inputs rounded to bf16 pass it; a bf16 gradient 5% too large, an f32
+    one 1e-3 off, or a NaN fail it; a bf16 gradient of fewer than
+    ``TIGHT_MIN_SIZE`` entries is not held; a gradient that is exactly
+    zero reads 0."""
+    smoke = _chip_smoke()
+    from repro_torch.kernels import ref
+    dev = torch.device("cpu")
+    args = smoke.scan_inputs(torch, 2, 70, 96, 16, torch.bfloat16, dev, 0)
+    dy = smoke.output_grad(torch, (2, 70, 96), torch.bfloat16, dev, 1)
+    exact = ref.selective_scan_bwd(*(a.float() for a in args), dy.float())
+    grads = [e.to(a.dtype) for e, a in zip(exact, args)]
+    names = smoke.SCAN_BWD_NAMES
+    rel = smoke.hold_grads(torch, grads, exact, names, "plain")
+    assert 0 < rel["dx"] <= smoke.SCAN_BWD_BF16_REL_L2
+    assert rel["dA"] == 0.0 and rel["dD"] == 0.0
+    for i, bad in ((0, grads[0] * 1.05), (4, grads[4] * (1 + 1e-3)),
+                   (5, grads[5] * float("nan"))):
+        worse = list(grads)
+        worse[i] = bad
+        with pytest.raises(smoke.SmokeFailure, match="relative L2"):
+            smoke.hold_grads(torch, worse, exact, names, "fault")
+    small = list(grads)
+    small[2] = grads[2][:, :1] * 1.05        # 32 entries: not held
+    smoke.hold_grads(torch, small, [e[:, :1] if i == 2 else e
+                                    for i, e in enumerate(exact)],
+                     names, "small")
+    zero = torch.zeros(3)
+    assert smoke.grad_readings(torch, [zero], [zero], ["z"]) == {"z": 0.0}
+
+
+def test_chip_smoke_scan_train_step_plan():
+    """The launches a scan arch's train step must make: each scan layer's
+    forward twice (the step and the remat recompute), its backward once;
+    zamba2-1.2b's shared attention block 6 times each way."""
+    smoke = _chip_smoke()
+    from repro_torch.configs import get_config
+    pair, want = smoke.scan_step_plan(get_config("zamba2-1.2b"),
+                                      "zamba2-1.2b")
+    assert pair == ("ssd_chunk", "ssd_chunk_bwd") and want == {
+        "ssd_chunk": 76, "ssd_chunk_bwd": 38, "flash_attention": 6,
+        "flash_attention_bwd": 6}
+    cfg = get_config("falcon-mamba-7b").with_(
+        n_layers=smoke.FALCON_TRAIN_DEPTH)
+    assert smoke.scan_step_plan(cfg, "falcon-mamba-7b")[1] == {
+        "selective_scan": 32, "selective_scan_bwd": 16}
+
+
+@pytest.mark.parametrize("fault", ["ssd_chunk_decay_dropped",
+                                   "ssd_da_term_dropped", "ssd_db_one_head",
+                                   "scan_tile_decay_dropped",
+                                   "scan_da_term_dropped",
+                                   "scan_db_one_cta"])
+def test_chip_faults_plant_into_the_scan_backward(fault):
+    """Each planted fault of a scan backward kernel edits text that occurs
+    once in its source, inside the kernel (after its definition), and its
+    library's phase of chip_smoke.py is the one that must catch it."""
+    smoke = _chip_smoke()
+    faults = _load("chip_faults")
+    lib, edits = faults.SCAN_BWD_FAULTS[fault]
+    fn = {"ssd_chunk_bwd": "ssd_bwd(",
+          "selective_scan_bwd": "scan_bwd("}[lib]
+    src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" /
+           f"{lib}.cu").read_text()
+    for old, new in edits:
+        assert src.count(old) == 1 and old != new
+        assert src.index(old) > src.index(fn)
+    assert hasattr(smoke, faults.SCAN_BWD_PHASES[lib])

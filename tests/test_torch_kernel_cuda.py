@@ -1,6 +1,6 @@
-"""The Hopper kernels (``topk_reward``, ``flash_attention`` and its
-backward, ``ssd_chunk``, ``selective_scan``) against their plain versions,
-on the card. Skips with
+"""The Hopper kernels (``topk_reward``, and ``flash_attention``,
+``ssd_chunk`` and ``selective_scan`` with their backward kernels) against
+their plain versions, on the card. Skips with
 a reason where no CUDA device is present (the kernels have no CPU or
 interpret mode); ``python3 chip_smoke.py`` runs the full matrix.
 
@@ -457,7 +457,7 @@ def test_each_library_builds_with_its_own_flags(monkeypatch):
     library's cached build follows its own source and flags alone."""
     assert "-fmad=false" in ops.nvcc_flags("topk_select")
     for name in ("flash_attention", "flash_attention_bwd", "ssd_chunk",
-                 "selective_scan"):
+                 "ssd_chunk_bwd", "selective_scan", "selective_scan_bwd"):
         assert "-fmad=false" not in ops.nvcc_flags(name)
         assert "arch=compute_90a,code=sm_90a" in ops.nvcc_flags(name)
     before = {n: ops.library_path(n) for n in ops.EXTRA_FLAGS}
@@ -469,9 +469,12 @@ def test_each_library_builds_with_its_own_flags(monkeypatch):
     assert after["flash_attention"] == before["flash_attention"]
     assert after["selective_scan"] == before["selective_scan"]
     assert after["flash_attention_bwd"] == before["flash_attention_bwd"]
+    assert after["ssd_chunk_bwd"] == before["ssd_chunk_bwd"]
+    assert after["selective_scan_bwd"] == before["selective_scan_bwd"]
     assert set(ops.LAUNCHES) == {"topk_reward", "flash_attention",
                                  "flash_attention_bwd", "ssd_chunk",
-                                 "selective_scan"}
+                                 "ssd_chunk_bwd", "selective_scan",
+                                 "selective_scan_bwd"}
 
 
 # --------------------------------------------------- attention backward
@@ -516,22 +519,75 @@ def test_attention_backward_kernel(B, S, H, KH, D, dtype, causal):
                                    rtol=tol)
 
 
+def _launched(names, before):
+    return {n: ops.LAUNCHES[n] - before[n] for n in names}
+
+
 @pytest.mark.gpu
-def test_scan_kernels_refuse_grad():
-    """The scan kernels have no backward kernel: under grad they raise on
-    the card (and run under no_grad)."""
+@pytest.mark.parametrize("S,ds", [(1, 16), (63, 64), (64, 128), (65, 16),
+                                  (300, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_backward_kernel(S, ds, dtype):
+    """``ops.ssd_chunk`` under grad on the card: the forward kernel (with
+    the chunk states) and the backward kernel, one launch each, no plain
+    route taken; the gradients against the plain backward of the same
+    inputs, x, B and C strided views of one projection as in the model,
+    at the SSD's tolerances."""
     dev = _card()
-    g = torch.Generator(device="cpu").manual_seed(0)
-    x = torch.randn(1, 64, 4, 64, generator=g).to(dev).requires_grad_(True)
-    bc = torch.randn(1, 64, 32, generator=g).to(dev)
-    dt = F.softplus(torch.randn(1, 64, 4, generator=g)).to(dev)
-    A = -torch.exp(torch.randn(4, generator=g)).to(dev)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ops.ssd_chunk(x, bc[..., :16], bc[..., 16:], dt, A)
-    with torch.no_grad():
-        ops.ssd_chunk(x, bc[..., :16], bc[..., 16:], dt, A)
-    xs = torch.randn(1, 64, 96, generator=g).to(dev).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ops.selective_scan(xs, F.softplus(xs.detach()), bc[..., :16],
-                           bc[..., 16:], -torch.ones(96, 16, device=dev),
-                           torch.ones(96, device=dev))
+    g = torch.Generator(device="cpu").manual_seed(S + ds)
+    nh, hd = 4, 64
+    whole = torch.randn(2, S, nh * hd + 2 * ds, generator=g).to(dtype).to(dev)
+    dt = F.softplus(torch.randn(2, S, nh, generator=g)).to(dev)
+    A = -torch.exp(torch.randn(nh, generator=g)).to(dev)
+    dy = torch.randn(2, S, nh, hd, generator=g).to(dtype).to(dev)
+    leaves = [t.clone().requires_grad_(True) for t in (whole, dt, A)]
+    xs, Bm, Cm = torch.split(leaves[0], [nh * hd, ds, ds], dim=-1)
+    names = ("ssd_chunk", "ssd_chunk_bwd")
+    before = {n: ops.LAUNCHES[n] for n in names}
+    y = ops.ssd_chunk(xs.reshape(2, S, nh, hd), Bm, Cm, *leaves[1:])
+    dx, dB, dC, ddt, dA = torch.autograd.grad(
+        y, [xs, Bm, Cm, leaves[1], leaves[2]], dy)
+    torch.cuda.synchronize()
+    assert _launched(names, before) == {"ssd_chunk": 1, "ssd_chunk_bwd": 1}
+    xh, bv, cv = torch.split(whole, [nh * hd, ds, ds], dim=-1)
+    exp = ref.ssd_chunk_bwd(xh.reshape(2, S, nh, hd).float(), bv.float(),
+                            cv.float(), dt, A, dy.float())
+    tol = SSD_TOL[dtype]
+    for got, want in zip((dx.reshape(2, S, nh, hd), dB, dC, ddt, dA), exp):
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,di,ds", [(1, 96, 16), (63, 96, 8), (64, 512, 16),
+                                     (65, 100, 16), (300, 256, 8)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_selective_scan_backward_kernel(S, di, ds, dtype):
+    """``ops.selective_scan`` under grad on the card, as the SSD's above:
+    one forward and one backward launch; the gradients against the plain
+    backward, B and C strided views of one projection."""
+    dev = _card()
+    g = torch.Generator(device="cpu").manual_seed(S + di + ds)
+    x = torch.randn(2, S, di, generator=g).to(dtype).to(dev)
+    dt = F.softplus(torch.randn(2, S, di, generator=g)).to(dtype).to(dev)
+    bc = torch.randn(2, S, 3 + 2 * ds, generator=g).to(dtype).to(dev)
+    A = -torch.exp(torch.randn(di, ds, generator=g)).to(dev)
+    D = torch.randn(di, generator=g).to(dev)
+    dy = torch.randn(2, S, di, generator=g).to(dtype).to(dev)
+    leaves = [t.clone().requires_grad_(True) for t in (x, dt, bc, A, D)]
+    Bm, Cm = leaves[2][..., 3:3 + ds], leaves[2][..., 3 + ds:]
+    names = ("selective_scan", "selective_scan_bwd")
+    before = {n: ops.LAUNCHES[n] for n in names}
+    y = ops.selective_scan(leaves[0], leaves[1], Bm, Cm, *leaves[3:])
+    grads = torch.autograd.grad(
+        y, [leaves[0], leaves[1], Bm, Cm, leaves[3], leaves[4]], dy)
+    torch.cuda.synchronize()
+    assert _launched(names, before) == {"selective_scan": 1,
+                                        "selective_scan_bwd": 1}
+    exp = ref.selective_scan_bwd(x.float(), dt.float(),
+                                 bc[..., 3:3 + ds].float(),
+                                 bc[..., 3 + ds:].float(), A, D, dy.float())
+    tol = SCAN_TOL[dtype]
+    for got, want in zip(grads, exp):
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)

@@ -6,14 +6,18 @@
   ``jax.value_and_grad`` of the reference's ``loss_fn`` on the reference's
   weights (``convert.lm_params``), for reduced olmo-1b (dense, the
   attention route of the kernel: on the CPU the autograd.Function over the
-  plain versions, and the plain route) and reduced zamba2-1.2b (the plain
-  SSD and the shared attention block), in f32.
+  plain versions, and the plain route), reduced zamba2-1.2b (the plain
+  chunked SSD, or the SSD kernel's autograd.Function over its plain
+  forward and backward, and the shared attention block) and reduced
+  falcon-mamba-7b (the plain loop over time, or the selective scan's
+  autograd.Function), in f32.
 - Three ``make_train_step`` AdamW steps of reduced olmo-1b against the
   reference's: losses, parameters and optimizer state
   (``convert.lm_optimizer_state``).
 - ``remat=True`` equals ``remat=False``.
-- ``train cohort --device cpu`` and the federated LLM cohort example twin
-  run at a tiny size, their losses decreasing.
+- ``train cohort --device cpu`` (olmo-1b, zamba2-1.2b, falcon-mamba-7b)
+  and the federated LLM cohort example twin run at a tiny size, their
+  losses decreasing.
 
 Tolerances (f32; the frameworks sum in other orders): the loss within
 1e-5 relative; each gradient leaf within 5e-5 relative L2 (measured
@@ -139,7 +143,8 @@ def test_olmo_config_matches_reference():
                                              "swiglu", True)
 
 
-@pytest.fixture(scope="module", params=["olmo-1b", "zamba2-1.2b"])
+@pytest.fixture(scope="module",
+                params=["olmo-1b", "zamba2-1.2b", "falcon-mamba-7b"])
 def reference(request):
     """The reference's weights, one batch, and its loss and gradients."""
     arch = request.param
@@ -261,6 +266,19 @@ def test_train_cohort_cli(tmp_path, capsys):
     assert "step 9: loss=" in out and "[cohort:olmo-1b]" in out
     with pytest.raises(NotImplementedError, match="queue 1 item 16"):
         train.main_cohort(_cohort_args(arch="phi3-mini-3.8b"))
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "falcon-mamba-7b"])
+def test_train_cohort_cli_scan_archs(arch, tmp_path, capsys):
+    """``train cohort`` of the reduced SSM archs (the reference's
+    defaults: 10 steps of 4 x 64 tokens), which the scan kernels'
+    backward kernels put on the card; on the CPU their plain routes."""
+    losses = train.main(["cohort", "--device", "cpu", "--arch", arch,
+                         "--out", str(tmp_path)])
+    assert len(losses) == 10 and np.isfinite(losses).all()
+    assert np.mean(losses[-3:]) < losses[0]
+    assert (tmp_path / "cohort.msgpack").exists()
+    assert f"[cohort:{arch}]" in capsys.readouterr().out
 
 
 def test_federated_llm_cohort_example(capsys):
