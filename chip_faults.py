@@ -19,15 +19,21 @@ with the last, ragged key tile's rows past S read (K and V mapped as one
 sequence over the batches) and not masked, and with dS^T stored without
 the swizzle that dQ's descriptor reads; and the tensor-core forward's
 log-sum-exp left in base 2. Phase 17 of ``chip_smoke.py`` must pass with
-the sound libraries and fail with each fault. ``SCAN_BWD_FAULTS`` (6)
-edit the scan backward kernels: in ``ssd_bwd`` (``ssd_chunk_bwd.cu``) the
-gradient carried into the chunk before not decayed across the chunk
-boundary, dA without its even steps' terms, and dB summed over one head's
-CTA only; in ``scan_bwd`` (``selective_scan_bwd.cu``) g carried into the
-tile before without the decay of the tile's first step, dA's terms
-without the step's decay, and dB summed over the first CTA's channels
-only. Phase 21 (the SSD's) or 23 (the selective scan's) of
-``chip_smoke.py`` must pass with the sound libraries and fail with each.
+the sound libraries and fail with each fault. ``SCAN_BWD_FAULTS`` (10)
+edit the scan backward kernels: in the f32 route's ``ssd_bwd``
+(``ssd_chunk_bwd.cu``) the gradient carried into the chunk before not
+decayed across the chunk boundary, dA without its even steps' terms, and
+dB summed over one head's CTA only; in the bf16 route's carry pass
+``ssd_bwd_carry`` K not decayed across the chunk boundary, and in its
+``ssd_bwd_local`` dA without its even steps' terms, dB summed over the
+CTA's first head only, and Dm's low part dropped from Dm^T dy; in
+``scan_bwd`` (``selective_scan_bwd.cu``) g carried into the tile before
+without the decay of the tile's first step, dA's terms without the step's
+decay, and dB summed over the first CTA's channels only. Phase 21 (the
+SSD's) or 23 (the selective scan's) of ``chip_smoke.py`` must pass with
+the sound libraries and fail with each; each SSD fault only through the
+cases of its kernel's route (``SSD_BWD_FAULT_KERNELS``), whose names it
+prints.
 
 For the sound top-k kernel and each of its faults it runs phase 2 of
 ``chip_smoke.py`` (the 105-case matrix and the edge cases, indices exact,
@@ -244,6 +250,24 @@ SCAN_BWD_FAULTS = {
         "d * (acc[i][j] + kxv));",
         "          if (t < S && h == 0) atomicAdd(dbb + (long long)t * DS + "
         "n, d * (acc[i][j] + kxv));")]),
+    # the bf16 route's carry pass: K not decayed across the chunk boundary
+    "ssd_carry_decay_dropped": ("ssd_chunk_bwd", [(
+        "      for (int e = 0; e < 4; ++e) acc[j][e] *= decay;\n",
+        "      for (int e = 0; e < 4; ++e) acc[j][e] *= 1.f;\n")]),
+    # the bf16 chunk-local kernel: dA without its even steps' terms
+    "ssd_local_da_terms_dropped": ("ssd_chunk_bwd", [(
+        "      const float da = warp_sum(fmaf(sdt[s0], mt0, sdt[s1] * mt1));",
+        "      const float da = warp_sum(sdt[s1] * mt1);")]),
+    # the bf16 chunk-local kernel: dB summed over the CTA's first head only
+    "ssd_local_db_one_head": ("ssd_chunk_bwd", [(
+        "    for (int j = 0; j < ND; ++j) {\n"
+        "      float2* pa = reinterpret_cast<float2*>(sdb + ra",
+        "    for (int j = 0; j < ND && hi == 0; ++j) {\n"
+        "      float2* pa = reinterpret_cast<float2*>(sdb + ra")]),
+    # the bf16 chunk-local kernel: Dm's low part dropped from Dm^T dy
+    "ssd_local_dm_low_part_dropped": ("ssd_chunk_bwd", [(
+        "        mma(z[2 * np], dl, f[0], f[1]);\n"
+        "        mma(z[2 * np + 1], dl, f[2], f[3]);\n", "")]),
     # g carried into the tile before without the decay of the tile's first
     # step
     "scan_tile_decay_dropped": ("selective_scan_bwd", [(
@@ -262,6 +286,18 @@ SCAN_BWD_FAULTS = {
 # the phase of chip_smoke.py that holds each scan backward library
 SCAN_BWD_PHASES = {"ssd_chunk_bwd": "phase_ssd_bwd_vs_plain",
                    "selective_scan_bwd": "phase_scan_bwd_vs_plain"}
+# the kernel each SSD backward fault edits, and the route whose cases of
+# phase 21 it must fail (the other route's cases pass): the scalar
+# kernel's are the f32 route's, the carry pass's and the chunk-local
+# kernel's the bf16 route's
+SSD_BWD_FAULT_KERNELS = {
+    "ssd_chunk_decay_dropped": ("ssd_bwd(", "float32"),
+    "ssd_da_term_dropped": ("ssd_bwd(", "float32"),
+    "ssd_db_one_head": ("ssd_bwd(", "float32"),
+    "ssd_carry_decay_dropped": ("ssd_bwd_carry(", "bfloat16"),
+    "ssd_local_da_terms_dropped": ("ssd_bwd_local(", "bfloat16"),
+    "ssd_local_db_one_head": ("ssd_bwd_local(", "bfloat16"),
+    "ssd_local_dm_low_part_dropped": ("ssd_bwd_local(", "bfloat16")}
 
 
 # library: (its faults, the kernel function they edit)
@@ -523,7 +559,9 @@ def bwd_readings(torch, ops, ref, dev, faulty):
 def scan_bwd_readings(torch, ops, ref, dev, faulty):
     """Phases 21 and 23 of chip_smoke.py with the sound libraries (both
     phases) and with each of ``SCAN_BWD_FAULTS`` swapped in (the phase of
-    its library): ``{name: {"fails", "first_failure"}}``."""
+    its library): ``{name: {"fails", "first_failure"}}``, and for the SSD's
+    faults the cases of phase 21 that failed and whether they were all
+    the fault's route's (``SSD_BWD_FAULT_KERNELS``)."""
     out = {}
     runs = [("sound", None, None)] + [(n, lib, bound) for n, (lib, bound)
                                       in faulty.items()]
@@ -538,6 +576,12 @@ def scan_bwd_readings(torch, ops, ref, dev, faulty):
             out[name] = {"fails": False}
         except cs.SmokeFailure as err:
             out[name] = {"fails": True, "first_failure": str(err)[:300]}
+            cases = sorted(getattr(err, "cases", {}))
+            if name in SSD_BWD_FAULT_KERNELS:
+                route = SSD_BWD_FAULT_KERNELS[name][1]
+                out[name].update(failed_cases=cases, route=route,
+                                 fails_through_its_route=bool(cases) and all(
+                                     c.endswith(route) for c in cases))
         finally:
             if lib is not None:
                 ops._LIBS[lib] = sound
@@ -755,7 +799,11 @@ def main(argv=None) -> int:
                         "one"},
               "scan_bwd": {
                   "21": "the SSD backward against its plain version "
-                        "(tolerance " + json.dumps(cs.SSD_TOL) + ")",
+                        "(tolerance " + json.dumps(cs.SSD_TOL) + "; bf16 "
+                        "also its carry pass), every case run; each SSD "
+                        "fault must fail only its route's cases: "
+                        + json.dumps({k: v[1] for k, v in
+                                      SSD_BWD_FAULT_KERNELS.items()}),
                   "23": "the selective-scan backward against its plain "
                         "version (tolerance " + json.dumps(cs.SCAN_TOL) + ")",
                   "tight": {"bf16": cs.SCAN_BWD_BF16_REL_L2,
@@ -777,6 +825,8 @@ def main(argv=None) -> int:
     ok = all(not r["sound"][fail_key.get(k, "tight_fails")] and all(
         v[fail_key.get(k, "tight_fails")] for n, v in r.items()
         if n != "sound") for k, r in readings.items() if k != "async")
+    ok = ok and all(scan_bwd[n].get("fails_through_its_route", False)
+                    for n in SSD_BWD_FAULT_KERNELS)
     ok = ok and not any(v["fails"] for v in asyn["sound"].values()) and all(
         v["fails"] for n, r in asyn.items() if n != "sound"
         for v in r.values())

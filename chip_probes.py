@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Design probes of the two bf16 scan kernels, and their times and the
-attention backward's beside another checkout's kernels, on one GPU.
+"""Design probes of the two bf16 scan kernels and the SSD backward, and
+their times and the attention backward's beside another checkout's
+kernels, on one GPU.
 
     python3 chip_probes.py [--seed N] [--parent DIR] [--only PART]
 
@@ -16,7 +17,11 @@ faults (the checkout is left as it is):
 - ``SCAN_PROBES``: ``scan_fwd``'s decay argument without its low part, 2
   or 8 lanes a channel for 4, 256 or 512 threads a CTA for 128, and its
   f32 route with the cheap decay, with and without the argument's low
-  part.
+  part;
+- ``SSD_BWD_PROBES``: the bf16 SSD backward (``ssd_bwd_carry`` and
+  ``ssd_bwd_local``) with 8, 16 or 32 heads a chunk-local CTA for 64,
+  and each split operand (the carry's e^l dy, K, h0, Dm, E, E dt)
+  without its low part.
 
 For the sound kernel and each probe it prints the tight check of
 ``chip_faults.py`` (phase 8's and 12's bf16 cases at the prefill shape,
@@ -27,8 +32,8 @@ the f32 route's largest error on the prefill shape with slow decay
 against ``SCAN_TOL``'s f32 tolerance. A probe whose text no longer occurs
 once in its source stops the script.
 
-``--parent DIR`` also builds the SSD, scan and attention backward
-sources of another checkout (say the parent commit's, unpacked by ``git
+``--parent DIR`` also builds the SSD and scan sources and the three
+backward sources of another checkout (say the parent commit's, unpacked by ``git
 archive``) with this checkout's flags, launches them through that
 checkout's own launchers, times them in the same turns (first in the
 first turn, last in the second) and reads the SASS loop counts of both
@@ -40,7 +45,13 @@ forward kernel) as phase 20 times it, this checkout's kernel beside the
 parent's in turns, with both kernels' tight readings (relative L2 from
 the f32 backward of the same inputs), dk and dv against each other and
 the static SASS counts of each backward entry (wgmma, TMA, ``mma.sync``,
-atomics). ``--only scans`` or ``--only attention_bwd`` runs one part.
+atomics). The SSD backward (``SSD_BWD_CASES``) is read the same way: the
+sound kernel, each of ``SSD_BWD_PROBES`` and the parent's, each one's
+tight readings on zamba2-1.2b's train-step shape (4, 4096, 64 heads of
+64, ds 64, bf16; the states from this checkout's forward kernel) and two
+of phase 21's slow-decay cases and whether they hold phase 21's limits,
+then all timed at the step's shape in four turns. ``--only scans``,
+``--only attention_bwd`` or ``--only ssd_bwd`` runs one part.
 
 The last line is one JSON object with all the readings; without a CUDA
 device it exits 2.
@@ -51,13 +62,18 @@ fused engines (``run_fl_scanned`` and ``run_fl_async_scanned`` at phases
 and concurrency 100 for the async one, cuDNN's default algorithms, TF32
 off) of DIR's package and of this checkout's, in turns (DIR, this, this,
 DIR), each in a process of its own, two runs of 3 replays each, with
-``chip_smoke.py``'s ``replay_timing``.
+``chip_smoke.py``'s ``replay_timing``. ``--train-steps DIR`` in the same
+way runs zamba2-1.2b's train step as phase 22 does (3 steps at 4 x 4096,
+a fourth profiled, the routes) for DIR's package and this one in turns,
+a process each, and prints each run's step times, tokens/s, peak memory
+and the profiled step's device time by layer (about 4 minutes).
 """
 from __future__ import annotations
 
 import ctypes
 import importlib.util
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -99,6 +115,43 @@ SCAN_PROBES = {
         "            da = ex2(v.x * a2hi[j]);"),
 }
 PROBES = {"ssd_chunk": SSD_PROBES, "selective_scan": SCAN_PROBES}
+
+
+def _lines(*lines):
+    """Lines of a kernel source, to drop: ``(text, "")``."""
+    return ("".join(f"{line}\n" for line in lines), "")
+
+
+# edits of the SSD backward's bf16 kernels: G, the heads a chunk-local CTA
+# walks (64 holds every head of zamba2-1.2b: dB and dC by plain stores);
+# each split operand without its low part
+SSD_BWD_PROBES = {
+    "heads_8": ("constexpr int kHeadGroup = 64;",
+                "constexpr int kHeadGroup = 8;"),
+    "heads_16": ("constexpr int kHeadGroup = 64;",
+                 "constexpr int kHeadGroup = 16;"),
+    "heads_32": ("constexpr int kHeadGroup = 64;",
+                 "constexpr int kHeadGroup = 32;"),
+    "carry_el_dy_low_part_dropped": _lines(
+        "        mma(acc[2 * np], ca, lo[0], lo[1]);",
+        "        mma(acc[2 * np + 1], ca, lo[2], lo[3]);"),
+    "k_low_part_dropped": ([_lines(
+        "        mma(z[2 * np], ba, kl[0], kl[1]);",
+        "        mma(z[2 * np + 1], ba, kl[2], kl[3]);"), _lines(
+        "        mma(db[2 * nn], xa[kp], kl[0], kl[1]);",
+        "        mma(db[2 * nn + 1], xa[kp], kl[2], kl[3]);")], None),
+    "h0_low_part_dropped": _lines(
+        "          mma(dc[2 * nn], ya, hl[0], hl[1]);",
+        "          mma(dc[2 * nn + 1], ya, hl[2], hl[3]);"),
+    "dm_low_part_dropped": cf.SCAN_BWD_FAULTS[
+        "ssd_local_dm_low_part_dropped"][1][0],
+    "e_low_part_dropped": _lines(
+        "        mma(db[2 * nn], el, f[0], f[1]);",
+        "        mma(db[2 * nn + 1], el, f[2], f[3]);"),
+    "e_dt_low_part_dropped": _lines(
+        "        mma(dc[2 * nn], al, f[0], f[1]);",
+        "        mma(dc[2 * nn + 1], al, f[2], f[3]);"),
+}
 # the first SSD kernel's bf16 entry (one CTA of full hd a (batch, head),
 # scalar FMAs), counted where a checkout has no tensor-core kernel
 FIRST_SSD_ENTRY = "ssd_fwdI13__nv_bfloat16Li64ELi64E"
@@ -106,7 +159,14 @@ FIRST_SSD_ENTRY = "ssd_fwdI13__nv_bfloat16Li64ELi64E"
 LAUNCHERS = {"ssd_chunk": ("ssd_chunk", "bind", "launch"),
              "selective_scan": ("selective_scan", "bind", "launch"),
              "flash_attention_bwd": ("flash_attention", "bind_bwd",
-                                     "launch_bwd")}
+                                     "launch_bwd"),
+             "ssd_chunk_bwd": ("ssd_chunk", "bind_bwd", "launch_bwd"),
+             "selective_scan_bwd": ("selective_scan", "bind_bwd",
+                                    "launch_bwd")}
+# the libraries each part of the probes builds from a parent checkout
+PARTS = {"scans": ("ssd_chunk", "selective_scan"),
+         "attention_bwd": ("flash_attention_bwd",),
+         "ssd_bwd": ("ssd_chunk_bwd",)}
 # the bf16 backward entries at hd 128, of this design and of the mma.sync
 # one before it
 BWD_ENTRIES = ("flash_bwd_wgmmaILi128E", "flash_bwd_mmaILi128E")
@@ -126,6 +186,22 @@ def build_probes(ops, tmp):
             libs[lib] = {"sound": ops.load_library(lib)}
             libs[lib].update({n: ops._BINDERS[lib](ctypes.CDLL(str(
                 f.result()))) for n, f in built[lib].items()})
+    return libs
+
+
+def build_ssd_bwd_probes(ops, tmp):
+    """The sound SSD backward library and each of ``SSD_BWD_PROBES``, one
+    nvcc each, all at once: ``{"sound" or probe name: bound library}``."""
+    from repro_torch.kernels import ssd_chunk as sc
+    with ThreadPoolExecutor(len(SSD_BWD_PROBES) + 1) as pool:
+        sound = pool.submit(ops.build_library, "ssd_chunk_bwd")
+        built = {n: pool.submit(cf.build_fault, ops, "ssd_chunk_bwd", n, o,
+                                w, tmp)
+                 for n, (o, w) in SSD_BWD_PROBES.items()}
+        sound.result()
+        libs = {"sound": ops.load_library("ssd_chunk_bwd")}
+        libs.update({n: sc.bind_bwd(ctypes.CDLL(str(f.result())))
+                     for n, f in built.items()})
     return libs
 
 
@@ -234,6 +310,69 @@ def attention_bwd_turns(torch, ops, ref, parent, l2_bytes):
     return out
 
 
+# B, S, nh, hd, ds, dt shift of the SSD backward's probes: zamba2-1.2b's
+# train step, then phase 21's bf16 cases at 4096 and 4000 steps, slow decay
+# (the last at ds 128, one stage of head tiles)
+SSD_BWD_CASES = [(4, 4096, 64, 64, 64, 0.0),
+                 (1, 4096, 4, 64, 64, cs.SLOW_DT_SHIFT),
+                 (1, 4000, 2, 64, 128, cs.SLOW_DT_SHIFT)]
+
+
+def ssd_bwd_turns(torch, ops, ref, libs, parent, l2_bytes):
+    """The bf16 SSD backward of each library in ``libs`` (the sound one and
+    the probes) and (``parent``: a launch function, or None) the parent's:
+    each one's tight readings (relative L2 of each gradient from the f32
+    backward of the same inputs) on ``SSD_BWD_CASES`` and whether they
+    hold phase 21's limits, then each timed at the first case (zamba2-1.2b's
+    train step) in four turns (order, reversed, order, reversed), beside
+    the bound and the design's byte floor."""
+    from repro_torch.kernels import ssd_chunk as sc
+
+    dev = torch.device("cuda")
+    fwd = ops.load_library("ssd_chunk")
+    fns = {n: (lambda lb: lambda *a: sc.launch_bwd(lb, *a))(lb)
+           for n, lb in libs.items()}
+    if parent is not None:
+        fns = {"parent": parent, **fns}
+    out = {"card": cs.card_name_power(),
+           "cases": [list(c) for c in SSD_BWD_CASES],
+           "tight": {n: {} for n in fns}, "holds": dict.fromkeys(fns, True)}
+    for i, (B, S, nh, hd, ds, shift) in enumerate(SSD_BWD_CASES):
+        args = cs.ssd_inputs(torch, B, S, nh, hd, ds, torch.bfloat16, dev,
+                             900 + i, shift)
+        dy = cs.output_grad(torch, (B, S, nh, hd), torch.bfloat16, dev,
+                            950 + i)
+        _, states = sc.launch(fwd, *args, with_states=True)
+        exact = ref.ssd_chunk_bwd(*(a.float() for a in args), dy.float())
+        case = f"{B}x{S}x{nh}x{hd}x{ds} shift {shift}"
+        for name, fn in fns.items():
+            grads = fn(*args, dy, states)
+            out["tight"][name][case] = cs.grad_readings(
+                torch, grads, exact, cs.SSD_BWD_NAMES)
+            try:
+                cs.hold_grads(torch, grads, exact, cs.SSD_BWD_NAMES, case)
+            except cs.SmokeFailure:
+                out["holds"][name] = False
+            del grads
+        del exact
+        if i == 0:
+            step = (*args, dy, states)
+        del args, dy, states
+        torch.cuda.empty_cache()
+        cs.log(json.dumps({"ssd_chunk_bwd_tight": {
+            n: out["tight"][n][case] for n in fns}}))
+    sets, _ = cs.copies(step, l2_bytes)
+    runs = {n: [] for n in fns}
+    for order in (list(fns), list(fns)[::-1], list(fns), list(fns)[::-1]):
+        for name in order:
+            runs[name].append(cs.cuda_ms(torch, fns[name], sets, reps=5))
+    out["ms_by_turn"] = runs
+    out["ms"] = {n: statistics.median(ms) for n, ms in runs.items()}
+    out["bound_ms"] = cs.ssd_bwd_bound(*step[:-1])[0]
+    out["design_floor_ms"] = cs.ssd_bwd_design_floor(*step)
+    return out
+
+
 def f32_excess(torch, ref, libs, launch, args):
     """Each library's f32 output against the plain version: the largest
     ``|got - exp| - tol (1 + |exp|)`` at ``SCAN_TOL``'s f32 tolerance (> 0
@@ -282,13 +421,38 @@ def engine_replays(tree, rounds=4, runs=2):
     return out
 
 
-def engines_in_turns(other) -> int:
-    """``--engines``: :func:`engine_replays` of ``other`` and of this
-    checkout in turns, a process each."""
+def train_step(tree, seed):
+    """zamba2-1.2b's train step as ``chip_smoke.py``'s phase 22 runs it
+    (3 steps at 4 x 4096, a fourth profiled, the routes), the package of
+    the checkout at ``tree`` put first on the path, in this process: its
+    step times, tokens/s, peak memory and the profiled step's device time
+    by layer."""
+    sys.path.insert(0, str(Path(tree).resolve() / "src"))
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    libs = ("ssd_chunk", "ssd_chunk_bwd", "flash_attention",
+            "flash_attention_bwd")
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(ops.build_library, libs))
+    row, _ = cs.phase_scan_train_step(torch, ops, ref, torch.device("cuda"),
+                                      seed, "zamba2-1.2b", 22)
+    prof = row["profile"]
+    return {"step_s": row["step_s"], "tokens_per_s": row["tokens_per_s"],
+            "peak_gib": row["peak_gib"], "busy_ms": prof["device_busy_ms"],
+            "idle_share": prof["idle_share"], "by_kind_ms": prof["by_kind_ms"]}
+
+
+def in_turns(other, flag, key, extra=()) -> int:
+    """Run this script with ``flag`` for ``other`` and for this checkout in
+    turns (other, this, this, other), a process each, and log each run's
+    last line under ``key``."""
     readings = []
     for tree in (other, cs.ROOT, cs.ROOT, other):
         proc = subprocess.run(
-            [sys.executable, __file__, "--engine-run", str(tree)],
+            [sys.executable, __file__, flag, str(tree), *extra],
             capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stderr[-3000:], file=sys.stderr)
@@ -296,8 +460,7 @@ def engines_in_turns(other) -> int:
         readings.append({"tree": str(tree), **json.loads(
             proc.stdout.strip().splitlines()[-1])})
         cs.log(json.dumps(readings[-1]))
-    cs.log(json.dumps({"card": cs.card_name_power(),
-                       "engine_replays_s": readings}))
+    cs.log(json.dumps({"card": cs.card_name_power(), key: readings}))
     return 0
 
 
@@ -314,10 +477,18 @@ def main(argv=None) -> int:
                     "another checkout and of this one in turns instead")
     ap.add_argument("--engine-run", metavar="DIR", default=None,
                     help=argparse.SUPPRESS)
-    ap.add_argument("--only", choices=("scans", "attention_bwd"),
-                    default=None, help="run one part of the probes")
+    ap.add_argument("--train-steps", metavar="DIR", default=None,
+                    help="time zamba2-1.2b's train step (phase 22) of "
+                    "another checkout and of this one in turns instead")
+    ap.add_argument("--train-run", metavar="DIR", default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--only", choices=tuple(PARTS), default=None,
+                    help="run one part of the probes")
     opts = ap.parse_args(argv)
     seed = opts.seed
+    if opts.train_run:   # as chip_smoke.py's main, before torch starts
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_probes: no CUDA device", file=sys.stderr)
@@ -325,19 +496,28 @@ def main(argv=None) -> int:
     if opts.engine_run:
         print(json.dumps(engine_replays(opts.engine_run)))
         return 0
+    if opts.train_run:
+        print(json.dumps(train_step(opts.train_run, seed)))
+        return 0
     if opts.engines:
-        return engines_in_turns(opts.engines)
+        return in_turns(opts.engines, "--engine-run", "engine_replays_s")
+    if opts.train_steps:
+        return in_turns(opts.train_steps, "--train-run", "train_steps",
+                        ("--seed", str(seed)))
     sys.path.insert(0, str(cs.SRC))
     from repro_torch.kernels import ops, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     cs.log(f"card {cs.card_name_power()}")
-    scans, attn = opts.only != "attention_bwd", opts.only != "scans"
-    parts = tuple(n for n in LAUNCHERS
-                  if (attn if n == "flash_attention_bwd" else scans))
-    parent, sass, libs = {}, {}, {}
+    scans, attn, ssd_bwd = (opts.only in (None, part) for part in PARTS)
+    parts = tuple(n for part in PARTS if opts.only in (None, part)
+                  for n in PARTS[part])
+    parent, sass, libs, ssd_bwd_libs = {}, {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
+        if ssd_bwd:
+            ops.load_library("ssd_chunk")
+            ssd_bwd_libs = build_ssd_bwd_probes(ops, tmp)
         if scans:
             libs = build_probes(ops, tmp)
             sass["this"] = cs.loop_counts(
@@ -366,9 +546,18 @@ def main(argv=None) -> int:
             torch, ops, ref, parent.get("flash_attention_bwd"), l2)
         cs.log(json.dumps({"flash_attention_bwd":
                            readings["flash_attention_bwd"]}))
+    if ssd_bwd:
+        readings["ssd_chunk_bwd"] = ssd_bwd_turns(
+            torch, ops, ref, ssd_bwd_libs, parent.get("ssd_chunk_bwd"), l2)
+        cs.log(json.dumps({"ssd_chunk_bwd": readings["ssd_chunk_bwd"]}))
     if scans:
         scan_probes(torch, ops, ref, dev, seed, libs, parent, l2, readings)
     cs.log(json.dumps({"limits": {"ssd_chunk": cs.SSD_BF16_REL_L2,
+                                  "ssd_chunk_bwd": {
+                                      "bf16": cs.SCAN_BWD_BF16_REL_L2,
+                                      "f32": cs.SCAN_BWD_F32_REL_L2,
+                                      "bf16_from_entries":
+                                          cs.TIGHT_MIN_SIZE},
                                   "ssd_chunk_slow_decay":
                                       cs.SSD_BF16_REL_L2_SLOW,
                                   "selective_scan": cs.SCAN_BF16_REL_L2,

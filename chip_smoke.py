@@ -10,8 +10,10 @@ Phases (any mismatch exits non-zero; nothing is caught and swallowed):
    scan, and the backward of the last three) from the sources in this
    checkout, one ``nvcc`` each,
    all at once, and time the build; log each main-path kernel's
-   registers a thread and spill bytes from ptxas's report of the build,
-   and the SASS loop counts of both scan kernels.
+   registers a thread and spill bytes from ptxas's report of the build
+   (the SSD backward's two bf16 entries must spill nothing), the SASS
+   loop counts of both scan kernels and the tensor-core products in the
+   backward entries.
 2. The top-k kernel against its plain PyTorch version on the card, on
    the same synthetic inputs: indices equal, values bitwise. The 105-case
    matrix includes the shapes the later phases give the kernel (N=200,
@@ -262,7 +264,10 @@ Training of the SSM archs (olmo's weights are freed first):
    strided, on the chunk states the forward kernel wrote: dx, dB, dC,
    ddt at the JAX package's SSD tolerances, and each gradient (dA, a sum
    over the batch and sequence, by this alone) by the tight check against
-   the f32 backward of the same inputs.
+   the f32 backward of the same inputs. In bf16 the carry pass alone is
+   also held against ``ref.ssd_chunk_bwd_carry`` (elementwise at the f32
+   SSD tolerance, and by the f32 tight limit). Every case runs; a failure
+   names each case that failed.
 22. The main path: ``make_train_step(get_config("zamba2-1.2b"),
    default_optimizer())`` at full width and depth on ``lm_batch`` at 4 x
    4096, 3 steps, counts set to 0 just before each step and read just
@@ -283,8 +288,9 @@ Training of the SSM archs (olmo's weights are freed first):
    time), bf16 at the step's depth.
 25. Timing of both backward kernels on the inputs their train steps gave
    them: the kernel (CUDA events around 5 back-to-back calls, median of
-   5 trials, two turns) and the plain version beside the bound; no single
-   PyTorch call computes either gradient.
+   5 trials, two turns) and the plain version beside the bound (and, for
+   the SSD's, the byte floor of its two-pass design); no single PyTorch
+   call computes either gradient.
 
 Each phase's wall time is logged. The last two lines of standard output
 are the kernels' JSON summary and ``{"ok": true, "device": {...}}``.
@@ -3084,16 +3090,25 @@ def phase_mamba1_routes(torch, ops, dev, cfg, params, tokens):
     return {"agree": agree, "bf16_route_ratio": ratio, "secs": secs}
 
 
-# The kernel each library runs on the main paths, as a fragment of its
-# mangled name in ptxas's report (the SSD's at 32 columns a slice, ds 64,
-# aligned rows; the attention backward's at hd 64 and 128)
+# The kernels each library runs on the main paths, as fragments of their
+# mangled names in ptxas's report (the SSD's at 32 columns a slice, ds 64,
+# aligned rows; the attention backward's at hd 64 and 128; the SSD
+# backward's two bf16 entries at ds 64, the carry pass and the
+# chunk-local gradients)
 MAIN_ENTRIES = {"topk_select": "topk_select",
                 "flash_attention": "flash_fwd_wgmma",
                 "flash_attention_bwd": "flash_bwd_wgmma",
                 "ssd_chunk": "ssd_fwd_mmaILi32ELi64ELb1E",
-                "ssd_chunk_bwd": "ssd_bwdI13__nv_bfloat16Li64ELi64E",
+                "ssd_chunk_bwd": ("ssd_bwd_carryILi64E",
+                                  "ssd_bwd_localILi64E"),
                 "selective_scan": "scan_fwdI13__nv_bfloat16Li16E",
                 "selective_scan_bwd": "scan_bwdI13__nv_bfloat16Li16E"}
+SSD_BWD_DESIGN = ("ssd_bwd_carry (K over the chunks in reverse, a CTA a "
+                  "batch and head, mma.sync on split e^l dy) then "
+                  "ssd_bwd_local (a CTA a chunk and head group, two an SM: "
+                  "chunk products on mma.sync with split f32 operands, dB "
+                  "and dC summed over the group's heads in shared memory, "
+                  "dA by parts)")
 
 
 def ptxas_usage(text):
@@ -3123,7 +3138,10 @@ def ptxas_usage(text):
 def entry_usage(usage, fragment):
     """The entries of ``usage`` whose names hold ``fragment``: how many,
     their most registers a thread and most spill bytes (stores and loads).
-    Fails if there is none."""
+    Fails if there is none. A tuple of fragments gives one such reading
+    each, by fragment."""
+    if isinstance(fragment, tuple):
+        return {f: entry_usage(usage, f) for f in fragment}
     hits = [u for name, u in usage.items() if fragment in name]
     check(bool(hits), f"no kernel like {fragment!r} in the build's report")
     return {"entries": len(hits),
@@ -3817,49 +3835,84 @@ def output_grad(torch, shape, dtype, dev, seed):
     return torch.randn(*shape, generator=g).to(dtype).to(dev)
 
 
+class CaseFailures(SmokeFailure):
+    """A phase's cases that failed: ``cases`` maps each one's name to its
+    failure."""
+
+    def __init__(self, phase, cases):
+        self.cases = cases
+        first = next(iter(cases.values()))
+        super().__init__(f"{phase} failed on {len(cases)} cases "
+                         f"{list(cases)}; the first: {first}")
+
+
 def phase_ssd_bwd_vs_plain(torch, ops, ref, dev):
     """21: the SSD backward kernel against its plain version on the same
     inputs, output gradient and (for the kernel) the forward kernel's
     chunk states, bf16 and f32: the per-step gradients at the JAX
     package's SSD tolerances, and every gradient by the tight check
     against the f32 backward of the same inputs (the plain version
-    computes in f32), dA (``SUMMED_GRADS``) by that alone."""
+    computes in f32), dA (``SUMMED_GRADS``) by that alone. In bf16 the
+    carry pass alone against ``ref.ssd_chunk_bwd_carry``: elementwise at
+    the f32 SSD tolerance and by ``SCAN_BWD_F32_REL_L2``. Every case runs;
+    a failure (``CaseFailures``) names each case that failed."""
     from repro_torch.kernels import ssd_chunk as sc
 
     fwd = ops.load_library("ssd_chunk")
-    errs, rel, shapes = {}, {}, []
+    bwd = ops.load_library("ssd_chunk_bwd")
+    errs, rel, shapes, failed = {}, {}, [], {}
     for i, (B, S, nh, hd, ds, shift) in enumerate(SSD_BWD_SHAPES):
         for dt in (torch.bfloat16, torch.float32):
             name = dtype_name(dt)
+            case = f"{B}x{S}x{nh}x{hd}x{ds} shift {shift} {name}"
             args = ssd_inputs(torch, B, S, nh, hd, ds, dt, dev, 500 + i,
                               shift)
             dy = output_grad(torch, (B, S, nh, hd), dt, dev, 600 + i)
             what = f"ssd backward B={B} S={S} nh={nh} hd={hd} ds={ds} dt " \
                    f"shift {shift} {name}"
-            _, states = sc.launch(fwd, *args, with_states=True)
-            grads = ops.ssd_chunk_bwd(*args, dy, states)
-            exact = ref.ssd_chunk_bwd(*(a.float() for a in args),
-                                      dy.float())
-            for gname, g, e, a in zip(SSD_BWD_NAMES, grads, exact, args):
-                want = a.dtype if gname in ("dx", "dBm", "dCm") else \
-                    torch.float32
-                check(g.dtype == want and g.shape == a.shape,
-                      f"{gname} {g.dtype} {tuple(g.shape)}: {what}")
-                if gname not in SUMMED_GRADS:
-                    errs[name] = max(errs.get(name, 0.0), close(
-                        torch, g, e, SSD_TOL[name], f"{gname}, {what}"))
-            rel[f"{B}x{S}x{nh}x{hd}x{ds} shift {shift} {name}"] = \
-                hold_grads(torch, grads, exact, SSD_BWD_NAMES, what)
+            try:
+                if dt == torch.bfloat16:
+                    carry = sc.launch_carry(bwd, args[2], args[3], args[4],
+                                            dy)
+                    exact = ref.ssd_chunk_bwd_carry(args[2], args[3],
+                                                    args[4], dy)
+                    errs["carry"] = max(errs.get("carry", 0.0), close(
+                        torch, carry, exact, SSD_TOL["float32"],
+                        f"the carry pass, {what}"))
+                    rel[f"{case} carry"] = hold_grads(
+                        torch, [carry], [exact], ["carry"],
+                        f"the carry pass, {what}")
+                    del carry, exact
+                _, states = sc.launch(fwd, *args, with_states=True)
+                grads = ops.ssd_chunk_bwd(*args, dy, states)
+                exact = ref.ssd_chunk_bwd(*(a.float() for a in args),
+                                          dy.float())
+                for gname, g, e, a in zip(SSD_BWD_NAMES, grads, exact, args):
+                    want = a.dtype if gname in ("dx", "dBm", "dCm") else \
+                        torch.float32
+                    check(g.dtype == want and g.shape == a.shape,
+                          f"{gname} {g.dtype} {tuple(g.shape)}: {what}")
+                    if gname not in SUMMED_GRADS:
+                        errs[name] = max(errs.get(name, 0.0), close(
+                            torch, g, e, SSD_TOL[name], f"{gname}, {what}"))
+                rel[case] = hold_grads(torch, grads, exact, SSD_BWD_NAMES,
+                                       what)
+                del grads, exact, states
+            except SmokeFailure as err:
+                failed[case] = str(err)
             shapes.append([B, S, nh, hd, ds, shift, name])
-            del grads, exact, states
     torch.cuda.synchronize()
+    if failed:
+        raise CaseFailures("phase 21", failed)
     log(f"phase 21: ssd_chunk_bwd kernel == plain (the reverse recurrence) "
         f"on {len(shapes)} cases (B,S,nh,hd,ds,dt shift) in "
-        f"{SSD_BWD_SHAPES}, bf16 and f32, B and C strided: max abs err "
-        f"{errs} (tol {SSD_TOL}); each gradient vs the f32 backward of its "
-        f"inputs, relative L2 {rel} (limits {SCAN_BWD_BF16_REL_L2} bf16 "
-        f"from {TIGHT_MIN_SIZE} entries, {SCAN_BWD_F32_REL_L2} f32)")
-    return errs, shapes, rel
+        f"{SSD_BWD_SHAPES}, bf16 and f32, B and C strided; the bf16 carry "
+        f"pass == plain: max abs err {errs} (tol {SSD_TOL}); each gradient "
+        f"vs the f32 backward of its inputs, relative L2 {rel} (limits "
+        f"{SCAN_BWD_BF16_REL_L2} bf16 from {TIGHT_MIN_SIZE} entries, "
+        f"{SCAN_BWD_F32_REL_L2} f32)")
+    carry_err = errs.pop("carry")
+    return errs, shapes, rel, carry_err
 
 
 def phase_scan_bwd_vs_plain(torch, ops, ref, dev):
@@ -4060,6 +4113,17 @@ def ssd_bwd_bound(x, Bm, Cm, dt, A, dy, chunk=64):
                                        else "operations")
 
 
+def ssd_bwd_design_floor(x, Bm, Cm, dt, A, dy, states):
+    """Least time of the two-pass bf16 design at the HBM rate (not the
+    function's bound): the carry pass reads C, dt and dy and writes K
+    (the states' size); the chunk-local pass reads x, dy, B, C, dt, the
+    states and K and writes dx, ddt and dB and dC as f32 sums."""
+    carry = Cm.nbytes + dt.nbytes + dy.nbytes + states.nbytes
+    local = (x.nbytes + dy.nbytes + Bm.nbytes + Cm.nbytes + dt.nbytes
+             + 2 * states.nbytes + x.nbytes + dt.nbytes + 2 * 4 * Bm.numel())
+    return (carry + local) / HBM_BYTES_PER_S * 1e3
+
+
 def scan_bwd_bound(x, dt, Bm, Cm, A, D, dy, sms, clock_hz):
     """Least time of the selective-scan backward: x, dt, dy, B, C, A, D
     read and dx, ddt, dB, dC, dA, dD written once at the HBM rate; one
@@ -4082,7 +4146,8 @@ def phase_scan_bwd_timing(torch, ops, ref, seen, l2_bytes, sms, clock_hz):
     (the first call, states included): the kernel (5 back-to-back calls a
     trial, median of 5 trials, two turns) and the plain version (1 call a
     trial, 3 trials, one turn: a sequential loop of several seconds)
-    beside the bound; no single PyTorch call computes either gradient."""
+    beside the bound (the SSD's also beside its design's byte floor); no
+    single PyTorch call computes either gradient."""
     rows = {}
     for name, bound in (("ssd_chunk_bwd", ssd_bwd_bound),
                         ("selective_scan_bwd", scan_bwd_bound)):
@@ -4105,7 +4170,10 @@ def phase_scan_bwd_timing(torch, ops, ref, seen, l2_bytes, sms, clock_hz):
             f"ds={row['ds']} {row['dtype']} on {row['card']}: kernel "
             f"{row['ms']:.5f} ms (turns {runs}), plain (sequential) "
             f"{row['plain_ms']:.5f} ms, no single PyTorch call computes it, "
-            f"bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+            f"bound {row['bound_ms']:.6f} ms ({row['bound_by']})"
+            + (f", the design's byte floor "
+               f"{ssd_bwd_design_floor(*args):.6f} ms"
+               if name == "ssd_chunk_bwd" else ""))
         del sets
     return rows
 
@@ -4192,6 +4260,20 @@ def main(argv=None) -> int:
         f"spill bytes at hd 64 and 128 "
         f"{regs['flash_attention_bwd']['by_head_size']}; static SASS counts "
         f"{sass['flash_attention_bwd']}")
+    for entry, use in regs["ssd_chunk_bwd"].items():
+        check(use["spill_bytes"] == 0,
+              f"ptxas spills {use['spill_bytes']} bytes in {entry}")
+    sass["ssd_chunk_bwd"] = {
+        entry: bwd_sass_counts(ops, paths[names.index("ssd_chunk_bwd")],
+                               entry)
+        for entry in MAIN_ENTRIES["ssd_chunk_bwd"]}
+    for entry, found in sass["ssd_chunk_bwd"].items():
+        if found != "no cuobjdump":
+            check(all(c["HMMA"] > 0 for c in found.values()),
+                  f"{entry}: no tensor-core product in its SASS: {found}")
+    log(f"phase 1: the SSD backward ({SSD_BWD_DESIGN}): registers and spill "
+        f"bytes of its bf16 entries at ds 64 {regs['ssd_chunk_bwd']}; static "
+        f"SASS counts {sass['ssd_chunk_bwd']}")
 
     topk_cases_run = timed("phase 2", phase_kernel_vs_plain, torch, ops,
                            ref, dev, TOPK_SIZES)
@@ -4326,7 +4408,7 @@ def main(argv=None) -> int:
     # zamba2-1.2b and falcon-mamba-7b training: each scan backward kernel
     # against its plain version, then its train step's main path, counts
     # set to 0 just before each step and read just after (inside the phase)
-    ssd_bwd_errs, ssd_bwd_shapes, ssd_bwd_rel = timed(
+    ssd_bwd_errs, ssd_bwd_shapes, ssd_bwd_rel, carry_err = timed(
         "phase 21", phase_ssd_bwd_vs_plain, torch, ops, ref, dev)
     zamba_train, seen = timed("phase 22", phase_scan_train_step, torch, ops,
                               ref, dev, seed, "zamba2-1.2b", 22)
@@ -4500,6 +4582,11 @@ def main(argv=None) -> int:
                                    "limit_f32": SCAN_BWD_F32_REL_L2},
             "build": regs[name],
         })
+    ssd_bwd_row = next(k for k in summary["kernels"]
+                       if k["name"] == "ssd_chunk_bwd")
+    ssd_bwd_row.update(
+        design=SSD_BWD_DESIGN, entries=list(MAIN_ENTRIES["ssd_chunk_bwd"]),
+        carry_max_abs_err=carry_err)
     summary["olmo_1b"] = {"train": train_row, "cohort_cli": cohort_row}
     summary["zamba2_1_2b"] = {"train": zamba_train}
     summary["falcon_mamba_7b"] = {"train": falcon_train}

@@ -211,6 +211,95 @@ def ssd_chunk_bwd(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     return dx.to(x.dtype), dB.to(Bm.dtype), dC.to(Cm.dtype), ddt, dA
 
 
+def _chunks(t: torch.Tensor, chunk: int) -> torch.Tensor:
+    """``(B, S, ...)`` -> ``(B, n_chunks, chunk, ...)`` in f32, the rows
+    past S zeros (dt = 0 there: no decay, no input, no gradient)."""
+    B, S = t.shape[:2]
+    pad = -S % chunk
+    t = t.float()
+    if pad:
+        t = torch.cat([t, t.new_zeros((B, pad, *t.shape[2:]))], dim=1)
+    return t.reshape(B, -1, chunk, *t.shape[2:])
+
+
+def ssd_chunk_bwd_carry(Cm: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                        dy: torch.Tensor, chunk: int = 64) -> torch.Tensor:
+    """The first pass of the bf16 backward kernel (``csrc/
+    ssd_chunk_bwd.cu::ssd_bwd_carry``): K, the gradient with respect to
+    each chunk's last state from the later chunks, ``(B, n_chunks, nh, ds,
+    hd)`` f32, by its reverse recurrence over the chunks ``K <- e^lend K +
+    (e^l C)^T dy`` (l the inclusive cumulative sum of dt A within a chunk,
+    lend its last value; zero for the last chunk)."""
+    C, dtc, dyc = (_chunks(t, chunk) for t in (Cm, dt, dy))
+    l = torch.cumsum(dtc * A.float(), dim=2)             # (B, NC, Q, nh)
+    sends = torch.einsum("bcrn,bcrh,bcrhp->bchnp", C, torch.exp(l), dyc)
+    decay = torch.exp(l[:, :, -1])                         # (B, NC, nh)
+    out = torch.empty_like(sends)
+    K = torch.zeros_like(sends[:, 0])
+    for c in reversed(range(sends.shape[1])):
+        out[:, c] = K
+        K = decay[:, c, :, None, None] * K + sends[:, c]
+    return out
+
+
+def ssd_chunk_bwd_local(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                        dt: torch.Tensor, A: torch.Tensor, dy: torch.Tensor,
+                        states: torch.Tensor, carry: torch.Tensor,
+                        chunk: int = 64):
+    """The second pass of the bf16 backward kernel (``csrc/
+    ssd_chunk_bwd.cu::ssd_bwd_local``): ``(dx, dBm, dCm, ddt, dA)`` as
+    :func:`ssd_chunk_bwd` returns them, each chunk's from its own inputs,
+    its entering state (``states``, the forward kernel's) and its K
+    (``carry``, :func:`ssd_chunk_bwd_carry`'s), in the kernel's chunk form
+    in f32: with Dm[r][s] = (C_r . B_s) e^(l_r - l_s) and E[r][s] = (dy_r .
+    x_s) e^(l_r - l_s) for s <= r, and W = Dm dt_s (dy_r . x_s),
+    z = Dm^T dy + e^(lend - l) (B K), dx = dt z, dC = (E dt) B + e^l (dy
+    h0^T), dB = dt (E^T C + e^(lend - l) (x K^T)), and m_t = <g_t, a_t
+    h_{t-1}> as the running sum of W's column sums less its row sums
+    (below the diagonal) plus u_r = e^(l_r) C_r . (h0 dy_r) from t on,
+    v_s = e^(lend - l_s) dt_s B_s . (K x_s) before t and c = e^lend <K,
+    h0>; ddt = A m + x . z, dA sums dt m."""
+    Bsz, S, nh, hd = x.shape
+    xc, Bc, Cc, dtc, dyc = (_chunks(t, chunk) for t in (x, Bm, Cm, dt, dy))
+    A = A.float()
+    K, h0 = carry.float(), states.float()          # (B, NC, nh, ds, hd)
+    l = torch.cumsum(dtc * A, dim=2)                      # (B, NC, Q, nh)
+    lend = l[:, :, -1:]
+    ones = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device)
+    below, strict = ones.tril()[..., None], ones.tril(-1)[..., None]
+    diff = l[:, :, :, None] - l[:, :, None]               # l_r - l_s
+    dec = torch.exp(torch.where(below, diff, float("-inf")))
+    G = torch.einsum("bcrn,bcsn->bcrs", Cc, Bc)
+    P = torch.einsum("bcrhp,bcshp->bcrsh", dyc, xc)
+    Dm = G[..., None] * dec                               # (B, NC, r, s, nh)
+    E = P * dec
+    W = torch.where(strict, Dm * dtc[:, :, None] * P, 0.0)
+    ed = torch.exp(lend - l)                              # e^(lend - l)
+    el = torch.exp(l)
+    xK = torch.einsum("bcshp,bchnp->bcshn", xc, K)
+    z = (torch.einsum("bcrsh,bcrhp->bcshp", Dm, dyc)
+         + ed[..., None] * torch.einsum("bcsn,bchnp->bcshp", Bc, K))
+    dyh0 = torch.einsum("bcrhp,bchnp->bcrhn", dyc, h0)
+    dC = (torch.einsum("bcrsh,bcsh,bcsn->bcrn", E, dtc, Bc)
+          + (el[..., None] * dyh0).sum(3))
+    dB = (dtc[..., None] * (torch.einsum("bcrsh,bcrn->bcshn", E, Cc)
+                            + ed[..., None] * xK)).sum(3)
+    u = (el[..., None] * dyh0 * Cc[:, :, :, None]).sum(-1)
+    v = ed * dtc * (xK * Bc[:, :, :, None]).sum(-1)
+    c = torch.exp(lend[:, :, 0]) * (K * h0).sum((-2, -1))
+    w = W.sum(2) - W.sum(3)         # column sums less row sums, by step
+    m = (torch.cumsum(w, 2) - w + torch.flip(torch.cumsum(
+        torch.flip(u, (2,)), 2), (2,)) + torch.cumsum(v, 2) - v
+         + c[:, :, None])
+    ddt = A * m + (xc * z).sum(-1)
+    dA = (dtc * m).sum((0, 1, 2))
+
+    def rows(t):
+        return t.reshape(Bsz, -1, *t.shape[3:])[:, :S]
+    return (rows(dtc[..., None] * z).to(x.dtype), rows(dB).to(Bm.dtype),
+            rows(dC).to(Cm.dtype), rows(ddt), dA)
+
+
 def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
                        Cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
                        dy: torch.Tensor):

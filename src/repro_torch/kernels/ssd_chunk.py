@@ -19,11 +19,15 @@ model's packed projection need no copy. Returns a contiguous
 each 64-step chunk, ``(B, ceil(S / 64), nh, ds, hd)``, which the
 backward kernel reads.
 
-The backward kernel, ``csrc/ssd_chunk_bwd.cu`` (its own library, bound
-by :func:`bind_bwd`, launched by :func:`launch_bwd`; its header holds the
-design and the bound: about 419 MB moved at zamba2-1.2b's train step, B=4,
-S=4096, nh=64, hd=64, ds=64 in bf16, 0.125 ms at 3.35 TB/s), has no
-Pallas counterpart: the reference differentiates its pure-jnp SSD.
+The backward, ``csrc/ssd_chunk_bwd.cu`` (its own library, bound by
+:func:`bind_bwd`, launched by :func:`launch_bwd`; its header holds the
+designs and the bound: about 419 MB moved at zamba2-1.2b's train step,
+B=4, S=4096, nh=64, hd=64, ds=64 in bf16, 0.125 ms at 3.35 TB/s), has no
+Pallas counterpart: the reference differentiates its pure-jnp SSD. In bf16
+one call runs two kernels: the carry pass (the gradient each chunk's last
+state receives from the later chunks, K, into a float32 scratch buffer of
+the states' shape; :func:`launch_carry` runs it alone) and the
+chunk-local gradients on the tensor cores; f32 runs the scalar kernel.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ MAX_GRID_Z = 65535          # the batch is the grid's z axis
 CHUNK = 64                  # the kernels' chunk: one state written each
 
 __all__ = ["CHUNK", "DTYPES", "HEAD_DIMS", "STATE_DIMS", "bind",
-           "bind_bwd", "launch", "launch_bwd"]
+           "bind_bwd", "launch", "launch_bwd", "launch_carry"]
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -53,9 +57,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the backward library's C signature."""
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ssd_chunk_bwd_launch.argtypes = ([p] * 12 + [i32] * 6 + [i64] * 13
+    lib.ssd_chunk_bwd_launch.argtypes = ([p] * 13 + [i32] * 6 + [i64] * 13
                                          + [p])
     lib.ssd_chunk_bwd_launch.restype = i32
+    lib.ssd_chunk_bwd_carry_launch.argtypes = ([p] * 5 + [i32] * 5
+                                               + [i64] * 8 + [p])
+    lib.ssd_chunk_bwd_carry_launch.restype = i32
     return lib
 
 
@@ -118,19 +125,35 @@ def launch(lib: ctypes.CDLL, x: torch.Tensor, Bm: torch.Tensor,
     return (y, states) if with_states else y
 
 
+def _copyable(t: torch.Tensor) -> bool:
+    """Rows the bf16 backward kernels copy 16 bytes at a time: a 16-byte
+    aligned start and strides of whole 8-element pieces."""
+    return t.data_ptr() % 16 == 0 and all(st % 8 == 0
+                                          for st in t.stride()[:-1])
+
+
+def _copied(t: torch.Tensor) -> torch.Tensor:
+    return t if _copyable(t) else t.clone(
+        memory_format=torch.contiguous_format)
+
+
 def launch_bwd(lib: ctypes.CDLL, x: torch.Tensor, Bm: torch.Tensor,
                Cm: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                dy: torch.Tensor, states: torch.Tensor):
-    """The backward kernel on PyTorch's current stream (no synchronise):
-    ``(dx, dBm, dCm, ddt, dA)``, dx in x's dtype, dBm and dCm in their
-    inputs' dtype (summed over the heads in f32, then cast), ddt and dA in
-    f32. ``states`` is the forward's (``launch(..., with_states=True)``);
-    ``dy`` is read through its strides (last dimension contiguous).
-    Raises on what the kernel does not take and on a launch error."""
+    """The backward on PyTorch's current stream (no synchronise): ``(dx,
+    dBm, dCm, ddt, dA)``, dx in x's dtype, dBm and dCm in their inputs'
+    dtype (summed over the heads in f32, then cast), ddt and dA in f32.
+    ``states`` is the forward's (``launch(..., with_states=True)``); ``dy``
+    is read through its strides (last dimension contiguous). In bf16 the
+    carry pass writes a float32 buffer of the states' shape (freed on
+    return) and dA comes as a part a (batch, chunk, head), summed here; a
+    bf16 x, B, C or dy whose rows are not 16-byte aligned is copied first.
+    Raises on what the kernels do not take and on a launch error."""
     dt, A = _check(x, Bm, Cm, dt, A)
     B, S, NH, HD = x.shape
     DS = Bm.shape[-1]
-    want = (B, -(-S // CHUNK), NH, DS, HD)
+    n_chunks = -(-S // CHUNK)
+    want = (B, n_chunks, NH, DS, HD)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy must be {tuple(x.shape)} {x.dtype} on "
                          f"{x.device}, got {tuple(dy.shape)} {dy.dtype} on "
@@ -138,23 +161,58 @@ def launch_bwd(lib: ctypes.CDLL, x: torch.Tensor, Bm: torch.Tensor,
     if dy.stride(-1) != 1:
         raise ValueError("dy's last dimension must be contiguous")
     if (tuple(states.shape) != want or states.dtype != torch.float32
-            or not states.is_contiguous() or states.device != x.device):
-        raise ValueError(f"states must be a contiguous float32 {want} on "
-                         f"{x.device}, got {states.dtype} "
+            or not states.is_contiguous() or states.device != x.device
+            or states.data_ptr() % 16):
+        raise ValueError(f"states must be a contiguous, 16-byte aligned "
+                         f"float32 {want} on {x.device}, got {states.dtype} "
                          f"{tuple(states.shape)}")
-    dx = torch.empty((B, S, NH, HD), dtype=x.dtype, device=x.device)
-    dBf = torch.zeros((B, S, DS), dtype=torch.float32, device=x.device)
-    dCf = torch.zeros_like(dBf)
-    ddt = torch.empty((B, S, NH), dtype=torch.float32, device=x.device)
-    dA = torch.zeros((NH,), dtype=torch.float32, device=x.device)
-    stream = stream_handle(x.device)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        x, Bm, Cm, dy = map(_copied, (x, Bm, Cm, dy))
+    dev = x.device
+    dx = torch.empty((B, S, NH, HD), dtype=x.dtype, device=dev)
+    dBf = torch.empty((B, S, DS), dtype=torch.float32, device=dev)
+    dCf = torch.empty_like(dBf)
+    ddt = torch.empty((B, S, NH), dtype=torch.float32, device=dev)
+    carry = torch.empty(want, dtype=torch.float32, device=dev) if bf16 \
+        else None
+    dA = torch.empty((B * n_chunks, NH), dtype=torch.float32, device=dev) \
+        if bf16 else torch.zeros((NH,), dtype=torch.float32, device=dev)
     err = lib.ssd_chunk_bwd_launch(
         x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(),
-        A.data_ptr(), dy.data_ptr(), states.data_ptr(), dx.data_ptr(),
+        A.data_ptr(), dy.data_ptr(), states.data_ptr(),
+        None if carry is None else carry.data_ptr(), dx.data_ptr(),
         dBf.data_ptr(), dCf.data_ptr(), ddt.data_ptr(), dA.data_ptr(), B, S,
         NH, HD, DS, DTYPES[x.dtype], *x.stride()[:3], *Bm.stride()[:2],
-        *Cm.stride()[:2], *dt.stride(), *dy.stride()[:3], stream)
+        *Cm.stride()[:2], *dt.stride(), *dy.stride()[:3], stream_handle(dev))
     if err != 0:
         raise RuntimeError(f"ssd_chunk_bwd kernel launch failed: CUDA error "
                            f"{err}")
-    return dx, dBf.to(Bm.dtype), dCf.to(Cm.dtype), ddt, dA
+    return (dx, dBf.to(Bm.dtype), dCf.to(Cm.dtype), ddt,
+            dA.sum(0) if bf16 else dA)
+
+
+def launch_carry(lib: ctypes.CDLL, Cm: torch.Tensor, dt: torch.Tensor,
+                 A: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """The bf16 backward's carry pass alone (its check against
+    ``ref.ssd_chunk_bwd_carry``): the float32 gradient each chunk's last
+    state receives from the later chunks, ``(B, ceil(S / 64), nh, ds,
+    hd)``, from bf16 C ``(B, S, ds)`` and dy ``(B, S, nh, hd)``, dt and A.
+    Raises on what the kernel does not take and on a launch error."""
+    dt, A = _check(dy, Cm, Cm, dt, A)   # dy in x's place: (B, S, nh, hd)
+    if dy.dtype != torch.bfloat16:
+        raise TypeError(f"the carry pass is the bf16 route's, got "
+                        f"{dy.dtype}")
+    Cm, dy = _copied(Cm), _copied(dy)
+    B, S, NH, HD = dy.shape
+    DS = Cm.shape[-1]
+    carry = torch.empty((B, -(-S // CHUNK), NH, DS, HD), dtype=torch.float32,
+                        device=dy.device)
+    err = lib.ssd_chunk_bwd_carry_launch(
+        Cm.data_ptr(), dt.data_ptr(), A.data_ptr(), dy.data_ptr(),
+        carry.data_ptr(), B, S, NH, HD, DS, *Cm.stride()[:2], *dt.stride(),
+        *dy.stride()[:3], stream_handle(dy.device))
+    if err != 0:
+        raise RuntimeError(f"ssd_chunk_bwd carry launch failed: CUDA error "
+                           f"{err}")
+    return carry

@@ -463,10 +463,10 @@ def test_chip_probes_refuses_without_cuda(capsys):
 
 
 def test_chip_probes_builds_another_checkouts_kernels(monkeypatch, tmp_path):
-    """``--parent DIR`` builds DIR's SSD, scan and attention backward
-    sources with this checkout's flags and launches them through DIR's own
-    launchers (here this checkout, so a CPU tensor reaches the launcher and
-    is refused)."""
+    """``--parent DIR`` builds DIR's SSD and scan sources and their and
+    the attention's backward sources with this checkout's flags and
+    launches them through DIR's own launchers (here this checkout, so a
+    CPU tensor reaches the launcher and is refused)."""
     _chip_smoke()
     _load("chip_faults")
     probes = _load("chip_probes")
@@ -488,11 +488,14 @@ def test_chip_probes_builds_another_checkouts_kernels(monkeypatch, tmp_path):
     monkeypatch.setattr(ops, "_nvcc", lambda: "nvcc")
     fns, paths = probes.load_parent(ops, ROOT, tmp_path)
     assert set(fns) == set(paths) == {"ssd_chunk", "selective_scan",
-                                      "flash_attention_bwd"}
+                                      "flash_attention_bwd", "ssd_chunk_bwd",
+                                      "selective_scan_bwd"}
     assert all(p.parent == tmp_path for p in paths.values())
     srcs = sorted(Path(c[-1]).name for c in built)
     assert srcs == ["flash_attention_bwd.cu", "selective_scan.cu",
-                    "ssd_chunk.cu"]
+                    "selective_scan_bwd.cu", "ssd_chunk.cu",
+                    "ssd_chunk_bwd.cu"]
+    assert {n for part in probes.PARTS.values() for n in part} <= set(fns)
     assert all(c[1:1 + len(ops.NVCC_FLAGS)] == list(ops.NVCC_FLAGS)
                for c in built)
     x = torch.zeros(1, 4, 2, 64)
@@ -503,6 +506,26 @@ def test_chip_probes_builds_another_checkouts_kernels(monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="runs on CUDA"):
         fns["flash_attention_bwd"](q, q, q, q, torch.zeros(1, 2, 4), q,
                                    causal=True)
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        fns["ssd_chunk_bwd"](x, x[..., 0, :16], x[..., 0, :16], x[..., 0],
+                             torch.ones(2), x, torch.zeros(1, 1, 2, 16, 64))
+
+
+@pytest.mark.parametrize("table", ["SSD_PROBES", "SCAN_PROBES",
+                                   "SSD_BWD_PROBES"])
+def test_chip_probes_edits_occur_once(table):
+    """Each design probe of chip_probes.py edits text that occurs once in
+    its source (a stale edit would stop the script on the card)."""
+    _chip_smoke()
+    _load("chip_faults")
+    probes = _load("chip_probes")
+    lib = {"SSD_PROBES": "ssd_chunk", "SCAN_PROBES": "selective_scan",
+           "SSD_BWD_PROBES": "ssd_chunk_bwd"}[table]
+    src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" /
+           f"{lib}.cu").read_text()
+    for name, (old, new) in getattr(probes, table).items():
+        for text, repl in ([(old, new)] if new is not None else old):
+            assert src.count(text) == 1 and text != repl, (name, text)
 
 
 @pytest.mark.parametrize("fault", ["dk_without_group_sum",
@@ -832,6 +855,30 @@ def test_chip_smoke_tight_backward_checks():
     assert smoke.grad_readings(torch, [zero], [zero], ["z"]) == {"z": 0.0}
 
 
+def test_chip_smoke_case_failures_name_each_case():
+    """Phase 21 runs every case and fails naming each case that failed
+    (chip_faults.py reads them to tell which route a fault broke); the
+    SSD backward's main entries are its two bf16 kernels, each read from
+    ptxas's report."""
+    smoke = _chip_smoke()
+    err = smoke.CaseFailures("phase 21", {"1x64 bfloat16": "dx off",
+                                          "1x65 bfloat16": "dB off"})
+    assert isinstance(err, smoke.SmokeFailure)
+    assert list(err.cases) == ["1x64 bfloat16", "1x65 bfloat16"]
+    assert "2 cases" in str(err) and "dx off" in str(err)
+    entries = smoke.MAIN_ENTRIES["ssd_chunk_bwd"]
+    report = "".join(
+        f"ptxas info    : Compiling entry function '_Z{e}Ev' for 'sm_90a'\n"
+        f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        f"loads\nptxas info    : Used {r} registers\n"
+        for e, r in zip(entries, (96, 245)))
+    use = smoke.entry_usage(smoke.ptxas_usage(report), entries)
+    assert use == {entries[0]: {"entries": 1, "registers": 96,
+                                "spill_bytes": 0},
+                   entries[1]: {"entries": 1, "registers": 245,
+                                "spill_bytes": 0}}
+
+
 def test_chip_smoke_scan_train_step_plan():
     """The launches a scan arch's train step must make: each scan layer's
     forward twice (the step and the remat recompute), its backward once;
@@ -851,18 +898,23 @@ def test_chip_smoke_scan_train_step_plan():
 
 @pytest.mark.parametrize("fault", ["ssd_chunk_decay_dropped",
                                    "ssd_da_term_dropped", "ssd_db_one_head",
+                                   "ssd_carry_decay_dropped",
+                                   "ssd_local_da_terms_dropped",
+                                   "ssd_local_db_one_head",
+                                   "ssd_local_dm_low_part_dropped",
                                    "scan_tile_decay_dropped",
                                    "scan_da_term_dropped",
                                    "scan_db_one_cta"])
 def test_chip_faults_plant_into_the_scan_backward(fault):
     """Each planted fault of a scan backward kernel edits text that occurs
-    once in its source, inside the kernel (after its definition), and its
-    library's phase of chip_smoke.py is the one that must catch it."""
+    once in its source, inside the kernel (after its definition: the SSD's
+    scalar f32 kernel, its bf16 carry pass or its chunk-local kernel), and
+    its library's phase of chip_smoke.py is the one that must catch it."""
     smoke = _chip_smoke()
     faults = _load("chip_faults")
     lib, edits = faults.SCAN_BWD_FAULTS[fault]
-    fn = {"ssd_chunk_bwd": "ssd_bwd(",
-          "selective_scan_bwd": "scan_bwd("}[lib]
+    fn = (faults.SSD_BWD_FAULT_KERNELS[fault][0] if lib == "ssd_chunk_bwd"
+          else "scan_bwd(")
     src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" /
            f"{lib}.cu").read_text()
     for old, new in edits:

@@ -559,6 +559,48 @@ def test_ssd_backward_kernel(S, ds, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("S,nh,ds,pad", [(130, 3, 64, 0), (65, 70, 16, 0),
+                                         (200, 4, 128, 3)])
+def test_ssd_backward_two_passes(S, nh, ds, pad):
+    """The bf16 SSD backward's carry pass against ``ref.ssd_chunk_bwd_carry``
+    and the whole backward against ``ref.ssd_chunk_bwd_local`` on the plain
+    carry and the forward kernel's states: 70 heads take two chunk-local
+    CTAs a chunk (dB and dC added across them); B and C whose rows start
+    off 16 bytes (``pad``) are copied first. dx, dB and dC elementwise at
+    the SSD's bf16 tolerance; the f32 outputs (the carry, ddt and dA: sums
+    whose terms cancel, in another order than the plain version's) by
+    relative L2, at chip_smoke.py's f32 limit of 1e-4."""
+    from repro_torch.kernels import ssd_chunk as sc
+    dev = _card()
+    g = torch.Generator(device="cpu").manual_seed(S + nh + ds)
+    bf = torch.bfloat16
+    x = torch.randn(2, S, nh, 64, generator=g).to(bf).to(dev)
+    bc = torch.randn(2, S, pad + 2 * ds, generator=g).to(bf).to(dev)
+    Bm, Cm = bc[..., pad:pad + ds], bc[..., pad + ds:]
+    dt = F.softplus(torch.randn(2, S, nh, generator=g)).to(dev)
+    A = -torch.exp(torch.randn(nh, generator=g)).to(dev)
+    dy = torch.randn(2, S, nh, 64, generator=g).to(bf).to(dev)
+
+    def rel_l2(got, exp):
+        return float((got - exp).norm() / exp.norm())
+
+    carry = sc.launch_carry(ops.load_library("ssd_chunk_bwd"), Cm, dt, A, dy)
+    plain = ref.ssd_chunk_bwd_carry(Cm, dt, A, dy)
+    assert rel_l2(carry, plain) <= 1e-4
+    _, states = sc.launch(ops.load_library("ssd_chunk"), x, Bm, Cm, dt, A,
+                          with_states=True)
+    got = ops.ssd_chunk_bwd(x, Bm, Cm, dt, A, dy, states)
+    exp = ref.ssd_chunk_bwd_local(x, Bm, Cm, dt, A, dy, states, plain)
+    for i, (a, e) in enumerate(zip(got, exp)):
+        assert a.dtype == e.dtype and bool(torch.isfinite(a.float()).all())
+        if a.dtype == bf:
+            torch.testing.assert_close(a.float(), e.float(),
+                                       atol=SSD_TOL[bf], rtol=SSD_TOL[bf])
+        else:
+            assert rel_l2(a, e) <= 1e-4, i
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("S,di,ds", [(1, 96, 16), (63, 96, 8), (64, 512, 16),
                                      (65, 100, 16), (300, 256, 8)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

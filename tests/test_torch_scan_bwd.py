@@ -7,7 +7,11 @@ wrappers, on the CPU.
 forwards ``ref.ssd_chunk`` and ``ref.selective_scan``, and against
 ``jax.vjp`` of the reference's oracles ``ssd_chunk_ref`` and
 ``selective_scan_ref`` (the reference has no backward kernel: it
-differentiates plain jnp); then ``ops.ssd_chunk`` and
+differentiates plain jnp); the two passes of the bf16 SSD backward kernel
+in their plain form, ``ref.ssd_chunk_bwd_carry`` against a reverse
+recurrence over the steps written here and ``ref.ssd_chunk_bwd_local`` on
+that carry and the chunk states against ``ref.ssd_chunk_bwd`` and
+``jax.vjp``; then ``ops.ssd_chunk`` and
 ``ops.selective_scan`` under grad, whose CPU path is the
 ``autograd.Function`` over these plain versions, on strided slices of one
 packed projection (as the models give them) and a gradient that arrives
@@ -19,6 +23,8 @@ Cases: S of 1, 63, 64, 65 and 130 (below, at and past the kernels'
 relative L2 per output in f32 (measured on the CPU: 4.3e-7 at most
 against autograd, 8.8e-7 against jax.vjp; an output that is exactly zero,
 dA at S = 1, must be zero)."""
+import functools
+
 import numpy as np
 import pytest
 
@@ -97,18 +103,90 @@ def _ids(case):
     return "S{}-ds{}-shift{}".format(*case)
 
 
+SSD_NAMES = ("dx", "dBm", "dCm", "ddt", "dA")
+
+
+@functools.lru_cache(maxsize=None)
+def _ssd_case(case):
+    """A case's inputs, output gradient and ``jax.vjp`` of the reference's
+    ``ssd_chunk_ref`` (computed once for the tests that read it)."""
+    args, dy = _ssd_inputs(*case, seed=case[0] + case[1])
+    return args, dy, [np.asarray(e) for e in _vjp(ssd_chunk_ref, args, dy)]
+
+
 @pytest.mark.parametrize("case", SSD_CASES, ids=_ids)
 def test_ssd_bwd_matches_autograd_and_reference(case):
-    args, dy = _ssd_inputs(*case, seed=case[0] + case[1])
+    args, dy, vjp = _ssd_case(case)
     got = ref.ssd_chunk_bwd(*map(torch.from_numpy, args),
                             torch.from_numpy(dy))
-    names = ("dx", "dBm", "dCm", "ddt", "dA")
-    for name, g, a in zip(names, got, args):
+    for name, g, a in zip(SSD_NAMES, got, args):
         assert g.dtype == torch.float32 and g.shape == a.shape, name
-    for name, g, e in zip(names, got, _autograd(ref.ssd_chunk, args, dy)):
+    for name, g, e in zip(SSD_NAMES, got,
+                          _autograd(ref.ssd_chunk, args, dy)):
         _close(g.numpy(), e.numpy(), f"{name} vs autograd, {case}")
-    for name, g, e in zip(names, got, _vjp(ssd_chunk_ref, args, dy)):
-        _close(g.numpy(), np.asarray(e), f"{name} vs jax.vjp, {case}")
+    for name, g, e in zip(SSD_NAMES, got, vjp):
+        _close(g.numpy(), e, f"{name} vs jax.vjp, {case}")
+
+
+def _steps(args, dy, chunk=64):
+    """The SSD step by step in float64: the state entering each chunk
+    (``(B, n_chunks, nh, ds, hd)``) and K, each chunk's last state's
+    gradient from the steps after the chunk, by the reverse recurrence
+    ``after_t = a_{t+1} (C_{t+1} (x) dy_{t+1} + after_{t+1})``."""
+    x, Bm, Cm, dt, A = (a.astype(np.float64) for a in args)
+    dy = dy.astype(np.float64)
+    Bsz, S, nh, hd = x.shape
+    a = np.exp(dt * A)                                   # (B, S, nh)
+    h = np.zeros((Bsz, nh, Bm.shape[-1], hd))
+    states = []
+    for t in range(S):
+        if t % chunk == 0:
+            states.append(h)
+        h = (a[:, t, :, None, None] * h + dt[:, t, :, None, None]
+             * Bm[:, t, None, :, None] * x[:, t, :, None, :])
+    after = np.zeros_like(h)
+    carry = [None] * len(states)
+    for t in reversed(range(S)):
+        if t == S - 1 or t % chunk == chunk - 1:
+            carry[t // chunk] = after
+        after = a[:, t, :, None, None] * (
+            Cm[:, t, None, :, None] * dy[:, t, :, None, :] + after)
+    return np.stack(states, 1), np.stack(carry, 1)
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=_ids)
+def test_ssd_carry_matches_reverse_recurrence(case):
+    """The carry pass's plain version (its recurrence over the chunks)
+    against the reverse recurrence over the steps: zero for the last
+    chunk, S of 1 a single chunk."""
+    args, dy, _ = _ssd_case(case)
+    x, Bm, Cm, dt, A = map(torch.from_numpy, args)
+    got = ref.ssd_chunk_bwd_carry(Cm, dt, A, torch.from_numpy(dy))
+    _, exp = _steps(args, dy)
+    assert got.dtype == torch.float32 and got.shape == exp.shape
+    assert not got[:, -1].any()
+    if got.shape[1] > 1:
+        _close(got.numpy(), exp, f"carry, {case}")
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=_ids)
+def test_ssd_two_pass_matches_recurrence_and_reference(case):
+    """The chunk-local pass's plain version on the plain carry and the
+    chunk states: the gradients of ``ref.ssd_chunk_bwd`` and of
+    ``jax.vjp`` of the reference."""
+    args, dy, vjp = _ssd_case(case)
+    targs = list(map(torch.from_numpy, args))
+    tdy = torch.from_numpy(dy)
+    states, _ = _steps(args, dy)
+    carry = ref.ssd_chunk_bwd_carry(targs[2], targs[3], targs[4], tdy)
+    got = ref.ssd_chunk_bwd_local(*targs, tdy,
+                                  torch.from_numpy(states).float(), carry)
+    for name, g, a in zip(SSD_NAMES, got, args):
+        assert g.dtype == torch.float32 and g.shape == a.shape, name
+    for name, g, e in zip(SSD_NAMES, got, ref.ssd_chunk_bwd(*targs, tdy)):
+        _close(g.numpy(), e.numpy(), f"{name} vs the recurrence, {case}")
+    for name, g, e in zip(SSD_NAMES, got, vjp):
+        _close(g.numpy(), e, f"{name} vs jax.vjp, {case}")
 
 
 @pytest.mark.parametrize("case", SCAN_CASES, ids=_ids)
