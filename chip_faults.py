@@ -19,7 +19,7 @@ with the last, ragged key tile's rows past S read (K and V mapped as one
 sequence over the batches) and not masked, and with dS^T stored without
 the swizzle that dQ's descriptor reads; and the tensor-core forward's
 log-sum-exp left in base 2. Phase 17 of ``chip_smoke.py`` must pass with
-the sound libraries and fail with each fault. ``SCAN_BWD_FAULTS`` (10)
+the sound libraries and fail with each fault. ``SCAN_BWD_FAULTS`` (15)
 edit the scan backward kernels: in the f32 route's ``ssd_bwd``
 (``ssd_chunk_bwd.cu``) the gradient carried into the chunk before not
 decayed across the chunk boundary, dA without its even steps' terms, and
@@ -27,10 +27,16 @@ dB summed over one head's CTA only; in the bf16 route's carry pass
 ``ssd_bwd_carry`` K not decayed across the chunk boundary, and in its
 ``ssd_bwd_local`` dA without its even steps' terms, dB summed over the
 CTA's first head only, and Dm's low part dropped from Dm^T dy; in
-``scan_bwd`` (``selective_scan_bwd.cu``) g carried into the tile before
-without the decay of the tile's first step, dA's terms without the step's
-decay, and dB summed over the first CTA's channels only. Phase 21 (the
-SSD's) or 23 (the selective scan's) of ``chip_smoke.py`` must pass with
+``scan_bwd_cluster`` (``selective_scan_bwd.cu``) g carried into the tile
+before without the decay of the tile's first step, dA's terms without the
+step's decay, dB summed over the cluster's first CTA's channels only, the
+last rank's part dropped from the cluster's sums of dB and dC, the tile
+before fetched from the current tile, the tile before's first rows
+fetched over this tile's instead of into the spare block, the channel
+sums of dB and dC without their last shuffle round, and sub-tile 0
+started from the state of sub-tile 1 (the tile's entering state not
+fetched again). Phase 21 (the SSD's) or 23 (the selective scan's) of
+``chip_smoke.py`` must pass with
 the sound libraries and fail with each; each SSD fault only through the
 cases of its kernel's route (``SSD_BWD_FAULT_KERNELS``), whose names it
 prints.
@@ -271,17 +277,38 @@ SCAN_BWD_FAULTS = {
     # g carried into the tile before without the decay of the tile's first
     # step
     "scan_tile_decay_dropped": ("selective_scan_bwd", [(
-        "          g[j] *= da[u][j];\n",
-        "          if (u > 0 || sub > 0) g[j] *= da[u][j];\n")]),
+        "              g[j] = ga;\n",
+        "              g[j] = s == 0 && u == 0 ? g[j] : ga;\n")]),
     # dA's terms without the step's decay a
     "scan_da_term_dropped": ("selective_scan_bwd", [(
-        "          dacc[j] = fmaf(v.x, m, dacc[j]);",
-        "          dacc[j] = fmaf(v.x, g[j] * hp[u][j], dacc[j]);")]),
-    # dB summed over the first CTA's 32 channels only
+        "              dacc[j] = fmaf(dtv, m, dacc[j]);",
+        "              dacc[j] = fmaf(dtv, g[j] * hp[u][j], dacc[j]);")]),
+    # dB summed over the cluster's first CTA's 64 channels only
     "scan_db_one_cta": ("selective_scan_bwd", [(
-        "          atomicAdd(dbm + ((long long)b * S + t) * DS + n, sb_);",
-        "          if (blockIdx.x == 0)\n"
-        "            atomicAdd(dbm + ((long long)b * S + t) * DS + n, sb_);")]),
+        "      for (int r = 0; r < kCluster; ++r) {",
+        "      for (int r = 0; r < (kind ? kCluster : 1); ++r) {")]),
+    # the cluster's last rank's part of dB and dC dropped
+    "scan_rank_part_dropped": ("selective_scan_bwd", [(
+        "      for (int r = 0; r < kCluster; ++r) {",
+        "      for (int r = 0; r + 1 < kCluster; ++r) {")]),
+    # the tile before's rows fetched from the current tile
+    "scan_prefetch_current_tile": ("selective_scan_bwd", [(
+        "      refill(rb / kSub, t0 - kT, s * kSub, true, tile > 0 && s > 0,",
+        "      refill(rb / kSub, t0, s * kSub, true, tile > 0 && s > 0,")]),
+    # the tile before's first rows fetched into this tile's block, not the
+    # spare one
+    "scan_spare_block_unused": ("selective_scan_bwd", [(
+        "    if (tile > 0) refill(kNSub - blk0, t0 - kT, 0, false, true, 0);",
+        "    if (tile > 0) refill(blk0, t0 - kT, 0, false, true, 0);")]),
+    # the channel sums of dB and dC without their last shuffle round (over
+    # 4 of the warp's 8 channels)
+    "scan_channel_round_dropped": ("selective_scan_bwd", [(
+        "    for (int half = 4; half >= 1; half /= 2) {",
+        "    for (int half = 4; half >= 2; half /= 2) {")]),
+    # sub-tile 0 started from sub-tile 1's state: the tile's entering state
+    # not fetched into the slot again
+    "scan_sub0_state_stale": ("selective_scan_bwd", [(
+        "      if (s == 1) fetch_state(0, tile);\n", "")]),
 }
 # the phase of chip_smoke.py that holds each scan backward library
 SCAN_BWD_PHASES = {"ssd_chunk_bwd": "phase_ssd_bwd_vs_plain",

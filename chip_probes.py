@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Design probes of the two bf16 scan kernels and the SSD backward, and
-their times and the attention backward's beside another checkout's
+"""Design probes of the two bf16 scan kernels and both scan backwards,
+and their times and the attention backward's beside another checkout's
 kernels, on one GPU.
 
     python3 chip_probes.py [--seed N] [--parent DIR] [--only PART]
@@ -21,7 +21,13 @@ faults (the checkout is left as it is):
 - ``SSD_BWD_PROBES``: the bf16 SSD backward (``ssd_bwd_carry`` and
   ``ssd_bwd_local``) with 8, 16 or 32 heads a chunk-local CTA for 64,
   and each split operand (the carry's e^l dy, K, h0, Dm, E, E dt)
-  without its low part.
+  without its low part;
+- ``SCAN_BWD_PROBES``: the selective-scan backward (``scan_bwd_cluster``)
+  with the bf16 route on ``expf``, its decay argument without its low
+  part, clusters of 1 or 4 CTAs for 2, 128-thread CTAs (32 channels) for
+  256, the tile before's loads waited for at each sub-tile, and, timing
+  only (each fails), parts taken out: the dB/dC channel sums'
+  shuffles, the first pass, the walk back.
 
 For the sound kernel and each probe it prints the tight check of
 ``chip_faults.py`` (phase 8's and 12's bf16 cases at the prefill shape,
@@ -50,8 +56,14 @@ sound kernel, each of ``SSD_BWD_PROBES`` and the parent's, each one's
 tight readings on zamba2-1.2b's train-step shape (4, 4096, 64 heads of
 64, ds 64, bf16; the states from this checkout's forward kernel) and two
 of phase 21's slow-decay cases and whether they hold phase 21's limits,
-then all timed at the step's shape in four turns. ``--only scans``,
-``--only attention_bwd`` or ``--only ssd_bwd`` runs one part.
+then all timed at the step's shape in four turns. The selective-scan
+backward (``SCAN_BWD_CASES``) likewise: the sound kernel, each of
+``SCAN_BWD_PROBES`` and the parent's, their tight readings on
+falcon-mamba-7b's train-step shape (4, 4096, 8192, ds 16, bf16) and two
+of phase 23's cases (4,096 slowly decaying steps; a ragged last tile at
+ds 8), whether they hold phase 23's limits, and their times at the step
+shape in four turns. ``--only scans``, ``--only attention_bwd``, ``--only
+ssd_bwd`` or ``--only scan_bwd`` runs one part.
 
 The last line is one JSON object with all the readings; without a CUDA
 device it exits 2.
@@ -63,10 +75,12 @@ and concurrency 100 for the async one, cuDNN's default algorithms, TF32
 off) of DIR's package and of this checkout's, in turns (DIR, this, this,
 DIR), each in a process of its own, two runs of 3 replays each, with
 ``chip_smoke.py``'s ``replay_timing``. ``--train-steps DIR`` in the same
-way runs zamba2-1.2b's train step as phase 22 does (3 steps at 4 x 4096,
-a fourth profiled, the routes) for DIR's package and this one in turns,
-a process each, and prints each run's step times, tokens/s, peak memory
-and the profiled step's device time by layer (about 4 minutes).
+way runs a scan arch's train step as phase 22 (``--arch zamba2-1.2b``,
+the default) or 24 (``--arch falcon-mamba-7b``, 16 layers) does (3 steps
+at 4 x 4096, a fourth profiled, the routes) for DIR's package and this
+one in turns, a process each, and prints each run's step times,
+tokens/s, peak memory and the profiled step's device time by layer
+(about 4 minutes).
 """
 from __future__ import annotations
 
@@ -155,6 +169,9 @@ SSD_BWD_PROBES = {
 # the first SSD kernel's bf16 entry (one CTA of full hd a (batch, head),
 # scalar FMAs), counted where a checkout has no tensor-core kernel
 FIRST_SSD_ENTRY = "ssd_fwdI13__nv_bfloat16Li64ELi64E"
+# the first selective-scan backward design's bf16 entry at ds 16
+# (scan_bwd), counted where a checkout has not this design
+FIRST_SCAN_BWD_ENTRY = "scan_bwdI13__nv_bfloat16Li16E"
 # library: (its launcher module, binder, launch function) in a checkout
 LAUNCHERS = {"ssd_chunk": ("ssd_chunk", "bind", "launch"),
              "selective_scan": ("selective_scan", "bind", "launch"),
@@ -163,10 +180,41 @@ LAUNCHERS = {"ssd_chunk": ("ssd_chunk", "bind", "launch"),
              "ssd_chunk_bwd": ("ssd_chunk", "bind_bwd", "launch_bwd"),
              "selective_scan_bwd": ("selective_scan", "bind_bwd",
                                     "launch_bwd")}
+# edits of the selective-scan backward: the bf16 route on expf, its decay
+# argument without the low part; clusters of 1 or 4 CTAs for 2; 128-thread
+# CTAs of 32 channels; the loads of the tile before waited for at each
+# sub-tile; and, for timing only (the gradients are then wrong), parts
+# taken out: the dB/dC channel sums' shuffles, the first pass, the walk
+# back
+SCAN_BWD_PROBES = {
+    "bf16_expf": (
+        "struct CheapDecay {\n  static constexpr bool value = true;",
+        "struct CheapDecay {\n  static constexpr bool value = false;"),
+    "decay_low_part_dropped": (
+        "      return ex2(fmaf(dtv, hi[j], dtv * lo[j]));",
+        "      return ex2(dtv * hi[j]);"),
+    "sums_unshuffled": (
+        "        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, half * "
+        "kLanes);", "        v[i] = keep + send;"),
+    "cluster_1": ("constexpr int kCluster = 2;", "constexpr int kCluster = 1;"),
+    "cluster_4": ("constexpr int kCluster = 2;", "constexpr int kCluster = 4;"),
+    "threads_128": ("constexpr int kThreads = 256;",
+                    "constexpr int kThreads = 128;"),
+    "loads_waited": (
+        "             t0 + s * kSub);\n",
+        "             t0 + s * kSub);\n      cp_async_wait();\n"),
+    "first_pass_taken_out": (
+        "    for (int sub = 0; sub + 1 < kNSub; ++sub) {",
+        "    for (int sub = 0; sub + 1 < 0; ++sub) {"),
+    "walk_back_taken_out": (
+        "      for (int grp = kSub / 4 - 1; grp >= 0; --grp) {",
+        "      for (int grp = kSub / 4 - 1; grp >= kSub; --grp) {"),
+}
 # the libraries each part of the probes builds from a parent checkout
 PARTS = {"scans": ("ssd_chunk", "selective_scan"),
          "attention_bwd": ("flash_attention_bwd",),
-         "ssd_bwd": ("ssd_chunk_bwd",)}
+         "ssd_bwd": ("ssd_chunk_bwd",),
+         "scan_bwd": ("selective_scan_bwd",)}
 # the bf16 backward entries at hd 128, of this design and of the mma.sync
 # one before it
 BWD_ENTRIES = ("flash_bwd_wgmmaILi128E", "flash_bwd_mmaILi128E")
@@ -189,18 +237,16 @@ def build_probes(ops, tmp):
     return libs
 
 
-def build_ssd_bwd_probes(ops, tmp):
-    """The sound SSD backward library and each of ``SSD_BWD_PROBES``, one
+def build_bwd_probes(ops, lib, probes, tmp):
+    """The sound backward library ``lib`` and each of its ``probes``, one
     nvcc each, all at once: ``{"sound" or probe name: bound library}``."""
-    from repro_torch.kernels import ssd_chunk as sc
-    with ThreadPoolExecutor(len(SSD_BWD_PROBES) + 1) as pool:
-        sound = pool.submit(ops.build_library, "ssd_chunk_bwd")
-        built = {n: pool.submit(cf.build_fault, ops, "ssd_chunk_bwd", n, o,
-                                w, tmp)
-                 for n, (o, w) in SSD_BWD_PROBES.items()}
+    with ThreadPoolExecutor(len(probes) + 1) as pool:
+        sound = pool.submit(ops.build_library, lib)
+        built = {n: pool.submit(cf.build_fault, ops, lib, n, o, w, tmp)
+                 for n, (o, w) in probes.items()}
         sound.result()
-        libs = {"sound": ops.load_library("ssd_chunk_bwd")}
-        libs.update({n: sc.bind_bwd(ctypes.CDLL(str(f.result())))
+        libs = {"sound": ops.load_library(lib)}
+        libs.update({n: ops._BINDERS[lib](ctypes.CDLL(str(f.result())))
                      for n, f in built.items()})
     return libs
 
@@ -318,39 +364,73 @@ SSD_BWD_CASES = [(4, 4096, 64, 64, 64, 0.0),
                  (1, 4000, 2, 64, 128, cs.SLOW_DT_SHIFT)]
 
 
-def ssd_bwd_turns(torch, ops, ref, libs, parent, l2_bytes):
-    """The bf16 SSD backward of each library in ``libs`` (the sound one and
-    the probes) and (``parent``: a launch function, or None) the parent's:
-    each one's tight readings (relative L2 of each gradient from the f32
-    backward of the same inputs) on ``SSD_BWD_CASES`` and whether they
-    hold phase 21's limits, then each timed at the first case (zamba2-1.2b's
-    train step) in four turns (order, reversed, order, reversed), beside
-    the bound and the design's byte floor."""
-    from repro_torch.kernels import ssd_chunk as sc
+# B, S, di, ds, dt shift of the selective-scan backward's probes:
+# falcon-mamba-7b's train step, then phase 23's cases of 4096 slowly
+# decaying steps and of a ragged last tile at ds 8
+SCAN_BWD_CASES = [(4, 4096, 8192, 16, 0.0),
+                  (1, 4096, 512, 16, cs.SLOW_DT_SHIFT),
+                  (2, 4095, 256, 8, 0.0)]
 
+
+
+
+def _scan_bwd_bound(torch, step):
     dev = torch.device("cuda")
-    fwd = ops.load_library("ssd_chunk")
-    fns = {n: (lambda lb: lambda *a: sc.launch_bwd(lb, *a))(lb)
+    return cs.scan_bwd_bound(
+        *step[:-1], torch.cuda.get_device_properties(dev).multi_processor_count,
+        cs.max_sm_clock_hz(torch, dev))[0]
+
+
+# each backward library the turns below read: its cases, its forward
+# library and launcher module, its inputs' maker and seeds (inputs, output
+# gradient), its gradients' names and its bound (and the SSD's byte floor)
+BWD_TURNS = {
+    "ssd_chunk_bwd": dict(
+        cases=SSD_BWD_CASES, fwd="ssd_chunk", module="ssd_chunk",
+        inputs=cs.ssd_inputs, seeds=(900, 950), names=cs.SSD_BWD_NAMES,
+        bound=lambda torch, step: cs.ssd_bwd_bound(*step[:-1])[0],
+        floor=lambda step: cs.ssd_bwd_design_floor(*step)),
+    "selective_scan_bwd": dict(
+        cases=SCAN_BWD_CASES, fwd="selective_scan", module="selective_scan",
+        inputs=cs.scan_inputs, seeds=(980, 990), names=cs.SCAN_BWD_NAMES,
+        bound=_scan_bwd_bound, floor=None)}
+
+
+def bwd_turns(torch, ops, ref, lib, libs, parent, l2_bytes):
+    """The bf16 backward ``lib`` (a key of ``BWD_TURNS``) of each library
+    in ``libs`` (the sound one and the probes) and (``parent``: a launch
+    function, or None) the parent's: each one's tight readings (relative
+    L2 of each gradient from the f32 backward of the same inputs) on the
+    library's cases and whether they hold phase 21's / 23's limits (the
+    states from this checkout's forward kernel), then each timed at the
+    first case (the train step's shape) in four turns (order, reversed,
+    order, reversed), beside the bound (and the SSD's design's byte
+    floor)."""
+    spec = BWD_TURNS[lib]
+    mod = importlib.import_module(f"repro_torch.kernels.{spec['module']}")
+    dev = torch.device("cuda")
+    fwd = ops.load_library(spec["fwd"])
+    fns = {n: (lambda lb: lambda *a: mod.launch_bwd(lb, *a))(lb)
            for n, lb in libs.items()}
     if parent is not None:
         fns = {"parent": parent, **fns}
     out = {"card": cs.card_name_power(),
-           "cases": [list(c) for c in SSD_BWD_CASES],
+           "cases": [list(c) for c in spec["cases"]],
            "tight": {n: {} for n in fns}, "holds": dict.fromkeys(fns, True)}
-    for i, (B, S, nh, hd, ds, shift) in enumerate(SSD_BWD_CASES):
-        args = cs.ssd_inputs(torch, B, S, nh, hd, ds, torch.bfloat16, dev,
-                             900 + i, shift)
-        dy = cs.output_grad(torch, (B, S, nh, hd), torch.bfloat16, dev,
-                            950 + i)
-        _, states = sc.launch(fwd, *args, with_states=True)
-        exact = ref.ssd_chunk_bwd(*(a.float() for a in args), dy.float())
-        case = f"{B}x{S}x{nh}x{hd}x{ds} shift {shift}"
+    for i, case in enumerate(spec["cases"]):
+        args = spec["inputs"](torch, *case[:-1], torch.bfloat16, dev,
+                              spec["seeds"][0] + i, case[-1])
+        dy = cs.output_grad(torch, tuple(args[0].shape), torch.bfloat16,
+                            dev, spec["seeds"][1] + i)
+        _, states = mod.launch(fwd, *args, with_states=True)
+        exact = getattr(ref, lib)(*(a.float() for a in args), dy.float())
+        label = "x".join(map(str, case[:-1])) + f" shift {case[-1]}"
         for name, fn in fns.items():
             grads = fn(*args, dy, states)
-            out["tight"][name][case] = cs.grad_readings(
-                torch, grads, exact, cs.SSD_BWD_NAMES)
+            out["tight"][name][label] = cs.grad_readings(
+                torch, grads, exact, spec["names"])
             try:
-                cs.hold_grads(torch, grads, exact, cs.SSD_BWD_NAMES, case)
+                cs.hold_grads(torch, grads, exact, spec["names"], label)
             except cs.SmokeFailure:
                 out["holds"][name] = False
             del grads
@@ -359,8 +439,8 @@ def ssd_bwd_turns(torch, ops, ref, libs, parent, l2_bytes):
             step = (*args, dy, states)
         del args, dy, states
         torch.cuda.empty_cache()
-        cs.log(json.dumps({"ssd_chunk_bwd_tight": {
-            n: out["tight"][n][case] for n in fns}}))
+        cs.log(json.dumps({f"{lib}_tight": {
+            n: out["tight"][n][label] for n in fns}}))
     sets, _ = cs.copies(step, l2_bytes)
     runs = {n: [] for n in fns}
     for order in (list(fns), list(fns)[::-1], list(fns), list(fns)[::-1]):
@@ -368,8 +448,9 @@ def ssd_bwd_turns(torch, ops, ref, libs, parent, l2_bytes):
             runs[name].append(cs.cuda_ms(torch, fns[name], sets, reps=5))
     out["ms_by_turn"] = runs
     out["ms"] = {n: statistics.median(ms) for n, ms in runs.items()}
-    out["bound_ms"] = cs.ssd_bwd_bound(*step[:-1])[0]
-    out["design_floor_ms"] = cs.ssd_bwd_design_floor(*step)
+    out["bound_ms"] = spec["bound"](torch, step)
+    if spec["floor"] is not None:
+        out["design_floor_ms"] = spec["floor"](step)
     return out
 
 
@@ -421,24 +502,31 @@ def engine_replays(tree, rounds=4, runs=2):
     return out
 
 
-def train_step(tree, seed):
-    """zamba2-1.2b's train step as ``chip_smoke.py``'s phase 22 runs it
-    (3 steps at 4 x 4096, a fourth profiled, the routes), the package of
-    the checkout at ``tree`` put first on the path, in this process: its
-    step times, tokens/s, peak memory and the profiled step's device time
-    by layer."""
+# each scan arch's train-step phase of chip_smoke.py and the libraries it
+# launches
+TRAIN_ARCHS = {"zamba2-1.2b": (22, ("ssd_chunk", "ssd_chunk_bwd",
+                                    "flash_attention", "flash_attention_bwd")),
+               "falcon-mamba-7b": (24, ("selective_scan",
+                                        "selective_scan_bwd"))}
+
+
+def train_step(tree, seed, arch="zamba2-1.2b"):
+    """``arch``'s train step as ``chip_smoke.py``'s phase 22 (zamba2-1.2b)
+    or 24 (falcon-mamba-7b) runs it (3 steps at 4 x 4096, a fourth
+    profiled, the routes), the package of the checkout at ``tree`` put
+    first on the path, in this process: its step times, tokens/s, peak
+    memory and the profiled step's device time by layer."""
     sys.path.insert(0, str(Path(tree).resolve() / "src"))
     import torch
     from repro_torch.kernels import ops, ref
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = ("ssd_chunk", "ssd_chunk_bwd", "flash_attention",
-            "flash_attention_bwd")
+    phase, libs = TRAIN_ARCHS[arch]
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(ops.build_library, libs))
     row, _ = cs.phase_scan_train_step(torch, ops, ref, torch.device("cuda"),
-                                      seed, "zamba2-1.2b", 22)
+                                      seed, arch, phase)
     prof = row["profile"]
     return {"step_s": row["step_s"], "tokens_per_s": row["tokens_per_s"],
             "peak_gib": row["peak_gib"], "busy_ms": prof["device_busy_ms"],
@@ -478,10 +566,13 @@ def main(argv=None) -> int:
     ap.add_argument("--engine-run", metavar="DIR", default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--train-steps", metavar="DIR", default=None,
-                    help="time zamba2-1.2b's train step (phase 22) of "
-                    "another checkout and of this one in turns instead")
+                    help="time a scan arch's train step (phase 22 or 24) "
+                    "of another checkout and of this one in turns instead")
     ap.add_argument("--train-run", metavar="DIR", default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--arch", choices=tuple(TRAIN_ARCHS),
+                    default="zamba2-1.2b",
+                    help="the arch of --train-steps")
     ap.add_argument("--only", choices=tuple(PARTS), default=None,
                     help="run one part of the probes")
     opts = ap.parse_args(argv)
@@ -497,27 +588,36 @@ def main(argv=None) -> int:
         print(json.dumps(engine_replays(opts.engine_run)))
         return 0
     if opts.train_run:
-        print(json.dumps(train_step(opts.train_run, seed)))
+        print(json.dumps(train_step(opts.train_run, seed, opts.arch)))
         return 0
     if opts.engines:
         return in_turns(opts.engines, "--engine-run", "engine_replays_s")
     if opts.train_steps:
         return in_turns(opts.train_steps, "--train-run", "train_steps",
-                        ("--seed", str(seed)))
+                        ("--seed", str(seed), "--arch", opts.arch))
     sys.path.insert(0, str(cs.SRC))
     from repro_torch.kernels import ops, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     cs.log(f"card {cs.card_name_power()}")
-    scans, attn, ssd_bwd = (opts.only in (None, part) for part in PARTS)
+    scans, attn, ssd_bwd, scan_bwd = (opts.only in (None, part)
+                                      for part in PARTS)
     parts = tuple(n for part in PARTS if opts.only in (None, part)
                   for n in PARTS[part])
-    parent, sass, libs, ssd_bwd_libs = {}, {}, {}, {}
+    parent, sass, libs, ssd_bwd_libs, scan_bwd_libs = {}, {}, {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         if ssd_bwd:
             ops.load_library("ssd_chunk")
-            ssd_bwd_libs = build_ssd_bwd_probes(ops, tmp)
+            ssd_bwd_libs = build_bwd_probes(ops, "ssd_chunk_bwd",
+                                            SSD_BWD_PROBES, tmp)
+        if scan_bwd:
+            ops.load_library("selective_scan")
+            scan_bwd_libs = build_bwd_probes(ops, "selective_scan_bwd",
+                                             SCAN_BWD_PROBES, tmp)
+            sass["scan_bwd"] = {"this": cs.loop_counts(ops, {
+                "selective_scan_bwd": ops.library_path(
+                    "selective_scan_bwd")})["selective_scan_bwd"]}
         if scans:
             libs = build_probes(ops, tmp)
             sass["this"] = cs.loop_counts(
@@ -532,10 +632,19 @@ def main(argv=None) -> int:
                 src = (Path(opts.parent) / "src" / "repro_torch" / "kernels" /
                        "csrc" / "ssd_chunk.cu").read_text()
                 sass["parent"] = cs.loop_counts(
-                    ops, paths, cs.MAIN_ENTRIES["ssd_chunk"]
+                    ops, {n: paths[n] for n in PROBES},
+                    cs.MAIN_ENTRIES["ssd_chunk"]
                     if "ssd_fwd_mma" in src else FIRST_SSD_ENTRY)
             if attn:
                 bwd_paths["parent"] = paths["flash_attention_bwd"]
+            if scan_bwd:
+                src = (Path(opts.parent) / "src" / "repro_torch" / "kernels" /
+                       "csrc" / "selective_scan_bwd.cu").read_text()
+                sass["scan_bwd"]["parent"] = cs.loop_counts(
+                    ops, {"selective_scan_bwd": paths["selective_scan_bwd"]},
+                    scan_bwd_entry=cs.MAIN_ENTRIES["selective_scan_bwd"]
+                    if "scan_bwd_cluster" in src
+                    else FIRST_SCAN_BWD_ENTRY)["selective_scan_bwd"]
         if attn:
             sass["attention_bwd"] = bwd_sass(ops, bwd_paths)
     cs.log(json.dumps({"sass": sass}))
@@ -547,9 +656,16 @@ def main(argv=None) -> int:
         cs.log(json.dumps({"flash_attention_bwd":
                            readings["flash_attention_bwd"]}))
     if ssd_bwd:
-        readings["ssd_chunk_bwd"] = ssd_bwd_turns(
-            torch, ops, ref, ssd_bwd_libs, parent.get("ssd_chunk_bwd"), l2)
+        readings["ssd_chunk_bwd"] = bwd_turns(
+            torch, ops, ref, "ssd_chunk_bwd", ssd_bwd_libs,
+            parent.get("ssd_chunk_bwd"), l2)
         cs.log(json.dumps({"ssd_chunk_bwd": readings["ssd_chunk_bwd"]}))
+    if scan_bwd:
+        readings["selective_scan_bwd"] = bwd_turns(
+            torch, ops, ref, "selective_scan_bwd", scan_bwd_libs,
+            parent.get("selective_scan_bwd"), l2)
+        cs.log(json.dumps({"selective_scan_bwd":
+                           readings["selective_scan_bwd"]}))
     if scans:
         scan_probes(torch, ops, ref, dev, seed, libs, parent, l2, readings)
     cs.log(json.dumps({"limits": {"ssd_chunk": cs.SSD_BF16_REL_L2,

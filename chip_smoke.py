@@ -11,8 +11,11 @@ Phases (any mismatch exits non-zero; nothing is caught and swallowed):
    checkout, one ``nvcc`` each,
    all at once, and time the build; log each main-path kernel's
    registers a thread and spill bytes from ptxas's report of the build
-   (the SSD backward's two bf16 entries must spill nothing), the SASS
-   loop counts of both scan kernels and the tensor-core products in the
+   (the SSD backward's two bf16 entries and the selective-scan
+   backward's bf16 ds-16 entry must spill nothing), the SASS loop counts
+   of both scan kernels and of the selective-scan backward (its inner
+   loops' instructions a state-step, and its global atomics and bulk
+   reduce-adds, which must be none) and the tensor-core products in the
    backward entries.
 2. The top-k kernel against its plain PyTorch version on the card, on
    the same synthetic inputs: indices equal, values bitwise. The 105-case
@@ -3094,7 +3097,7 @@ def phase_mamba1_routes(torch, ops, dev, cfg, params, tokens):
 # mangled names in ptxas's report (the SSD's at 32 columns a slice, ds 64,
 # aligned rows; the attention backward's at hd 64 and 128; the SSD
 # backward's two bf16 entries at ds 64, the carry pass and the
-# chunk-local gradients)
+# chunk-local gradients; the selective-scan backward's bf16 entry at ds 16)
 MAIN_ENTRIES = {"topk_select": "topk_select",
                 "flash_attention": "flash_fwd_wgmma",
                 "flash_attention_bwd": "flash_bwd_wgmma",
@@ -3102,13 +3105,23 @@ MAIN_ENTRIES = {"topk_select": "topk_select",
                 "ssd_chunk_bwd": ("ssd_bwd_carryILi64E",
                                   "ssd_bwd_localILi64E"),
                 "selective_scan": "scan_fwdI13__nv_bfloat16Li16E",
-                "selective_scan_bwd": "scan_bwdI13__nv_bfloat16Li16E"}
+                "selective_scan_bwd": "scan_bwd_clusterI13__nv_bfloat16Li16E"}
 SSD_BWD_DESIGN = ("ssd_bwd_carry (K over the chunks in reverse, a CTA a "
                   "batch and head, mma.sync on split e^l dy) then "
                   "ssd_bwd_local (a CTA a chunk and head group, two an SM: "
                   "chunk products on mma.sync with split f32 operands, dB "
                   "and dC summed over the group's heads in shared memory, "
                   "dA by parts)")
+SCAN_BWD_DESIGN = ("scan_bwd_cluster (256-thread CTAs of 64 channels, two an "
+                   "SM, the forward's 4 lanes a channel and its decay; "
+                   "tiles in reverse, each recomputed from its state in "
+                   "8-step sub-tiles; x, dt and dy staged by cp.async in "
+                   "their own type into the rows just freed; dB and dC "
+                   "summed over a warp's channels by shuffles, over the "
+                   "CTA's warps, then over a 2-CTA cluster through "
+                   "distributed shared memory into per-cluster f32 parts, "
+                   "all in a fixed order and without atomics; dA and dD by "
+                   "batch parts)")
 
 
 def ptxas_usage(text):
@@ -3186,6 +3199,27 @@ def scan_loop_counts(sass):
             "per_state_step": loop["instructions"] / loop["ops"]["MUFU"]}
 
 
+def scan_bwd_loop_counts(sass, fragment=MAIN_ENTRIES["selective_scan_bwd"]):
+    """The selective-scan backward's two inner loops, its two shortest
+    with an exponential: the first pass over a tile (7 iterations of 8
+    steps a tile) and the sub-tile loop (8 iterations: the sub-tile again,
+    the walk back, the sums); each iteration takes one exponential a
+    state-step of its 8 steps. Instructions a state-step: 7/8 of the
+    first's instructions over its exponentials, plus the second's. And
+    the function's global atomics (REDG, ATOMG) and bulk reduce-adds
+    (UTMAREDG)."""
+    first, sub = [lp for lp in sass_loops(sass, fragment)
+                  if "MUFU" in lp["ops"]][:2]
+    ops = next(iter(sass_ops(sass, fragment).values()))
+    return {"first_pass": {"instructions": first["instructions"],
+                           "mufu": first["ops"]["MUFU"]},
+            "sub_tile": {"instructions": sub["instructions"],
+                         "mufu": sub["ops"]["MUFU"]},
+            "per_state_step": 7 / 8 * first["instructions"]
+            / first["ops"]["MUFU"] + sub["instructions"] / sub["ops"]["MUFU"],
+            **{op: ops.get(op, 0) for op in ("REDG", "ATOMG", "UTMAREDG")}}
+
+
 def ssd_loop_counts(sass, fragment=MAIN_ENTRIES["ssd_chunk"]):
     """The chunk loop (the longest loop with a barrier) of the SSD kernel
     named by ``fragment``: static instructions, tensor-core products
@@ -3195,16 +3229,22 @@ def ssd_loop_counts(sass, fragment=MAIN_ENTRIES["ssd_chunk"]):
             **{op: loop["ops"].get(op, 0) for op in ("HMMA", "FFMA", "MUFU")}}
 
 
-def loop_counts(ops, paths, ssd_entry=MAIN_ENTRIES["ssd_chunk"]):
+def loop_counts(ops, paths, ssd_entry=MAIN_ENTRIES["ssd_chunk"],
+                scan_bwd_entry=MAIN_ENTRIES["selective_scan_bwd"]):
     """Phase 1's SASS counts of the SSD (its kernel ``ssd_entry``) and scan
-    kernels, from ``cuobjdump -sass`` (the toolkit's, beside nvcc) of the
-    libraries at ``paths`` (``{name: path}``); "no cuobjdump" where the
-    toolkit has none."""
+    kernels and of the selective-scan backward (its kernel
+    ``scan_bwd_entry``, where ``paths`` has its library), from ``cuobjdump
+    -sass`` (the toolkit's, beside nvcc) of the libraries at ``paths``
+    (``{name: path}``); "no cuobjdump" where the toolkit has none."""
     tool = Path(ops._nvcc()).parent / "cuobjdump"
     out = {}
     for name, count in (
             ("ssd_chunk", lambda text: ssd_loop_counts(text, ssd_entry)),
-            ("selective_scan", scan_loop_counts)):
+            ("selective_scan", scan_loop_counts),
+            ("selective_scan_bwd",
+             lambda text: scan_bwd_loop_counts(text, scan_bwd_entry))):
+        if name not in paths:
+            continue
         if not tool.exists():
             out[name] = "no cuobjdump"
             continue
@@ -4245,7 +4285,19 @@ def main(argv=None) -> int:
         f"registers a thread and spill bytes: {regs}")
     sass = loop_counts(ops, dict(zip(names, paths)))
     log(f"phase 1: SASS of the main-path SSD kernel's chunk loop (static "
-        f"counts) and of the scan's inner loop: {sass}")
+        f"counts), of the scan's inner loop and of the scan backward's "
+        f"inner loops: {sass}")
+    check(regs["selective_scan_bwd"]["spill_bytes"] == 0,
+          f"ptxas spills {regs['selective_scan_bwd']['spill_bytes']} bytes "
+          f"in {MAIN_ENTRIES['selective_scan_bwd']}")
+    if sass["selective_scan_bwd"] != "no cuobjdump":
+        found = sass["selective_scan_bwd"]
+        check(found["REDG"] + found["ATOMG"] + found["UTMAREDG"] == 0,
+              f"the scan backward adds into global memory: {found}")
+    log(f"phase 1: the scan backward ({SCAN_BWD_DESIGN}): registers and "
+        f"spill bytes of its bf16 entry at ds 16 "
+        f"{regs['selective_scan_bwd']}; its inner loops "
+        f"{sass['selective_scan_bwd']}")
     bwd_usage = ptxas_usage(ops.ptxas_log("flash_attention_bwd").read_text())
     regs["flash_attention_bwd"]["by_head_size"] = {
         hd: entry_usage(bwd_usage, f"{MAIN_ENTRIES['flash_attention_bwd']}"
@@ -4587,6 +4639,9 @@ def main(argv=None) -> int:
     ssd_bwd_row.update(
         design=SSD_BWD_DESIGN, entries=list(MAIN_ENTRIES["ssd_chunk_bwd"]),
         carry_max_abs_err=carry_err)
+    next(k for k in summary["kernels"]
+         if k["name"] == "selective_scan_bwd").update(
+        design=SCAN_BWD_DESIGN, entries=[MAIN_ENTRIES["selective_scan_bwd"]])
     summary["olmo_1b"] = {"train": train_row, "cohort_cli": cohort_row}
     summary["zamba2_1_2b"] = {"train": zamba_train}
     summary["falcon_mamba_7b"] = {"train": falcon_train}

@@ -10,6 +10,8 @@ log-sum-exp and of its backward kernel, which has no Pallas counterpart
 (the reference differentiates its pure-jnp attention)."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.numerics import f32, fma, orderable_key
@@ -342,3 +344,41 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     dD = (dyf * xf).sum((0, 1))
     return (dx.to(x.dtype), ddt.to(dt.dtype), dB.to(Bm.dtype),
             dC.to(Cm.dtype), dA, dD)
+
+
+def selective_scan_bwd_parts(x: torch.Tensor, dt: torch.Tensor,
+                             Bm: torch.Tensor, Cm: torch.Tensor,
+                             A: torch.Tensor, D: torch.Tensor,
+                             dy: torch.Tensor, part_channels: int):
+    """The parts the backward kernel (``csrc/selective_scan_bwd.cu``)
+    writes, in f32: ``(dx, ddt, dBp, dCp, dAp, dDp)``, dBp and dCp ``(B,
+    ceil(di / part_channels), S, ds)`` (dB and dC of each run of
+    ``part_channels`` channels, a cluster's), dAp ``(B, di, ds)`` and dDp
+    ``(B, di)`` (dA and dD of each batch element). dB and dC sum over the
+    channels and dA and dD over the batch, so each part is
+    :func:`selective_scan_bwd` of its slice; summed over dimension 1
+    (dBp, dCp) and 0 (dAp, dDp) they give its gradients."""
+    Bsz, _, di = x.shape
+    x, dt, Bm, Cm, A, D, dy = (t.float() for t in (x, dt, Bm, Cm, A, D, dy))
+
+    def part(b, sl):
+        return selective_scan_bwd(x[b:b + 1, :, sl], dt[b:b + 1, :, sl],
+                                  Bm[b:b + 1], Cm[b:b + 1], A[sl], D[sl],
+                                  dy[b:b + 1, :, sl])
+
+    runs = [[part(b, slice(d0, d0 + part_channels))
+             for d0 in range(0, di, part_channels)] for b in range(Bsz)]
+
+    def joined(i, join):   # output i of every part, joined, over the batch
+        return torch.cat([join([p[i] for p in row]) for row in runs])
+
+    along_di = functools.partial(torch.cat, dim=-1)      # dx, ddt
+
+    def parts(ts):                                       # dB, dC
+        return torch.stack(ts, 1)
+
+    def batch_part(ts):                                  # dA, dD
+        return torch.cat(ts)[None]
+
+    return (joined(0, along_di), joined(1, along_di), joined(2, parts),
+            joined(3, parts), joined(4, batch_part), joined(5, batch_part))

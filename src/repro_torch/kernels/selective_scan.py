@@ -25,7 +25,12 @@ bound by :func:`bind_bwd`, launched by :func:`launch_bwd`; its header
 holds the design and the bound: at falcon-mamba-7b's train step, B=4,
 S=4096, di=8192, ds=16 in bf16, 2,147,483,648 exponentials, about 0.514
 ms at 1,980 MHz, above the 0.401 ms its 1.34 GB take), has no Pallas
-counterpart: the reference differentiates its ``lax.scan``.
+counterpart: the reference differentiates its ``lax.scan``. It stages its
+inputs' rows in 16-byte chunks, so :func:`launch_bwd` copies an input whose
+rows do not start on them (:func:`chunked`); it writes dB and dC as f32
+parts, each summed over one cluster's channels, and dA and dD as one part
+per batch element (:func:`bwd_buffers`), which the wrapper sums in a fixed
+order, so the gradients are the same bits every run.
 """
 from __future__ import annotations
 
@@ -39,8 +44,10 @@ STATE_DIMS = (8, 16)        # ds the library is built for
 MAX_GRID_Y = 65535          # one CTA row per batch element
 TILE = 64                   # the kernels' tile: one state written each
 
-__all__ = ["DTYPES", "STATE_DIMS", "TILE", "bind", "bind_bwd", "launch",
-           "launch_bwd"]
+CHUNK = 16                  # bytes the backward kernel stages at once
+
+__all__ = ["CHUNK", "DTYPES", "STATE_DIMS", "TILE", "bind", "bind_bwd",
+           "bwd_buffers", "chunked", "launch", "launch_bwd"]
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -54,9 +61,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the backward library's C signature."""
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.selective_scan_bwd_launch.argtypes = ([p] * 14 + [i32] * 5
+    lib.selective_scan_bwd_launch.argtypes = ([p] * 14 + [i32] * 6
                                               + [i64] * 10 + [p])
     lib.selective_scan_bwd_launch.restype = i32
+    lib.selective_scan_bwd_part_channels.argtypes = []
+    lib.selective_scan_bwd_part_channels.restype = i32
     return lib
 
 
@@ -125,16 +134,54 @@ def launch(lib: ctypes.CDLL, x: torch.Tensor, dt: torch.Tensor,
     return (y, states) if with_states else y
 
 
+def _row(n: int, t: torch.Tensor) -> int:
+    """n elements of t's dtype rounded up to whole ``CHUNK``-byte chunks."""
+    per = CHUNK // t.element_size()
+    return -(-n // per) * per
+
+
+def chunked(t: torch.Tensor) -> torch.Tensor:
+    """``t`` when it starts on a ``CHUNK``-byte boundary and its leading
+    strides are whole chunks, as the backward kernel stages rows; else a
+    copy that does (rows padded with zeros to whole chunks)."""
+    per = CHUNK // t.element_size()
+    if (t.data_ptr() % CHUNK == 0
+            and all(st % per == 0 for st in t.stride()[:-1])):
+        return t
+    n = t.shape[-1]
+    out = torch.zeros(*t.shape[:-1], _row(n, t), dtype=t.dtype,
+                      device=t.device)[..., :n]
+    return out.copy_(t)
+
+
+def bwd_buffers(x: torch.Tensor, Bm: torch.Tensor, part_channels: int):
+    """What the backward kernel writes, on x's device: dx and ddt ``(B, S,
+    di)`` in x's dtype, views of rows padded to whole chunks (the kernel
+    writes them a chunk at a time); dB's and dC's parts ``(B, ceil(di /
+    part_channels), S, ds)``, each summed over ``part_channels`` channels;
+    dA's ``(B, di, ds)`` and dD's ``(B, di)`` parts, one a batch element;
+    the parts in f32. The kernel writes every entry, so none is zeroed."""
+    B, S, DI = x.shape
+    DS = Bm.shape[-1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, ddt = (torch.empty((B, S, _row(DI, x)), dtype=x.dtype,
+                           device=x.device)[..., :DI] for _ in range(2))
+    parts = -(-DI // part_channels)
+    return (dx, ddt, torch.empty((B, parts, S, DS), **f32),
+            torch.empty((B, parts, S, DS), **f32),
+            torch.empty((B, DI, DS), **f32), torch.empty((B, DI), **f32))
+
+
 def launch_bwd(lib: ctypes.CDLL, x: torch.Tensor, dt: torch.Tensor,
                Bm: torch.Tensor, Cm: torch.Tensor, A: torch.Tensor,
                D: torch.Tensor, dy: torch.Tensor, states: torch.Tensor):
     """The backward kernel on PyTorch's current stream (no synchronise):
     ``(dx, ddt, dBm, dCm, dA, dD)``, dx and ddt in x's dtype, dBm and dCm
-    in theirs (summed over the channels in f32, then cast), dA and dD in
-    f32. ``states`` is the forward's (``launch(..., with_states=True)``);
-    ``dy`` is read through its batch and sequence strides (last dimension
-    contiguous). Raises on what the kernel does not take and on a launch
-    error."""
+    in theirs (the kernel's f32 parts summed in order, then cast), dA and
+    dD in f32 (their parts summed). ``states`` is the forward's
+    (``launch(..., with_states=True)``); ``dy`` is read through its batch
+    and sequence strides (last dimension contiguous). Raises on what the
+    kernel does not take and on a launch error."""
     A, D = _check(x, dt, Bm, Cm, A, D)
     B, S, DI = x.shape
     DS = Bm.shape[-1]
@@ -150,21 +197,20 @@ def launch_bwd(lib: ctypes.CDLL, x: torch.Tensor, dt: torch.Tensor,
         raise ValueError(f"states must be a contiguous float32 {want} on "
                          f"{x.device}, got {states.dtype} "
                          f"{tuple(states.shape)}")
-    dx = torch.empty((B, S, DI), dtype=x.dtype, device=x.device)
-    ddt = torch.empty_like(dx)
-    dBf = torch.zeros((B, S, DS), dtype=torch.float32, device=x.device)
-    dCf = torch.zeros_like(dBf)
-    dA = torch.zeros((DI, DS), dtype=torch.float32, device=x.device)
-    dD = torch.zeros((DI,), dtype=torch.float32, device=x.device)
+    dx, ddt, dBp, dCp, dAp, dDp = bwd_buffers(
+        x, Bm, lib.selective_scan_bwd_part_channels())
+    x, dt, Bm, Cm, dy = (chunked(t) for t in (x, dt, Bm, Cm, dy))
     stream = stream_handle(x.device)
     err = lib.selective_scan_bwd_launch(
         x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         A.data_ptr(), D.data_ptr(), dy.data_ptr(), states.data_ptr(),
-        dx.data_ptr(), ddt.data_ptr(), dBf.data_ptr(), dCf.data_ptr(),
-        dA.data_ptr(), dD.data_ptr(), B, S, DI, DS, DTYPES[x.dtype],
+        dx.data_ptr(), ddt.data_ptr(), dBp.data_ptr(), dCp.data_ptr(),
+        dAp.data_ptr(), dDp.data_ptr(), B, S, DI, dx.stride(1), DS,
+        DTYPES[x.dtype],
         *x.stride()[:2], *dt.stride()[:2], *Bm.stride()[:2],
         *Cm.stride()[:2], *dy.stride()[:2], stream)
     if err != 0:
         raise RuntimeError(f"selective_scan_bwd kernel launch failed: CUDA "
                            f"error {err}")
-    return dx, ddt, dBf.to(Bm.dtype), dCf.to(Cm.dtype), dA, dD
+    return (dx, ddt, dBp.sum(1).to(Bm.dtype), dCp.sum(1).to(Cm.dtype),
+            dAp.sum(0), dDp.sum(0))

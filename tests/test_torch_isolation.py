@@ -512,7 +512,7 @@ def test_chip_probes_builds_another_checkouts_kernels(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("table", ["SSD_PROBES", "SCAN_PROBES",
-                                   "SSD_BWD_PROBES"])
+                                   "SSD_BWD_PROBES", "SCAN_BWD_PROBES"])
 def test_chip_probes_edits_occur_once(table):
     """Each design probe of chip_probes.py edits text that occurs once in
     its source (a stale edit would stop the script on the card)."""
@@ -520,7 +520,8 @@ def test_chip_probes_edits_occur_once(table):
     _load("chip_faults")
     probes = _load("chip_probes")
     lib = {"SSD_PROBES": "ssd_chunk", "SCAN_PROBES": "selective_scan",
-           "SSD_BWD_PROBES": "ssd_chunk_bwd"}[table]
+           "SSD_BWD_PROBES": "ssd_chunk_bwd",
+           "SCAN_BWD_PROBES": "selective_scan_bwd"}[table]
     src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" /
            f"{lib}.cu").read_text()
     for name, (old, new) in getattr(probes, table).items():
@@ -654,6 +655,50 @@ def test_chip_smoke_counts_the_scan_kernels_loops_in_sass():
         "HMMA": 2, "FFMA": 0, "MUFU": 1}
     with pytest.raises(smoke.SmokeFailure, match="no function like"):
         smoke.sass_loops(SASS, "flash_fwd")
+
+
+SCAN_BWD_SASS = """\
+        code for sm_90a
+        Function : _ZN1a16scan_bwd_clusterI13__nv_bfloat16Li16EEEvPK
+        /*0000*/                   LDS.64 R2, [R4] ;
+        /*0010*/                   MUFU.EX2 R5, R4 ;
+        /*0020*/                   FFMA R6, R5, R6, R7 ;
+        /*0030*/                   MUFU.EX2 R8, R4 ;
+        /*0040*/               @P1 BRA 0x0 ;
+        /*0050*/                   MUFU.EX2 R5, R4 ;
+        /*0060*/                   SHFL.BFLY PT, R7, R6, 0x10, 0x1f ;
+        /*0070*/                   FADD R6, R6, R7 ;
+        /*0080*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0090*/               @P2 BRA 0x50 ;
+        /*00a0*/               @P3 BRA 0x0 ;
+        /*00b0*/                   EXIT ;
+        Function : _ZN1a8scan_bwdI13__nv_bfloat16Li16EEEvPK
+        /*0000*/                   MUFU.EX2 R5, R4 ;
+        /*0010*/                   REDG.E.ADD.F32.FTZ.RN.STRONG.GPU [R2.64], R5 ;
+        /*0020*/               @P0 BRA 0x0 ;
+        /*0030*/                   MUFU.EX2 R5, R4 ;
+        /*0040*/               @P0 BRA 0x30 ;
+        /*0050*/                   EXIT ;
+"""
+
+
+def test_chip_smoke_counts_the_scan_backwards_inner_loops():
+    """Phase 1 reads the selective-scan backward's two inner loops from its
+    SASS (its two shortest loops with an exponential: the first pass, 7/8
+    of a tile's steps, and the sub-tile loop) and its global atomics and
+    bulk reduce-adds, which the design has none of; the first design's
+    entry, counted the same way, has its atomics."""
+    smoke = _chip_smoke()
+    assert smoke.MAIN_ENTRIES["selective_scan_bwd"] == \
+        "scan_bwd_clusterI13__nv_bfloat16Li16E"
+    got = smoke.scan_bwd_loop_counts(SCAN_BWD_SASS)
+    assert got == {"first_pass": {"instructions": 5, "mufu": 2},
+                   "sub_tile": {"instructions": 5, "mufu": 1},
+                   "per_state_step": 7 / 8 * 5 / 2 + 5,
+                   "REDG": 0, "ATOMG": 0, "UTMAREDG": 0}
+    first = smoke.scan_bwd_loop_counts(SCAN_BWD_SASS,
+                                       "scan_bwdI13__nv_bfloat16Li16E")
+    assert first["REDG"] == 1 and first["first_pass"]["mufu"] == 1
 
 
 def test_round_split_reads_a_trace():
@@ -904,17 +949,23 @@ def test_chip_smoke_scan_train_step_plan():
                                    "ssd_local_dm_low_part_dropped",
                                    "scan_tile_decay_dropped",
                                    "scan_da_term_dropped",
-                                   "scan_db_one_cta"])
+                                   "scan_db_one_cta",
+                                   "scan_rank_part_dropped",
+                                   "scan_prefetch_current_tile",
+                                   "scan_spare_block_unused",
+                                   "scan_channel_round_dropped",
+                                   "scan_sub0_state_stale"])
 def test_chip_faults_plant_into_the_scan_backward(fault):
     """Each planted fault of a scan backward kernel edits text that occurs
     once in its source, inside the kernel (after its definition: the SSD's
-    scalar f32 kernel, its bf16 carry pass or its chunk-local kernel), and
-    its library's phase of chip_smoke.py is the one that must catch it."""
+    scalar f32 kernel, its bf16 carry pass or its chunk-local kernel, the
+    selective scan's ``scan_bwd_cluster``), and its library's phase of
+    chip_smoke.py is the one that must catch it."""
     smoke = _chip_smoke()
     faults = _load("chip_faults")
     lib, edits = faults.SCAN_BWD_FAULTS[fault]
     fn = (faults.SSD_BWD_FAULT_KERNELS[fault][0] if lib == "ssd_chunk_bwd"
-          else "scan_bwd(")
+          else "scan_bwd_cluster(")
     src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" /
            f"{lib}.cu").read_text()
     for old, new in edits:

@@ -17,6 +17,10 @@ that carry and the chunk states against ``ref.ssd_chunk_bwd`` and
 packed projection (as the models give them) and a gradient that arrives
 non-contiguous. Inputs come from numpy with a seed.
 
+The selective-scan backward kernel's parts (dB and dC summed over each
+cluster's channels, dA and dD per batch element) in their plain form,
+``ref.selective_scan_bwd_parts``, summed, against the same; and the
+wrapper's buffers and its 16-byte chunk copies on meta and CPU tensors.
 Cases: S of 1, 63, 64, 65 and 130 (below, at and past the kernels'
 64-step chunks and tiles), ds 8, 16 and 64, hd 64, dt around 0.7 and (S
 130) around 0.02, where the state outlives a chunk. Tolerance: 1e-5
@@ -202,6 +206,73 @@ def test_scan_bwd_matches_autograd_and_reference(case):
         _close(g.numpy(), e.numpy(), f"{name} vs autograd, {case}")
     for name, g, e in zip(names, got, _vjp(selective_scan_ref, args, dy)):
         _close(g.numpy(), np.asarray(e), f"{name} vs jax.vjp, {case}")
+
+
+# S, ds, part channels (di = DI = 12: parts of 8 and 4 channels, or one),
+# dt shift
+PART_CASES = [(1, 16, 8, 0.0), (63, 8, 8, 0.0), (65, 16, 5, 0.0),
+              (130, 16, 8, -4.0), (130, 8, 12, 0.0)]
+
+
+@pytest.mark.parametrize("case", PART_CASES,
+                         ids=lambda c: "S{}-ds{}-parts{}-shift{}".format(*c))
+def test_scan_bwd_parts_sum_to_the_gradient(case):
+    """``ref.selective_scan_bwd_parts``, the plain version of what the
+    backward kernel writes (dB and dC summed over each run of
+    ``part_channels`` channels, dA and dD per batch element), summed over
+    the parts in order, against ``ref.selective_scan_bwd`` and ``jax.vjp``
+    of the reference's ``selective_scan_ref``; di not a multiple of the
+    part's channels where the case says so."""
+    S, ds, part, shift = case
+    args, dy = _scan_inputs(S, ds, shift, seed=S + ds + part)
+    targs = list(map(torch.from_numpy, args))
+    got = ref.selective_scan_bwd_parts(*targs, torch.from_numpy(dy), part)
+    n_parts = -(-DI // part)
+    assert [tuple(g.shape) for g in got] == [
+        (2, S, DI), (2, S, DI), (2, n_parts, S, ds), (2, n_parts, S, ds),
+        (2, DI, ds), (2, DI)]
+    assert all(g.dtype == torch.float32 for g in got)
+    sums = (got[0], got[1], got[2].sum(1), got[3].sum(1), got[4].sum(0),
+            got[5].sum(0))
+    names = ("dx", "ddt", "dBm", "dCm", "dA", "dD")
+    exact = ref.selective_scan_bwd(*targs, torch.from_numpy(dy))
+    for name, g, e in zip(names, sums, exact):
+        _close(g.numpy(), e.numpy(), f"{name} vs the recurrence, {case}")
+    for name, g, e in zip(names, sums, _vjp(selective_scan_ref, args, dy)):
+        _close(g.numpy(), np.asarray(e), f"{name} vs jax.vjp, {case}")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_scan_bwd_buffers_and_chunks(dtype):
+    """``launch_bwd``'s allocations on meta tensors: dx and ddt views of
+    rows padded to whole 16-byte chunks, the f32 parts; ``chunked`` keeps
+    an input whose rows start on chunks and copies one that does not (B
+    and C after 3 columns of one projection, di of 100), equal values,
+    padding zero."""
+    from repro_torch.kernels import selective_scan as ss
+    per = 16 // torch.empty(0, dtype=dtype).element_size()
+    x = torch.empty(2, 7, 100, dtype=dtype, device="meta")
+    Bm = torch.empty(2, 7, 16, dtype=dtype, device="meta")
+    dx, ddt, dBp, dCp, dAp, dDp = ss.bwd_buffers(x, Bm, 128)
+    for t in (dx, ddt):
+        assert t.shape == (2, 7, 100) and t.dtype == dtype
+        assert t.stride() == (7 * 104 if per == 8 else 7 * 100,
+                              104 if per == 8 else 100, 1)
+    assert dBp.shape == dCp.shape == (2, 1, 7, 16)
+    assert dAp.shape == (2, 100, 16) and dDp.shape == (2, 100)
+    assert {t.dtype for t in (dBp, dCp, dAp, dDp)} == {torch.float32}
+    assert ss.bwd_buffers(torch.empty(1, 3, 257, device="meta"), Bm,
+                          128)[2].shape == (1, 3, 3, 16)
+    whole = torch.arange(2 * 7 * 35, dtype=torch.float32).reshape(
+        2, 7, 35).to(dtype)
+    aligned = torch.zeros(2, 7, 8 * per, dtype=dtype)
+    assert ss.chunked(aligned) is aligned
+    for t in (whole[..., 3:19], torch.ones(2, 7, 100, dtype=dtype)):
+        c = ss.chunked(t)
+        assert torch.equal(c, t) and c.data_ptr() % 16 == 0
+        assert all(st % per == 0 for st in c.stride()[:-1])
+        full = c.as_strided((2, 7, c.stride(1)), c.stride())
+        assert not full[..., t.shape[-1]:].any()
 
 
 def test_bwd_returns_the_inputs_dtypes():
