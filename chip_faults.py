@@ -19,7 +19,13 @@ with the last, ragged key tile's rows past S read (K and V mapped as one
 sequence over the batches) and not masked, and with dS^T stored without
 the swizzle that dQ's descriptor reads; and the tensor-core forward's
 log-sum-exp left in base 2. Phase 17 of ``chip_smoke.py`` must pass with
-the sound libraries and fail with each fault. ``SCAN_BWD_FAULTS`` (15)
+the sound libraries and fail with each fault. ``WIDTH_FAULTS`` (3) edit
+the attention kernels at the width pairs of the dense and MLA archs: the
+forward's Q K^T without the q.k columns 64-95 at a width of 96, the
+forward's scale taken from v's width instead of the q.k width, and the
+backward's dV summed over dO's stage tiles laid out at the q.k width;
+phase 26 must pass with the sound libraries and fail with each.
+``SCAN_BWD_FAULTS`` (15)
 edit the scan backward kernels: in the f32 route's ``ssd_bwd``
 (``ssd_chunk_bwd.cu``) the gradient carried into the chunk before not
 decayed across the chunk boundary, dA without its even steps' terms, and
@@ -203,7 +209,7 @@ BWD_FAULTS = {
         "      mbar_wait_bounded(full(st), ph);\n"
         "      if (it % n_qt == 0) {\n"
         "#pragma unroll\n"
-        "        for (int i = 0; i < HD / 2; ++i) dka[i] = 0.f;\n"
+        "        for (int i = 0; i < DQKP / 2; ++i) dka[i] = 0.f;\n"
         "      }\n")]),
     # the tensor-core forward's log-sum-exp left in base 2, its running
     # max's
@@ -218,22 +224,44 @@ BWD_FAULTS = {
     "ragged_k_tile_not_masked": ("flash_attention_bwd", [
         ("k0 + key0 + 8 * hr < S ? rlim : 0);", "rlim);"),
         ("          tma_load(sk + c * T::kKVBox, &kmap, full_kv, c * kBox, kh, "
-         "k0, b);\n"
-         "          tma_load(sv + c * T::kKVBox, &vmap, full_kv, c * kBox, kh, "
          "k0, b);\n",
          "          tma_load(sk + c * T::kKVBox, &kmap, full_kv, c * kBox, kh,\n"
-         "                   b * S + k0, 0);\n"
+         "                   b * S + k0, 0);\n"),
+        ("          tma_load(sv + c * T::kKVBox, &vmap, full_kv, c * kBox, kh, "
+         "k0, b);\n",
          "          tma_load(sv + c * T::kKVBox, &vmap, full_kv, c * kBox, kh,\n"
          "                   b * S + k0, 0);\n"),
-        ("      !make_map(&km, encode, k, B, S, KH, HD, T::kBK, ks) ||\n"
-         "      !make_map(&vm, encode, v, B, S, KH, HD, T::kBK, vs) ||\n",
-         "      !make_map(&km, encode, k, 1, B * S, KH, HD, T::kBK, ks) ||\n"
-         "      !make_map(&vm, encode, v, 1, B * S, KH, HD, T::kBK, vs) ||\n")]),
+        ("      !make_map(&km, encode, k, B, S, KH, DQK, T::kBK, ks) ||\n"
+         "      !make_map(&vm, encode, v, B, S, KH, DV, T::kBK, vs) ||\n",
+         "      !make_map(&km, encode, k, 1, B * S, KH, DQK, T::kBK, ks) ||\n"
+         "      !make_map(&vm, encode, v, 1, B * S, KH, DV, T::kBK, vs) ||\n")]),
     # dS^T stored without the 128-byte swizzle that the descriptors of dK
     # and dQ read
     "ds_tile_unswizzled": ("flash_attention_bwd", [(
         "st_shared(dsb + key * 128 + ((j ^ (key & 7)) << 4) + 4 * c,",
         "st_shared(dsb + key * 128 + (j << 4) + 4 * c,")]),
+}
+
+# Faults of the attention kernels at the (q.k, v) width pairs that are not
+# one 64-column box or equal, in the same form; phase 26 of chip_smoke.py
+# (both kernels against their plain versions and by the tight checks at
+# WIDTH_SHAPES) must fail on each
+WIDTH_FAULTS = {
+    # q.k columns 64-95 dropped at a q.k width of 96: Q K^T runs 4 of its
+    # 6 k-steps
+    "qk_columns_64_95_dropped": ("flash_attention", [(
+        "      for (int kk = 0; kk < DQK / 16; ++kk) {",
+        "      for (int kk = 0; kk < (DQK == 96 ? 4 : DQK / 16); ++kk) {")]),
+    # v's width mistaken for the q.k width in the scale: Dv^-0.5
+    "scale_of_v_width": ("flash_attention", [(
+        "H / KH, scale * kLog2e, causal);",
+        "H / KH, rsqrtf((float)DV) * kLog2e, causal);")]),
+    # dV summed over dO's stage tiles laid out at the q.k width: where v
+    # is narrower than q.k, every second stage's dV reads the dS^T tile
+    "dv_from_do_at_qk_width": ("flash_attention_bwd", [(
+        "        wgmma_rs<DVP>(dva, pa[kq], wg_desc(da + row, T::kQBox, 1024));",
+        "        wgmma_rs<DVP>(dva, pa[kq], wg_desc(sdo + st * T::kQTile + row,\n"
+        "                                           T::kQBox, 1024));")]),
 }
 
 # Faults of the scan backward kernels, in the same form; phase 21 of
@@ -533,10 +561,11 @@ def fails(tight, limits):
 def build_all(ops, tmp):
     """The sound libraries and every fault, one nvcc each, all at once;
     returns ``{lib: {"sound" or fault name: bound library}}`` and
-    ``{fault name: (library, bound library)}`` of ``BWD_FAULTS`` and
-    ``SCAN_BWD_FAULTS``."""
+    ``{fault name: (library, bound library)}`` of ``BWD_FAULTS``,
+    ``WIDTH_FAULTS`` and ``SCAN_BWD_FAULTS``."""
     jobs = sum(len(faults) + 1 for faults, _ in KERNEL_FAULTS.values()) \
-        + len(BWD_FAULTS) + len(SCAN_BWD_FAULTS) + 1 + len(SCAN_BWD_PHASES)
+        + len(BWD_FAULTS) + len(WIDTH_FAULTS) + len(SCAN_BWD_FAULTS) + 1 \
+        + len(SCAN_BWD_PHASES)
     with ThreadPoolExecutor(jobs) as pool:
         sound = {lib: pool.submit(ops.build_library, lib)
                  for lib in (*KERNEL_FAULTS, "flash_attention_bwd",
@@ -546,7 +575,7 @@ def build_all(ops, tmp):
                  for lib, (faults, _) in KERNEL_FAULTS.items()}
         bwd_built = {n: (lib, pool.submit(build_fault, ops, lib, n, edits,
                                           None, tmp))
-                     for n, (lib, edits) in {**BWD_FAULTS,
+                     for n, (lib, edits) in {**BWD_FAULTS, **WIDTH_FAULTS,
                                              **SCAN_BWD_FAULTS}.items()}
         libs = {}
         for lib in KERNEL_FAULTS:
@@ -562,16 +591,20 @@ def build_all(ops, tmp):
     return libs, bwd
 
 
-def bwd_readings(torch, ops, ref, dev, faulty):
-    """Phase 17 of chip_smoke.py with the sound libraries and with each of
-    ``BWD_FAULTS`` swapped in: ``{name: {"fails", "first_failure"}}``."""
+def bwd_readings(torch, ops, ref, dev, faulty, phase=None,
+                 label="flash_attention_bwd"):
+    """Phase 17 of chip_smoke.py (or the phase function ``phase``) with the
+    sound libraries and with each fault of ``faulty`` (``BWD_FAULTS``, or
+    ``WIDTH_FAULTS`` for phase 26) swapped in: ``{name: {"fails",
+    "first_failure"}}``."""
+    phase = phase or cs.phase_attn_bwd_vs_plain
     out = {}
     for name, (lib, bound) in [("sound", (None, None)), *faulty.items()]:
         sound = ops._LIBS.get(lib)
         if lib is not None:
             ops._LIBS[lib] = bound
         try:
-            cs.phase_attn_bwd_vs_plain(torch, ops, ref, dev)
+            phase(torch, ops, ref, dev)
             out[name] = {"fails": False}
         except cs.SmokeFailure as err:
             out[name] = {"fails": True, "first_failure": str(err)[:300]}
@@ -579,7 +612,7 @@ def bwd_readings(torch, ops, ref, dev, faulty):
             if lib is not None:
                 ops._LIBS[lib] = sound
         torch.cuda.empty_cache()
-        cs.log(json.dumps({"flash_attention_bwd": {name: out[name]}}))
+        cs.log(json.dumps({label: {name: out[name]}}))
     return out
 
 
@@ -797,6 +830,11 @@ def main(argv=None) -> int:
     # each fault fails it
     bwd = bwd_readings(torch, ops, ref, dev, {
         n: v for n, v in bwd_libs.items() if n in BWD_FAULTS})
+    # the attention kernels at their width pairs: the sound libraries pass
+    # phase 26, each fault fails it
+    widths = bwd_readings(torch, ops, ref, dev, {
+        n: v for n, v in bwd_libs.items() if n in WIDTH_FAULTS},
+        cs.phase_attn_widths_vs_plain, "attention_widths")
     # the scans' backward: the sound libraries pass phases 21 and 23, each
     # fault fails its library's phase
     scan_bwd = scan_bwd_readings(torch, ops, ref, dev, {
@@ -809,8 +847,8 @@ def main(argv=None) -> int:
 
     readings = {"topk_reward": topk, "flash_attention": attn,
                 "ssd_chunk": ssd, "selective_scan": scan,
-                "flash_attention_bwd": bwd, "scan_bwd": scan_bwd,
-                "async": asyn}
+                "flash_attention_bwd": bwd, "attention_widths": widths,
+                "scan_bwd": scan_bwd, "async": asyn}
     limits = {"topk_reward": {"bitwise": "indices exact, values bitwise"},
               "flash_attention": {"tight": cs.ATTN_BF16_REL_L2,
                                   "route_ratio": cs.BF16_ROUTE_RATIO,
@@ -824,6 +862,12 @@ def main(argv=None) -> int:
                         f"check at {cs.ATTN_BWD_BF16_REL_L2}) and both "
                         "forward designs' log-sum-exp against the plain "
                         "one"},
+              "attention_widths": {
+                  "26": "both kernels at the (q.k, v) pairs of WIDTH_SHAPES "
+                        "against their plain versions (tolerance "
+                        + json.dumps(cs.ATTN_TOL) + ") and by the tight "
+                        f"checks ({cs.ATTN_BF16_REL_L2} forward, "
+                        f"{cs.ATTN_BWD_BF16_REL_L2} backward)"},
               "scan_bwd": {
                   "21": "the SSD backward against its plain version "
                         "(tolerance " + json.dumps(cs.SSD_TOL) + "; bf16 "
@@ -848,7 +892,8 @@ def main(argv=None) -> int:
                                   {k: v[4] for k, v in
                                    ASYNC_SHARD_FAULTS.items()})}}
     fail_key = {"topk_reward": "bitwise_fails",
-                "flash_attention_bwd": "fails", "scan_bwd": "fails"}
+                "flash_attention_bwd": "fails", "attention_widths": "fails",
+                "scan_bwd": "fails"}
     ok = all(not r["sound"][fail_key.get(k, "tight_fails")] and all(
         v[fail_key.get(k, "tight_fails")] for n, v in r.items()
         if n != "sound") for k, r in readings.items() if k != "async")

@@ -92,6 +92,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -255,20 +256,25 @@ def load_parent(ops, root, out_dir, names=tuple(LAUNCHERS)):
     """The kernels of another checkout ``root``: each library built from
     ``root``'s source with this checkout's flags into ``out_dir``, one nvcc
     each, and launched by ``root``'s own launcher module (``LAUNCHERS``).
-    Returns ``({name: fn(*args, **kw)}, {name: library path})``."""
+    Returns ``({name: fn(*args, **kw)}, {name: library path})``; logs
+    each build's seconds."""
     kdir = Path(root).resolve() / "src" / "repro_torch" / "kernels"
 
     def build(name):
         so = Path(out_dir) / f"libparent_{name}.so"
+        t0 = time.perf_counter()
         proc = subprocess.run([ops._nvcc(), *ops.nvcc_flags(name), "-o",
                                str(so), str(kdir / "csrc" / f"{name}.cu")],
                               capture_output=True, text=True)
         cs.check(proc.returncode == 0, f"nvcc failed for {root}'s {name}:\n"
                  f"{proc.stderr[-2000:]}")
-        return so
+        return so, time.perf_counter() - t0
 
     with ThreadPoolExecutor(len(names)) as pool:
-        sos = dict(zip(names, pool.map(build, names)))
+        built = dict(zip(names, pool.map(build, names)))
+    cs.log(f"{root}'s libraries built with nvcc, s each (in parallel): "
+           f"{ {n: round(t, 2) for n, (_, t) in built.items()} }")
+    sos = {n: so for n, (so, _) in built.items()}
     fns = {}
     for name in names:
         module, binder, launcher = LAUNCHERS[name]
@@ -623,8 +629,13 @@ def main(argv=None) -> int:
             sass["this"] = cs.loop_counts(
                 ops, {n: ops.library_path(n) for n in PROBES})
         if attn:
+            secs = {}
             for lib in ("flash_attention", "flash_attention_bwd"):
+                t0 = time.perf_counter()
                 ops.load_library(lib)
+                secs[lib] = round(time.perf_counter() - t0, 2)
+            cs.log(f"this checkout's attention libraries built with nvcc "
+                   f"(or found built), s each, one after the other: {secs}")
             bwd_paths = {"this": ops.library_path("flash_attention_bwd")}
         if opts.parent:
             parent, paths = load_parent(ops, opts.parent, tmp, parts)

@@ -12,7 +12,8 @@ Phases (any mismatch exits non-zero; nothing is caught and swallowed):
    all at once, and time the build; log each main-path kernel's
    registers a thread and spill bytes from ptxas's report of the build
    (the SSD backward's two bf16 entries and the selective-scan
-   backward's bf16 ds-16 entry must spill nothing), the SASS loop counts
+   backward's bf16 ds-16 entry must spill nothing; both attention
+   kernels at each (q.k, v) width pair built), the SASS loop counts
    of both scan kernels and of the selective-scan backward (its inner
    loops' instructions a state-step, and its global atomics and bulk
    reduce-adds, which must be none) and the tensor-core products in the
@@ -252,8 +253,11 @@ weights are freed first):
 19. ``python -m repro_torch.launch.train cohort --steps 10`` (reduced
    olmo-1b, as the reference; then ``--arch zamba2-1.2b`` and ``--arch
    falcon-mamba-7b``) and ``python -m
-   repro_torch.examples.federated_llm_cohort``, each in its own process:
-   each exits 0.
+   repro_torch.examples.federated_llm_cohort``, each in its own process;
+   then, each in its own process and all at once, ``train cohort`` of
+   ``--arch phi4-mini-3.8b``, ``phi3-mini-3.8b`` and ``minicpm3-4b`` and
+   ``python -m repro_torch.examples.serve_decode`` (reduced
+   phi3-mini-3.8b at the example's defaults): each exits 0.
 20. Timing, on the inputs the train step gave the backward kernel: the
    kernel, its plain version and ``scaled_dot_product_attention``'s
    backward (its forward and backward less its forward) in turns, beside
@@ -294,6 +298,41 @@ Training of the SSM archs (olmo's weights are freed first):
    5 trials, two turns) and the plain version beside the bound (and, for
    the SSD's, the byte floor of its two-pass design); no single PyTorch
    call computes either gradient.
+
+The dense and MLA archs (phi4-mini-3.8b, phi3-mini-3.8b, minicpm3-4b,
+full width, random weights from ``--seed``; each arch's weights freed
+before the next's):
+
+26. Both attention kernels at the new (q.k, v) width pairs against their
+   plain versions on ``WIDTH_SHAPES``: phi3's prefill (2, 4096, 32 heads,
+   96, 96), minicpm3's (2, 4096, 40, 96, 64), phi4's (2, 4096, 24 over 8,
+   128, 128), reduced minicpm3's (1, 32, 4, 48, 32) and a ragged S at
+   each new width, bf16 and f32, causal and not: the output, the
+   log-sum-exp and dq, dk, dv at the JAX package's attention tolerances,
+   bf16 also by both tight checks; every case runs, a failure names each.
+27-29. ``make_prefill_step(CONFIG)`` on 2 x 4096 tokens of phi4-mini,
+   phi3-mini and minicpm3 at full width and depth: one forward must
+   launch the attention kernel 32, 32 and 62 times; its first call held
+   against its plain version and by the tight check; the logits against
+   the plain route on the card (f32, and bf16 by ``BF16_ROUTE_RATIO``).
+   Then ``generate`` at the serve defaults (batch 4, prompt 32, gen 16):
+   the replay's last prompt logits against one kernel-route forward (for
+   minicpm3 the absorbed decode against the decompressed prefill), and in
+   f32 every replay step against the forward.
+30. ``make_train_step`` of each at full width, cut by
+   ``DENSE_TRAIN_CUT`` (phi3 16 of 32 layers, minicpm3 24 of 62, on 4 x
+   4096; phi4 12 of 32 on 2 x 4096), 3 steps: each launches the
+   attention forward twice a layer and its backward once; the losses
+   finite; a fourth step profiled; the first backward call against its
+   plain version and by the tight check; the routes (f32 at depth 2, bf16
+   at the step's depth).
+31. Timing of both kernels on the inputs the prefills and train steps
+   gave them, beside the plain version, one
+   ``scaled_dot_product_attention`` call (its forward, or its forward and
+   backward less its forward; ``enable_gqa`` for phi4) and the bound,
+   with the backend each SDPA call ran; and both kernels at
+   phi3's shapes with hd 96 and 128 in turns (what the padding of 96 to
+   two 64-column boxes costs).
 
 Each phase's wall time is logged. The last two lines of standard output
 are the kernels' JSON summary and ``{"ok": true, "device": {...}}``.
@@ -2590,12 +2629,13 @@ def held(readings, limit, what):
     return max(readings.values())
 
 
-def attn_inputs(torch, B, S, H, KH, D, dtype, dev, seed, pad=0):
-    """``pad`` > 0: rows start ``pad`` elements into a wider buffer, so
-    they are not 16-byte aligned."""
+def attn_inputs(torch, B, S, H, KH, D, dtype, dev, seed, pad=0, dv=None):
+    """q, k of width ``D`` and v of width ``dv`` (default ``D``). ``pad`` >
+    0: rows start ``pad`` elements into a wider buffer, so they are not
+    16-byte aligned."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    return [torch.randn(B, S, h, D + pad, generator=g).to(dtype).to(dev)
-            [..., pad:] for h in (H, KH, KH)]
+    return [torch.randn(B, S, h, w + pad, generator=g).to(dtype).to(dev)
+            [..., pad:] for h, w in ((H, D), (KH, D), (KH, dv or D))]
 
 
 def ssd_inputs(torch, B, S, nh, hd, ds, dtype, dev, seed, dt_shift=0.0):
@@ -2742,11 +2782,17 @@ def logit_diff(torch, got, exp, what):
                                   .float().mean())}
 
 
-def phase_prefill(torch, ops, ref, dev, cfg, params, seed):
+ZAMBA_PREFILL_LAUNCHES = {"flash_attention": 6, "ssd_chunk": 38}
+
+
+def phase_prefill(torch, ops, ref, dev, cfg, params, seed,
+                  expect=ZAMBA_PREFILL_LAUNCHES, phase=9):
     """The main path of the LM kernels: ``make_prefill_step(CONFIG)`` on
     2 x 4096 tokens. One warm-up forward, then the counted one (counters
-    set to 0 just before, read just after), then the plain route on the
-    card for comparison."""
+    set to 0 just before, read just after: it must launch each kernel of
+    ``expect`` as often as it says), then the plain route on the card for
+    comparison. The first call of each kernel is held against its plain
+    version and by its tight check."""
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models.transformer import forward_logits
 
@@ -2758,20 +2804,18 @@ def phase_prefill(torch, ops, ref, dev, cfg, params, seed):
     step(params, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with first_calls(ops, ("flash_attention", "ssd_chunk")) as seen:
-        for name in ("flash_attention", "ssd_chunk"):
+    with first_calls(ops, tuple(expect)) as seen:
+        for name in expect:
             ops.LAUNCHES[name] = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits = step(params, batch)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        launches = {n: ops.LAUNCHES[n] for n in ("flash_attention",
-                                                  "ssd_chunk")}
+        launches = {n: ops.LAUNCHES[n] for n in expect}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    check(launches == {"flash_attention": 6, "ssd_chunk": 38},
-          f"one zamba2-1.2b prefill launched {launches}; expected 6 "
-          f"attention and 38 SSD launches")
+    check(launches == expect,
+          f"one {cfg.name} prefill launched {launches}; expected {expect}")
     check(logits.shape == (PREFILL_BATCH, PREFILL_LEN, cfg.vocab_size),
           f"logits shape {tuple(logits.shape)}")
     # the recorded first call of each kernel against its plain version
@@ -2783,13 +2827,19 @@ def phase_prefill(torch, ops, ref, dev, cfg, params, seed):
     check(q.dtype == torch.bfloat16, f"prefill attention in {q.dtype}")
     rel_l2 = tight(torch, ref, out, q, k, v, kw.get("causal", True),
                    "prefill's first attention call")
-    args, _, out = seen["ssd_chunk"]
-    errs["ssd_chunk"] = close(torch, out, ref.ssd_chunk(*args),
-                              SSD_TOL[dtype_name(args[0].dtype)],
-                              "prefill's first SSD call")
-    check(args[0].dtype == torch.bfloat16, f"prefill SSD in {args[0].dtype}")
-    ssd_rel = held({"prefill_call": ssd_rel_l2(torch, ref, out, *args)},
-                   SSD_BF16_REL_L2, "phase 9: the prefill's first SSD call")
+    first = {"attention": [list(q.shape), int(k.shape[2]),
+                           int(v.shape[3])]}
+    ssd_rel = None
+    if "ssd_chunk" in seen:
+        args, _, out = seen["ssd_chunk"]
+        errs["ssd_chunk"] = close(torch, out, ref.ssd_chunk(*args),
+                                  SSD_TOL[dtype_name(args[0].dtype)],
+                                  "prefill's first SSD call")
+        check(args[0].dtype == torch.bfloat16,
+              f"prefill SSD in {args[0].dtype}")
+        ssd_rel = held({"prefill_call": ssd_rel_l2(torch, ref, out, *args)},
+                       SSD_BF16_REL_L2,
+                       f"phase {phase}: the prefill's first SSD call")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plain = forward_logits(cfg, params, batch, device=dev, use_kernel=False)
@@ -2811,18 +2861,20 @@ def phase_prefill(torch, ops, ref, dev, cfg, params, seed):
           f"bf16 prefill: the kernel route lies further from f32 than "
           f"{BF16_ROUTE_RATIO} x the plain route: {agree}")
     tok_s = PREFILL_BATCH * PREFILL_LEN / secs
-    log(f"phase 9: zamba2-1.2b full width ({cfg.param_count():,} params) "
-        f"prefill of {PREFILL_BATCH} x {PREFILL_LEN} tokens (a cut of "
-        f"prefill_32k's 32 x 32,768): {secs:.4f} s ({tok_s:.0f} tokens/s), "
+    log(f"phase {phase}: {cfg.name} full width ({cfg.param_count():,} "
+        f"params, {cfg.n_layers} layers) prefill of {PREFILL_BATCH} x "
+        f"{PREFILL_LEN} tokens (a cut of prefill_32k's 32 x 32,768) on "
+        f"{card_name_power()}: {secs:.4f} s ({tok_s:.0f} tokens/s), "
         f"launches {launches}, peak memory {peak:.2f} GiB; the plain route "
         f"on the card {plain_secs:.4f} s; logits {agree}; first recorded "
-        f"calls == plain, max abs err {errs}; vs the f32 computation of "
-        f"their inputs, relative L2: attention {rel_l2} (limit "
+        f"calls (attention q, KV heads, v width {first['attention']}) == "
+        f"plain, max abs err {errs}; vs the f32 computation of their "
+        f"inputs, relative L2: attention {rel_l2} (limit "
         f"{ATTN_BF16_REL_L2}), SSD {ssd_rel} (limit {SSD_BF16_REL_L2})")
-    return {"secs": secs, "plain_secs": plain_secs, "launches": launches,
-            "peak_gib": peak, "agree": agree, "errs": errs,
-            "attn_rel_l2": rel_l2, "ssd_rel_l2": ssd_rel,
-            "tokens_per_s": tok_s}, seen
+    return {"arch": cfg.name, "secs": secs, "plain_secs": plain_secs,
+            "launches": launches, "peak_gib": peak, "agree": agree,
+            "errs": errs, "attn_rel_l2": rel_l2, "ssd_rel_l2": ssd_rel,
+            "first_call": first, "tokens_per_s": tok_s}, seen
 
 
 def phase_serve(torch, ops, dev, cfg, params, seed, expect, phase,
@@ -2884,12 +2936,14 @@ def phase_serve(torch, ops, dev, cfg, params, seed, expect, phase,
 
 def attn_bound(q, k, v, causal=True):
     """Least time: q, k, v read and o written once at the HBM rate; the
-    products over the pairs the mask keeps, 2 * 2 * hd FLOP a pair, at the
-    peak rate of the dtype (bf16 tensor cores, else f32 without them)."""
+    products over the pairs the mask keeps, 2 * (Dqk + Dv) FLOP a pair
+    (q.k, then p v), at the peak rate of the dtype (bf16 tensor cores, else
+    f32 without them)."""
     B, S, H, D = q.shape
-    nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
+    Dv = v.shape[-1]
+    nbytes = q.nbytes + k.nbytes + v.nbytes + q.nbytes // D * Dv
     pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 4 * D * pairs * B * H
+    flops = 2 * (D + Dv) * pairs * B * H
     rate = BF16_FLOP_PER_S if q.element_size() == 2 else F32_FLOP_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -3384,11 +3438,13 @@ F32_LOSS_RTOL = 1e-5
 F32_GRAD_REL_L2 = 1e-4
 
 
-def attn_bwd_inputs(torch, B, S, H, KH, D, dtype, dev, seed):
-    """q, k, v and an output gradient do."""
+def attn_bwd_inputs(torch, B, S, H, KH, D, dtype, dev, seed, dv=None):
+    """q, k (width ``D``), v and an output gradient do (width ``dv``,
+    default ``D``)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    return [torch.randn(B, S, h, D, generator=g).to(dtype).to(dev)
-            for h in (H, KH, KH, H)]
+    dv = dv or D
+    return [torch.randn(B, S, h, w, generator=g).to(dtype).to(dev)
+            for h, w in ((H, D), (KH, D), (KH, dv), (H, dv))]
 
 
 def bwd_rel_l2(torch, ref, grads, q, k, v, o, lse, do, causal):
@@ -3527,6 +3583,106 @@ def loss_and_grads(torch, cfg, params, batch, dev, use_kernel):
     return float(loss), [g for g in grads if g is not None]
 
 
+def attention_step_plan(cfg):
+    """The attention launches a train step of a dense ``cfg`` must make:
+    each layer's forward twice (the step and the remat recompute) and its
+    backward once."""
+    return {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
+
+
+def train_steps(torch, ops, cfg, dev, seed, want, record,
+                batch_rows=TRAIN_BATCH):
+    """The train step's main path: ``make_train_step(cfg,
+    default_optimizer())`` on ``lm_batch`` at ``batch_rows`` x
+    ``TRAIN_LEN``, ``TRAIN_STEPS`` steps, the counts of ``want`` set to 0
+    just before each step and read just after (each must equal ``want``),
+    the losses finite; then one profiled step. Returns ``(losses, secs,
+    launches, peak GiB, profile, seen)``, ``seen`` the first call of the
+    wrapper ``record`` (:func:`first_calls`)."""
+    from repro_torch import prng
+    from repro_torch.data import lm_batch
+    from repro_torch.launch.steps import default_optimizer, make_train_step
+    from repro_torch.models.transformer import init_params
+
+    params = init_params(seed, cfg, device=dev)
+    opt = default_optimizer()
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, device=dev)
+    key = prng.PRNGKey(seed, dev)
+    losses, secs, launches = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with first_calls(ops, (record,)) as seen:
+        for i in range(TRAIN_STEPS):
+            batch = lm_batch(prng.fold_in(key, i), cfg, batch_rows,
+                             TRAIN_LEN)
+            torch.cuda.synchronize()
+            for n in want:
+                ops.LAUNCHES[n] = 0
+            t0 = time.perf_counter()
+            params, state, loss, _ = step(params, state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            launches.append({n: ops.LAUNCHES[n] for n in want})
+            losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(n == want for n in launches),
+          f"{cfg.name} train steps launched {launches}; expected {want} a "
+          f"step")
+    check(all(math.isfinite(x) for x in losses), f"{cfg.name} losses "
+                                                  f"{losses}")
+    check(int(state["t"]) == TRAIN_STEPS, f"optimizer step {state['t']}")
+    with tempfile.TemporaryDirectory() as tmp:   # a trace passes 64 MiB
+        profile = profile_step(torch, lambda: step(params, state, batch),
+                               Path(tmp))
+    del params, state, step
+    torch.cuda.empty_cache()
+    return losses, secs, launches, peak, profile, seen
+
+
+def train_routes(torch, cfg, seed, dev, route_len):
+    """One step's loss and gradients on ``ROUTE_BATCH`` x ``route_len``
+    tokens, kernel route against plain route: in f32 (TF32 off) at depth
+    ``ROUTE_DEPTH`` (``F32_LOSS_RTOL`` on the loss, ``F32_GRAD_REL_L2`` a
+    leaf), and in bf16 at ``cfg``'s depth, where the kernel route's
+    gradient may lie no further from the f32 gradient than
+    ``BF16_ROUTE_RATIO`` times the plain route's. Returns the readings
+    ``(f32, bf16, ratio)``."""
+    from repro_torch.models.transformer import init_params
+
+    g = torch.Generator(device="cpu").manual_seed(seed + 2)
+    tokens = torch.randint(0, cfg.vocab_size, (ROUTE_BATCH, route_len + 1),
+                           generator=g).to(dev)
+    rbatch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    cfg2 = cfg.with_(n_layers=ROUTE_DEPTH, compute_dtype=torch.float32)
+    p2 = init_params(seed + 1, cfg2, device=dev)
+    kl, kg = loss_and_grads(torch, cfg2, p2, rbatch, dev, True)
+    pl, pg = loss_and_grads(torch, cfg2, p2, rbatch, dev, False)
+    f32 = {"loss_rel": abs(kl - pl) / abs(pl), **grad_diff(torch, kg, pg)}
+    del p2, kg, pg
+    check(f32["loss_rel"] <= F32_LOSS_RTOL
+          and f32["worst_leaf_rel_l2"] <= F32_GRAD_REL_L2,
+          f"f32 {cfg.name} depth {ROUTE_DEPTH}, kernel vs plain route: {f32} "
+          f"(limits {F32_LOSS_RTOL} loss, {F32_GRAD_REL_L2} a leaf)")
+    params = init_params(seed + 1, cfg, device=dev)
+    _, exact = loss_and_grads(torch, cfg.with_(compute_dtype=torch.float32),
+                              params, rbatch, dev, False)
+    _, kern = loss_and_grads(torch, cfg, params, rbatch, dev, True)
+    bf16 = {"kernel_vs_f32": grad_diff(torch, kern, exact)}
+    del kern
+    _, plain = loss_and_grads(torch, cfg, params, rbatch, dev, False)
+    bf16["plain_vs_f32"] = grad_diff(torch, plain, exact)
+    del plain, exact, params
+    torch.cuda.empty_cache()
+    ratio = bf16["kernel_vs_f32"]["rel_l2"] / bf16["plain_vs_f32"]["rel_l2"]
+    check(ratio <= BF16_ROUTE_RATIO,
+          f"bf16 {cfg.name}: the kernel route's gradient lies {ratio} x as "
+          f"far from f32 as the plain route's (limit {BF16_ROUTE_RATIO}): "
+          f"{bf16}")
+    return f32, bf16, ratio
+
+
 def phase_train_step(torch, ops, ref, dev, seed):
     """18: the main path of the attention kernels in training:
     ``make_train_step(get_config("olmo-1b"), default_optimizer())`` on
@@ -3539,45 +3695,13 @@ def phase_train_step(torch, ops, ref, dev, seed):
     from repro_torch import prng
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.data import lm_batch
-    from repro_torch.launch.steps import default_optimizer, make_train_step
     from repro_torch.models.transformer import init_params
 
     cfg = get_config("olmo-1b")
-    params = init_params(seed, cfg, device=dev)
-    opt = default_optimizer()
-    state = opt.init(params)
-    step = make_train_step(cfg, opt, device=dev)
     key = prng.PRNGKey(seed, dev)
-    names = ("flash_attention", "flash_attention_bwd")
-    losses, secs, launches = [], [], []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    with first_calls(ops, ("flash_attention_bwd",)) as seen:
-        for i in range(TRAIN_STEPS):
-            batch = lm_batch(prng.fold_in(key, i), cfg, TRAIN_BATCH,
-                             TRAIN_LEN)
-            torch.cuda.synchronize()
-            for n in names:
-                ops.LAUNCHES[n] = 0
-            t0 = time.perf_counter()
-            params, state, loss, metrics = step(params, state, batch)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-            launches.append({n: ops.LAUNCHES[n] for n in names})
-            losses.append(float(loss))
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    want = {"flash_attention": 2 * cfg.n_layers,
-            "flash_attention_bwd": cfg.n_layers}
-    check(all(n == want for n in launches),
-          f"olmo-1b train steps launched {launches}; expected {want} a step "
-          f"(the forward and the remat recompute, and the backward)")
-    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
-    check(int(state["t"]) == TRAIN_STEPS, f"optimizer step {state['t']}")
-    with tempfile.TemporaryDirectory() as tmp:   # a trace passes 64 MiB
-        profile = profile_step(torch, lambda: step(params, state, batch),
-                               Path(tmp))
-    del params, state, step
-    torch.cuda.empty_cache()
+    losses, secs, launches, peak, profile, seen = train_steps(
+        torch, ops, cfg, dev, seed, attention_step_plan(cfg),
+        "flash_attention_bwd")
     (q, k, v, o, lse, do), kw, grads = seen["flash_attention_bwd"]
     check(q.dtype == torch.bfloat16 and tuple(q.shape) == (
         TRAIN_BATCH, TRAIN_LEN, cfg.n_heads, cfg.resolved_head_dim),
@@ -3594,34 +3718,7 @@ def phase_train_step(torch, ops, ref, dev, seed):
     tok_s = TRAIN_BATCH * TRAIN_LEN / statistics.median(timed_secs)
 
     # the routes: f32 (TF32 off) at depth 2, bf16 at full depth
-    g = torch.Generator(device="cpu").manual_seed(seed + 2)
-    tokens = torch.randint(0, cfg.vocab_size, (ROUTE_BATCH, ROUTE_TOKENS + 1),
-                           generator=g).to(dev)
-    rbatch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
-    cfg2 = cfg.with_(n_layers=ROUTE_DEPTH, compute_dtype=torch.float32)
-    p2 = init_params(seed + 1, cfg2, device=dev)
-    kl, kg = loss_and_grads(torch, cfg2, p2, rbatch, dev, True)
-    pl, pg = loss_and_grads(torch, cfg2, p2, rbatch, dev, False)
-    f32 = {"loss_rel": abs(kl - pl) / abs(pl), **grad_diff(torch, kg, pg)}
-    del p2, kg, pg
-    check(f32["loss_rel"] <= F32_LOSS_RTOL
-          and f32["worst_leaf_rel_l2"] <= F32_GRAD_REL_L2,
-          f"f32 olmo-1b depth {ROUTE_DEPTH}, kernel vs plain route: {f32} "
-          f"(limits {F32_LOSS_RTOL} loss, {F32_GRAD_REL_L2} a leaf)")
-    params = init_params(seed + 1, cfg, device=dev)
-    _, exact = loss_and_grads(torch, cfg.with_(compute_dtype=torch.float32),
-                              params, rbatch, dev, False)
-    _, kern = loss_and_grads(torch, cfg, params, rbatch, dev, True)
-    bf16 = {"kernel_vs_f32": grad_diff(torch, kern, exact)}
-    del kern
-    _, plain = loss_and_grads(torch, cfg, params, rbatch, dev, False)
-    bf16["plain_vs_f32"] = grad_diff(torch, plain, exact)
-    del plain, exact, params
-    torch.cuda.empty_cache()
-    ratio = bf16["kernel_vs_f32"]["rel_l2"] / bf16["plain_vs_f32"]["rel_l2"]
-    check(ratio <= BF16_ROUTE_RATIO,
-          f"bf16 olmo-1b: the kernel route's gradient lies {ratio} x as far "
-          f"from f32 as the plain route's (limit {BF16_ROUTE_RATIO}): {bf16}")
+    f32, bf16, ratio = train_routes(torch, cfg, seed, dev, ROUTE_TOKENS)
 
     # the scan kernels train: the reduced SSM archs' loss and gradients
     # under grad on the card, through each scan's forward and backward
@@ -3673,18 +3770,17 @@ def phase_cohort_cli(torch):
     olmo-1b, as the reference), the same for ``--arch zamba2-1.2b`` and
     ``--arch falcon-mamba-7b`` (through the scan kernels' backward
     kernels), and the federated LLM cohort example, each in its own
-    process on the card; each must exit 0 (``train cohort`` raises unless
-    its loss falls)."""
+    process on the card, one after another; then, together, ``train
+    cohort`` of phi4-mini-3.8b, phi3-mini-3.8b and minicpm3-4b and
+    ``python -m repro_torch.examples.serve_decode`` (reduced
+    phi3-mini-3.8b), each in its own process; each must exit 0 (``train
+    cohort`` raises unless its loss falls, the serving driver on tokens
+    out of range)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
-    row = {}
     cohort = ["-m", "repro_torch.launch.train", "cohort", "--steps", "10"]
-    for name, cmd in (
-            ("train_cohort", cohort),
-            ("train_cohort_zamba2", cohort + ["--arch", "zamba2-1.2b"]),
-            ("train_cohort_falcon", cohort + ["--arch", "falcon-mamba-7b"]),
-            ("federated_llm_cohort",
-             ["-m", "repro_torch.examples.federated_llm_cohort"])):
+
+    def run(name, cmd):
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, *cmd], capture_output=True,
                               text=True, env=env, cwd=str(ROOT),
@@ -3692,43 +3788,63 @@ def phase_cohort_cli(torch):
         secs = time.perf_counter() - t0
         check(proc.returncode == 0, f"phase 19: {' '.join(cmd)} exited "
               f"{proc.returncode}: {proc.stderr[-2000:]}")
-        last = proc.stdout.strip().splitlines()[-1]
-        row[name] = {"s": secs, "last_line": last}
+        return name, {"s": secs,
+                      "last_line": proc.stdout.strip().splitlines()[-1]}
+
+    row = dict(run(name, cmd) for name, cmd in (
+        ("train_cohort", cohort),
+        ("train_cohort_zamba2", cohort + ["--arch", "zamba2-1.2b"]),
+        ("train_cohort_falcon", cohort + ["--arch", "falcon-mamba-7b"]),
+        ("federated_llm_cohort",
+         ["-m", "repro_torch.examples.federated_llm_cohort"])))
+    together = [(f"train_cohort_{arch}", cohort + ["--arch", arch])
+                for arch in DENSE_ARCHS] + [
+        ("serve_decode", ["-m", "repro_torch.examples.serve_decode"])]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(together)) as pool:
+        row.update(pool.map(lambda job: run(*job), together))
+    row["together_s"] = time.perf_counter() - t0
     log(f"phase 19: train cohort --steps 10 (olmo-1b, zamba2-1.2b, "
         f"falcon-mamba-7b) and the federated LLM cohort example on the "
-        f"card, each in its own process: {row}")
+        f"card, each in its own process; then train cohort of "
+        f"{', '.join(DENSE_ARCHS)} and the serve_decode example, a process "
+        f"each, together: {row}")
     return row
 
 
 def bwd_bound(q, k, v, causal=True):
-    """Least time of the backward: q, k, v, o, do read and dq, dk, dv
-    written once at the HBM rate; five products (s recomputed, dP, dV, dK,
-    dQ) over the pairs the mask keeps, 2 * hd FLOP a pair each, at the peak
-    rate of the dtype."""
+    """Least time of the backward: q, k, v, o, do and the f32 log-sum-exp
+    read and dq, dk, dv written once at the HBM rate; five products over
+    the pairs the mask keeps, 2 FLOP a pair and column each: s recomputed,
+    dK and dQ over the q.k width Dqk, dP and dV over the v width Dv, at the
+    peak rate of the dtype."""
     B, S, H, D = q.shape
-    nbytes = 3 * q.nbytes + 2 * q.nbytes + 2 * (k.nbytes + v.nbytes)
+    Dv = v.shape[-1]
+    o_bytes = q.nbytes // D * Dv
+    nbytes = 2 * (q.nbytes + k.nbytes + v.nbytes + o_bytes) + 4 * B * H * S
     pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 5 * 2 * D * pairs * B * H
+    flops = 2 * (3 * D + 2 * Dv) * pairs * B * H
     rate = BF16_FLOP_PER_S if q.element_size() == 2 else F32_FLOP_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def sdpa_bwd_ms(torch, sets, causal, reps=5, trials=5):
+def sdpa_bwd_ms(torch, sets, causal, reps=5, trials=5, gqa=False):
     """``scaled_dot_product_attention`` forward and backward minus its
     forward alone, on the (B, H, S, hd) layout of each set (q, k, v, do);
-    ms a call."""
+    ms a call. ``gqa``: more query heads than KV heads (``enable_gqa``)."""
     F = torch.nn.functional
     leaves = [tuple(t.transpose(1, 2).contiguous().requires_grad_(i < 3)
                     for i, t in enumerate(s)) for s in sets]
+    kw = {"is_causal": causal, "enable_gqa": gqa}
 
     def fwd(q, k, v, do):
         with torch.no_grad():
-            return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+            return F.scaled_dot_product_attention(q, k, v, **kw)
 
     def fwd_bwd(q, k, v, do):
-        out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        out = F.scaled_dot_product_attention(q, k, v, **kw)
         torch.autograd.grad(out, (q, k, v), do)
 
     both = cuda_ms(torch, fwd_bwd, leaves, reps=reps, trials=trials)
@@ -3788,6 +3904,301 @@ def phase_train_timing(torch, ops, ref, seen, l2_bytes):
         f"{row['forward_ms']['sdpa']:.5f} ms")
     return row
 
+
+# --------------------------- the dense and MLA archs (phases 26-31)
+# B, S, H, KH, Dqk, Dv: phi3-mini-3.8b's prefill (hd 96), minicpm3-4b's
+# (MLA: q.k 96, v 64, 40 heads), phi4-mini-3.8b's (GQA 24 over 8 at hd
+# 128), reduced minicpm3-4b's (48, 32), and a ragged S at each new width
+# (GQA at 96)
+WIDTH_SHAPES = [(2, 4096, 32, 32, 96, 96), (2, 4096, 40, 40, 96, 64),
+                (2, 4096, 24, 8, 128, 128), (1, 32, 4, 4, 48, 32),
+                (1, 1000, 8, 4, 96, 96), (1, 1000, 8, 8, 96, 64),
+                (2, 333, 4, 4, 48, 32)]
+# the new archs' train steps at full width, each cut to (layers, batch
+# rows of 4096 tokens) that its memory allows. AdamW's functional update
+# peaked at 34.3 bytes a parameter in falcon-mamba-7b's step (62.30 GiB
+# for 1,951,137,792 parameters, PR 25); the forward and backward hold
+# about 16 bytes a parameter beside the activations and the loss head.
+# phi3-mini-3.8b at 16 of 32 layers (1.91B parameters, about 61 GiB at the
+# update; all 32 layers, 3.72B, pass 80 GB); minicpm3-4b at 24 of 62
+# (1.69B, about 54 GiB). phi4-mini-3.8b's head dominates: its 200,064-token
+# vocabulary makes 6.6 GB of bf16 logits at 4 x 4096 and 13.1 GB each f32
+# copy that cross-entropy and its gradient make; at 8 layers on 4 x 4096
+# its backward ran out of memory asking 12.21 GiB with 67.30 GiB held, so
+# it runs 12 layers (1.82B, about 58 GiB at the update) on 2 x 4096, the
+# head's part halved. The cuts also keep the phases within the script's
+# time.
+DENSE_TRAIN_CUT = {"phi3-mini-3.8b": (16, TRAIN_BATCH),
+                   "phi4-mini-3.8b": (12, 2),
+                   "minicpm3-4b": (24, TRAIN_BATCH)}
+DENSE_ARCHS = ("phi4-mini-3.8b", "phi3-mini-3.8b", "minicpm3-4b")
+
+
+def phase_attn_widths_vs_plain(torch, ops, ref, dev, shapes=None):
+    """26: both attention kernels at the new (Dqk, Dv) pairs against their
+    plain versions on ``WIDTH_SHAPES``, bf16 and f32, causal and not: the
+    forward's output and log-sum-exp, and dq, dk, dv on the forward
+    kernel's o and log-sum-exp, at the JAX package's attention tolerances;
+    in bf16 also the tight checks (the output against the f32 attention,
+    each gradient against the f32 backward, of the same inputs). Every
+    case runs; a failure names each case that failed."""
+    from repro_torch.kernels import flash_attention as fa
+
+    fwd = ops.load_library("flash_attention")
+    errs, rel, failed, run = {}, {}, {}, []
+    for i, (B, S, H, KH, D, Dv) in enumerate(shapes or WIDTH_SHAPES):
+        for dt in (torch.bfloat16, torch.float32):
+            name = dtype_name(dt)
+            q, k, v, do = attn_bwd_inputs(torch, B, S, H, KH, D, dt, dev,
+                                          500 + i, Dv)
+            for causal in (True, False):
+                case = f"{B}x{S}x{H}x{KH} ({D}, {Dv}) {name} causal={causal}"
+                try:
+                    o, lse = fa.launch(fwd, q, k, v, causal=causal,
+                                       with_lse=True)
+                    check(o.shape == (B, S, H, Dv) and o.dtype == dt,
+                          f"output {o.dtype} {tuple(o.shape)}")
+                    plain_o, plain_lse = ref.flash_attention_fwd_lse(
+                        q, k, v, causal=causal)
+                    err = max(close(torch, o, plain_o, ATTN_TOL[name],
+                                    f"output, {case}"),
+                              close(torch, lse, plain_lse, ATTN_TOL[name],
+                                    f"log-sum-exp, {case}"))
+                    del plain_o, plain_lse
+                    grads = ops.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    causal=causal)
+                    exp = ref.flash_attention_bwd(q, k, v, o, lse, do,
+                                                  causal=causal)
+                    for gname, g, e in zip(("dq", "dk", "dv"), grads, exp):
+                        check(g.dtype == dt and g.shape == e.shape,
+                              f"{gname} {g.dtype} {tuple(g.shape)}")
+                        err = max(err, close(torch, g, e, ATTN_TOL[name],
+                                             f"{gname}, {case}"))
+                    del exp
+                    if dt == torch.bfloat16:
+                        rel[case] = {"forward": tight(
+                            torch, ref, o, q, k, v, causal, case),
+                            "backward": held(bwd_rel_l2(
+                                torch, ref, grads, q, k, v, o, lse, do,
+                                causal), ATTN_BWD_BF16_REL_L2, case)}
+                    errs[name] = max(errs.get(name, 0.0), err)
+                    del grads, o, lse
+                except SmokeFailure as e:
+                    failed[case] = str(e)[:300]
+                run.append([B, S, H, KH, D, Dv, name, causal])
+            del q, k, v, do
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    if failed:
+        raise CaseFailures(f"phase 26 ({len(run)} cases)", failed)
+    log(f"phase 26: flash_attention and flash_attention_bwd == plain on "
+        f"{len(run)} cases (B,S,H,KH,Dqk,Dv) in {shapes or WIDTH_SHAPES}, "
+        f"bf16 and f32, causal and not: max abs err {errs} (tol {ATTN_TOL}, "
+        f"TF32 off); bf16 vs the f32 computation of its inputs, relative L2 "
+        f"{rel} (limits {ATTN_BF16_REL_L2} forward, {ATTN_BWD_BF16_REL_L2} "
+        f"backward)")
+    return errs, run, {"forward": max(r["forward"] for r in rel.values()),
+                       "backward": max(r["backward"] for r in rel.values())}
+
+
+def phase_dense_serving(torch, ops, ref, dev, seed, arch, phase):
+    """27-29: ``arch`` at full width and depth, random weights from
+    ``seed``: the prefill's main path (:func:`phase_prefill`: one forward
+    of 2 x 4096 tokens must launch the attention kernel once a layer) and
+    ``generate`` at the serve defaults (:func:`phase_serve`; for MLA the
+    absorbed decode's replay against the decompressed prefill). Frees the
+    weights; returns the two rows and the prefill's first attention
+    call."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    params = init_params(seed, cfg, device=dev)
+    expect = {"flash_attention": cfg.n_layers}
+    prefill, seen = phase_prefill(torch, ops, ref, dev, cfg, params, seed,
+                                  expect, phase)
+    serve = phase_serve(torch, ops, dev, cfg, params, seed, expect, phase,
+                        BF16_REPLAY_REL_L2)
+    del params
+    torch.cuda.empty_cache()
+    return prefill, serve, seen
+
+
+def phase_dense_train_step(torch, ops, ref, dev, seed, arch):
+    """30: ``make_train_step(cfg, default_optimizer())`` of ``arch`` at
+    full width on ``lm_batch``, cut to ``DENSE_TRAIN_CUT[arch]`` (layers,
+    rows of 4096 tokens) (:func:`train_steps`: each step launches the
+    attention forward twice a layer and its backward once); the first backward call
+    held against its plain version and by the tight check; the routes
+    (:func:`train_routes`: f32 at depth 2, bf16 at the step's depth, on
+    2 x 1024 tokens)."""
+    from repro_torch.configs import get_config
+
+    layers, rows = DENSE_TRAIN_CUT[arch]
+    cfg = get_config(arch).with_(n_layers=layers)
+    torch.cuda.empty_cache()
+    losses, secs, launches, peak, profile, seen = train_steps(
+        torch, ops, cfg, dev, seed, attention_step_plan(cfg),
+        "flash_attention_bwd", rows)
+    (q, k, v, o, lse, do), kw, grads = seen["flash_attention_bwd"]
+    check(q.dtype == torch.bfloat16 and q.shape[:2] == (rows, TRAIN_LEN),
+          f"the {arch} step's backward call: {q.dtype} {tuple(q.shape)}")
+    exp = ref.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    err = max(close(torch, g, e, ATTN_TOL["bfloat16"],
+                    f"the {arch} step's first backward call, {n}")
+              for n, g, e in zip(("dq", "dk", "dv"), grads, exp))
+    del exp
+    call_rel = held(bwd_rel_l2(torch, ref, grads, q, k, v, o, lse, do,
+                               kw.get("causal", True)),
+                    ATTN_BWD_BF16_REL_L2,
+                    f"phase 30: {arch}'s first backward call")
+    torch.cuda.empty_cache()
+    tok_s = rows * TRAIN_LEN / statistics.median(secs[1:])
+    f32, bf16, ratio = train_routes(torch, cfg, seed, dev, ROUTE_TOKENS)
+    row = {"arch": arch, "params": cfg.param_count(), "layers": cfg.n_layers,
+           "tokens": [rows, TRAIN_LEN],
+           "of_layers": get_config(arch).n_layers,
+           "attention_shape": [list(q.shape), int(k.shape[2]),
+                               int(v.shape[3])],
+           "step_s": secs, "tokens_per_s": tok_s, "peak_gib": peak,
+           "profile": profile, "losses": losses, "launches": launches,
+           "max_abs_err": err, "call_rel_l2": call_rel,
+           "f32_routes": f32, "bf16_routes": bf16, "bf16_route_ratio": ratio,
+           "card": card_name_power()}
+    log(f"phase 30: {arch} full width, {cfg.n_layers} of "
+        f"{row['of_layers']} layers ({cfg.param_count():,} params) train "
+        f"steps (make_train_step, AdamW, per-layer remat) on {rows} x "
+        f"{TRAIN_LEN} tokens on {row['card']}: s a step {secs} ({tok_s:.0f} "
+        f"tokens/s over steps 2-{TRAIN_STEPS}), peak memory {peak:.2f} GiB, "
+        f"losses {losses}, launches a step {launches}; one profiled step: "
+        f"span {profile['span_ms']:.2f} ms, device busy "
+        f"{profile['device_busy_ms']:.2f} ms, idle share "
+        f"{profile['idle_share']:.4f}, ms by layer {profile['by_kind_ms']}; "
+        f"the first backward call (q, KV heads, v width "
+        f"{row['attention_shape']}) == plain, max abs err {err}, vs the f32 "
+        f"backward relative L2 {call_rel}; f32 depth {ROUTE_DEPTH} on "
+        f"{ROUTE_BATCH} x {ROUTE_TOKENS}, kernel vs plain route: {f32}; bf16 "
+        f"at depth {cfg.n_layers}: {bf16}, ratio {ratio} (limit "
+        f"{BF16_ROUTE_RATIO})")
+    return row, seen
+
+
+def sdpa_backend(torch, q, k, v, causal, gqa):
+    """The backend ``scaled_dot_product_attention`` picks for these (B, H,
+    S, D) inputs (PyTorch's own choice, ``torch._fused_sdp_choice``); its
+    backward runs the same backend's."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(
+        q, k, v, is_causal=causal, enable_gqa=gqa)).name
+
+
+def phase_dense_timing(torch, ops, ref, dev, prefills, steps, l2_bytes):
+    """31: both attention kernels on the inputs the new archs' prefills
+    (``prefills``: each arch's first forward call) and train steps
+    (``steps``: each first backward call) gave them, in turns (two turns),
+    beside the plain version, one ``scaled_dot_product_attention`` call
+    (``enable_gqa`` where the query heads outnumber the KV heads; its
+    backward as forward and backward less forward) and the bound; the
+    backend each SDPA call ran. Then what the padding
+    of a width of 96 to two 64-column boxes costs: both kernels at
+    phi3-mini-3.8b's shapes with hd 96 and 128, in turns."""
+    from repro_torch.kernels import flash_attention as fa
+
+    F = torch.nn.functional
+    rows = {}
+    for arch, seen in prefills.items():
+        (q, k, v), kw, _ = seen["flash_attention"]
+        causal = kw.get("causal", True)
+        gqa = q.shape[2] != k.shape[2]
+        sets, cold = copies((q, k, v), l2_bytes)
+        bhsd = [tuple(t.transpose(1, 2).contiguous() for t in st)
+                for st in sets]
+        sdpa = lambda *a: F.scaled_dot_product_attention(  # noqa: E731
+            *a, is_causal=causal, enable_gqa=gqa)
+        runs = {"ms": [], "plain_ms": [], "library_ms": []}
+        for _ in range(2):
+            runs["ms"].append(cuda_ms(
+                torch, lambda *a: ops.flash_attention(*a, causal=causal),
+                sets))
+            runs["plain_ms"].append(cuda_ms(
+                torch, lambda *a: ref.flash_attention(*a, causal=causal),
+                sets[:2], reps=2, trials=3))
+            runs["library_ms"].append(cuda_ms(torch, sdpa, bhsd))
+        row = {key: statistics.median(val) for key, val in runs.items()}
+        row["bound_ms"], row["bound_by"] = attn_bound(q, k, v, causal)
+        row.update(shape=list(q.shape), kv_heads=int(k.shape[2]),
+                   v_width=int(v.shape[3]), dtype=dtype_name(q.dtype),
+                   l2_cold=cold, sdpa_backend=sdpa_backend(
+                       torch, *bhsd[0], causal, gqa))
+        rows[f"{arch} prefill forward"] = row
+        del sets, bhsd
+    for arch, seen in steps.items():
+        (q, k, v, o, lse, do), kw, _ = seen["flash_attention_bwd"]
+        causal = kw.get("causal", True)
+        gqa = q.shape[2] != k.shape[2]
+        sets, cold = copies((q, k, v, o, lse, do), l2_bytes)
+        runs = {"ms": [], "plain_ms": [], "library_ms": []}
+        lib = []
+        for _ in range(2):
+            runs["ms"].append(cuda_ms(
+                torch, lambda *a: ops.flash_attention_bwd(*a, causal=causal),
+                sets, reps=5))
+            runs["plain_ms"].append(cuda_ms(
+                torch, lambda *a: ref.flash_attention_bwd(*a, causal=causal),
+                sets[:1], reps=1, trials=3))
+            lib.append(sdpa_bwd_ms(
+                torch, [(st[0], st[1], st[2], st[5]) for st in sets[:4]],
+                causal, gqa=gqa))
+            runs["library_ms"].append(lib[-1][0])
+        row = {key: statistics.median(val) for key, val in runs.items()}
+        row["bound_ms"], row["bound_by"] = bwd_bound(q, k, v, causal)
+        row.update(shape=list(q.shape), kv_heads=int(k.shape[2]),
+                   v_width=int(v.shape[3]), dtype=dtype_name(q.dtype),
+                   l2_cold=cold, sdpa_fwd_bwd_and_fwd_ms=lib,
+                   sdpa_backend=sdpa_backend(
+                       torch, *(t.transpose(1, 2) for t in (q, k, v)),
+                       causal, gqa))
+        rows[f"{arch} train backward"] = row
+        del sets
+        torch.cuda.empty_cache()
+    card = card_name_power()
+    for name, row in rows.items():
+        row["card"] = card
+        log(f"phase 31: {name} at {row['shape']} over {row['kv_heads']} KV "
+            f"heads, v width {row['v_width']}, {row['dtype']} causal, on "
+            f"{card}: kernel {row['ms']:.5f} ms, plain {row['plain_ms']:.5f} "
+            f"ms, scaled_dot_product_attention {row['library_ms']:.5f} ms "
+            f"(backend {row['sdpa_backend']}), bound "
+            f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+    fwd = ops.load_library("flash_attention")
+    padding = {}
+    for label, (B, S) in (("forward", (PREFILL_BATCH, PREFILL_LEN)),
+                          ("backward", (TRAIN_BATCH, TRAIN_LEN))):
+        ms = {96: [], 128: []}
+        for D in (96, 128, 128, 96):
+            q, k, v, do = attn_bwd_inputs(torch, B, S, 32, 32, D,
+                                          torch.bfloat16, dev, 7)
+            if label == "forward":
+                ms[D].append(cuda_ms(torch, ops.flash_attention,
+                                     [(q, k, v)]))
+            else:
+                o, lse = fa.launch(fwd, q, k, v, with_lse=True)
+                ms[D].append(cuda_ms(torch, ops.flash_attention_bwd,
+                                     [(q, k, v, o, lse, do)], reps=5))
+                del o, lse
+            del q, k, v, do
+        padding[label] = {"shape": [B, S, 32], "ms_by_hd": ms,
+                          "hd96_over_hd128": statistics.median(ms[96])
+                          / statistics.median(ms[128])}
+        torch.cuda.empty_cache()
+    log(f"phase 31: the padding of hd 96 to two 64-column boxes, both "
+        f"kernels at phi3-mini-3.8b's shapes (32 heads, causal, bf16) with "
+        f"hd 96 and 128 in turns on {card}: {padding} (ms a call; 96 / 128 "
+        f"of the products' work is 0.75)")
+    rows["padding_hd96_vs_hd128"] = padding
+    return rows
 
 # ------------------------------------ scan training (phases 21-25)
 SSD_BWD_SOURCE = "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu"
@@ -4018,48 +4429,15 @@ def phase_scan_train_step(torch, ops, ref, dev, seed, arch, phase):
     version (and by the tight check); then the routes: f32 (TF32 off) at
     depth 2, bf16 at the step's depth, on 2 x 1024 tokens (zamba2) or 2 x
     ``ROUTE_LEN`` (falcon: the plain Mamba1 route is a loop over time)."""
-    from repro_torch import prng
     from repro_torch.configs import get_config
-    from repro_torch.data import lm_batch
-    from repro_torch.launch.steps import default_optimizer, make_train_step
-    from repro_torch.models.transformer import init_params
 
     cfg = get_config(arch)
     if arch == "falcon-mamba-7b":
         cfg = cfg.with_(n_layers=FALCON_TRAIN_DEPTH)
     (fwd, bwd), want = scan_step_plan(cfg, arch)
     torch.cuda.empty_cache()   # the last phase's cached blocks
-    params = init_params(seed, cfg, device=dev)
-    opt = default_optimizer()
-    state = opt.init(params)
-    step = make_train_step(cfg, opt, device=dev)
-    key = prng.PRNGKey(seed, dev)
-    losses, secs, launches = [], [], []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    with first_calls(ops, (bwd,)) as seen:
-        for i in range(TRAIN_STEPS):
-            batch = lm_batch(prng.fold_in(key, i), cfg, TRAIN_BATCH,
-                             TRAIN_LEN)
-            torch.cuda.synchronize()
-            for n in want:
-                ops.LAUNCHES[n] = 0
-            t0 = time.perf_counter()
-            params, state, loss, metrics = step(params, state, batch)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-            launches.append({n: ops.LAUNCHES[n] for n in want})
-            losses.append(float(loss))
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    check(all(n == want for n in launches),
-          f"{arch} train steps launched {launches}; expected {want} a step")
-    check(all(math.isfinite(x) for x in losses), f"{arch} losses {losses}")
-    check(int(state["t"]) == TRAIN_STEPS, f"optimizer step {state['t']}")
-    with tempfile.TemporaryDirectory() as tmp:   # a trace passes 64 MiB
-        profile = profile_step(torch, lambda: step(params, state, batch),
-                               Path(tmp))
-    del params, state, step
-    torch.cuda.empty_cache()
+    losses, secs, launches, peak, profile, seen = train_steps(
+        torch, ops, cfg, dev, seed, want, bwd)
 
     args, _, grads = seen[bwd]
     names = SSD_BWD_NAMES if fwd == "ssd_chunk" else SCAN_BWD_NAMES
@@ -4082,34 +4460,7 @@ def phase_scan_train_step(torch, ops, ref, dev, seed, arch, phase):
 
     # the routes: f32 (TF32 off) at depth 2, bf16 at the step's depth
     route_len = ROUTE_TOKENS if arch == "zamba2-1.2b" else ROUTE_LEN
-    g = torch.Generator(device="cpu").manual_seed(seed + 2)
-    tokens = torch.randint(0, cfg.vocab_size, (ROUTE_BATCH, route_len + 1),
-                           generator=g).to(dev)
-    rbatch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
-    cfg2 = cfg.with_(n_layers=ROUTE_DEPTH, compute_dtype=torch.float32)
-    p2 = init_params(seed + 1, cfg2, device=dev)
-    kl, kg = loss_and_grads(torch, cfg2, p2, rbatch, dev, True)
-    pl, pg = loss_and_grads(torch, cfg2, p2, rbatch, dev, False)
-    f32 = {"loss_rel": abs(kl - pl) / abs(pl), **grad_diff(torch, kg, pg)}
-    del p2, kg, pg
-    check(f32["loss_rel"] <= F32_LOSS_RTOL
-          and f32["worst_leaf_rel_l2"] <= F32_GRAD_REL_L2,
-          f"f32 {arch} depth {ROUTE_DEPTH}, kernel vs plain route: {f32} "
-          f"(limits {F32_LOSS_RTOL} loss, {F32_GRAD_REL_L2} a leaf)")
-    params = init_params(seed + 1, cfg, device=dev)
-    _, exact = loss_and_grads(torch, cfg.with_(compute_dtype=torch.float32),
-                              params, rbatch, dev, False)
-    _, kern = loss_and_grads(torch, cfg, params, rbatch, dev, True)
-    bf16 = {"kernel_vs_f32": grad_diff(torch, kern, exact)}
-    del kern
-    _, plain_g = loss_and_grads(torch, cfg, params, rbatch, dev, False)
-    bf16["plain_vs_f32"] = grad_diff(torch, plain_g, exact)
-    del plain_g, exact, params
-    torch.cuda.empty_cache()
-    ratio = bf16["kernel_vs_f32"]["rel_l2"] / bf16["plain_vs_f32"]["rel_l2"]
-    check(ratio <= BF16_ROUTE_RATIO,
-          f"bf16 {arch}: the kernel route's gradient lies {ratio} x as far "
-          f"from f32 as the plain route's (limit {BF16_ROUTE_RATIO}): {bf16}")
+    f32, bf16, ratio = train_routes(torch, cfg, seed, dev, route_len)
     row = {"arch": arch, "params": cfg.param_count(), "layers": cfg.n_layers,
            "step_s": secs, "tokens_per_s": tok_s, "peak_gib": peak,
            "profile": profile, "losses": losses, "launches": launches,
@@ -4218,6 +4569,17 @@ def phase_scan_bwd_timing(torch, ops, ref, seen, l2_bytes, sms, clock_hz):
     return rows
 
 
+def to_device(tree, dev):
+    """``tree`` (tuples, lists, dicts of tensors and other values) with
+    every tensor moved to ``dev``: the first calls of a phase kept off the
+    card while later phases run."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, dev) for v in tree)
+    return tree.to(dev) if hasattr(tree, "to") else tree
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser()
@@ -4298,18 +4660,22 @@ def main(argv=None) -> int:
         f"spill bytes of its bf16 entry at ds 16 "
         f"{regs['selective_scan_bwd']}; its inner loops "
         f"{sass['selective_scan_bwd']}")
-    bwd_usage = ptxas_usage(ops.ptxas_log("flash_attention_bwd").read_text())
-    regs["flash_attention_bwd"]["by_head_size"] = {
-        hd: entry_usage(bwd_usage, f"{MAIN_ENTRIES['flash_attention_bwd']}"
-                                   f"ILi{hd}E") for hd in (64, 128)}
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    for name in ("flash_attention", "flash_attention_bwd"):
+        usage = ptxas_usage(ops.ptxas_log(name).read_text())
+        regs[name]["by_head_size"] = {
+            f"{dqk}/{dv}": entry_usage(usage, f"{MAIN_ENTRIES[name]}"
+                                              f"ILi{dqk}ELi{dv}E")
+            for dqk, dv in HEAD_DIMS}
     sass["flash_attention_bwd"] = bwd_sass_counts(
         ops, paths[names.index("flash_attention_bwd")])
     if sass["flash_attention_bwd"] != "no cuobjdump":
         for name, counts in sass["flash_attention_bwd"].items():
             check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
                   f"{name}: no wgmma or no TMA load in its SASS: {counts}")
-    log(f"phase 1: the attention backward ({BWD_DESIGN}): registers and "
-        f"spill bytes at hd 64 and 128 "
+    log(f"phase 1: the attention forward and backward ({BWD_DESIGN}): "
+        f"registers and spill bytes at each (q.k, v) width pair built: "
+        f"forward {regs['flash_attention']['by_head_size']}, backward "
         f"{regs['flash_attention_bwd']['by_head_size']}; static SASS counts "
         f"{sass['flash_attention_bwd']}")
     for entry, use in regs["ssd_chunk_bwd"].items():
@@ -4473,6 +4839,32 @@ def main(argv=None) -> int:
     scan_bwd_rows = timed("phase 25", phase_scan_bwd_timing, torch, ops, ref,
                           seen, l2, sms, clock_hz)
     del seen, falcon_seen
+
+    # the dense and MLA archs: both attention kernels at their (q.k, v)
+    # width pairs; each arch's prefill and serving path at full width and
+    # depth (counts set to 0 just before the prefill, read just after),
+    # its weights freed before the next arch's; each one's train steps
+    # (counts set to 0 just before each step, read just after); the first
+    # calls kept on the host for the timing
+    width_errs, width_cases, width_rel = timed(
+        "phase 26", phase_attn_widths_vs_plain, torch, ops, ref, dev)
+    dense, fwd_seen, bwd_seen = {}, {}, {}
+    for phase, arch in zip((27, 28, 29), DENSE_ARCHS):
+        prefill_row, serve_row, seen = timed(
+            f"phase {phase}", phase_dense_serving, torch, ops, ref, dev,
+            seed, arch, phase)
+        dense[arch] = {"prefill": prefill_row, "serve": serve_row}
+        fwd_seen[arch] = to_device(seen, "cpu")
+    for arch in DENSE_ARCHS:
+        dense[arch]["train"], seen = timed(
+            f"phase 30 {arch}", phase_dense_train_step, torch, ops, ref, dev,
+            seed, arch)
+        bwd_seen[arch] = to_device(seen, "cpu")
+    del seen
+    dense_timing = timed(
+        "phase 31", phase_dense_timing, torch, ops, ref, dev,
+        to_device(fwd_seen, dev), to_device(bwd_seen, dev), l2)
+    del fwd_seen, bwd_seen
 
     summary = {"kernels": [{
         "name": "topk_reward", "route": "cuda", "source": KERNEL_SOURCE,
@@ -4642,6 +5034,28 @@ def main(argv=None) -> int:
     next(k for k in summary["kernels"]
          if k["name"] == "selective_scan_bwd").update(
         design=SCAN_BWD_DESIGN, entries=[MAIN_ENTRIES["selective_scan_bwd"]])
+    for name in ("flash_attention", "flash_attention_bwd"):
+        row = next(k for k in summary["kernels"] if k["name"] == name)
+        for arch in DENSE_ARCHS:
+            if name == "flash_attention":
+                row["launches_by_phase"][f"{arch}_prefill_2x4096"] = \
+                    dense[arch]["prefill"]["launches"][name]
+                row["launches_by_phase"][f"{arch}_serve_prompt_forward"] = \
+                    dense[arch]["serve"]["prompt_forward_launches"][name]
+            row["launches_by_phase"][f"{arch}_train_step_by_step"] = [
+                n[name] for n in dense[arch]["train"]["launches"]]
+        row["width_pairs"] = {
+            "checked_shapes": width_cases,
+            "max_abs_err_by_dtype": width_errs,
+            "bf16_rel_l2_vs_f32": {**width_rel,
+                                   "limits": [ATTN_BF16_REL_L2,
+                                              ATTN_BWD_BF16_REL_L2]},
+            "timing": {k: v for k, v in dense_timing.items()
+                       if k.endswith("forward" if name == "flash_attention"
+                                     else "backward")},
+            "padding_hd96_vs_hd128": dense_timing["padding_hd96_vs_hd128"][
+                "forward" if name == "flash_attention" else "backward"]}
+    summary["dense_archs"] = dense
     summary["olmo_1b"] = {"train": train_row, "cohort_cli": cohort_row}
     summary["zamba2_1_2b"] = {"train": zamba_train}
     summary["falcon_mamba_7b"] = {"train": falcon_train}

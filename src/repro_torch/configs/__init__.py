@@ -17,7 +17,9 @@ ARCH_IDS = ("phi3-mini-3.8b", "phi4-mini-3.8b", "zamba2-1.2b",
             "falcon-mamba-7b", "internvl2-2b", "minicpm3-4b",
             "musicgen-large")
 _PORTED = {"zamba2-1.2b": "zamba2_1_2b",
-           "falcon-mamba-7b": "falcon_mamba_7b", "olmo-1b": "olmo_1b"}
+           "falcon-mamba-7b": "falcon_mamba_7b", "olmo-1b": "olmo_1b",
+           "phi4-mini-3.8b": "phi4_mini_3_8b",
+           "phi3-mini-3.8b": "phi3_mini_3_8b", "minicpm3-4b": "minicpm3_4b"}
 
 
 def _module(arch_id: str):

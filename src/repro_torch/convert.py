@@ -16,7 +16,9 @@ each leaf, done by the caller); nothing here imports JAX. Layouts:
   ``(n, ...)`` leaves of each run of layers are unstacked into a list of
   ``n`` per-layer dicts, the layout the port's layer loop walks. A tree
   without norm weights (olmo's non-parametric LayerNorm) converts the
-  same way. The LM's AdamW state converts its moment trees as LM
+  same way, and so do MLA layers (``wdq``, ``q_norm``, ``wuq`` or
+  ``wq``, ``wdkv``, ``kv_norm``, ``wkr``, ``wuk``, ``wuv``, ``wo``:
+  ``models/mla.py``) and their latent cache (``c_kv``, ``k_rope``). The LM's AdamW state converts its moment trees as LM
   parameters (:func:`lm_optimizer_state`).
 """
 from __future__ import annotations

@@ -6,11 +6,14 @@
 // max / denominator / accumulator, the denominator clamped at 1e-30 and the
 // output in the input type. Inputs are bf16 or f32.
 //
-// Layout: q is read in the model's (B, S, H, D) layout and k, v in
-// (B, S, KH, D), through their batch / sequence / head strides (the last
-// dimension contiguous), so no transpose is made; query head h reads KV
-// head h / (H / KH) (grouped-query attention). The output is a contiguous
-// (B, S, H, D) tensor.
+// Layout: q is read in the model's (B, S, H, Dqk) layout, k in
+// (B, S, KH, Dqk) and v in (B, S, KH, Dv), through their batch / sequence /
+// head strides (the last dimension contiguous), so no transpose is made;
+// query head h reads KV head h / (H / KH) (grouped-query attention). The
+// output is a contiguous (B, S, H, Dv) tensor. The q.k width Dqk and the v
+// width Dv differ under multi-head latent attention (minicpm3-4b: 96 and
+// 64); the scale is Dqk^-0.5. The library is built for the (Dqk, Dv) pairs
+// of FA_PAIRS below.
 //
 // Bound on an H100 SXM: at B*H = 64, S = 4096, D = 64, causal, the function
 // does 2 * 2 * (S^2 / 2) * D * B*H = 137 GFLOP, 0.14 ms at 989 TFLOP/s of
@@ -35,22 +38,30 @@
 // scale * log2 e), so it converts once per row at the end: lse = (m2 +
 // log2 l) * ln 2.
 //
-// flash_fwd_wgmma (bf16 inputs, D = 64 or 128; base pointers and strides
-// 16-byte aligned, which the wrapper checks): a warp-specialised Hopper
-// kernel. One CTA takes BQ query rows of one (batch, head): 64 rows for
-// each consumer warpgroup, 3 of them at D = 64 (BQ = 192, 512 threads)
-// and 2 at D = 128 (BQ = 128, 384 threads), where a thread's registers
-// allow no third:
+// flash_fwd_wgmma (bf16 inputs; base pointers and strides 16-byte aligned,
+// which the wrapper checks): a warp-specialised Hopper kernel. One CTA
+// takes BQ query rows of one (batch, head): 64 rows for each consumer
+// warpgroup, 3 of them where v's padded width is 64 (BQ = 192, 512
+// threads) and 2 where it is 128 (BQ = 128, 384 threads), where a thread's
+// registers allow no third:
 //   - warpgroup 0 gives up its registers (setmaxnreg 24); its first thread
 //     issues the copies, by TMA through CUtensorMaps that the launch
-//     function encodes per call over the strided 4-d tensors (q: {D, H, S,
-//     B}; k, v: {D, KH, S, B}; byte strides from the tensors; boxes of 64
-//     columns x BQ (q) or 128 (k, v) rows, 128-byte swizzled, so D = 128
-//     is two boxes). Q is loaded once; 128-row K and V tiles go through a
-//     ring of 3 (D = 64) or 2 (D = 128) stages, each with full barriers
-//     (K and V apart, so Q K^T starts before V lands) and an empty
-//     barrier that every consumer warp releases. Rows past S arrive as
-//     zeros.
+//     function encodes per call over the strided 4-d tensors (q, k: {Dqk,
+//     heads, S, B}; v: {Dv, KH, S, B}; byte strides from the tensors;
+//     boxes of 64 columns x BQ (q) or 128 (k, v) rows, 128-byte swizzled,
+//     so a width of 128 is two boxes). Q is loaded once; 128-row K and V
+//     tiles go through a ring of 3 (one box a row each) or 2 stages, each
+//     with full barriers (K and V apart, so Q K^T starts before V lands)
+//     and an empty barrier that every consumer warp releases. Rows past S
+//     arrive as zeros.
+//   - widths that are not a whole number of boxes (96, 48, 32): the map's
+//     first dimension is the true width and its boxes stay 64 columns, so
+//     TMA fills the columns past the width with zeros. Q K^T runs only its
+//     Dqk / 16 k-steps (6 at 96, 3 at 48: no work on the padding); P V runs
+//     over v's padded width (128 at 96, 64 at 32: a third or a half of its
+//     product on zeros), and the output stores only the true columns. The
+//     padding costs shared memory and the padded part of P V, not reads
+//     of device memory.
 //   - the consumer warpgroups (setmaxnreg 160 or 240) own 64 query rows
 //     each. S = Q K^T is wgmma m64n128k16 with both operands in shared
 //     memory (K-major descriptors); the online softmax runs on the f32
@@ -58,7 +69,8 @@
 //     FMA, ex2.approx on the special-function unit), masking only the
 //     tiles that reach past the CTA's first row or past S; P is rounded
 //     to bf16 in registers and becomes the A operand of O += P V (wgmma
-//     m64nDk16, V read as an MN-major B operand through its descriptor),
+//     m64nNk16, N v's padded width, V read as an MN-major B operand through
+//     its descriptor),
 //     as the reference model rounds its weights before that product.
 //     While one warpgroup runs its softmax the others' products keep the
 //     tensor cores busy.
@@ -87,24 +99,31 @@ constexpr int kBK = 64;             // K/V rows per tile
 constexpr int kLP = kBK + 1;        // padded row of the probability tile
 constexpr float kNegInf = -1e30f;   // the reference's mask value
 
-template <int HD>
+// the (Dqk, Dv) pairs the library is built for, as the wrapper's
+// HEAD_DIMS: (64, 64) and (128, 128) for the GQA archs (zamba2-1.2b,
+// olmo-1b, phi4-mini-3.8b), (96, 96) for phi3-mini-3.8b, (96, 64) and
+// (48, 32) for minicpm3-4b's MLA at its full and reduced widths
+#define FA_PAIRS(X) X(64, 64) X(128, 128) X(96, 96) X(96, 64) X(48, 32)
+
+template <int DQK, int DV>
 constexpr int smem_bytes() {
-  return (kBQ * (HD + 1) + 2 * kBK * (HD + 1) + kBQ * kLP) * 4;
+  return (kBQ * (DQK + 1) + kBK * (DQK + 1) + kBK * (DV + 1) + kBQ * kLP) *
+         4;
 }
 
-template <int HD>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o,
           float* __restrict__ lse, int S, int H, int G,
           Strides qs, Strides ks, Strides vs, float scale, int causal) {
-  constexpr int LD = HD + 1;
-  constexpr int CJ = HD / 16;  // output columns per thread
+  constexpr int LD = DQK + 1, LDV = DV + 1;
+  constexpr int CJ = DV / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* sq = smem;             // [kBQ][LD]
   float* sk = sq + kBQ * LD;    // [kBK][LD]
-  float* sv = sk + kBK * LD;    // [kBK][LD]
-  float* sp = sv + kBK * LD;    // [kBQ][kLP]
+  float* sv = sk + kBK * LD;    // [kBK][LDV]
+  float* sp = sv + kBK * LDV;   // [kBQ][kLP]
 
   const int tid = threadIdx.x;
   const int rg = tid >> 4, cg = tid & 15;
@@ -114,8 +133,8 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * ks.b + kh * ks.h;
   const float* vb = v + b * vs.b + kh * vs.h;
 
-  for (int i = tid; i < kBQ * HD; i += kThreads) {
-    const int r = i / HD, d = i % HD, t = q0 + r;
+  for (int i = tid; i < kBQ * DQK; i += kThreads) {
+    const int r = i / DQK, d = i % DQK, t = q0 + r;
     sq[r * LD + d] = t < S ? qb[t * qs.s + d] : 0.f;
   }
 
@@ -133,11 +152,13 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the last tile's readers of sk, sv, sp are done
-    for (int i = tid; i < kBK * HD; i += kThreads) {
-      const int r = i / HD, d = i % HD, t = k0 + r;
-      const bool ok = t < S;
-      sk[r * LD + d] = ok ? kb[t * ks.s + d] : 0.f;
-      sv[r * LD + d] = ok ? vb[t * vs.s + d] : 0.f;
+    for (int i = tid; i < kBK * DQK; i += kThreads) {
+      const int r = i / DQK, d = i % DQK, t = k0 + r;
+      sk[r * LD + d] = t < S ? kb[t * ks.s + d] : 0.f;
+    }
+    for (int i = tid; i < kBK * DV; i += kThreads) {
+      const int r = i / DV, d = i % DV, t = k0 + r;
+      sv[r * LDV + d] = t < S ? vb[t * vs.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -147,7 +168,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float qv[4], kv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qv[i] = sq[(rg + 16 * i) * LD + d];
@@ -199,7 +220,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = sp[(rg + 16 * i) * kLP + c];
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) vv[j] = sv[c * LD + cg + 16 * j];
+      for (int j = 0; j < CJ; ++j) vv[j] = sv[c * LDV + cg + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -207,13 +228,13 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  // the output is contiguous (B, S, H, HD)
+  // the output is contiguous (B, S, H, DV)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + rg + 16 * i;
     if (row >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    float* orow = o + (((long long)b * S + row) * H + h) * HD;
+    float* orow = o + (((long long)b * S + row) * H + h) * DV;
 #pragma unroll
     for (int j = 0; j < CJ; ++j) orow[cg + 16 * j] = acc[i][j] / denom;
     // m and l are the row's own in all 16 lanes that share it
@@ -226,9 +247,12 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 constexpr int kWgBK = 128;          // K/V rows per tile
 constexpr int kBoxBytes = kWgBK * kBox * 2;  // one 128-row box: 16 KB
 
-template <int HD>
+template <int DQK, int DV>
 struct WgTraits {
-  static constexpr int kWGs = HD == 64 ? 3 : 2;        // consumer warpgroups
+  static constexpr int kQKBlocks = (DQK + kBox - 1) / kBox;  // boxes a row
+  static constexpr int kVBlocks = (DV + kBox - 1) / kBox;    // of q, k / v
+  static constexpr int kDVP = kVBlocks * kBox;  // v's width padded: P V's N
+  static constexpr int kWGs = kDVP == 64 ? 3 : 2;      // consumer warpgroups
   static constexpr int kBQ = 64 * kWGs;                // query rows a CTA
   static constexpr int kThreads = 128 * (kWGs + 1);    // + the producer's
   // registers a consumer thread gets once the producer drops to 24
@@ -236,32 +260,37 @@ struct WgTraits {
       ((65536 - 24 * 128) / (128 * kWGs)) / 8 * 8 > 240
           ? 240
           : ((65536 - 24 * 128) / (128 * kWGs)) / 8 * 8;
-  static constexpr int kBlocks = HD / kBox;            // boxes a row
-  static constexpr int kStages = HD == 64 ? 3 : 2;     // K/V ring depth
+  // K/V ring depth: 3 where a row of each is one box, else 2
+  static constexpr int kStages = kQKBlocks == 1 && kVBlocks == 1 ? 3 : 2;
   static constexpr int kQBoxBytes = kBQ * kBox * 2;
-  static constexpr int kTileBytes = kBlocks * kBoxBytes;  // a K or V tile
+  static constexpr int kKTile = kQKBlocks * kBoxBytes;  // a K tile
+  static constexpr int kVTile = kVBlocks * kBoxBytes;   // a V tile
   // Q, then K and V stages, then the mbarriers; +1 KB to align to 1 KB
   static constexpr int kBarOffset =
-      kBlocks * kQBoxBytes + 2 * kStages * kTileBytes;
+      kQKBlocks * kQBoxBytes + kStages * (kKTile + kVTile);
   static constexpr int kSmemBytes = kBarOffset + (1 + 3 * kStages) * 8 + 1024;
+  static_assert(DQK % 16 == 0 && DV % 8 == 0 && kQKBlocks <= 2 &&
+                    kVBlocks <= 2 && kSmemBytes <= 232448,
+                "a (Dqk, Dv) pair the tensor-core design does not take");
 };
 
 // One CTA: BQ query rows of one (batch, head). Warp 0 of warpgroup 0
 // issues the TMA copies; each further warpgroup owns 64 query rows.
-template <int HD>
-__global__ void __launch_bounds__(WgTraits<HD>::kThreads, 1)
+template <int DQK, int DV>
+__global__ void __launch_bounds__((WgTraits<DQK, DV>::kThreads), 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap,
                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                 int S, int H, int G, float scale_log2, int causal) {
-  using T = WgTraits<HD>;
+  using T = WgTraits<DQK, DV>;
   constexpr int kStages = T::kStages;
+  constexpr int DVP = T::kDVP;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base;
-  const uint32_t sk = sq + T::kBlocks * T::kQBoxBytes;
-  const uint32_t sv = sk + kStages * T::kTileBytes;
+  const uint32_t sk = sq + T::kQKBlocks * T::kQBoxBytes;
+  const uint32_t sv = sk + kStages * T::kKTile;
   const uint32_t bars = base + T::kBarOffset;
   const uint32_t full_q = bars;
   auto full_k = [&](int s) { return bars + 8u * (1 + s); };
@@ -288,19 +317,21 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
     // ------------------------------------------------------- producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(full_q, T::kBlocks * T::kQBoxBytes);
-      for (int c = 0; c < T::kBlocks; ++c)
+      mbar_expect_tx(full_q, T::kQKBlocks * T::kQBoxBytes);
+      for (int c = 0; c < T::kQKBlocks; ++c)
         tma_load(sq + c * T::kQBoxBytes, &qmap, full_q, c * kBox, h, q0, b);
       for (int kt = 0; kt < n_tiles; ++kt) {
         const int st = kt % kStages;
         if (kt >= kStages) mbar_wait(empty(st), ((kt / kStages) & 1) ^ 1);
-        mbar_expect_tx(full_k(st), T::kTileBytes);
-        for (int c = 0; c < T::kBlocks; ++c)
-          tma_load(sk + st * T::kTileBytes + c * kBoxBytes, &kmap,
+        // a box's columns past the width arrive as zeros and count in the
+        // transaction bytes
+        mbar_expect_tx(full_k(st), T::kKTile);
+        for (int c = 0; c < T::kQKBlocks; ++c)
+          tma_load(sk + st * T::kKTile + c * kBoxBytes, &kmap,
                    full_k(st), c * kBox, kh, kt * kWgBK, b);
-        mbar_expect_tx(full_v(st), T::kTileBytes);
-        for (int c = 0; c < T::kBlocks; ++c)
-          tma_load(sv + st * T::kTileBytes + c * kBoxBytes, &vmap,
+        mbar_expect_tx(full_v(st), T::kVTile);
+        for (int c = 0; c < T::kVBlocks; ++c)
+          tma_load(sv + st * T::kVTile + c * kBoxBytes, &vmap,
                    full_v(st), c * kBox, kh, kt * kWgBK, b);
       }
     }
@@ -316,9 +347,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
     // Q: rows 64 wg .. of each 64-column box, K-major, 8-row groups 1 KB
     const uint32_t qa = sq + wg * 64 * 128;
 
-    float oacc[HD / 2];
+    float oacc[DVP / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+    for (int i = 0; i < DVP / 2; ++i) oacc[i] = 0.f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
     mbar_wait(full_q, 0);
 
@@ -326,16 +357,16 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
       const int st = kt % kStages;
       const uint32_t ph = (kt / kStages) & 1;
       const int k0 = kt * kWgBK;
-      const uint32_t ka = sk + st * T::kTileBytes;
-      const uint32_t va = sv + st * T::kTileBytes;
+      const uint32_t ka = sk + st * T::kKTile;
+      const uint32_t va = sv + st * T::kVTile;
       mbar_wait(full_k(st), ph);
 
-      // S = Q K^T: 64 x 128 keys, HD / 16 k-steps of 32 bytes in a box
+      // S = Q K^T: 64 x 128 keys, DQK / 16 k-steps of 32 bytes in a box
       float s[64];
       pin(s);
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < DQK / 16; ++kk) {
         const uint32_t col = (kk % 4) * 32;  // bytes into the 128-byte row
         wgmma_ss_n128(s, wg_desc(qa + (kk / 4) * T::kQBoxBytes + col, 16, 1024),
                       wg_desc(ka + (kk / 4) * kBoxBytes + col, 16, 1024),
@@ -388,7 +419,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
       l0 = l0 * corr0 + sum0;  // this thread's columns; summed at the end
       l1 = l1 * corr1 + sum1;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < DVP / 8; ++j) {
         oacc[4 * j] *= corr0;
         oacc[4 * j + 1] *= corr0;
         oacc[4 * j + 2] *= corr1;
@@ -413,29 +444,29 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
       // the 64-column boxes 16 KB apart
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk)
-        wgmma_rs<HD>(oacc, pa[kk], wg_desc(va + kk * 16 * 128, kBoxBytes,
-                                           1024));
+        wgmma_rs<DVP>(oacc, pa[kk], wg_desc(va + kk * 16 * 128, kBoxBytes,
+                                            1024));
       wg_commit();
       wg_wait0();
       pin(oacc);
       if (lane == 0) mbar_arrive(empty(st));
     }
 
-    // the output is contiguous (B, S, H, HD)
+    // the output is contiguous (B, S, H, DV): its true columns only
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       l0 += __shfl_xor_sync(0xffffffffu, l0, off);
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
     const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-    __nv_bfloat16* ob = o + ((long long)b * S * H + h) * HD + 2 * c;
+    __nv_bfloat16* ob = o + ((long long)b * S * H + h) * DV + 2 * c;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       if (row0 < S)
-        *reinterpret_cast<uint32_t*>(ob + (long long)row0 * H * HD + 8 * j) =
+        *reinterpret_cast<uint32_t*>(ob + (long long)row0 * H * DV + 8 * j) =
             pack_bf16(oacc[4 * j] / d0, oacc[4 * j + 1] / d0);
       if (row1 < S)
-        *reinterpret_cast<uint32_t*>(ob + (long long)row1 * H * HD + 8 * j) =
+        *reinterpret_cast<uint32_t*>(ob + (long long)row1 * H * DV + 8 * j) =
             pack_bf16(oacc[4 * j + 2] / d1, oacc[4 * j + 3] / d1);
     }
     // the running max m0, m1 is in base 2, the same in the 4 lanes of a
@@ -448,7 +479,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-template <int HD>
+template <int DQK, int DV>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* o, float* lse, int B, int S, int H, int KH,
                          Strides qs,
@@ -459,30 +490,30 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 64 && !ready[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_wgmma<HD>,
+    err = cudaFuncSetAttribute(flash_fwd_wgmma<DQK, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               WgTraits<HD>::kSmemBytes);
+                               WgTraits<DQK, DV>::kSmemBytes);
     if (err != cudaSuccess) return err;
     ready[dev] = true;
   }
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap qm, km, vm;
-  using T = WgTraits<HD>;
-  if (!make_map(&qm, encode, q, B, S, H, HD, T::kBQ, qs) ||
-      !make_map(&km, encode, k, B, S, KH, HD, kWgBK, ks) ||
-      !make_map(&vm, encode, v, B, S, KH, HD, kWgBK, vs))
+  using T = WgTraits<DQK, DV>;
+  if (!make_map(&qm, encode, q, B, S, H, DQK, T::kBQ, qs) ||
+      !make_map(&km, encode, k, B, S, KH, DQK, kWgBK, ks) ||
+      !make_map(&vm, encode, v, B, S, KH, DV, kWgBK, vs))
     return cudaErrorInvalidValue;
   const dim3 grid(B * H, (S + T::kBQ - 1) / T::kBQ);
-  flash_fwd_wgmma<HD><<<grid, T::kThreads, T::kSmemBytes,
-                        stream>>>(qm, km, vm,
+  flash_fwd_wgmma<DQK, DV><<<grid, T::kThreads, T::kSmemBytes,
+                             stream>>>(qm, km, vm,
                                   static_cast<__nv_bfloat16*>(o), lse, S, H,
                                   H / KH, scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
 // ------------------------------------------------------------- scalar path
-template <int HD>
+template <int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int S, int H, int KH, Strides qs,
                    Strides ks,
@@ -492,14 +523,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 64 && !ready[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd<HD>,
+    err = cudaFuncSetAttribute(flash_fwd<DQK, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_bytes<HD>());
+                               smem_bytes<DQK, DV>());
     if (err != cudaSuccess) return err;
     ready[dev] = true;
   }
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_fwd<HD><<<grid, kThreads, smem_bytes<HD>(), stream>>>(
+  flash_fwd<DQK, DV><<<grid, kThreads, smem_bytes<DQK, DV>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, H / KH,
       qs, ks, vs, scale, causal);
@@ -512,15 +543,15 @@ extern "C" {
 
 // dtype: 0 float32 (scalar FMAs), 1 bfloat16 (tensor cores; the base
 // pointers and every stride must be 16-byte aligned for TMA: the wrapper
-// checks). Strides are in elements. lse: null, or a contiguous f32
-// (B, H, S) tensor that receives each query row's natural-log
-// log-sum-exp. Returns a CUDA error code (0 on
-// success); cudaErrorInvalidValue for a head size or type the library was
-// not built for, or strides TMA refuses; cudaErrorNotSupported where
-// cuTensorMapEncodeTiled cannot be found.
+// checks). Dqk: the width of q and k; Dv: the width of v and o. Strides
+// are in elements. lse: null, or a contiguous f32 (B, H, S) tensor that
+// receives each query row's natural-log log-sum-exp. Returns a CUDA error
+// code (0 on success); cudaErrorInvalidValue for a (Dqk, Dv) pair or type
+// the library was not built for, or strides TMA refuses;
+// cudaErrorNotSupported where cuTensorMapEncodeTiled cannot be found.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, void* lse_, int B, int S, int H, int KH,
-                           int D,
+                           int Dqk, int Dv,
                            int dtype, int causal, float scale,
                            long long q_sb, long long q_ss, long long q_sh,
                            long long k_sb, long long k_ss, long long k_sh,
@@ -530,18 +561,15 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
       vs{v_sb, v_ss, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse = static_cast<float*>(lse_);
-  if (dtype == 0 && D == 64)
-    return launch<64>(q, k, v, o, lse, B, S, H, KH, qs, ks, vs, scale,
-                      causal, st);
-  if (dtype == 0 && D == 128)
-    return launch<128>(q, k, v, o, lse, B, S, H, KH, qs, ks, vs, scale,
-                       causal, st);
-  if (dtype == 1 && D == 64)
-    return launch_wgmma<64>(q, k, v, o, lse, B, S, H, KH, qs, ks, vs, scale,
-                            causal, st);
-  if (dtype == 1 && D == 128)
-    return launch_wgmma<128>(q, k, v, o, lse, B, S, H, KH, qs, ks, vs,
-                             scale, causal, st);
+#define FA_LAUNCH(DQK, DV)                                                  \
+  if (dtype == 0 && Dqk == DQK && Dv == DV)                                 \
+    return launch<DQK, DV>(q, k, v, o, lse, B, S, H, KH, qs, ks, vs, scale, \
+                           causal, st);                                     \
+  if (dtype == 1 && Dqk == DQK && Dv == DV)                                 \
+    return launch_wgmma<DQK, DV>(q, k, v, o, lse, B, S, H, KH, qs, ks, vs,  \
+                                 scale, causal, st);
+  FA_PAIRS(FA_LAUNCH)
+#undef FA_LAUNCH
   return cudaErrorInvalidValue;
 }
 

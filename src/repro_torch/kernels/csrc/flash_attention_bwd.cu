@@ -15,10 +15,14 @@
 //
 // with dK and dV summed over the G = H / KH query heads of each KV head
 // (grouped-query attention), all in f32; outputs in the input type (bf16
-// or f32). Layouts as the forward's: q, o, dO (B, S, H, D) and k, v
-// (B, S, KH, D) read through their batch / sequence / head strides (the
-// last dimension contiguous); dq (B, S, H, D) and dk, dv (B, S, KH, D)
-// written contiguous.
+// or f32). Layouts as the forward's: q (B, S, H, Dqk), k (B, S, KH, Dqk),
+// v (B, S, KH, Dv) and o, dO (B, S, H, Dv) read through their batch /
+// sequence / head strides (the last dimension contiguous); dq (B, S, H,
+// Dqk), dk (B, S, KH, Dqk) and dv (B, S, KH, Dv) written contiguous. The
+// q.k width Dqk and the v width Dv differ under multi-head latent attention
+// (minicpm3-4b: 96 and 64); the scale is Dqk^-0.5, and D = rowsum(dO o O)
+// runs over Dv. The library is built for the forward's (Dqk, Dv) pairs
+// (FA_PAIRS).
 //
 // Bound on an H100 SXM, at the olmo-1b train step's shape B = 4, S = 4096,
 // H = KH = 16, D = 128, causal: five products over the B*H*S^2/2 pairs the
@@ -44,15 +48,17 @@
 //   3. cast_dq (bf16 only): dq's f32 accumulator to bf16. An f32 dq is
 //      accumulated in place.
 //
-// flash_bwd_wgmma (bf16, D = 64 or 128; base pointers and strides 16-byte
-// aligned, which the wrapper checks): a warp-specialised Hopper kernel
-// over 128-key tiles, 384 threads, 198,696 bytes of shared memory at D =
-// 128 (one CTA an SM).
+// flash_bwd_wgmma (bf16; base pointers and strides 16-byte aligned, which
+// the wrapper checks): a warp-specialised Hopper kernel over 128-key
+// tiles, 384 threads, 198,696 bytes of shared memory at (128, 128) (one
+// CTA an SM).
 //   - Warpgroup 0 gives up its registers (setmaxnreg 24); its first thread
 //     issues the copies by TMA through CUtensorMaps that the launch
-//     function encodes per call over the strided 4-d tensors (q, dO: {D,
-//     H, S, B}; k, v: {D, KH, S, B}; 128-byte swizzled boxes of 64 columns,
-//     two at D = 128). K and V of the tile are loaded once; the (query
+//     function encodes per call over the strided 4-d tensors (q: {Dqk, H,
+//     S, B}; dO: {Dv, H, S, B}; k: {Dqk, KH, S, B}; v: {Dv, KH, S, B};
+//     128-byte swizzled boxes of 64 columns, two at a width of 96 or 128;
+//     a box's columns past the width arrive as zeros, as in the forward).
+//     K and V of the tile are loaded once; the (query
 //     head, 64-row query tile) pairs stream Q and dO through a ring of 2
 //     stages with full and empty mbarriers, and the producer warp's lanes
 //     put each tile's lse * log2 e and D beside them (0 past S).
@@ -63,8 +69,12 @@
 //     dS^T = P^T o (dP^T - D) on the f32 accumulator fragments; P^T and
 //     dS^T rounded to bf16 in registers as the A operands of dV += P^T dO
 //     and dK += dS^T Q (wgmma m64nDk16, dO and Q read as MN-major B
-//     operands), as the forward rounds P before P V. dK and dV (2 x D / 2
-//     f32 a thread) stay in registers over the whole loop.
+//     operands), as the forward rounds P before P V. dK and dV (Dqk and
+//     Dv padded to 64 or 128, halved, f32 a thread) stay in registers over
+//     the whole loop. S^T and dP^T run only their true k-steps (Dqk / 16,
+//     Dv / 16); dV, dK and dQ run over the padded widths, on zeros past
+//     the true ones, and only the true columns are stored (dQ's reduce-add
+//     drops the columns past the map's width).
 //   - Masks: only tiles that straddle the diagonal or pass S are masked,
 //     and by integer operations alone: a thread's kept pairs of a key row
 //     form one interval of query columns, a 64-bit mask from which each
@@ -78,8 +88,9 @@
 //     (the producer is not in it). Then each warpgroup computes a 64 x 64
 //     dQ partial with dS read through an M-major descriptor (the
 //     transpose 16-bit operands allow) and K as an N-major one, in the
-//     registers S^T and dP^T had: at D = 128 columns 64 w .. 64 w + 63 over
-//     all 128 keys, at D = 64 all columns over its own 64 keys. It writes
+//     registers S^T and dP^T had: at a padded Dqk of 128 columns 64 w .. 64
+//     w + 63 over all 128 keys, at 64 all columns over its own 64 keys.
+//     It writes
 //     the partial (times the scale) as two swizzled f32 boxes to its own
 //     shared buffer, fences it, and one thread adds each box into dq's
 //     accumulator with a TMA bulk reduce-add (cp.reduce.async.bulk.tensor
@@ -107,6 +118,9 @@ namespace {
 
 using namespace hopper;
 
+// the (Dqk, Dv) pairs the library is built for: the forward's
+#define FA_PAIRS(X) X(64, 64) X(128, 128) X(96, 96) X(96, 64) X(48, 32)
+
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;           // query rows a tile
 constexpr int kBK = 64;           // key rows a CTA
@@ -118,12 +132,13 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// One warp a (b, s, h) row, rows in (B, S, H) order.
+// One warp a (b, s, h) row, rows in (B, S, H) order: D over the Dv
+// columns of dO and O, and the Dqk columns of dq's accumulator zeroed.
 template <typename T>
 __global__ void __launch_bounds__(32 * kPrepWarps)
 bwd_prep(const T* __restrict__ o, const T* __restrict__ dO,
          float* __restrict__ delta, float* __restrict__ dq_acc, int B, int S,
-         int H, int D, Strides os, Strides dos) {
+         int H, int Dqk, int Dv, Strides os, Strides dos) {
   const long long row =
       (long long)blockIdx.x * kPrepWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -134,24 +149,26 @@ bwd_prep(const T* __restrict__ o, const T* __restrict__ dO,
   const T* orow = o + b * os.b + s * os.s + h * os.h;
   const T* drow = dO + b * dos.b + s * dos.s + h * dos.h;
   float acc = 0.f;
-  for (int d = lane; d < D; d += 32)
+  for (int d = lane; d < Dv; d += 32)
     acc = fmaf(to_f32(drow[d]), to_f32(orow[d]), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) delta[((long long)b * H + h) * S + s] = acc;
-  float* qrow = dq_acc + row * D;  // contiguous (B, S, H, D)
-  for (int d = lane; d < D; d += 32) qrow[d] = 0.f;
+  float* qrow = dq_acc + row * Dqk;  // contiguous (B, S, H, Dqk)
+  for (int d = lane; d < Dqk; d += 32) qrow[d] = 0.f;
 }
 
-template <int HD>
+template <int DQK, int DV>
 constexpr int smem_bytes() {
-  return ((kBK + kBK + kBQ + kBQ) * (HD + 1) + 2 * kBK * kLP + 2 * kBQ) * 4;
+  return ((kBK + kBQ) * (DQK + 1) + (kBK + kBQ) * (DV + 1) + 2 * kBK * kLP +
+          2 * kBQ) *
+         4;
 }
 
 // f32 inputs; grid (B * KH, key tiles); blockIdx.y = 0 holds the first
 // keys
-template <int HD>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ dO,
@@ -159,14 +176,15 @@ flash_bwd(const float* __restrict__ q, const float* __restrict__ k,
           float* __restrict__ dq_acc, float* __restrict__ dk,
           float* __restrict__ dv, int S, int H, int KH, Strides qs,
           Strides ks, Strides vs, Strides dos, float scale, int causal) {
-  constexpr int LD = HD + 1;
-  constexpr int CJ = HD / 16;  // d columns a thread
+  constexpr int LD = DQK + 1, LDV = DV + 1;
+  constexpr int CQ = DQK / 16;  // q.k columns a thread (dk, dq)
+  constexpr int CV = DV / 16;   // v columns a thread (dv)
   extern __shared__ float smem[];
   float* sk = smem;               // [kBK][LD]
-  float* sv = sk + kBK * LD;      // [kBK][LD]
-  float* sq = sv + kBK * LD;      // [kBQ][LD]
-  float* sdo = sq + kBQ * LD;     // [kBQ][LD]
-  float* sp = sdo + kBQ * LD;     // [kBK][kLP]: P^T
+  float* sv = sk + kBK * LD;      // [kBK][LDV]
+  float* sq = sv + kBK * LDV;     // [kBQ][LD]
+  float* sdo = sq + kBQ * LD;     // [kBQ][LDV]
+  float* sp = sdo + kBQ * LDV;    // [kBK][kLP]: P^T
   float* sds = sp + kBK * kLP;    // [kBK][kLP]: dS^T
   float* slse = sds + kBK * kLP;  // [kBQ]
   float* sdelta = slse + kBQ;     // [kBQ]
@@ -179,19 +197,24 @@ flash_bwd(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * ks.b + kh * ks.h;
   const float* vb = v + b * vs.b + kh * vs.h;
 
-  for (int i = tid; i < kBK * HD; i += kThreads) {
-    const int r = i / HD, d = i % HD, t = k0 + r;
-    const bool ok = t < S;
-    sk[r * LD + d] = ok ? kb[t * ks.s + d] : 0.f;
-    sv[r * LD + d] = ok ? vb[t * vs.s + d] : 0.f;
+  for (int i = tid; i < kBK * DQK; i += kThreads) {
+    const int r = i / DQK, d = i % DQK, t = k0 + r;
+    sk[r * LD + d] = t < S ? kb[t * ks.s + d] : 0.f;
+  }
+  for (int i = tid; i < kBK * DV; i += kThreads) {
+    const int r = i / DV, d = i % DV, t = k0 + r;
+    sv[r * LDV + d] = t < S ? vb[t * vs.s + d] : 0.f;
   }
 
   // rows (keys) rg + 16 i, columns (d) cg + 16 j
-  float dk_acc[4][CJ], dv_acc[4][CJ];
+  float dk_acc[4][CQ], dv_acc[4][CV];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int j = 0; j < CJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+    for (int j = 0; j < CQ; ++j) dk_acc[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < CV; ++j) dv_acc[i][j] = 0.f;
+  }
 
   const int qt0 = causal ? k0 / kBQ : 0;  // query tiles above it see no key
   const int n_qt = (S + kBQ - 1) / kBQ;
@@ -201,15 +224,17 @@ flash_bwd(const float* __restrict__ q, const float* __restrict__ k,
     const float* dob = dO + b * dos.b + h * dos.h;
     const float* lseb = lse + ((long long)b * H + h) * S;
     const float* deltab = delta + ((long long)b * H + h) * S;
-    float* dqb = dq_acc + ((long long)b * S * H + h) * HD;
+    float* dqb = dq_acc + ((long long)b * S * H + h) * DQK;
     for (int qt = qt0; qt < n_qt; ++qt) {
       const int q0 = qt * kBQ;
       __syncthreads();  // the last tile's readers are done (and sk, sv set)
-      for (int i = tid; i < kBQ * HD; i += kThreads) {
-        const int r = i / HD, d = i % HD, t = q0 + r;
-        const bool ok = t < S;
-        sq[r * LD + d] = ok ? qb[t * qs.s + d] : 0.f;
-        sdo[r * LD + d] = ok ? dob[t * dos.s + d] : 0.f;
+      for (int i = tid; i < kBQ * DQK; i += kThreads) {
+        const int r = i / DQK, d = i % DQK, t = q0 + r;
+        sq[r * LD + d] = t < S ? qb[t * qs.s + d] : 0.f;
+      }
+      for (int i = tid; i < kBQ * DV; i += kThreads) {
+        const int r = i / DV, d = i % DV, t = q0 + r;
+        sdo[r * LDV + d] = t < S ? dob[t * dos.s + d] : 0.f;
       }
       if (tid < kBQ) {
         const int t = q0 + tid;
@@ -225,25 +250,29 @@ flash_bwd(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
 #pragma unroll 4
-      for (int d = 0; d < HD; ++d) {
-        float kv[4], vv[4], qv[4], gv[4];
+      for (int d = 0; d < DQK; ++d) {
+        float kv[4], qv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = sk[(rg + 16 * i) * LD + d];
-          vv[i] = sv[(rg + 16 * i) * LD + d];
-        }
+        for (int i = 0; i < 4; ++i) kv[i] = sk[(rg + 16 * i) * LD + d];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qv[j] = sq[(cg + 16 * j) * LD + d];
-          gv[j] = sdo[(cg + 16 * j) * LD + d];
-        }
+        for (int j = 0; j < 4; ++j) qv[j] = sq[(cg + 16 * j) * LD + d];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            st[i][j] = fmaf(kv[i], qv[j], st[i][j]);
+          for (int j = 0; j < 4; ++j) st[i][j] = fmaf(kv[i], qv[j], st[i][j]);
+      }
+#pragma unroll 4
+      for (int d = 0; d < DV; ++d) {
+        float vv[4], gv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) vv[i] = sv[(rg + 16 * i) * LDV + d];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) gv[j] = sdo[(cg + 16 * j) * LDV + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
             dpt[i][j] = fmaf(vv[i], gv[j], dpt[i][j]);
-          }
       }
       // P^T and dS^T; masked pairs and rows or keys past S give exactly 0
 #pragma unroll
@@ -264,75 +293,76 @@ flash_bwd(const float* __restrict__ q, const float* __restrict__ k,
       // dV += P^T dO, dK += dS^T Q (the scale at the end)
 #pragma unroll 2
       for (int c = 0; c < kBQ; ++c) {
-        float pv[4], sv_[4], gv[CJ], qv[CJ];
+        float pv[4], sv_[4], gv[CV], qv[CQ];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           pv[i] = sp[(rg + 16 * i) * kLP + c];
           sv_[i] = sds[(rg + 16 * i) * kLP + c];
         }
 #pragma unroll
-        for (int j = 0; j < CJ; ++j) {
-          gv[j] = sdo[c * LD + cg + 16 * j];
-          qv[j] = sq[c * LD + cg + 16 * j];
-        }
+        for (int j = 0; j < CV; ++j) gv[j] = sdo[c * LDV + cg + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < CQ; ++j) qv[j] = sq[c * LD + cg + 16 * j];
 #pragma unroll
-          for (int j = 0; j < CJ; ++j) {
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < CV; ++j)
             dv_acc[i][j] = fmaf(pv[i], gv[j], dv_acc[i][j]);
+#pragma unroll
+          for (int j = 0; j < CQ; ++j)
             dk_acc[i][j] = fmaf(sv_[i], qv[j], dk_acc[i][j]);
-          }
+        }
       }
 
       // dQ += scale dS K: queries rg + 16 i x d cg + 16 j, into the f32
       // accumulator
-      float dq[4][CJ];
+      float dq[4][CQ];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < CJ; ++j) dq[i][j] = 0.f;
+        for (int j = 0; j < CQ; ++j) dq[i][j] = 0.f;
 #pragma unroll 2
       for (int c = 0; c < kBK; ++c) {
-        float sv_[4], kv[CJ];
+        float sv_[4], kv[CQ];
 #pragma unroll
         for (int i = 0; i < 4; ++i) sv_[i] = sds[c * kLP + rg + 16 * i];
 #pragma unroll
-        for (int j = 0; j < CJ; ++j) kv[j] = sk[c * LD + cg + 16 * j];
+        for (int j = 0; j < CQ; ++j) kv[j] = sk[c * LD + cg + 16 * j];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < CJ; ++j) dq[i][j] = fmaf(sv_[i], kv[j], dq[i][j]);
+          for (int j = 0; j < CQ; ++j) dq[i][j] = fmaf(sv_[i], kv[j], dq[i][j]);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int row = q0 + rg + 16 * i;
         if (row >= S) continue;
-        float* dqr = dqb + (long long)row * H * HD;
+        float* dqr = dqb + (long long)row * H * DQK;
 #pragma unroll
-        for (int j = 0; j < CJ; ++j)
+        for (int j = 0; j < CQ; ++j)
           atomicAdd(dqr + cg + 16 * j, dq[i][j] * scale);
       }
     }
   }
 
-  // dk, dv: contiguous (B, S, KH, HD)
+  // dk: contiguous (B, S, KH, DQK), dv: (B, S, KH, DV)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + rg + 16 * i;
     if (key >= S) continue;
-    const long long off = (((long long)b * S + key) * KH + kh) * HD;
+    const long long row = ((long long)b * S + key) * KH + kh;
 #pragma unroll
-    for (int j = 0; j < CJ; ++j) {
-      dk[off + cg + 16 * j] = dk_acc[i][j] * scale;
-      dv[off + cg + 16 * j] = dv_acc[i][j];
-    }
+    for (int j = 0; j < CQ; ++j)
+      dk[row * DQK + cg + 16 * j] = dk_acc[i][j] * scale;
+#pragma unroll
+    for (int j = 0; j < CV; ++j) dv[row * DV + cg + 16 * j] = dv_acc[i][j];
   }
 }
 
 // ----------------------------------------------- tensor-core bf16 path
 using bf16 = __nv_bfloat16;
 
-template <int HD>
+template <int DQK, int DV>
 struct WgTraits {
   static constexpr int kBK = 128;             // keys a CTA, 64 a consumer
   static constexpr int kBQ = 64;              // query rows a stage
@@ -340,27 +370,38 @@ struct WgTraits {
   static constexpr int kThreads = 128 * (kWGs + 1);   // + the producer's
   static constexpr int kConsumerRegs = 240;
   static constexpr int kStages = 2;           // Q / dO ring depth
-  static constexpr int kBlocks = HD / kBox;   // 64-column boxes a row
+  // 64-column boxes a row of q and k / of v and dO, and the widths padded
+  // to whole boxes (the N of dK's / dV's products)
+  static constexpr int kQKBlocks = (DQK + kBox - 1) / kBox;
+  static constexpr int kVBlocks = (DV + kBox - 1) / kBox;
+  static constexpr int kDQKP = kQKBlocks * kBox, kDVP = kVBlocks * kBox;
   static constexpr int kKVBox = kBK * 128;    // a 128-row box: 16 KB
   static constexpr int kQBox = kBQ * 128;     // a 64-row box: 8 KB
-  static constexpr int kKVTile = kBlocks * kKVBox;
-  static constexpr int kQTile = kBlocks * kQBox;
+  static constexpr int kKTile = kQKBlocks * kKVBox;
+  static constexpr int kVTile = kVBlocks * kKVBox;
+  static constexpr int kQTile = kQKBlocks * kQBox;
+  static constexpr int kDOTile = kVBlocks * kQBox;
   static constexpr int kDS = kBK * kBQ * 2;   // dS^T, keys x queries, bf16
   static constexpr int kDQBox = 64 * 32 * 4;  // 64 rows x 32 f32 columns
   static constexpr int kDQ = 2 * kDQBox;      // a consumer's 64 x 64 partial
-  static constexpr int kDqSteps = HD == 128 ? 8 : 4;  // its k-steps of 16 keys
+  // dQ's k-steps of 16 keys: all 128 keys at a padded Dqk of 128 (a
+  // warpgroup's 64 columns), the warpgroup's own 64 keys at 64
+  static constexpr int kDqSteps = kDQKP == 128 ? 8 : 4;
   // byte offsets from the 1 KB-aligned base: K, V, the Q and dO stages,
   // two dS^T tiles, the consumers' dQ partials, each stage's lse * log2 e
   // and D (64 f32 each), the mbarriers; + 1 KB to align the base
   static constexpr int kK = 0;
-  static constexpr int kV = kKVTile;
-  static constexpr int kQ = 2 * kKVTile;
+  static constexpr int kV = kKTile;
+  static constexpr int kQ = kKTile + kVTile;
   static constexpr int kDO = kQ + kStages * kQTile;
-  static constexpr int kDSOff = kDO + kStages * kQTile;
+  static constexpr int kDSOff = kDO + kStages * kDOTile;
   static constexpr int kDQOff = kDSOff + 2 * kDS;
   static constexpr int kVec = kDQOff + kWGs * kDQ;
   static constexpr int kBar = kVec + kStages * 2 * kBQ * 4;
   static constexpr int kSmemBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
+  static_assert(DQK % 16 == 0 && DV % 16 == 0 && kQKBlocks <= 2 &&
+                    kVBlocks <= 2 && kSmemBytes <= 232448,
+                "a (Dqk, Dv) pair the tensor-core design does not take");
 };
 
 __device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
@@ -389,8 +430,8 @@ __device__ __forceinline__ float keep_or_neg_inf(float x, uint64_t keep,
 }
 
 // grid (B * KH, key tiles); blockIdx.y = 0 holds the first keys
-template <int HD>
-__global__ void __launch_bounds__(WgTraits<HD>::kThreads, 1)
+template <int DQK, int DV>
+__global__ void __launch_bounds__((WgTraits<DQK, DV>::kThreads), 1)
 flash_bwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap,
@@ -400,8 +441,9 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                 const float* __restrict__ delta, bf16* __restrict__ dk,
                 bf16* __restrict__ dv, int S, int H, int KH, float scale,
                 int causal) {
-  using T = WgTraits<HD>;
+  using T = WgTraits<DQK, DV>;
   constexpr int kStages = T::kStages;
+  constexpr int DQKP = T::kDQKP, DVP = T::kDVP;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -435,11 +477,11 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap qmap,
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       if (lane == 0) {
-        mbar_expect_tx(full_kv, 2 * T::kKVTile);
-        for (int c = 0; c < T::kBlocks; ++c) {
+        mbar_expect_tx(full_kv, T::kKTile + T::kVTile);
+        for (int c = 0; c < T::kQKBlocks; ++c)
           tma_load(sk + c * T::kKVBox, &kmap, full_kv, c * kBox, kh, k0, b);
+        for (int c = 0; c < T::kVBlocks; ++c)
           tma_load(sv + c * T::kKVBox, &vmap, full_kv, c * kBox, kh, k0, b);
-        }
       }
       for (int it = 0; it < n_it; ++it) {
         const int st = it % kStages;
@@ -447,13 +489,13 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap qmap,
         if (it >= kStages)
           mbar_wait_bounded(empty(st), ((it / kStages) & 1) ^ 1);
         if (lane == 0) {
-          mbar_expect_tx(full(st), 2 * T::kQTile);
-          for (int c = 0; c < T::kBlocks; ++c) {
+          mbar_expect_tx(full(st), T::kQTile + T::kDOTile);
+          for (int c = 0; c < T::kQKBlocks; ++c)
             tma_load(sq + st * T::kQTile + c * T::kQBox, &qmap, full(st),
                      c * kBox, h, q0, b);
-            tma_load(sdo + st * T::kQTile + c * T::kQBox, &domap, full(st),
+          for (int c = 0; c < T::kVBlocks; ++c)
+            tma_load(sdo + st * T::kDOTile + c * T::kQBox, &domap, full(st),
                      c * kBox, h, q0, b);
-          }
         }
         // the tile's log-sum-exp (times log2 e) and D; rows past S as 0
         const long long row = ((long long)b * H + h) * S;
@@ -483,29 +525,31 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap qmap,
     // K, V: the warpgroup's 64 rows of each 64-column box, K-major
     const uint32_t ka = sk + wg * 64 * 128, va = sv + wg * 64 * 128;
     // dQ: the partial's columns in dq and its k-steps' 16-key offset
-    const int dq_col = HD == 128 ? 64 * wg : 0;
-    const int ks0 = HD == 128 ? 0 : 4 * wg;
-    const uint32_t kb = sk + (HD == 128 ? wg * T::kKVBox : 0);
+    const int dq_col = DQKP == 128 ? 64 * wg : 0;
+    const int ks0 = DQKP == 128 ? 0 : 4 * wg;
+    const uint32_t kb = sk + (DQKP == 128 ? wg * T::kKVBox : 0);
     const uint32_t qb = sdq + wg * T::kDQ;
 
-    float dka[HD / 2], dva[HD / 2];
+    float dka[DQKP / 2], dva[DVP / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
+    for (int i = 0; i < DQKP / 2; ++i) dka[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DVP / 2; ++i) dva[i] = 0.f;
     mbar_wait_bounded(full_kv, 0);
 
     for (int it = 0; it < n_it; ++it) {
       const int st = it % kStages;
       const uint32_t ph = (it / kStages) & 1;
       const int h = kh * G + it / n_qt, q0 = (qt0 + it % n_qt) * T::kBQ;
-      const uint32_t qa = sq + st * T::kQTile, da = sdo + st * T::kQTile;
+      const uint32_t qa = sq + st * T::kQTile, da = sdo + st * T::kDOTile;
       // opaque each stage, so that the descriptors of K and V are built at
       // their products, not hoisted out of the loop and held in registers
       uint32_t kas = ka, vas = va, kbs = kb;
       asm volatile("" : "+r"(kas), "+r"(vas), "+r"(kbs));
       mbar_wait_bounded(full(st), ph);
 
-      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, HD / 16
-      // k-steps of 32 bytes in a box; then dQ in the same registers
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, DQK / 16 and
+      // DV / 16 k-steps of 32 bytes in a box; then dQ in the same registers
       float acc[64];
       float(&s)[32] = *reinterpret_cast<float(*)[32]>(acc);
       float(&dp)[32] = *reinterpret_cast<float(*)[32]>(acc + 32);
@@ -513,7 +557,7 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap qmap,
       pin(dp);
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < DQK / 16; ++kk) {
         const uint32_t col = (kk % 4) * 32;  // bytes into the 128-byte row
         wgmma_ss_n64<0, 0>(s, wg_desc(kas + (kk / 4) * T::kKVBox + col, 16,
                                       1024),
@@ -521,7 +565,7 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                            kk > 0);
       }
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < DV / 16; ++kk) {
         const uint32_t col = (kk % 4) * 32;
         wgmma_ss_n64<0, 0>(dp, wg_desc(vas + (kk / 4) * T::kKVBox + col, 16,
                                        1024),
@@ -600,8 +644,8 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int kq = 0; kq < 4; ++kq) {
         const uint32_t row = kq * 16 * 128;
-        wgmma_rs<HD>(dva, pa[kq], wg_desc(da + row, T::kQBox, 1024));
-        wgmma_rs<HD>(dka, sa[kq], wg_desc(qa + row, T::kQBox, 1024));
+        wgmma_rs<DVP>(dva, pa[kq], wg_desc(da + row, T::kQBox, 1024));
+        wgmma_rs<DQKP>(dka, sa[kq], wg_desc(qa + row, T::kQBox, 1024));
       }
       wg_commit();
 
@@ -643,27 +687,32 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap qmap,
         }
       fence_async_smem();
       bar_sync(2 + wg, 128);
+      // (a box wholly past Dqk, at Dqk 96, is not sent)
       if (tid == 0) {
         tma_reduce_add(&dqmap, qb, dq_col, h, q0, b);
-        tma_reduce_add(&dqmap, qb + T::kDQBox, dq_col + 32, h, q0, b);
+        if (dq_col + 32 < DQK)
+          tma_reduce_add(&dqmap, qb + T::kDQBox, dq_col + 32, h, q0, b);
         bulk_commit();
       }
     }
     if (tid == 0) bulk_wait0();
 
-    // dk, dv: contiguous (B, S, KH, HD); rows key0 and key0 + 8
+    // dk: contiguous (B, S, KH, DQK), dv: (B, S, KH, DV), their true
+    // columns; rows key0 and key0 + 8
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int key = k0 + key0 + 8 * hr;
       if (key >= S) continue;
-      const long long off = (((long long)b * S + key) * KH + kh) * HD + 2 * c;
+      const long long row = ((long long)b * S + key) * KH + kh;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        *reinterpret_cast<uint32_t*>(dk + off + 8 * j) = pack_bf16(
-            dka[4 * j + 2 * hr] * scale, dka[4 * j + 2 * hr + 1] * scale);
-        *reinterpret_cast<uint32_t*>(dv + off + 8 * j) =
+      for (int j = 0; j < DQK / 8; ++j)
+        *reinterpret_cast<uint32_t*>(dk + row * DQK + 2 * c + 8 * j) =
+            pack_bf16(dka[4 * j + 2 * hr] * scale,
+                      dka[4 * j + 2 * hr + 1] * scale);
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j)
+        *reinterpret_cast<uint32_t*>(dv + row * DV + 2 * c + 8 * j) =
             pack_bf16(dva[4 * j + 2 * hr], dva[4 * j + 2 * hr + 1]);
-      }
     }
   }
 }
@@ -688,36 +737,37 @@ cudaError_t allow_smem(K kernel, int bytes, bool (&ready)[64]) {
   return err;
 }
 
-template <int HD>
+template <int DQK, int DV>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const void* dO, const float* lse,
                          const float* delta, float* dq_acc, void* dk,
                          void* dv, int B, int S, int H, int KH, int causal,
                          float scale, Strides qs, Strides ks, Strides vs,
                          Strides dos, cudaStream_t stream) {
-  using T = WgTraits<HD>;
+  using T = WgTraits<DQK, DV>;
   static bool ready[64] = {false};
-  cudaError_t err = allow_smem(flash_bwd_wgmma<HD>, T::kSmemBytes, ready);
+  cudaError_t err =
+      allow_smem(flash_bwd_wgmma<DQK, DV>, T::kSmemBytes, ready);
   if (err != cudaSuccess) return err;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  // dq's accumulator: contiguous (B, S, H, HD) f32, boxes of 64 rows x 32
-  const Strides acc{(long long)S * H * HD, (long long)H * HD, HD};
+  // dq's accumulator: contiguous (B, S, H, DQK) f32, boxes of 64 rows x 32
+  const Strides acc{(long long)S * H * DQK, (long long)H * DQK, DQK};
   CUtensorMap qm, km, vm, dom, dqm;
-  if (!make_map(&qm, encode, q, B, S, H, HD, T::kBQ, qs) ||
-      !make_map(&km, encode, k, B, S, KH, HD, T::kBK, ks) ||
-      !make_map(&vm, encode, v, B, S, KH, HD, T::kBK, vs) ||
-      !make_map(&dom, encode, dO, B, S, H, HD, T::kBQ, dos) ||
-      !make_map(&dqm, encode, dq_acc, B, S, H, HD, T::kBQ, acc, true))
+  if (!make_map(&qm, encode, q, B, S, H, DQK, T::kBQ, qs) ||
+      !make_map(&km, encode, k, B, S, KH, DQK, T::kBK, ks) ||
+      !make_map(&vm, encode, v, B, S, KH, DV, T::kBK, vs) ||
+      !make_map(&dom, encode, dO, B, S, H, DV, T::kBQ, dos) ||
+      !make_map(&dqm, encode, dq_acc, B, S, H, DQK, T::kBQ, acc, true))
     return cudaErrorInvalidValue;
   const dim3 grid(B * KH, (S + T::kBK - 1) / T::kBK);
-  flash_bwd_wgmma<HD><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
+  flash_bwd_wgmma<DQK, DV><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
       qm, km, vm, dom, dqm, lse, delta, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), S, H, KH, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const float* lse, const void* dO, void* dq,
                    void* dk, void* dv, float* dq_acc, float* delta, int B,
@@ -728,27 +778,28 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   cudaError_t err = cudaSuccess;
   if constexpr (!kBf16) {
     static bool ready[64] = {false};
-    err = allow_smem(flash_bwd<HD>, smem_bytes<HD>(), ready);
+    err = allow_smem(flash_bwd<DQK, DV>, smem_bytes<DQK, DV>(), ready);
     if (err != cudaSuccess) return err;
   }
   const long long rows = (long long)B * S * H;
   bwd_prep<T><<<(unsigned)((rows + kPrepWarps - 1) / kPrepWarps),
                 32 * kPrepWarps, 0, stream>>>(
       static_cast<const T*>(o), static_cast<const T*>(dO), delta, dq_acc, B,
-      S, H, HD, os, dos);
+      S, H, DQK, DV, os, dos);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if constexpr (kBf16) {
-    err = launch_wgmma<HD>(q, k, v, dO, lse, delta, dq_acc, dk, dv, B, S, H,
-                           KH, causal, scale, qs, ks, vs, dos, stream);
+    err = launch_wgmma<DQK, DV>(q, k, v, dO, lse, delta, dq_acc, dk, dv, B,
+                                S, H, KH, causal, scale, qs, ks, vs, dos,
+                                stream);
     if (err != cudaSuccess) return err;
-    const long long n = rows * HD;
+    const long long n = rows * DQK;
     const long long blocks = (n + 255) / 256;
     cast_dq<<<(unsigned)(blocks < 65536 ? blocks : 65536), 256, 0,
               stream>>>(dq_acc, static_cast<bf16*>(dq), n);
   } else {
     const dim3 grid(B * KH, (S + kBK - 1) / kBK);
-    flash_bwd<HD><<<grid, kThreads, smem_bytes<HD>(), stream>>>(
+    flash_bwd<DQK, DV><<<grid, kThreads, smem_bytes<DQK, DV>(), stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dO), lse,
         delta, dq_acc, static_cast<float*>(dk), static_cast<float*>(dv), S,
@@ -761,19 +812,21 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16. Strides are in elements; q, o, dO
-// (B, S, H, D) and k, v (B, S, KH, D) with their last dimension
-// contiguous, and for bfloat16 their rows 16-byte aligned (base pointer
-// and strides; the wrapper checks); lse and delta contiguous f32
-// (B, H, S); dq, dk, dv contiguous outputs; dq_acc a contiguous f32
-// (B, S, H, D) scratch, or dq itself for float32. Returns a CUDA error
-// code (0 on success); cudaErrorInvalidValue for a head size or type the
-// library was not built for, or strides TMA refuses; cudaErrorNotSupported
-// where cuTensorMapEncodeTiled cannot be found.
+// dtype: 0 float32, 1 bfloat16. Strides are in elements; q (B, S, H,
+// Dqk), k (B, S, KH, Dqk), v (B, S, KH, Dv), o and dO (B, S, H, Dv) with
+// their last dimension contiguous, and for bfloat16 their rows 16-byte
+// aligned (base pointer and strides; the wrapper checks); lse and delta
+// contiguous f32 (B, H, S); dq, dk, dv contiguous outputs of q's, k's and
+// v's shapes; dq_acc a contiguous f32 (B, S, H, Dqk) scratch, or dq itself
+// for float32. Returns a CUDA error code (0 on success);
+// cudaErrorInvalidValue for a (Dqk, Dv) pair or type the library was not
+// built for, or strides TMA refuses; cudaErrorNotSupported where
+// cuTensorMapEncodeTiled cannot be found.
 int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dO, void* dq, void* dk, void* dv,
-    void* dq_acc, void* delta, int B, int S, int H, int KH, int D, int dtype,
+    void* dq_acc, void* delta, int B, int S, int H, int KH, int Dqk, int Dv,
+    int dtype,
     int causal, float scale, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long o_sb, long long o_ss,
@@ -785,18 +838,17 @@ int flash_attention_bwd_launch(
   const float* l = static_cast<const float*>(lse);
   float* acc = static_cast<float*>(dq_acc);
   float* dl = static_cast<float*>(delta);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, o, l, dO, dq, dk, dv, acc, dl, B, S, H,
-                             KH, causal, scale, qs, ks, vs, os, dos, st);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, o, l, dO, dq, dk, dv, acc, dl, B, S,
-                              H, KH, causal, scale, qs, ks, vs, os, dos, st);
-  if (dtype == 1 && D == 64)
-    return launch<bf16, 64>(q, k, v, o, l, dO, dq, dk, dv, acc, dl, B, S, H,
-                            KH, causal, scale, qs, ks, vs, os, dos, st);
-  if (dtype == 1 && D == 128)
-    return launch<bf16, 128>(q, k, v, o, l, dO, dq, dk, dv, acc, dl, B, S,
-                             H, KH, causal, scale, qs, ks, vs, os, dos, st);
+#define FA_LAUNCH(DQK, DV)                                                 \
+  if (dtype == 0 && Dqk == DQK && Dv == DV)                                \
+    return launch<float, DQK, DV>(q, k, v, o, l, dO, dq, dk, dv, acc, dl,  \
+                                  B, S, H, KH, causal, scale, qs, ks, vs,  \
+                                  os, dos, st);                            \
+  if (dtype == 1 && Dqk == DQK && Dv == DV)                                \
+    return launch<bf16, DQK, DV>(q, k, v, o, l, dO, dq, dk, dv, acc, dl, B, \
+                                 S, H, KH, causal, scale, qs, ks, vs, os,  \
+                                 dos, st);
+  FA_PAIRS(FA_LAUNCH)
+#undef FA_LAUNCH
   return cudaErrorInvalidValue;
 }
 

@@ -8,21 +8,25 @@ tensor-core work on an H100 SXM), compiled by
 :func:`repro_torch.kernels.ops.build_library` and called here through its
 plain C interface with ``ctypes``.
 
-It takes the model's layout: q ``(B, S, H, hd)``, k and v ``(B, S, KH, hd)``
-with ``H % KH == 0``, read through their strides (last dimension
-contiguous; bf16 rows 16-byte aligned, as every fresh or packed
-projection's are: the bf16 kernel copies tiles by TMA through tensor maps
-that its launch function builds from these strides), and returns a
-contiguous ``(B, S, H, hd)`` tensor in q's dtype. The reference's wrapper
-takes ``(B, H, S, D)``; the math is the same: scale ``hd**-0.5``, causal
-mask ``-1e30``, f32 accumulation, denominator clamped at ``1e-30``.
+It takes the model's layout: q ``(B, S, H, Dqk)``, k ``(B, S, KH, Dqk)``
+and v ``(B, S, KH, Dv)`` with ``H % KH == 0``, read through their strides
+(last dimension contiguous; bf16 rows 16-byte aligned, as every fresh or
+packed projection's are: the bf16 kernel copies tiles by TMA through
+tensor maps that its launch function builds from these strides), and
+returns a contiguous ``(B, S, H, Dv)`` tensor in q's dtype. The q.k width
+``Dqk`` and the v width ``Dv`` are equal (the head size) but under
+multi-head latent attention (``models/mla.py``: 96 and 64 for
+minicpm3-4b); the library is built for the pairs in :data:`HEAD_DIMS`.
+The reference's wrapper takes ``(B, H, S, D)``; the math is the same:
+scale ``Dqk**-0.5``, causal mask ``-1e30``, f32 accumulation, denominator
+clamped at ``1e-30``.
 
 For training the forward also writes each query row's log-sum-exp
 (natural log, f32 ``(B, H, S)``), and :func:`launch_bwd` runs the
 backward kernel of ``csrc/flash_attention_bwd.cu`` (a library of its own;
 the reference has no Pallas backward: it differentiates its pure-jnp
 attention) on the saved q, k, v, o and log-sum-exp and the output's
-gradient, returning dq, dk and dv.
+gradient, returning dq, dk and dv in q's, k's and v's shapes.
 """
 from __future__ import annotations
 
@@ -32,7 +36,11 @@ import torch
 
 from repro_torch.device import stream_handle
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)     # the head sizes the library is built for
+# the (q.k width, v width) pairs both libraries are built for (FA_PAIRS in
+# csrc/): the GQA head sizes 64 and 128 (zamba2-1.2b, olmo-1b,
+# phi4-mini-3.8b) and 96 (phi3-mini-3.8b); minicpm3-4b's MLA at full and
+# reduced width
+HEAD_DIMS = ((64, 64), (128, 128), (96, 96), (96, 64), (48, 32))
 MAX_GRID_Y = 65535        # one CTA row per (batch, head)
 
 __all__ = ["DTYPES", "HEAD_DIMS", "bind", "bind_bwd", "check_inputs",
@@ -44,7 +52,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i32, i64, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_float)
     lib.flash_attention_launch.argtypes = (
-        [p] * 5 + [i32] * 7 + [f] + [i64] * 9 + [p])
+        [p] * 5 + [i32] * 8 + [f] + [i64] * 9 + [p])
     lib.flash_attention_launch.restype = i32
     return lib
 
@@ -54,7 +62,7 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i32, i64, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_float)
     lib.flash_attention_bwd_launch.argtypes = (
-        [p] * 11 + [i32] * 7 + [f] + [i64] * 15 + [p])
+        [p] * 11 + [i32] * 8 + [f] + [i64] * 15 + [p])
     lib.flash_attention_bwd_launch.restype = i32
     return lib
 
@@ -62,18 +70,21 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """Raise on what the kernel does not take (on any device)."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
-        raise ValueError("q, k, v must be 4-d: (B, S, H, hd), (B, S, KH, hd)")
+        raise ValueError("q, k, v must be 4-d: (B, S, H, Dqk), "
+                         "(B, S, KH, Dqk), (B, S, KH, Dv)")
     B, S, H, D = q.shape
-    KH = k.shape[2]
-    if k.shape != (B, S, KH, D) or v.shape != k.shape:
-        raise ValueError(f"k, v must have shape {(B, S, KH, D)}, got "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    KH, Dv = k.shape[2], v.shape[3]
+    if k.shape != (B, S, KH, D) or v.shape != (B, S, KH, Dv):
+        raise ValueError(f"k must have shape {(B, S, KH, D)} and v "
+                         f"{(B, S, KH)} and a width, got {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     if KH == 0 or H % KH:
         raise ValueError(f"H={H} must be a multiple of KH={KH}")
     if B * H > MAX_GRID_Y:
         raise ValueError(f"B*H={B * H} exceeds the grid's {MAX_GRID_Y}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head size {D} not built; built: {HEAD_DIMS}")
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"head size (q.k, v widths) {(D, Dv)} not built; "
+                         f"built: {HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, t, q)
 
@@ -106,13 +117,14 @@ def check_bwd_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      o: torch.Tensor, lse: torch.Tensor,
                      do: torch.Tensor) -> None:
     """Raise on what the backward kernel does not take: q, k, v as the
-    forward's; o and do shaped and typed as q, under q's rules; lse a
-    contiguous f32 ``(B, H, S)``."""
+    forward's; o and do shaped as the forward's output ``(B, S, H, Dv)``
+    and typed as q, under q's rules; lse a contiguous f32 ``(B, H, S)``."""
     check_inputs(q, k, v)
+    out_shape = q.shape[:3] + v.shape[3:]
     for name, t in (("o", o), ("do", do)):
-        if t.shape != q.shape:
-            raise ValueError(f"{name} must have q's shape {tuple(q.shape)}, "
-                             f"got {tuple(t.shape)}")
+        if t.shape != out_shape:
+            raise ValueError(f"{name} must have the output's shape "
+                             f"{tuple(out_shape)}, got {tuple(t.shape)}")
         _check_operand(name, t, q)
     B, S, H, _ = q.shape
     if (lse.shape != (B, H, S) or lse.dtype != torch.float32
@@ -134,15 +146,15 @@ def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
                          f"{q.device}")
     check_inputs(q, k, v)
     B, S, H, D = q.shape
-    KH = k.shape[2]
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    KH, Dv = k.shape[2], v.shape[3]
+    out = torch.empty((B, S, H, Dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if with_lse else None)
     stream = stream_handle(q.device)
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), B, S, H,
-        KH, D, DTYPES[q.dtype], int(bool(causal)), D ** -0.5,
+        KH, D, Dv, DTYPES[q.dtype], int(bool(causal)), D ** -0.5,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
@@ -154,7 +166,7 @@ def launch_bwd(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
                v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
                do: torch.Tensor, *, causal: bool = True):
     """The backward kernel on PyTorch's current stream (no synchronise):
-    ``(dq, dk, dv)``, contiguous, in q's dtype and q's / k's shapes.
+    ``(dq, dk, dv)``, contiguous, in q's dtype and q's / k's / v's shapes.
     Allocates the f32 scratch: the rows' ``rowsum(do * o)`` and, for bf16,
     dq's f32 accumulator (an f32 dq is accumulated in place). Raises on
     what the kernel does not take and on a launch error."""
@@ -163,10 +175,10 @@ def launch_bwd(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
                          f"got {q.device}")
     check_bwd_inputs(q, k, v, o, lse, do)
     B, S, H, D = q.shape
-    KH = k.shape[2]
+    KH, Dv = k.shape[2], v.shape[3]
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, S, KH, D), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
+    dv = torch.empty((B, S, KH, Dv), dtype=q.dtype, device=q.device)
     dq_acc = dq if q.dtype == torch.float32 else torch.empty(
         (B, S, H, D), dtype=torch.float32, device=q.device)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -175,7 +187,7 @@ def launch_bwd(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), dq_acc.data_ptr(), delta.data_ptr(), B, S, H, KH, D,
-        DTYPES[q.dtype], int(bool(causal)), D ** -0.5,
+        Dv, DTYPES[q.dtype], int(bool(causal)), D ** -0.5,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         *do.stride()[:3], stream)
     if err != 0:

@@ -222,13 +222,15 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """Softmax attention forward in the model's layout: q ``(B, S, H, hd)``,
-    k and v ``(B, S, KH, hd)`` with ``H % KH == 0``; returns
-    ``(B, S, H, hd)`` in q's dtype. Scale ``hd**-0.5``, causal mask
-    ``-1e30``. CPU tensors take the plain version; CUDA tensors the Hopper
-    kernel (f32 softmax and accumulation). Under grad, with an input that
-    requires it, it is differentiable (:class:`_FlashAttention`): the
-    kernel then also writes the log-sum-exp the backward reads."""
+    """Softmax attention forward in the model's layout: q ``(B, S, H,
+    Dqk)``, k ``(B, S, KH, Dqk)`` and v ``(B, S, KH, Dv)`` with ``H % KH ==
+    0``; returns ``(B, S, H, Dv)`` in q's dtype. Scale ``Dqk**-0.5``,
+    causal mask ``-1e30``. CPU tensors take the plain version; CUDA
+    tensors the Hopper kernel (f32 softmax and accumulation), which takes
+    the ``(Dqk, Dv)`` pairs of ``flash_attention.HEAD_DIMS`` and raises on
+    any other: nothing falls back. Under grad, with an input that requires it, it is
+    differentiable (:class:`_FlashAttention`, dv at v's width): the kernel
+    then also writes the log-sum-exp the backward reads."""
     if _needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, causal)[0]
     if q.device.type == "cpu":

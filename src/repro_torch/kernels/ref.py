@@ -72,11 +72,12 @@ def _repeat_kv(t: torch.Tensor, G: int) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """Plain softmax attention. q: ``(B, S, H, hd)``; k, v:
-    ``(B, S, KH, hd)``, query head ``h`` reading KV head ``h // (H // KH)``.
+    """Plain softmax attention. q: ``(B, S, H, Dqk)``; k: ``(B, S, KH,
+    Dqk)``; v: ``(B, S, KH, Dv)``, query head ``h`` reading KV head ``h //
+    (H // KH)``; returns ``(B, S, H, Dv)``.
 
     As ``flash_attention_ref``: scores in the input dtype, then f32 times
-    ``hd**-0.5``, causal mask ``-1e30``, f32 softmax, weights cast back to
+    ``Dqk**-0.5``, causal mask ``-1e30``, f32 softmax, weights cast back to
     the input dtype before the product with v."""
     G = q.shape[2] // k.shape[2]
     w = torch.softmax(_scores(q, _repeat_kv(k, G), causal),
@@ -105,10 +106,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from the scores and the forward's ``lse``, dV = P^T dO, D_i =
     rowsum(dO o O), dS = P o (dO V^T - D), dQ = scale dS K, dK = scale
     dS^T Q, with dK and dV summed over each KV head's H / KH query
-    heads. The plain version of the backward kernel; the model's plain
-    route differentiates its own attention by autograd instead."""
+    heads, and D_i over v's width ``Dv``, which may differ from the q.k
+    width ``Dqk`` (the scale is ``Dqk**-0.5``): dq and dk come at ``Dqk``,
+    dv at ``Dv``. The plain version of the backward kernel; the model's
+    plain route differentiates its own attention by autograd instead."""
     B, S, H, hd = q.shape
-    KH = k.shape[2]
+    KH, vd = k.shape[2], v.shape[3]
     G = H // KH
     scale = hd ** -0.5
     qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
@@ -122,7 +125,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
     if G > 1:
         dk = dk.reshape(B, S, KH, G, hd).sum(3)
-        dv = dv.reshape(B, S, KH, G, hd).sum(3)
+        dv = dv.reshape(B, S, KH, G, vd).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

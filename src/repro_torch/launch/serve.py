@@ -4,15 +4,16 @@ Runs an architecture's reduced config (``get_reduced``, as the reference
 does) with random weights from ``--seed``, on the CUDA card unless
 ``--device cpu`` is given:
 
-  python -m repro_torch.launch.serve --arch zamba2-1.2b --batch 4 \\
+  python -m repro_torch.launch.serve --arch phi3-mini-3.8b --batch 4 \\
       --prompt-len 32 --gen 16 [--window W] [--device cpu]
 
 The prefill replays the prompt through ``decode_step`` token by token, as
 the reference's ``serve.py`` does (a production prefill runs
 ``forward_logits``, ``make_prefill_step``). :func:`generate` holds the loop
 so that other callers run it on any config. ``--arch`` takes the ported
-architectures (zamba2-1.2b, falcon-mamba-7b) and defaults to zamba2-1.2b
-(the reference defaults to phi3-mini-3.8b, not ported yet).
+architectures (phi3-mini-3.8b, phi4-mini-3.8b, minicpm3-4b, olmo-1b,
+zamba2-1.2b, falcon-mamba-7b) and defaults to phi3-mini-3.8b, as the
+reference's.
 """
 from __future__ import annotations
 
@@ -80,7 +81,7 @@ def generate(cfg, params, prompt: torch.Tensor, gen: int, window: int = 0,
 
 def main(argv: Optional[list] = None) -> Generation:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="zamba2-1.2b")
+    ap.add_argument("--arch", default="phi3-mini-3.8b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)

@@ -62,7 +62,9 @@ def _attn_chunk(qb, k, v, row0: int, causal: bool):
 def multihead_attention(q, k, v, *, causal: bool = True,
                         q_chunk: int = Q_CHUNK,
                         use_kernel: Optional[bool] = None):
-    """q: (B,S,H,hd); k,v: (B,S,KH,hd) with H % KH == 0. Returns (B,S,H,hd).
+    """q: (B,S,H,hd); k: (B,S,KH,hd); v: (B,S,KH,vd) with H % KH == 0.
+    Returns (B,S,H,vd). The scale is hd**-0.5 (q's width); v's width vd
+    differs from hd under MLA (``models/mla.py``).
 
     ``use_kernel`` (default: whether q is on CUDA) picks the Hopper kernel
     over the plain query-chunked route."""

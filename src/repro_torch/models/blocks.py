@@ -1,13 +1,13 @@
 """Per-layer blocks: init / forward / decode, dispatched by block kind.
 
 Block kinds ported so far:
-  dense       GQA attention + dense FFN
+  dense       attention (GQA, or MLA by ``cfg.attn_kind``) + dense FFN
   ssm         Mamba1 or Mamba2, by ``cfg.ssm_variant``
   shared_attn the Zamba2 weight-shared attention+MLP block (the same code
               as ``dense``; its one weight set is reused at every call)
-``moe`` and MLA attention raise ``NotImplementedError`` (ROADMAP.md queue 1
-item 16). ``use_kernel`` reaches every block's prefill (attention, Mamba1
-and Mamba2 alike).
+``moe`` raises ``NotImplementedError`` (ROADMAP.md queue 1 item 16).
+``use_kernel`` reaches every block's prefill (GQA, MLA, Mamba1 and Mamba2
+alike).
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models import mamba
+from repro_torch.models import mamba, mla
 from repro_torch.models.common import apply_norm, ffn_apply, ffn_init, init_norm
 
 Params = Dict[str, Any]
@@ -28,9 +28,6 @@ def _check_kind(cfg, kind: str) -> None:
     if kind == "moe":
         raise NotImplementedError(
             "moe blocks are not ported yet (ROADMAP.md queue 1 item 16)")
-    if kind != "ssm" and cfg.attn_kind == "mla":
-        raise NotImplementedError(
-            "MLA attention is not ported yet (ROADMAP.md queue 1 item 16)")
 
 
 # ------------------------------------------------------------------ init
@@ -46,7 +43,8 @@ def init_block(gen: torch.Generator, cfg, kind: str) -> Params:
         else:
             p["ssm"] = mamba.init_mamba2(gen, cfg)
         return p
-    p["attn"] = attn.init_gqa(gen, cfg)
+    p["attn"] = (mla.init_mla(gen, cfg) if cfg.attn_kind == "mla"
+                 else attn.init_gqa(gen, cfg))
     n = init_norm(cfg, cfg.d_model, gen.device)
     if n is not None:
         p["norm_attn"] = n
@@ -70,8 +68,9 @@ def block_forward(cfg, kind: str, p: Params, x, positions,
                                         use_kernel=use_kernel), None
 
     h = apply_norm(cfg, p, x, "norm_attn")
-    a, kv = attn.gqa_forward(cfg, p["attn"], h, positions, return_kv=want_kv,
-                             use_kernel=use_kernel)
+    forward = mla.mla_forward if cfg.attn_kind == "mla" else attn.gqa_forward
+    a, kv = forward(cfg, p["attn"], h, positions, return_kv=want_kv,
+                    use_kernel=use_kernel)
     x = x + a
     h = apply_norm(cfg, p, x, "norm_ffn")
     return x + ffn_apply(cfg, p["ffn"], h), kv
@@ -85,6 +84,8 @@ def init_block_cache(cfg, kind: str, batch: int, cache_len: int, dtype,
         if cfg.ssm_variant == "mamba1":
             return mamba.init_mamba1_cache(cfg, batch, dtype, device)
         return mamba.init_mamba2_cache(cfg, batch, dtype, device)
+    if cfg.attn_kind == "mla":
+        return mla.init_mla_cache(cfg, batch, cache_len, dtype, device)
     return attn.init_gqa_cache(cfg, batch, cache_len, dtype, device)
 
 
@@ -101,7 +102,8 @@ def block_decode(cfg, kind: str, p: Params, x, cache, cache_index: int,
         return x + out, new_cache
 
     h = apply_norm(cfg, p, x, "norm_attn")
-    a, new_cache = attn.gqa_decode(cfg, p["attn"], h, cache, cache_index, ring)
+    decode = mla.mla_decode if cfg.attn_kind == "mla" else attn.gqa_decode
+    a, new_cache = decode(cfg, p["attn"], h, cache, cache_index, ring)
     x = x + a
     h = apply_norm(cfg, p, x, "norm_ffn")
     return x + ffn_apply(cfg, p["ffn"], h), new_cache

@@ -18,10 +18,12 @@ CPU):
   loss_fn(cfg, params, batch, remat=True, device=None) -> (loss, metrics)
   init_cache(cfg, batch, cache_len, dtype, device=None)
   decode_step(cfg, params, batch, cache, cache_index, ring, device=None)
-The vision frontend and multi-codebook heads raise. ``loss_fn`` is
-differentiable by autograd on both routes: the attention, SSD and
-selective-scan kernels each have a backward kernel (``kernels/ops.py``),
-so olmo-1b, zamba2 and falcon train on the card.
+The dense GQA and MLA stacks (olmo-1b, phi3-mini-3.8b, phi4-mini-3.8b,
+minicpm3-4b) and the SSM ones (zamba2-1.2b, falcon-mamba-7b) run; the
+vision frontend and multi-codebook heads raise, as do ``moe`` blocks
+(``models/blocks.py``). ``loss_fn`` is differentiable by autograd on both
+routes: the attention, SSD and selective-scan kernels each have a backward
+kernel (``kernels/ops.py``), so all six train on the card.
 """
 from __future__ import annotations
 

@@ -198,7 +198,9 @@ def test_chip_smoke_bound_counts_each_byte_once(with_ucb, per_client):
 def test_chip_smoke_lm_bounds():
     """The bounds chip_smoke prints for the LM kernels at the prefill
     shape: attention is bound by operations (137.5 GFLOP of bf16 over the
-    causal pairs), the SSD scan by bytes (138 MB)."""
+    causal pairs; at minicpm3-4b's MLA widths 2 (96 + 64) FLOP a pair
+    forward and 2 (3 96 + 2 64) backward, 1,117 GFLOP at its train step's
+    (4, 4096, 40)), the SSD scan by bytes (138 MB)."""
     smoke = _chip_smoke()
     bf = dict(dtype=torch.bfloat16, device="meta")
     q = torch.empty(2, 4096, 32, 64, **bf)
@@ -206,6 +208,16 @@ def test_chip_smoke_lm_bounds():
     flops = 4 * 64 * (4096 * 4097 // 2) * 2 * 32
     assert by == "operations" and ms == pytest.approx(flops / 989e12 * 1e3)
     assert smoke.attn_bound(q, q, q, causal=False)[0] > ms
+    pairs = 4096 * 4097 // 2
+    qk, v = (torch.empty(2, 4096, 40, d, **bf) for d in (96, 64))
+    ms, by = smoke.attn_bound(qk, qk, v, causal=True)
+    assert by == "operations" and ms == pytest.approx(
+        2 * (96 + 64) * pairs * 2 * 40 / 989e12 * 1e3)
+    qk, v = (torch.empty(4, 4096, 40, d, **bf) for d in (96, 64))
+    ms, by = smoke.bwd_bound(qk, qk, v, causal=True)
+    assert by == "operations" and ms == pytest.approx(
+        2 * (3 * 96 + 2 * 64) * pairs * 4 * 40 / 989e12 * 1e3)
+    assert ms == pytest.approx(1.129, abs=1e-3)
     x = torch.empty(2, 4096, 64, 64, **bf)
     bc = torch.empty(2, 4096, 64, **bf)
     dt = torch.empty(2, 4096, 64, dtype=torch.float32, device="meta")
@@ -531,15 +543,19 @@ def test_chip_probes_edits_occur_once(table):
 
 @pytest.mark.parametrize("fault", ["dk_without_group_sum",
                                    "ragged_k_tile_not_masked",
-                                   "ds_tile_unswizzled", "lse_in_base_2"])
+                                   "ds_tile_unswizzled", "lse_in_base_2",
+                                   "qk_columns_64_95_dropped",
+                                   "scale_of_v_width",
+                                   "dv_from_do_at_qk_width"])
 def test_chip_faults_plant_into_the_training_attention(fault):
-    """Each planted fault of the training path's attention edits text that
-    occurs once in its source, after the tensor-core kernel's definition
-    (the backward's ``flash_bwd_wgmma``, the forward's ``flash_fwd_wgmma``
-    for the log-sum-exp), so an edit of a kernel cannot leave a fault
-    unplanted."""
+    """Each planted fault of the training path's attention (and of both
+    attention kernels at their width pairs) edits text that occurs once
+    in its source, after the tensor-core kernel's definition (the
+    backward's ``flash_bwd_wgmma``, the forward's ``flash_fwd_wgmma``), so
+    an edit of a kernel cannot leave a fault unplanted."""
     _chip_smoke()
-    lib, edits = _load("chip_faults").BWD_FAULTS[fault]
+    cf = _load("chip_faults")
+    lib, edits = {**cf.BWD_FAULTS, **cf.WIDTH_FAULTS}[fault]
     fn = {"flash_attention_bwd": "flash_bwd_wgmma(",
           "flash_attention": "flash_fwd_wgmma("}[lib]
     src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" /
@@ -939,6 +955,23 @@ def test_chip_smoke_scan_train_step_plan():
         n_layers=smoke.FALCON_TRAIN_DEPTH)
     assert smoke.scan_step_plan(cfg, "falcon-mamba-7b")[1] == {
         "selective_scan": 32, "selective_scan_bwd": 16}
+
+
+def test_chip_smoke_dense_train_plan():
+    """The dense and MLA archs' train steps: each cut keeps the arch's
+    width and at most its depth, and a step launches the attention
+    forward twice a layer (the step and the remat recompute) and its
+    backward once; each new width pair of the prefills is built."""
+    smoke = _chip_smoke()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    assert set(smoke.DENSE_TRAIN_CUT) == set(smoke.DENSE_ARCHS)
+    for arch, (layers, rows) in smoke.DENSE_TRAIN_CUT.items():
+        cfg = get_config(arch)
+        assert layers <= cfg.n_layers and 1 <= rows <= smoke.TRAIN_BATCH
+        assert smoke.attention_step_plan(cfg.with_(n_layers=layers)) == {
+            "flash_attention": 2 * layers, "flash_attention_bwd": layers}
+    assert {(D, Dv) for *_, D, Dv in smoke.WIDTH_SHAPES} <= set(HEAD_DIMS)
 
 
 @pytest.mark.parametrize("fault", ["ssd_chunk_decay_dropped",

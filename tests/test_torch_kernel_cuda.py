@@ -519,6 +519,76 @@ def test_attention_backward_kernel(B, S, H, KH, D, dtype, causal):
                                    rtol=tol)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KH,D,Dv,layout", [
+    (1, 32, 4, 4, 96, 96, "dense"), (2, 385, 8, 4, 96, 96, "dense"),
+    (1, 1024, 32, 32, 96, 96, "dense"), (1, 100, 8, 8, 96, 64, "dense"),
+    (1, 1000, 40, 40, 96, 64, "mla"), (2, 333, 4, 4, 48, 32, "dense"),
+    (1, 64, 4, 4, 48, 32, "mla"), (1, 1000, 24, 8, 128, 128, "dense")])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_at_its_width_pairs(B, S, H, KH, D, Dv, layout, dtype,
+                                      causal):
+    """Both kernels at the (q.k, v) pairs of phi3-mini-3.8b (96, 96),
+    minicpm3-4b (96, 64; reduced (48, 32)) and phi4-mini-3.8b (128, 128,
+    GQA 3): the forward's output and log-sum-exp and the autograd.Function's
+    gradients (dv at v's width) against the plain versions, ragged S, and
+    the MLA layout (v a strided slice of the packed k_nope / v projection,
+    k a concatenation), as ``models/mla.py`` makes them."""
+    dev = _card()
+    g = torch.Generator(device="cpu").manual_seed(S + D + Dv)
+    q = torch.randn(B, S, H, D, generator=g).to(dtype).to(dev)
+    k = torch.randn(B, S, KH, D, generator=g).to(dtype).to(dev)
+    if layout == "mla":
+        kv = torch.randn(B, S, KH, D + Dv, generator=g).to(dtype).to(dev)
+        v = kv[..., D:]
+    else:
+        v = torch.randn(B, S, KH, Dv, generator=g).to(dtype).to(dev)
+    do = torch.randn(B, S, H, Dv, generator=g).to(dtype).to(dev)
+    # views of the inputs, v's strides kept
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    before = {n: ops.LAUNCHES[n] for n in ("flash_attention",
+                                            "flash_attention_bwd")}
+    out = ops.flash_attention(*leaves, causal=causal)
+    grads = torch.autograd.grad(out, leaves, do, retain_graph=True)
+    torch.cuda.synchronize()
+    assert {n: ops.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_attention": 1, "flash_attention_bwd": 1}
+    assert out.shape == (B, S, H, Dv)
+    tol = ATTN_TOL[dtype]
+    o, lse = ref.flash_attention_fwd_lse(q, k, v, causal=causal)
+    torch.testing.assert_close(out.detach().float(), o.float(), atol=tol,
+                               rtol=tol)
+    _, kernel_lse = out.grad_fn.saved_tensors[3:5]
+    torch.testing.assert_close(kernel_lse, lse, atol=tol, rtol=tol)
+    exp = ref.flash_attention_bwd(q, k, v, out.detach(), kernel_lse, do,
+                                  causal=causal)
+    for got, want, t in zip(grads, exp, (q, k, v)):
+        assert got.shape == t.shape and got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+    if dtype == torch.bfloat16:
+        exact = ref.flash_attention(q.float(), k.float(), v.float(),
+                                    causal=causal)
+        assert float((out.detach().float() - exact).norm() / exact.norm()) \
+            <= ATTN_BF16_REL_L2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,Dv", [(96, 48), (80, 80), (64, 32)])
+def test_attention_rejects_an_unbuilt_width_pair(D, Dv):
+    """Nothing falls back: a pair the libraries are not built for raises
+    before any launch."""
+    dev = _card()
+    q, k = (torch.zeros(1, 64, 4, D, dtype=torch.bfloat16, device=dev)
+            for _ in range(2))
+    v = torch.zeros(1, 64, 4, Dv, dtype=torch.bfloat16, device=dev)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="not built"):
+        ops.flash_attention(q, k, v)
+    assert ops.LAUNCHES == before
+
+
 def _launched(names, before):
     return {n: ops.LAUNCHES[n] - before[n] for n in names}
 

@@ -2,12 +2,13 @@
 subcommand and the example twins (``repro_torch.examples``).
 
 ``train fl`` must write the history ``run_fl`` returns for the same
-arguments, exactly; ``train cohort`` parses its arguments and raises
-(ROADMAP.md queue 1 item 16); without ``--device`` both need a card. The
-examples run at a small size with ``--device cpu``: the quickstart's
-histories equal ``run_fl`` of its configs, the million-client example's
-own assertions (kernel == plain, ``select`` == ``select_host``) hold, and
-the FedBuff example's parity leg holds.
+arguments, exactly; ``train cohort`` parses its arguments and, for an arch
+not ported yet, raises (ROADMAP.md queue 1 item 16); without ``--device``
+both need a card. The examples run at a small size with ``--device cpu``:
+the quickstart's histories equal ``run_fl`` of its configs, the
+million-client example's own assertions (kernel == plain, ``select`` ==
+``select_host``) hold, the FedBuff example's parity leg holds, and the
+serving example decodes in-range tokens at its defaults.
 """
 import json
 
@@ -38,10 +39,11 @@ def test_train_fl_writes_the_run_fl_history(tmp_path):
 
 
 def test_train_cohort_parses_and_names_its_item():
-    """olmo-1b trains (tests/test_torch_lm_train.py); an arch not ported
-    yet parses and raises, naming its roadmap item."""
+    """The dense and SSM archs train (tests/test_torch_lm_train.py,
+    tests/test_torch_lm_dense.py); an arch not ported yet (MoE) parses and
+    raises, naming its roadmap item."""
     with pytest.raises(NotImplementedError, match="item 16"):
-        train.main(["cohort", "--arch", "phi3-mini-3.8b", "--steps", "2",
+        train.main(["cohort", "--arch", "deepseek-v2-236b", "--steps", "2",
                     "--device", "cpu"])
 
 
@@ -80,3 +82,18 @@ def test_async_fedbuff_twin_parity_leg():
     cfg = async_fedbuff.fl_config("eafl", 2, buffer_size=2,
                                   max_concurrency=6, n_clients=16)
     assert run_fl(cfg, device="cpu").round == [1, 2]
+
+
+def test_serve_decode_twin_decodes_at_its_defaults(capsys):
+    """``python -m repro_torch.examples.serve_decode --device cpu``: reduced
+    phi3-mini-3.8b, batch 2, prompt 16, gen 8, as the reference's
+    example."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.examples import serve_decode
+    out = serve_decode.main(["--device", "cpu"])
+    vocab = get_reduced("phi3-mini-3.8b").vocab_size
+    assert out.tokens.shape == (2, 8) and out.prompt_logits.shape == (
+        2, 1, vocab)
+    assert bool(((out.tokens >= 0) & (out.tokens < vocab)).all())
+    assert "[phi3-mini-3.8b] batch=2 prompt=16 gen=8" in \
+        capsys.readouterr().out
