@@ -25,6 +25,9 @@ forward's Q K^T without the q.k columns 64-95 at a width of 96, the
 forward's scale taken from v's width instead of the q.k width, and the
 backward's dV summed over dO's stage tiles laid out at the q.k width;
 phase 26 must pass with the sound libraries and fail with each.
+``WIDE_FAULTS`` (1) edits the forward at deepseek-v2-236b's (192, 128):
+Q K^T without the third 64-column box of q and k; phase 32 must pass
+with the sound library and fail with it.
 ``SCAN_BWD_FAULTS`` (15)
 edit the scan backward kernels: in the f32 route's ``ssd_bwd``
 (``ssd_chunk_bwd.cu``) the gradient carried into the chunk before not
@@ -262,6 +265,17 @@ WIDTH_FAULTS = {
         "        wgmma_rs<DVP>(dva, pa[kq], wg_desc(da + row, T::kQBox, 1024));",
         "        wgmma_rs<DVP>(dva, pa[kq], wg_desc(sdo + st * T::kQTile + row,\n"
         "                                           T::kQBox, 1024));")]),
+}
+
+# Faults of the attention forward at deepseek-v2-236b's pair (192, 128),
+# in the same form; phase 32 of chip_smoke.py (the forward against its
+# plain version and by the tight check at WIDE_SHAPES) must fail on each
+WIDE_FAULTS = {
+    # the third q.k box never read: Q K^T runs 8 of its 12 k-steps at a
+    # q.k width of 192 (columns 128-191 dropped)
+    "qk_third_box_dropped": ("flash_attention", [(
+        "      for (int kk = 0; kk < DQK / 16; ++kk) {",
+        "      for (int kk = 0; kk < (DQK == 192 ? 8 : DQK / 16); ++kk) {")]),
 }
 
 # Faults of the scan backward kernels, in the same form; phase 21 of
@@ -562,9 +576,10 @@ def build_all(ops, tmp):
     """The sound libraries and every fault, one nvcc each, all at once;
     returns ``{lib: {"sound" or fault name: bound library}}`` and
     ``{fault name: (library, bound library)}`` of ``BWD_FAULTS``,
-    ``WIDTH_FAULTS`` and ``SCAN_BWD_FAULTS``."""
+    ``WIDTH_FAULTS``, ``WIDE_FAULTS`` and ``SCAN_BWD_FAULTS``."""
     jobs = sum(len(faults) + 1 for faults, _ in KERNEL_FAULTS.values()) \
-        + len(BWD_FAULTS) + len(WIDTH_FAULTS) + len(SCAN_BWD_FAULTS) + 1 \
+        + len(BWD_FAULTS) + len(WIDTH_FAULTS) + len(WIDE_FAULTS) \
+        + len(SCAN_BWD_FAULTS) + 1 \
         + len(SCAN_BWD_PHASES)
     with ThreadPoolExecutor(jobs) as pool:
         sound = {lib: pool.submit(ops.build_library, lib)
@@ -576,6 +591,7 @@ def build_all(ops, tmp):
         bwd_built = {n: (lib, pool.submit(build_fault, ops, lib, n, edits,
                                           None, tmp))
                      for n, (lib, edits) in {**BWD_FAULTS, **WIDTH_FAULTS,
+                                             **WIDE_FAULTS,
                                              **SCAN_BWD_FAULTS}.items()}
         libs = {}
         for lib in KERNEL_FAULTS:
@@ -835,6 +851,11 @@ def main(argv=None) -> int:
     widths = bwd_readings(torch, ops, ref, dev, {
         n: v for n, v in bwd_libs.items() if n in WIDTH_FAULTS},
         cs.phase_attn_widths_vs_plain, "attention_widths")
+    # the forward at (192, 128): the sound library passes phase 32, each
+    # fault fails it
+    wide = bwd_readings(torch, ops, ref, dev, {
+        n: v for n, v in bwd_libs.items() if n in WIDE_FAULTS},
+        cs.phase_attn_wide_vs_plain, "attention_192")
     # the scans' backward: the sound libraries pass phases 21 and 23, each
     # fault fails its library's phase
     scan_bwd = scan_bwd_readings(torch, ops, ref, dev, {
@@ -848,6 +869,7 @@ def main(argv=None) -> int:
     readings = {"topk_reward": topk, "flash_attention": attn,
                 "ssd_chunk": ssd, "selective_scan": scan,
                 "flash_attention_bwd": bwd, "attention_widths": widths,
+                "attention_192": wide,
                 "scan_bwd": scan_bwd, "async": asyn}
     limits = {"topk_reward": {"bitwise": "indices exact, values bitwise"},
               "flash_attention": {"tight": cs.ATTN_BF16_REL_L2,
@@ -868,6 +890,11 @@ def main(argv=None) -> int:
                         + json.dumps(cs.ATTN_TOL) + ") and by the tight "
                         f"checks ({cs.ATTN_BF16_REL_L2} forward, "
                         f"{cs.ATTN_BWD_BF16_REL_L2} backward)"},
+              "attention_192": {
+                  "32": "the forward at (192, 128) on WIDE_SHAPES against "
+                        "its plain version (tolerance "
+                        + json.dumps(cs.ATTN_TOL) + ") and by the tight "
+                        f"check ({cs.ATTN_BF16_REL_L2})"},
               "scan_bwd": {
                   "21": "the SSD backward against its plain version "
                         "(tolerance " + json.dumps(cs.SSD_TOL) + "; bf16 "
@@ -893,6 +920,7 @@ def main(argv=None) -> int:
                                    ASYNC_SHARD_FAULTS.items()})}}
     fail_key = {"topk_reward": "bitwise_fails",
                 "flash_attention_bwd": "fails", "attention_widths": "fails",
+                "attention_192": "fails",
                 "scan_bwd": "fails"}
     ok = all(not r["sound"][fail_key.get(k, "tight_fails")] and all(
         v[fail_key.get(k, "tight_fails")] for n, v in r.items()

@@ -334,6 +334,41 @@ before the next's):
    phi3's shapes with hd 96 and 128 in turns (what the padding of 96 to
    two 64-column boxes costs).
 
+The mixture-of-experts archs (llama4-scout-17b-a16e, deepseek-v2-236b,
+full width, random weights from ``--seed``, cut in depth by
+``MOE_SERVE_CUT``; each arch's weights freed before the next's):
+
+32. The attention forward at deepseek's MLA widths (q.k 192, three
+   64-column boxes; v 128) against its plain version on ``WIDE_SHAPES``:
+   deepseek's prefill (2, 4096, 128 heads), a small, a ragged and a GQA
+   case, bf16 and f32, causal and not: the output and the log-sum-exp at
+   the JAX package's attention tolerances, bf16 also by the tight check;
+   every case runs, a failure names each. The backward is not built for
+   the pair (it raises, ROADMAP.md queue 1 item 16).
+33, 34. ``make_prefill_step`` on 2 x 4096 tokens of llama4 (6 of 48
+   layers) and deepseek (1 dense + 3 MoE of 60): one forward must launch
+   the attention kernel once a layer; the share of choices capacity
+   dropped in each MoE layer; one profiled prefill (device time by op:
+   matmuls, attention, the expert weights' casts, routing, gathers); the
+   bf16 logits against the f32 plain route (``BF16_ROUTE_RATIO``) beside
+   the share of choices the routes send to other experts; in f32 at depth
+   2 on 2 x 1024 tokens the same experts on both routes (a flip fails,
+   naming the smallest top-k margin) and the logits within
+   ``F32_LOGIT_ATOL``; ``generate`` at the serve defaults (decode
+   tokens/s, peak memory) and the replay against the forward at a
+   capacity factor at which the forward drops nothing
+   (:func:`moe_replay_capacity`: 16, 27 for deepseek; in f32 every
+   position); the first attention call held
+   against its plain version and by the tight check.
+35. One full-width llama4 MoE layer in f32 on 1 x 1024 tokens, no
+   optimizer: ``loss_fn``'s loss and every gradient leaf on the kernel
+   route against the plain route, the aux loss above 0 and the router's
+   gradient not zero, the first attention backward call (GQA 40 over 8)
+   against its plain version.
+36. The attention forward timed at both prefills' inputs beside the plain
+   version, one ``scaled_dot_product_attention`` call (``enable_gqa`` for
+   llama4) and the bound.
+
 Each phase's wall time is logged. The last two lines of standard output
 are the kernels' JSON summary and ``{"ok": true, "device": {...}}``.
 """
@@ -2771,15 +2806,25 @@ def first_calls(ops, names):
             setattr(ops, n, w)
 
 
-def logit_diff(torch, got, exp, what):
+def logit_diff(torch, got, exp, what, rows=256):
     """Relative L2 distance, max abs difference and argmax agreement of
-    two logit tensors (float32); fails on a non-finite value."""
-    got, exp = got.float(), exp.float()
-    check(bool(torch.isfinite(got).all()), f"non-finite logits: {what}")
-    return {"rel_l2": float((got - exp).norm() / exp.norm()),
-            "max_abs": float((got - exp).abs().max()),
-            "argmax_agree": float((got.argmax(-1) == exp.argmax(-1))
-                                  .float().mean())}
+    two logit tensors (float32), ``rows`` positions at a time (at a
+    vocabulary of 202,048 one f32 copy of 2 x 4096 logits is 6.6 GB);
+    fails on a non-finite value."""
+    g2 = got.reshape(-1, got.shape[-1])
+    e2 = exp.reshape(-1, exp.shape[-1])
+    num = den = mx = 0.0
+    agree = 0
+    for i in range(0, g2.shape[0], rows):
+        g, e = g2[i:i + rows].float(), e2[i:i + rows].float()
+        check(bool(torch.isfinite(g).all()), f"non-finite logits: {what}")
+        d = g - e
+        num += float(d.square().sum())
+        den += float(e.square().sum())
+        mx = max(mx, float(d.abs().max()))
+        agree += int((g.argmax(-1) == e.argmax(-1)).sum())
+    return {"rel_l2": math.sqrt(num / den), "max_abs": mx,
+            "argmax_agree": agree / g2.shape[0]}
 
 
 ZAMBA_PREFILL_LAUNCHES = {"flash_attention": 6, "ssd_chunk": 38}
@@ -2878,14 +2923,18 @@ def phase_prefill(torch, ops, ref, dev, cfg, params, seed,
 
 
 def phase_serve(torch, ops, dev, cfg, params, seed, expect, phase,
-                replay_limit):
+                replay_limit, replay_cfg=None):
     """``launch/serve.py::generate`` at the reference's defaults (batch 4,
     prompt 32, gen 16) on the full config; the replay's last prompt logits
     against one kernel-route forward over the prompt (within
     ``replay_limit``, relative L2), which must launch the kernels
     ``expect`` times. Then the card's twin of
     tests/test_decode_consistency.py: in f32 with an f32 cache, every step
-    of the replay against the kernel-route forward."""
+    of the replay against the kernel-route forward. ``replay_cfg`` (default
+    ``cfg``) is the config of the forwards and of the f32 replay: for MoE
+    ``cfg`` at a capacity factor at which the forward drops no token (a
+    decode token never fills its 4 slots), as that test sets 16."""
+    replay_cfg = replay_cfg or cfg
     from repro_torch.launch.serve import generate
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models.transformer import forward_logits, init_cache
@@ -2900,13 +2949,13 @@ def phase_serve(torch, ops, dev, cfg, params, seed, expect, phase,
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           "generated tokens out of range")
     before = dict(ops.LAUNCHES)
-    full = forward_logits(cfg, params, {"tokens": prompt}, device=dev)
+    full = forward_logits(replay_cfg, params, {"tokens": prompt}, device=dev)
     fwd_launches = {n: ops.LAUNCHES[n] - before[n] for n in expect}
     check(fwd_launches == expect,
           f"the prompt forward launched {fwd_launches}, expected {expect}")
     agree = {"bf16_replay_vs_forward": logit_diff(
         torch, out.prompt_logits, full[:, -1:], "replay")}
-    cfg32 = cfg.with_(compute_dtype=torch.float32)
+    cfg32 = replay_cfg.with_(compute_dtype=torch.float32)
     P = prompt.shape[1]
     cache = init_cache(cfg32, prompt.shape[0], P, torch.float32, device=dev)
     step = make_serve_step(cfg32, ring=False, device=dev)
@@ -3527,10 +3576,12 @@ def step_kind(name):
     return "other (elementwise, reductions, copies)"
 
 
-def profile_step(torch, run, out_dir, top=10):
-    """A ``torch.profiler`` trace of one call of ``run()`` (a train step):
-    :func:`round_split`'s span, busy time, idle share and top device
-    operations, and the device time by :func:`step_kind`."""
+def profile_step(torch, run, out_dir, top=10, kind=None):
+    """A ``torch.profiler`` trace of one call of ``run()`` (a train step,
+    or a prefill): :func:`round_split`'s span, busy time, idle share and
+    top device operations, and the device time by ``kind`` of each
+    operation's name (:func:`step_kind` unless given)."""
+    kind = kind or step_kind
     from torch.profiler import ProfilerActivity, profile, schedule
 
     trace = out_dir / "trace_train_step.json"
@@ -3549,7 +3600,7 @@ def profile_step(torch, run, out_dir, top=10):
     for e in events:
         if e.get("ph") == "X" and e.get("cat") in (
                 "kernel", "gpu_memcpy", "gpu_memset") and e["ts"] >= t0:
-            kinds[step_kind(str(e["name"]))] += e["dur"] / 1e3
+            kinds[kind(str(e["name"]))] += e["dur"] / 1e3
     row["by_kind_ms"] = dict(kinds.most_common())
     return row
 
@@ -4094,18 +4145,12 @@ def sdpa_backend(torch, q, k, v, causal, gqa):
         q, k, v, is_causal=causal, enable_gqa=gqa)).name
 
 
-def phase_dense_timing(torch, ops, ref, dev, prefills, steps, l2_bytes):
-    """31: both attention kernels on the inputs the new archs' prefills
-    (``prefills``: each arch's first forward call) and train steps
-    (``steps``: each first backward call) gave them, in turns (two turns),
-    beside the plain version, one ``scaled_dot_product_attention`` call
-    (``enable_gqa`` where the query heads outnumber the KV heads; its
-    backward as forward and backward less forward) and the bound; the
-    backend each SDPA call ran. Then what the padding
-    of a width of 96 to two 64-column boxes costs: both kernels at
-    phi3-mini-3.8b's shapes with hd 96 and 128, in turns."""
-    from repro_torch.kernels import flash_attention as fa
-
+def prefill_forward_rows(torch, ops, ref, prefills, l2_bytes):
+    """The attention forward on each arch's first prefill call
+    (``prefills``), in turns (two turns), beside the plain version, one
+    ``scaled_dot_product_attention`` call (``enable_gqa`` where the query
+    heads outnumber the KV heads) and the bound, with the backend SDPA
+    ran: ``{"<arch> prefill forward": row}``."""
     F = torch.nn.functional
     rows = {}
     for arch, seen in prefills.items():
@@ -4134,6 +4179,32 @@ def phase_dense_timing(torch, ops, ref, dev, prefills, steps, l2_bytes):
                        torch, *bhsd[0], causal, gqa))
         rows[f"{arch} prefill forward"] = row
         del sets, bhsd
+        torch.cuda.empty_cache()
+    return rows
+
+
+def log_timing(phase, name, row):
+    log(f"phase {phase}: {name} at {row['shape']} over {row['kv_heads']} KV "
+        f"heads, v width {row['v_width']}, {row['dtype']} causal, on "
+        f"{row['card']}: kernel {row['ms']:.5f} ms, plain "
+        f"{row['plain_ms']:.5f} ms, scaled_dot_product_attention "
+        f"{row['library_ms']:.5f} ms (backend {row['sdpa_backend']}), bound "
+        f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+
+
+def phase_dense_timing(torch, ops, ref, dev, prefills, steps, l2_bytes):
+    """31: both attention kernels on the inputs the new archs' prefills
+    (``prefills``: each arch's first forward call) and train steps
+    (``steps``: each first backward call) gave them, in turns (two turns),
+    beside the plain version, one ``scaled_dot_product_attention`` call
+    (``enable_gqa`` where the query heads outnumber the KV heads; its
+    backward as forward and backward less forward) and the bound; the
+    backend each SDPA call ran. Then what the padding
+    of a width of 96 to two 64-column boxes costs: both kernels at
+    phi3-mini-3.8b's shapes with hd 96 and 128, in turns."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rows = prefill_forward_rows(torch, ops, ref, prefills, l2_bytes)
     for arch, seen in steps.items():
         (q, k, v, o, lse, do), kw, _ = seen["flash_attention_bwd"]
         causal = kw.get("causal", True)
@@ -4166,12 +4237,7 @@ def phase_dense_timing(torch, ops, ref, dev, prefills, steps, l2_bytes):
     card = card_name_power()
     for name, row in rows.items():
         row["card"] = card
-        log(f"phase 31: {name} at {row['shape']} over {row['kv_heads']} KV "
-            f"heads, v width {row['v_width']}, {row['dtype']} causal, on "
-            f"{card}: kernel {row['ms']:.5f} ms, plain {row['plain_ms']:.5f} "
-            f"ms, scaled_dot_product_attention {row['library_ms']:.5f} ms "
-            f"(backend {row['sdpa_backend']}), bound "
-            f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+        log_timing(31, name, row)
     fwd = ops.load_library("flash_attention")
     padding = {}
     for label, (B, S) in (("forward", (PREFILL_BATCH, PREFILL_LEN)),
@@ -4198,6 +4264,476 @@ def phase_dense_timing(torch, ops, ref, dev, prefills, steps, l2_bytes):
         f"hd 96 and 128 in turns on {card}: {padding} (ms a call; 96 / 128 "
         f"of the products' work is 0.75)")
     rows["padding_hd96_vs_hd128"] = padding
+    return rows
+
+# ------------------------ mixture-of-experts serving (phases 32-36)
+# B, S, H, KH, Dqk, Dv at deepseek-v2-236b's MLA pair (q.k 128 + 64 = 192,
+# three 64-column boxes; v 128): its prefill (2 x 4096, 128 heads), and a
+# small, a ragged and a GQA case
+WIDE_SHAPES = [(2, 4096, 128, 128, 192, 128), (1, 32, 4, 4, 192, 128),
+               (1, 1000, 16, 16, 192, 128), (2, 333, 8, 4, 192, 128)]
+MOE_ARCHS = ("llama4-scout-17b-a16e", "deepseek-v2-236b")
+# The serving cut of each MoE arch: full width, cut in depth to what one
+# card holds with headroom. f32 master weights from --seed, 4 bytes a
+# parameter:
+# - llama4-scout-17b-a16e: 2,202,091,520 parameters a layer (16 experts
+#   of 3 x 5120 x 8192, the shared expert, the router, GQA 40 over 8 of
+#   128), 8.81 GB, and the tied 202,048 x 5120 embedding (1,034,485,760),
+#   4.14 GB. 6 of 48 layers: 14,247,034,880 parameters, 56.99 GB (53.07
+#   GiB). A prefill of 2 x 4096 adds one layer's bf16 expert stacks
+#   while the layer runs (3 x 1.34 GB) and the logits: 3.3 GB in bf16,
+#   6.6 GB in f32; the route comparison holds three of them at once
+#   (13.2 GB) and compares 256 positions at a time (:func:`logit_diff`).
+#   Seven layers would hold 65.8 GB of weights before those 13.2 GB, of
+#   the card's 85 GB.
+# - deepseek-v2-236b: its leading dense layer (337,969,152), each MoE
+#   layer 3,972,104,192 (160 experts of 3 x 5120 x 1536, 2 shared, the
+#   router, MLA with 128 heads), 15.9 GB, and the 102,400 x 5120 embedding
+#   (524,288,000), 2.1 GB. 1 dense + 3 MoE of 60 layers: 12,778,569,728
+#   parameters, 51.11 GB (47.60 GiB); the bf16 expert stacks are 3 x 2.5
+#   GB while a layer runs. A fourth MoE layer (67 GB) would leave under
+#   10 GB for them, the logits and the attention.
+MOE_SERVE_CUT = {"llama4-scout-17b-a16e": 6, "deepseek-v2-236b": 4}
+# The replay of decode against the forward wants a forward that drops no
+# token (one decode token a row never fills its C = 4 slots; at 1.25 the
+# forward drops). tests/test_decode_consistency.py sets capacity factor
+# 16, which holds at the reduced configs. At full width it does not hold
+# for deepseek-v2-236b: with random weights the tokens of a row crowd onto
+# the same experts, and at 16 a 32-token row has C = 20 slots an expert
+# (top 6 of 160): its f32 replay read 0.194 max abs against the forward
+# on an H100. A row of S tokens drops none when C >= S, that is at a
+# factor of at least E / K: 16 for llama4 (top 1 of 16), 27 for deepseek.
+def moe_replay_capacity(cfg):
+    return max(16.0, float(math.ceil(cfg.n_experts / cfg.experts_per_token)))
+
+
+# bf16 replay vs forward at the last prompt position: in bf16 the decode
+# and the forward route some tokens to other experts (their top-k margins
+# lie under bf16's rounding), and a token routed apart in any layer has
+# other logits. So this limit only says the decode has not lost the
+# logits (unrelated logits of equal norm read 1.41), as for
+# falcon-mamba-7b; the f32 replay at every position holds the decode.
+MOE_BF16_REPLAY_REL_L2 = 1.0
+# phase 35: one full-width llama4 layer (3,236,577,280 parameters with the
+# embedding, 12.9 GB in f32; each route's gradient as much again) on
+# 1 x 1024 tokens, in f32, no optimizer
+MOE_GRAD_ARCH, MOE_GRAD_TOKENS = "llama4-scout-17b-a16e", 1024
+
+
+@contextlib.contextmanager
+def recorded_routes(torch, margins=False):
+    """Record each ``models/moe.py::route`` call while the block runs, in
+    call order: ``{"experts", "keep"}`` ((B, S, K) tensors) and with
+    ``margins`` also ``"margin"``, the smallest top-k margin of its tokens
+    (the k-th probability less the next), which computes more on the
+    card."""
+    from repro_torch.models import moe
+
+    inner, calls = moe.route, []
+
+    def route(cfg, router_w, x):
+        r = inner(cfg, router_w, x)
+        rec = {"experts": r.experts, "keep": r.keep}
+        if margins:
+            K = cfg.experts_per_token
+            logits = x.detach().float() @ router_w.detach()
+            p = torch.sort(torch.softmax(logits, -1), -1,
+                           descending=True).values
+            rec["margin"] = float((p[..., K - 1] - p[..., K]).min())
+        calls.append(rec)
+        return r
+
+    moe.route = route
+    try:
+        yield calls
+    finally:
+        moe.route = inner
+
+
+def flipped_share(a, b):
+    """Per MoE layer, the share of (token, rank) choices whose expert
+    differs between two recordings of the same layers."""
+    return [float((x["experts"] != y["experts"]).float().mean())
+            for x, y in zip(a, b)]
+
+
+def moe_op_kind(name):
+    """:func:`step_kind`, with the MoE layer's own operations apart: the
+    weight casts (f32 to bf16 copies), the routing (softmax, the stable
+    sort, the slot scan) and the gathers and scatters of dispatch and
+    combine."""
+    low = name.lower()
+    kind = step_kind(name)
+    if not kind.startswith("other"):
+        return kind
+    if "copy" in low:
+        return "casts and copies (expert weights to bf16)"
+    if any(w in low for w in ("sort", "scan", "softmax", "topk")):
+        return "routing (softmax, sort, slot scan)"
+    if any(w in low for w in ("index", "gather", "scatter")):
+        return "dispatch and combine (gathers, scatters)"
+    return kind
+
+
+def moe_layers(cfg):
+    from repro_torch.models.transformer import build_stages
+    return sum(n for kind, n in build_stages(cfg) if kind == "moe")
+
+
+def first_layers(cfg, params, depth):
+    """``cfg`` cut to ``depth`` layers and a view of ``params`` holding its
+    first ``depth`` layers (no copy)."""
+    from repro_torch.models.transformer import build_stages
+
+    cut = cfg.with_(n_layers=depth)
+    out = dict(params)
+    out["stages"] = [st[:n] for (_, n), st in zip(build_stages(cut),
+                                                  params["stages"])]
+    return cut, out
+
+
+def phase_attn_wide_vs_plain(torch, ops, ref, dev, shapes=None):
+    """32: the attention forward at (Dqk, Dv) = (192, 128) against its
+    plain version on ``WIDE_SHAPES``, bf16 and f32, causal and not: the
+    output (the serving call, no log-sum-exp) and the log-sum-exp (the
+    call that writes it) at the JAX package's attention tolerance, the
+    two calls' outputs equal, bf16 also by the tight check. Every case
+    runs; a failure names each case that failed. The backward is not
+    built for the pair."""
+    from repro_torch.kernels import flash_attention as fa
+
+    lib = ops.load_library("flash_attention")
+    errs, rel, failed, run = {}, {}, {}, []
+    for i, (B, S, H, KH, D, Dv) in enumerate(shapes or WIDE_SHAPES):
+        for dt in (torch.bfloat16, torch.float32):
+            name = dtype_name(dt)
+            q, k, v = attn_inputs(torch, B, S, H, KH, D, dt, dev, 700 + i,
+                                  dv=Dv)
+            for causal in (True, False):
+                case = f"{B}x{S}x{H}x{KH} ({D}, {Dv}) {name} causal={causal}"
+                try:
+                    o = fa.launch(lib, q, k, v, causal=causal)
+                    check(o.shape == (B, S, H, Dv) and o.dtype == dt,
+                          f"output {o.dtype} {tuple(o.shape)}")
+                    o2, lse = fa.launch(lib, q, k, v, causal=causal,
+                                        with_lse=True)
+                    check(torch.equal(o, o2), f"the output with the "
+                          f"log-sum-exp differs from the serving call's, "
+                          f"{case}")
+                    del o2
+                    plain_o, plain_lse = ref.flash_attention_fwd_lse(
+                        q, k, v, causal=causal)
+                    err = max(close(torch, o, plain_o, ATTN_TOL[name],
+                                    f"output, {case}"),
+                              close(torch, lse, plain_lse, ATTN_TOL[name],
+                                    f"log-sum-exp, {case}"))
+                    del plain_o, plain_lse, lse
+                    if dt == torch.bfloat16:
+                        rel[case] = tight(torch, ref, o, q, k, v, causal,
+                                          case)
+                    errs[name] = max(errs.get(name, 0.0), err)
+                    del o
+                except SmokeFailure as e:
+                    failed[case] = str(e)[:300]
+                run.append([B, S, H, KH, D, Dv, name, causal])
+                torch.cuda.empty_cache()
+            del q, k, v
+    torch.cuda.synchronize()
+    if failed:
+        raise CaseFailures(f"phase 32 ({len(run)} cases)", failed)
+    log(f"phase 32: flash_attention at (q.k, v) = (192, 128) == plain on "
+        f"{len(run)} cases (B,S,H,KH,Dqk,Dv) in {shapes or WIDE_SHAPES}, "
+        f"bf16 and f32, causal and not: max abs err {errs} (tol "
+        f"{ATTN_TOL}, TF32 off); bf16 vs the f32 computation of its inputs, "
+        f"relative L2 {rel} (limit {ATTN_BF16_REL_L2})")
+    return errs, run, max(rel.values())
+
+
+def moe_f32_routes(torch, cfg, params, tokens, dev):
+    """f32 at depth ``ROUTE_DEPTH``, kernel route against plain route on
+    ``tokens``: first every token's experts and kept slots the same on
+    both routes (a flip fails, naming the smallest top-k margin), then the
+    logits within ``F32_LOGIT_ATOL``."""
+    from repro_torch.models.transformer import forward_logits
+
+    cut, p2 = first_layers(cfg, params, ROUTE_DEPTH)
+    cut = cut.with_(compute_dtype=torch.float32)
+    batch = {"tokens": tokens}
+    with recorded_routes(torch, margins=True) as kr:
+        kern = forward_logits(cut, p2, batch, device=dev, use_kernel=True)
+    with recorded_routes(torch, margins=True) as pr:
+        plain = forward_logits(cut, p2, batch, device=dev, use_kernel=False)
+    margin = min(r["margin"] for r in kr + pr)
+    flips = flipped_share(kr, pr)
+    same_keep = all(torch.equal(a["keep"], b["keep"]) for a, b in
+                    zip(kr, pr))
+    check(len(kr) == len(pr) == moe_layers(cut) and not any(flips)
+          and same_keep,
+          f"f32 {cfg.name} depth {ROUTE_DEPTH}: the kernel and plain routes "
+          f"chose other experts for a share {flips} of the choices (slots "
+          f"kept alike: {same_keep}); smallest top-k margin {margin:.3e}")
+    diff = logit_diff(torch, kern, plain, "f32 depth 2")
+    del kern, plain
+    check(diff["max_abs"] <= F32_LOGIT_ATOL,
+          f"f32 {cfg.name} depth {ROUTE_DEPTH}, kernel vs plain route: "
+          f"{diff} (limit {F32_LOGIT_ATOL} abs)")
+    return {"tokens": list(tokens.shape), "depth": ROUTE_DEPTH,
+            "moe_layers": len(kr), "flipped": flips,
+            "smallest_topk_margin": margin, "logits": diff}
+
+
+def phase_moe_serving(torch, ops, ref, dev, seed, arch, phase):
+    """33, 34: ``arch`` at full width, cut to ``MOE_SERVE_CUT[arch]``
+    layers, random weights from ``seed``. The prefill's main path,
+    ``make_prefill_step`` on 2 x 4096 tokens (one warm-up; the counted
+    call, the attention count set to 0 just before it and read just
+    after: one launch a layer), the share of token choices capacity
+    dropped in each MoE layer, one profiled prefill (device time by
+    :func:`moe_op_kind`); the routes: bf16 at the cut depth against the
+    f32 plain route (logits by ``BF16_ROUTE_RATIO``, the share of choices
+    routed apart), f32 at depth 2 (:func:`moe_f32_routes`); ``generate``
+    at the serve defaults (:func:`phase_serve`, the replay against the
+    forward at :func:`moe_replay_capacity`, whose forward must drop
+    nothing). Frees the weights, then holds the
+    prefill's first attention call against its plain version and by the
+    tight check. Returns the row and that call."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.transformer import forward_logits, init_params
+
+    full = get_config(arch)
+    cfg = full.with_(n_layers=MOE_SERVE_CUT[arch])
+    torch.cuda.empty_cache()
+    params = init_params(seed, cfg, device=dev)
+    weights_gib = sum(t.nbytes for t in tree_leaves(params)) / 2**30
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN),
+                           generator=g).to(dev)
+    batch = {"tokens": tokens}
+    expect = {"flash_attention": cfg.n_layers}
+    step = make_prefill_step(cfg, device=dev)
+    step(params, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with first_calls(ops, ("flash_attention",)) as seen, \
+            recorded_routes(torch) as routes:
+        ops.LAUNCHES["flash_attention"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {"flash_attention": ops.LAUNCHES["flash_attention"]}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(launches == expect,
+          f"one {cfg.name} prefill launched {launches}; expected {expect}")
+    check(logits.shape == (PREFILL_BATCH, PREFILL_LEN, cfg.vocab_size),
+          f"logits shape {tuple(logits.shape)}")
+    check(len(routes) == moe_layers(cfg),
+          f"{len(routes)} MoE layers routed, expected {moe_layers(cfg)}")
+    dropped = [1.0 - float(r["keep"].float().mean()) for r in routes]
+    with tempfile.TemporaryDirectory() as tmp:   # a trace passes 64 MiB
+        profile = profile_step(torch, lambda: step(params, batch),
+                               Path(tmp), kind=moe_op_kind)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded_routes(torch) as plain_routes:
+        plain = forward_logits(cfg, params, batch, device=dev,
+                               use_kernel=False)
+    torch.cuda.synchronize()
+    plain_secs = time.perf_counter() - t0
+    agree = {"bf16_kernel_vs_plain": logit_diff(torch, logits, plain,
+                                                        "bf16")}
+    cfg32 = cfg.with_(compute_dtype=torch.float32)
+    with recorded_routes(torch) as exact_routes:
+        exact = forward_logits(cfg32, params, batch, device=dev,
+                               use_kernel=False)
+    agree["bf16_plain_vs_f32"] = logit_diff(torch, plain, exact,
+                                                    "bf16 plain")
+    del plain
+    agree["bf16_kernel_vs_f32"] = logit_diff(torch, logits, exact,
+                                                     "bf16")
+    del logits, exact
+    flips = {"bf16_kernel_vs_plain": flipped_share(routes, plain_routes),
+             "bf16_kernel_vs_f32": flipped_share(routes, exact_routes),
+             "bf16_plain_vs_f32": flipped_share(plain_routes, exact_routes)}
+    del routes, plain_routes, exact_routes
+    ratio = (agree["bf16_kernel_vs_f32"]["rel_l2"]
+             / agree["bf16_plain_vs_f32"]["rel_l2"])
+    check(ratio <= BF16_ROUTE_RATIO,
+          f"bf16 {cfg.name} prefill: the kernel route lies {ratio} x as far "
+          f"from f32 as the plain route (limit {BF16_ROUTE_RATIO}): {agree}")
+    torch.cuda.empty_cache()
+    f32 = moe_f32_routes(torch, cfg, params,
+                         tokens[:ROUTE_BATCH, :ROUTE_TOKENS], dev)
+    torch.cuda.empty_cache()
+    replay_cfg = cfg.with_(capacity_factor=moe_replay_capacity(cfg))
+    with recorded_routes(torch) as serve_routes:
+        serve = phase_serve(torch, ops, dev, cfg, params, seed, expect,
+                            phase, MOE_BF16_REPLAY_REL_L2, replay_cfg)
+    # phase_serve's last forward: the f32 one the f32 replay is held to
+    replay_dropped = [1.0 - float(r["keep"].float().mean())
+                      for r in serve_routes[-moe_layers(cfg):]]
+    del serve_routes
+    serve.update(capacity_factor=replay_cfg.capacity_factor,
+                 forward_dropped_share_by_layer=replay_dropped)
+    check(not any(replay_dropped), f"the replay's f32 forward at capacity "
+          f"factor {replay_cfg.capacity_factor} dropped {replay_dropped}")
+    del params, step
+    torch.cuda.empty_cache()
+    (q, k, v), kw, out = seen["flash_attention"]
+    check(q.dtype == torch.bfloat16, f"prefill attention in {q.dtype}")
+    err = close(torch, out, ref.flash_attention(q, k, v, **kw),
+                ATTN_TOL[dtype_name(q.dtype)], "prefill's first attention "
+                f"call, {arch}")
+    call_rel = tight(torch, ref, out, q, k, v, kw.get("causal", True),
+                     f"phase {phase}: the prefill's first attention call")
+    torch.cuda.empty_cache()
+    tok_s = PREFILL_BATCH * PREFILL_LEN / secs
+    row = {"arch": arch, "layers": cfg.n_layers, "of_layers": full.n_layers,
+           "params": cfg.param_count(), "weights_gib": weights_gib,
+           "capacity": {"factor": cfg.capacity_factor},
+           "prefill": {"tokens": [PREFILL_BATCH, PREFILL_LEN], "secs": secs,
+                       "tokens_per_s": tok_s, "plain_secs": plain_secs,
+                       "peak_gib": peak, "launches": launches,
+                       "dropped_share_by_layer": dropped,
+                       "profile": profile},
+           "attention_call": [list(q.shape), int(k.shape[2]),
+                              int(v.shape[3])],
+           "attn_max_abs_err": err, "attn_rel_l2": call_rel,
+           "bf16_routes": {"logits": agree, "ratio": ratio,
+                           "flipped_share_by_layer": flips},
+           "f32_routes": f32, "serve": serve, "card": card_name_power()}
+    log(f"phase {phase}: {arch} full width, {cfg.n_layers} of "
+        f"{full.n_layers} layers ({cfg.param_count():,} params, "
+        f"{weights_gib:.2f} GiB of f32 weights) on {row['card']}: prefill "
+        f"of {PREFILL_BATCH} x {PREFILL_LEN} tokens {secs:.4f} s "
+        f"({tok_s:.0f} tokens/s), launches {launches}, peak memory "
+        f"{peak:.2f} GiB; choices dropped by capacity (factor "
+        f"{cfg.capacity_factor}) by MoE layer {dropped}; plain route on the "
+        f"card {plain_secs:.4f} s; one profiled prefill: span "
+        f"{profile['span_ms']:.2f} ms, device busy "
+        f"{profile['device_busy_ms']:.2f} ms, idle share "
+        f"{profile['idle_share']:.4f}, ms by op {profile['by_kind_ms']}; "
+        f"bf16 logits {agree}, route ratio {ratio} (limit "
+        f"{BF16_ROUTE_RATIO}), share of choices routed apart by layer "
+        f"{flips}; f32 at depth {ROUTE_DEPTH} on {f32['tokens']} tokens: "
+        f"the same experts on both routes (smallest top-k margin "
+        f"{f32['smallest_topk_margin']:.3e}), logits {f32['logits']}; "
+        f"serving at capacity factor {cfg.capacity_factor}, the replay at "
+        f"{replay_cfg.capacity_factor} (its forward dropped "
+        f"{replay_dropped}); the "
+        f"first attention call (q, KV heads, v width "
+        f"{row['attention_call']}) == plain, max abs err {err}, vs f32 "
+        f"relative L2 {call_rel} (limit {ATTN_BF16_REL_L2})")
+    return row, seen
+
+
+def phase_moe_grads(torch, ops, ref, dev, seed):
+    """35: one full-width llama4-scout-17b-a16e MoE layer in f32 (TF32 off)
+    on 1 x ``MOE_GRAD_TOKENS`` tokens, no optimizer: ``loss_fn``'s loss
+    and every gradient leaf by autograd on the kernel route (the attention
+    forward twice under remat, its backward once, counted) against the
+    plain route (``F32_LOSS_RTOL``, ``F32_GRAD_REL_L2`` a leaf); the
+    router's aux loss above 0 and the router's gradient not zero on both;
+    the first backward call (GQA, 40 query heads over 8) against its plain
+    version."""
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params, loss_fn
+
+    cfg = get_config(MOE_GRAD_ARCH).with_(n_layers=1,
+                                          compute_dtype=torch.float32)
+    torch.cuda.empty_cache()
+    params = init_params(seed + 3, cfg, device=dev)
+    g = torch.Generator(device="cpu").manual_seed(seed + 4)
+    toks = torch.randint(0, cfg.vocab_size, (1, MOE_GRAD_TOKENS + 1),
+                         generator=g).to(dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    leaves, spec = tree_flatten(params)
+    router = [i for i, t in enumerate(leaves)
+              if t.shape == (cfg.d_model, cfg.n_experts)]
+    check(len(router) == 1, f"router leaves {router}")
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    for use_kernel in (True, False):
+        want = ("flash_attention", "flash_attention_bwd")
+        leaves = [t.detach().requires_grad_(True) for t in leaves]
+        with first_calls(ops, ("flash_attention_bwd",)) as seen:
+            before = {n: ops.LAUNCHES[n] for n in want}
+            loss, metrics = loss_fn(cfg, tree_unflatten(leaves, spec), batch,
+                                    device=dev, use_kernel=use_kernel)
+            grads = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            launches = {n: ops.LAUNCHES[n] - before[n] for n in want}
+        out[use_kernel] = {"loss": float(loss.detach()),
+                           "ce": float(metrics["ce"].detach()),
+                           "aux": float(metrics["aux"].detach()),
+                           "grads": grads,
+                           "launches": launches, "seen": seen}
+        del loss, metrics
+    leaves = [t.detach() for t in leaves]
+    kern, plain = out[True], out[False]
+    check(kern["launches"] == {"flash_attention": 2,
+                               "flash_attention_bwd": 1}
+          and plain["launches"] == {"flash_attention": 0,
+                                    "flash_attention_bwd": 0},
+          f"launches: kernel route {kern['launches']}, plain route "
+          f"{plain['launches']}")
+    loss_rel = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
+    diff = grad_diff(torch, kern["grads"], plain["grads"])
+    router_norm = {r: float(out[r]["grads"][router[0]].norm())
+                   for r in (True, False)}
+    check(loss_rel <= F32_LOSS_RTOL and diff["worst_leaf_rel_l2"]
+          <= F32_GRAD_REL_L2,
+          f"f32 {cfg.name} one layer, kernel vs plain route: loss rel "
+          f"{loss_rel}, gradients {diff} (limits {F32_LOSS_RTOL} loss, "
+          f"{F32_GRAD_REL_L2} a leaf)")
+    check(kern["aux"] > 0 and plain["aux"] > 0
+          and all(n > 0 for n in router_norm.values()),
+          f"aux {kern['aux']} / {plain['aux']}, router gradient norms "
+          f"{router_norm}")
+    (q, k, v, o, lse, do), kw, got = kern["seen"]["flash_attention_bwd"]
+    exp = ref.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    err = max(close(torch, gr, e, ATTN_TOL["float32"],
+                    f"phase 35's first backward call, {n}")
+              for n, gr, e in zip(("dq", "dk", "dv"), got, exp))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    row = {"arch": cfg.name, "layers": 1, "params": cfg.param_count(),
+           "tokens": [1, MOE_GRAD_TOKENS], "loss": kern["loss"],
+           "ce": kern["ce"], "aux": kern["aux"],
+           "plain_loss": plain["loss"], "loss_rel": loss_rel,
+           "grads": diff, "router_grad_norm": router_norm[True],
+           "launches": kern["launches"],
+           "bwd_call": [list(q.shape), int(k.shape[2]), int(v.shape[3])],
+           "bwd_max_abs_err": err, "peak_gib": peak,
+           "card": card_name_power()}
+    del out, kern, plain, params, leaves, exp, got
+    torch.cuda.empty_cache()
+    log(f"phase 35: {cfg.name} full width, one MoE layer ("
+        f"{cfg.param_count():,} params with the embedding) in f32 on 1 x "
+        f"{MOE_GRAD_TOKENS} tokens on {row['card']}: loss {row['loss']} (ce "
+        f"{row['ce']}, aux {row['aux']}), kernel vs plain route: loss rel "
+        f"{loss_rel}, gradients {diff} (limits {F32_LOSS_RTOL}, "
+        f"{F32_GRAD_REL_L2} a leaf); router gradient norm "
+        f"{row['router_grad_norm']}; launches {row['launches']}; the first "
+        f"backward call (q, KV heads, v width {row['bwd_call']}) == plain, "
+        f"max abs err {err}; peak memory {peak:.2f} GiB")
+    return row
+
+
+def phase_moe_timing(torch, ops, ref, dev, prefills, l2_bytes):
+    """36: the attention forward on the inputs the MoE prefills gave it
+    (``prefills``: each arch's first call), as phase 31 times the dense
+    archs' (:func:`prefill_forward_rows`)."""
+    rows = prefill_forward_rows(torch, ops, ref, prefills, l2_bytes)
+    card = card_name_power()
+    for name, row in rows.items():
+        row["card"] = card
+        log_timing(36, name, row)
     return rows
 
 # ------------------------------------ scan training (phases 21-25)
@@ -4660,13 +5196,14 @@ def main(argv=None) -> int:
         f"spill bytes of its bf16 entry at ds 16 "
         f"{regs['selective_scan_bwd']}; its inner loops "
         f"{sass['selective_scan_bwd']}")
-    from repro_torch.kernels.flash_attention import HEAD_DIMS
-    for name in ("flash_attention", "flash_attention_bwd"):
+    from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS, HEAD_DIMS
+    for name, pairs in (("flash_attention", HEAD_DIMS),
+                        ("flash_attention_bwd", BWD_HEAD_DIMS)):
         usage = ptxas_usage(ops.ptxas_log(name).read_text())
         regs[name]["by_head_size"] = {
             f"{dqk}/{dv}": entry_usage(usage, f"{MAIN_ENTRIES[name]}"
                                               f"ILi{dqk}ELi{dv}E")
-            for dqk, dv in HEAD_DIMS}
+            for dqk, dv in pairs}
     sass["flash_attention_bwd"] = bwd_sass_counts(
         ops, paths[names.index("flash_attention_bwd")])
     if sass["flash_attention_bwd"] != "no cuobjdump":
@@ -4866,6 +5403,25 @@ def main(argv=None) -> int:
         to_device(fwd_seen, dev), to_device(bwd_seen, dev), l2)
     del fwd_seen, bwd_seen
 
+    # the MoE archs' serving: the forward at (192, 128) against its plain
+    # version; each arch's prefill and serving path at full width, cut in
+    # depth (counts set to 0 just before the prefill, read just after),
+    # its weights freed before the next arch's; llama4's loss and
+    # gradients in f32; the forward timed at both prefills' inputs
+    wide_errs, wide_cases, wide_rel = timed(
+        "phase 32", phase_attn_wide_vs_plain, torch, ops, ref, dev)
+    moe_rows, moe_seen = {}, {}
+    for phase, arch in zip((33, 34), MOE_ARCHS):
+        moe_rows[arch], seen = timed(f"phase {phase}", phase_moe_serving,
+                                     torch, ops, ref, dev, seed, arch, phase)
+        moe_seen[arch] = to_device(seen, "cpu")
+    del seen
+    moe_grads = timed("phase 35", phase_moe_grads, torch, ops, ref, dev,
+                      seed)
+    moe_timing = timed("phase 36", phase_moe_timing, torch, ops, ref, dev,
+                       to_device(moe_seen, dev), l2)
+    del moe_seen
+
     summary = {"kernels": [{
         "name": "topk_reward", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "checked": True,
@@ -5055,7 +5611,23 @@ def main(argv=None) -> int:
                                      else "backward")},
             "padding_hd96_vs_hd128": dense_timing["padding_hd96_vs_hd128"][
                 "forward" if name == "flash_attention" else "backward"]}
+    row = next(k for k in summary["kernels"] if k["name"] == "flash_attention")
+    for arch in MOE_ARCHS:
+        row["launches_by_phase"][f"{arch}_prefill_2x4096"] = \
+            moe_rows[arch]["prefill"]["launches"]["flash_attention"]
+        row["launches_by_phase"][f"{arch}_serve_prompt_forward"] = \
+            moe_rows[arch]["serve"]["prompt_forward_launches"][
+                "flash_attention"]
+    row["launches_by_phase"][f"{MOE_GRAD_ARCH}_f32_layer_loss_and_grads"] = \
+        moe_grads["launches"]["flash_attention"]
+    row["pair_192_128"] = {
+        "checked_shapes": wide_cases, "max_abs_err_by_dtype": wide_errs,
+        "bf16_rel_l2_vs_f32": {"phase32_max": wide_rel,
+                               "limit": ATTN_BF16_REL_L2},
+        "timing": moe_timing, "backward": "not built (ROADMAP.md queue 1 "
+                                          "item 16)"}
     summary["dense_archs"] = dense
+    summary["moe_archs"] = {**moe_rows, "llama4_f32_layer_grads": moe_grads}
     summary["olmo_1b"] = {"train": train_row, "cohort_cli": cohort_row}
     summary["zamba2_1_2b"] = {"train": zamba_train}
     summary["falcon_mamba_7b"] = {"train": falcon_train}

@@ -19,7 +19,9 @@ ARCH_IDS = ("phi3-mini-3.8b", "phi4-mini-3.8b", "zamba2-1.2b",
 _PORTED = {"zamba2-1.2b": "zamba2_1_2b",
            "falcon-mamba-7b": "falcon_mamba_7b", "olmo-1b": "olmo_1b",
            "phi4-mini-3.8b": "phi4_mini_3_8b",
-           "phi3-mini-3.8b": "phi3_mini_3_8b", "minicpm3-4b": "minicpm3_4b"}
+           "phi3-mini-3.8b": "phi3_mini_3_8b", "minicpm3-4b": "minicpm3_4b",
+           "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+           "deepseek-v2-236b": "deepseek_v2_236b"}
 
 
 def _module(arch_id: str):
@@ -27,7 +29,8 @@ def _module(arch_id: str):
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCH_IDS)}")
     if arch_id not in _PORTED:
         raise NotImplementedError(
-            f"{arch_id} is not ported yet (ROADMAP.md queue 1 item 16); "
+            f"{arch_id} is not ported yet: the vision frontend and the "
+            f"multi-codebook heads are missing (ROADMAP.md queue 1 item 16); "
             f"ported: {sorted(_PORTED)}")
     return importlib.import_module(f"repro_torch.configs.{_PORTED[arch_id]}")
 

@@ -18,8 +18,13 @@ each leaf, done by the caller); nothing here imports JAX. Layouts:
   without norm weights (olmo's non-parametric LayerNorm) converts the
   same way, and so do MLA layers (``wdq``, ``q_norm``, ``wuq`` or
   ``wq``, ``wdkv``, ``kv_norm``, ``wkr``, ``wuk``, ``wuv``, ``wo``:
-  ``models/mla.py``) and their latent cache (``c_kv``, ``k_rope``). The LM's AdamW state converts its moment trees as LM
-  parameters (:func:`lm_optimizer_state`).
+  ``models/mla.py``) and their latent cache (``c_kv``, ``k_rope``), and
+  MoE layers (``models/moe.py``: the f32 ``router`` (D, E), the expert
+  stacks ``w_gate``/``w_up`` (E, D, F) and ``w_down`` (E, F, D), stacked
+  ``(n, E, ...)`` and unstacked over the layers only, and the ``shared``
+  FFN), deepseek-v2-236b's leading dense layer a run of its own. The
+  LM's AdamW state converts its moment trees as LM parameters
+  (:func:`lm_optimizer_state`).
 """
 from __future__ import annotations
 

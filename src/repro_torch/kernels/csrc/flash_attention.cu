@@ -12,8 +12,8 @@
 // query head h reads KV head h / (H / KH) (grouped-query attention). The
 // output is a contiguous (B, S, H, Dv) tensor. The q.k width Dqk and the v
 // width Dv differ under multi-head latent attention (minicpm3-4b: 96 and
-// 64); the scale is Dqk^-0.5. The library is built for the (Dqk, Dv) pairs
-// of FA_PAIRS below.
+// 64; deepseek-v2-236b: 192 and 128); the scale is Dqk^-0.5. The library
+// is built for the (Dqk, Dv) pairs of FA_PAIRS below.
 //
 // Bound on an H100 SXM: at B*H = 64, S = 4096, D = 64, causal, the function
 // does 2 * 2 * (S^2 / 2) * D * B*H = 137 GFLOP, 0.14 ms at 989 TFLOP/s of
@@ -49,11 +49,17 @@
 //     function encodes per call over the strided 4-d tensors (q, k: {Dqk,
 //     heads, S, B}; v: {Dv, KH, S, B}; byte strides from the tensors;
 //     boxes of 64 columns x BQ (q) or 128 (k, v) rows, 128-byte swizzled,
-//     so a width of 128 is two boxes). Q is loaded once; 128-row K and V
-//     tiles go through a ring of 3 (one box a row each) or 2 stages, each
+//     so a width of 128 is two boxes and 192 three). Q is loaded once;
+//     128-row K and V tiles go through a ring of 3 (one box a row each) or
+//     2 stages, each
 //     with full barriers (K and V apart, so Q K^T starts before V lands)
 //     and an empty barrier that every consumer warp releases. Rows past S
 //     arrive as zeros.
+//   - at (192, 128) a Q or K row is three boxes: Q takes 48 KB, each K stage
+//     48 KB and each V stage 32 KB, about 209 KB in all with the 2-stage
+//     ring, and Q K^T runs 12 k-steps over the three boxes; its registers
+//     are those of (128, 128) (S and O are each m64n128, two consumer
+//     warpgroups).
 //   - widths that are not a whole number of boxes (96, 48, 32): the map's
 //     first dimension is the true width and its boxes stay 64 columns, so
 //     TMA fills the columns past the width with zeros. Q K^T runs only its
@@ -101,9 +107,13 @@ constexpr float kNegInf = -1e30f;   // the reference's mask value
 
 // the (Dqk, Dv) pairs the library is built for, as the wrapper's
 // HEAD_DIMS: (64, 64) and (128, 128) for the GQA archs (zamba2-1.2b,
-// olmo-1b, phi4-mini-3.8b), (96, 96) for phi3-mini-3.8b, (96, 64) and
-// (48, 32) for minicpm3-4b's MLA at its full and reduced widths
-#define FA_PAIRS(X) X(64, 64) X(128, 128) X(96, 96) X(96, 64) X(48, 32)
+// olmo-1b, phi4-mini-3.8b, llama4-scout-17b-a16e), (96, 96) for
+// phi3-mini-3.8b, (96, 64) and (48, 32) for the MLA of minicpm3-4b (full
+// width) and of minicpm3-4b and deepseek-v2-236b (reduced), and (192, 128)
+// for deepseek-v2-236b's MLA at full width (the forward only: the
+// backward library does not take it)
+#define FA_PAIRS(X) \
+  X(64, 64) X(128, 128) X(96, 96) X(96, 64) X(48, 32) X(192, 128)
 
 template <int DQK, int DV>
 constexpr int smem_bytes() {
@@ -269,7 +279,7 @@ struct WgTraits {
   static constexpr int kBarOffset =
       kQKBlocks * kQBoxBytes + kStages * (kKTile + kVTile);
   static constexpr int kSmemBytes = kBarOffset + (1 + 3 * kStages) * 8 + 1024;
-  static_assert(DQK % 16 == 0 && DV % 8 == 0 && kQKBlocks <= 2 &&
+  static_assert(DQK % 16 == 0 && DV % 8 == 0 && kQKBlocks <= 3 &&
                     kVBlocks <= 2 && kSmemBytes <= 232448,
                 "a (Dqk, Dv) pair the tensor-core design does not take");
 };
@@ -361,7 +371,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
       const uint32_t va = sv + st * T::kVTile;
       mbar_wait(full_k(st), ph);
 
-      // S = Q K^T: 64 x 128 keys, DQK / 16 k-steps of 32 bytes in a box
+      // S = Q K^T: 64 x 128 keys, DQK / 16 k-steps of 32 bytes in a box,
+      // four a box (12 over the three boxes of a width of 192)
       float s[64];
       pin(s);
       wg_fence();

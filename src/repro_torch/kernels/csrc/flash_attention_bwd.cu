@@ -118,7 +118,9 @@ namespace {
 
 using namespace hopper;
 
-// the (Dqk, Dv) pairs the library is built for: the forward's
+// the (Dqk, Dv) pairs the library is built for: the forward's but
+// (192, 128), where a consumer warpgroup's dK would pass the register
+// budget (the wrapper's BWD_HEAD_DIMS)
 #define FA_PAIRS(X) X(64, 64) X(128, 128) X(96, 96) X(96, 64) X(48, 32)
 
 constexpr int kThreads = 256;

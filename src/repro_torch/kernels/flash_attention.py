@@ -16,7 +16,9 @@ tensor maps that its launch function builds from these strides), and
 returns a contiguous ``(B, S, H, Dv)`` tensor in q's dtype. The q.k width
 ``Dqk`` and the v width ``Dv`` are equal (the head size) but under
 multi-head latent attention (``models/mla.py``: 96 and 64 for
-minicpm3-4b); the library is built for the pairs in :data:`HEAD_DIMS`.
+minicpm3-4b, 192 and 128 for deepseek-v2-236b); the forward library is
+built for the pairs in :data:`HEAD_DIMS`, the backward's for those in
+:data:`BWD_HEAD_DIMS`.
 The reference's wrapper takes ``(B, H, S, D)``; the math is the same:
 scale ``Dqk**-0.5``, causal mask ``-1e30``, f32 accumulation, denominator
 clamped at ``1e-30``.
@@ -36,15 +38,23 @@ import torch
 
 from repro_torch.device import stream_handle
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the (q.k width, v width) pairs both libraries are built for (FA_PAIRS in
-# csrc/): the GQA head sizes 64 and 128 (zamba2-1.2b, olmo-1b,
-# phi4-mini-3.8b) and 96 (phi3-mini-3.8b); minicpm3-4b's MLA at full and
-# reduced width
-HEAD_DIMS = ((64, 64), (128, 128), (96, 96), (96, 64), (48, 32))
+# the (q.k width, v width) pairs the forward library is built for
+# (FA_PAIRS in csrc/flash_attention.cu): the GQA head sizes 64 and 128
+# (zamba2-1.2b, olmo-1b, phi4-mini-3.8b, llama4-scout-17b-a16e) and 96
+# (phi3-mini-3.8b); minicpm3-4b's MLA at full and reduced width (the
+# reduced deepseek-v2-236b's too), and deepseek-v2-236b's at full width
+HEAD_DIMS = ((64, 64), (128, 128), (96, 96), (96, 64), (48, 32), (192, 128))
+# the pairs of the backward library (FA_PAIRS in
+# csrc/flash_attention_bwd.cu): all but (192, 128), where a consumer
+# warpgroup's dK (96 registers a thread) beside dV's 64 passes the
+# design's 240 before S^T and dP^T; that pair needs a layout of its own
+# (ROADMAP.md queue 1 item 16)
+BWD_HEAD_DIMS = tuple(p for p in HEAD_DIMS if p != (192, 128))
 MAX_GRID_Y = 65535        # one CTA row per (batch, head)
 
-__all__ = ["DTYPES", "HEAD_DIMS", "bind", "bind_bwd", "check_inputs",
-           "check_bwd_inputs", "launch", "launch_bwd", "kernel_ready"]
+__all__ = ["BWD_HEAD_DIMS", "DTYPES", "HEAD_DIMS", "bind", "bind_bwd",
+           "check_inputs", "check_bwd_inputs", "launch", "launch_bwd",
+           "kernel_ready"]
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -117,9 +127,16 @@ def check_bwd_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      o: torch.Tensor, lse: torch.Tensor,
                      do: torch.Tensor) -> None:
     """Raise on what the backward kernel does not take: q, k, v as the
-    forward's; o and do shaped as the forward's output ``(B, S, H, Dv)``
-    and typed as q, under q's rules; lse a contiguous f32 ``(B, H, S)``."""
+    forward's, at a width pair of :data:`BWD_HEAD_DIMS`; o and do shaped
+    as the forward's output ``(B, S, H, Dv)`` and typed as q, under q's
+    rules; lse a contiguous f32 ``(B, H, S)``."""
     check_inputs(q, k, v)
+    if (q.shape[3], v.shape[3]) not in BWD_HEAD_DIMS:
+        raise ValueError(
+            f"the attention backward kernel is not built for the (q.k, v) "
+            f"widths {(q.shape[3], v.shape[3])}: the forward takes them, the "
+            f"backward waits for a register layout of its own (ROADMAP.md "
+            f"queue 1 item 16); built: {BWD_HEAD_DIMS}")
     out_shape = q.shape[:3] + v.shape[3:]
     for name, t in (("o", o), ("do", do)):
         if t.shape != out_shape:

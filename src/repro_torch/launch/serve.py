@@ -12,8 +12,8 @@ the reference's ``serve.py`` does (a production prefill runs
 ``forward_logits``, ``make_prefill_step``). :func:`generate` holds the loop
 so that other callers run it on any config. ``--arch`` takes the ported
 architectures (phi3-mini-3.8b, phi4-mini-3.8b, minicpm3-4b, olmo-1b,
-zamba2-1.2b, falcon-mamba-7b) and defaults to phi3-mini-3.8b, as the
-reference's.
+zamba2-1.2b, falcon-mamba-7b, llama4-scout-17b-a16e, deepseek-v2-236b)
+and defaults to phi3-mini-3.8b, as the reference's.
 """
 from __future__ import annotations
 

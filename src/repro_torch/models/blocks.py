@@ -1,11 +1,12 @@
 """Per-layer blocks: init / forward / decode, dispatched by block kind.
 
-Block kinds ported so far:
+Block kinds, all four of the reference's:
   dense       attention (GQA, or MLA by ``cfg.attn_kind``) + dense FFN
+  moe         attention + the mixture-of-experts FFN (``models/moe.py``;
+              its forward returns the router's aux loss)
   ssm         Mamba1 or Mamba2, by ``cfg.ssm_variant``
   shared_attn the Zamba2 weight-shared attention+MLP block (the same code
               as ``dense``; its one weight set is reused at every call)
-``moe`` raises ``NotImplementedError`` (ROADMAP.md queue 1 item 16).
 ``use_kernel`` reaches every block's prefill (GQA, MLA, Mamba1 and Mamba2
 alike).
 """
@@ -16,7 +17,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models import mamba, mla
+from repro_torch.models import mamba, mla, moe
 from repro_torch.models.common import apply_norm, ffn_apply, ffn_init, init_norm
 
 Params = Dict[str, Any]
@@ -25,9 +26,6 @@ Params = Dict[str, Any]
 def _check_kind(cfg, kind: str) -> None:
     if kind not in ("dense", "moe", "shared_attn", "ssm"):
         raise ValueError(kind)
-    if kind == "moe":
-        raise NotImplementedError(
-            "moe blocks are not ported yet (ROADMAP.md queue 1 item 16)")
 
 
 # ------------------------------------------------------------------ init
@@ -49,23 +47,26 @@ def init_block(gen: torch.Generator, cfg, kind: str) -> Params:
     if n is not None:
         p["norm_attn"] = n
         p["norm_ffn"] = init_norm(cfg, cfg.d_model, gen.device)
-    p["ffn"] = ffn_init(gen, cfg, cfg.d_model, cfg.d_ff)
+    p["ffn"] = (moe.init_moe(gen, cfg) if kind == "moe"
+                else ffn_init(gen, cfg, cfg.d_model, cfg.d_ff))
     return p
 
 
 # --------------------------------------------------------------- forward
 def block_forward(cfg, kind: str, p: Params, x, positions,
                   want_kv: bool = False, use_kernel: Optional[bool] = None):
-    """Returns (x_out, kv_or_None). The reference also returns the MoE
-    router's aux loss, which comes with the ``moe`` kind."""
+    """Returns (x_out, aux_loss, kv_or_None): the MoE router's aux loss
+    (f32 0-d, already weighted by ``router_aux_weight``), 0 for the other
+    kinds."""
     _check_kind(cfg, kind)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "ssm":
         h = apply_norm(cfg, p, x, "norm")
         if cfg.ssm_variant == "mamba1":
             return x + mamba.mamba1_forward(cfg, p["ssm"], h,
-                                            use_kernel=use_kernel), None
+                                            use_kernel=use_kernel), aux, None
         return x + mamba.mamba2_forward(cfg, p["ssm"], h,
-                                        use_kernel=use_kernel), None
+                                        use_kernel=use_kernel), aux, None
 
     h = apply_norm(cfg, p, x, "norm_attn")
     forward = mla.mla_forward if cfg.attn_kind == "mla" else attn.gqa_forward
@@ -73,7 +74,11 @@ def block_forward(cfg, kind: str, p: Params, x, positions,
                     use_kernel=use_kernel)
     x = x + a
     h = apply_norm(cfg, p, x, "norm_ffn")
-    return x + ffn_apply(cfg, p["ffn"], h), kv
+    if kind == "moe":
+        f, aux = moe.moe_apply(cfg, p["ffn"], h)
+    else:
+        f = ffn_apply(cfg, p["ffn"], h)
+    return x + f, aux, kv
 
 
 # ---------------------------------------------------------------- decode
@@ -106,4 +111,6 @@ def block_decode(cfg, kind: str, p: Params, x, cache, cache_index: int,
     a, new_cache = decode(cfg, p["attn"], h, cache, cache_index, ring)
     x = x + a
     h = apply_norm(cfg, p, x, "norm_ffn")
-    return x + ffn_apply(cfg, p["ffn"], h), new_cache
+    f = (moe.moe_apply(cfg, p["ffn"], h)[0] if kind == "moe"
+         else ffn_apply(cfg, p["ffn"], h))
+    return x + f, new_cache

@@ -19,11 +19,13 @@ CPU):
   init_cache(cfg, batch, cache_len, dtype, device=None)
   decode_step(cfg, params, batch, cache, cache_index, ring, device=None)
 The dense GQA and MLA stacks (olmo-1b, phi3-mini-3.8b, phi4-mini-3.8b,
-minicpm3-4b) and the SSM ones (zamba2-1.2b, falcon-mamba-7b) run; the
-vision frontend and multi-codebook heads raise, as do ``moe`` blocks
-(``models/blocks.py``). ``loss_fn`` is differentiable by autograd on both
-routes: the attention, SSD and selective-scan kernels each have a backward
-kernel (``kernels/ops.py``), so all six train on the card.
+minicpm3-4b), the SSM ones (zamba2-1.2b, falcon-mamba-7b) and the
+mixture-of-experts ones (llama4-scout-17b-a16e; deepseek-v2-236b, MLA with
+a leading dense layer) run; the vision frontend and multi-codebook heads
+raise. ``loss_fn`` is differentiable by autograd on both routes and adds
+the MoE routers' aux loss to the cross-entropy: the attention, SSD and
+selective-scan kernels each have a backward kernel (``kernels/ops.py``),
+built for every attention width pair but deepseek-v2-236b's (192, 128).
 """
 from __future__ import annotations
 
@@ -117,29 +119,36 @@ def output_logits(cfg, params: Params, h: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------- forward
 def _layer(cfg, kind: str, use_kernel: Optional[bool], h, positions,
            layer_p):
+    """``(h, aux)`` of one layer."""
     return block_forward(cfg, kind, layer_p, h, positions,
-                         use_kernel=use_kernel)[0]
+                         use_kernel=use_kernel)[:2]
 
 
 def _run_stages(cfg, params: Params, h, positions,
                 use_kernel: Optional[bool] = None, remat: bool = False):
-    """The layers in order. With ``remat`` each layer of a run keeps only
-    its input for the backward and runs again there (the reference's
-    ``jax.checkpoint`` around its scan body); the one ``shared_attn``
-    call is not rematerialised, as in the reference."""
+    """The layers in order: ``(h, aux)``, aux the f32 sum of the layers'
+    router losses. With ``remat`` each layer of a run keeps only its input
+    for the backward and runs again there (the reference's
+    ``jax.checkpoint`` around its scan body), its router on the same
+    saved input, so the recompute routes the tokens as the forward did;
+    the one ``shared_attn`` call is not rematerialised, as in the
+    reference."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for (kind, _), sp in zip(build_stages(cfg), params["stages"]):
         if kind == "shared_attn":
-            h = _layer(cfg, kind, use_kernel, h, positions,
-                       params["shared_attn"])
+            h, aux = _layer(cfg, kind, use_kernel, h, positions,
+                            params["shared_attn"])
+            aux_total = aux_total + aux
             continue
         body = partial(_layer, cfg, kind, use_kernel)
         for layer_p in sp:
             if remat:
-                h = checkpoint(body, h, positions, layer_p,
-                               use_reentrant=False)
+                h, aux = checkpoint(body, h, positions, layer_p,
+                                    use_reentrant=False)
             else:
-                h = body(h, positions, layer_p)
-    return h
+                h, aux = body(h, positions, layer_p)
+            aux_total = aux_total + aux
+    return h, aux_total
 
 
 def _embed_batch(cfg, params: Params, batch, device: torch.device):
@@ -161,7 +170,7 @@ def forward_logits(cfg, params: Params, batch, device: DeviceLike = None,
     training-memory knob and has no counterpart in a forward."""
     dev = resolve_device(device)
     h, positions = _embed_batch(cfg, params, batch, dev)
-    h = _run_stages(cfg, params, h, positions, use_kernel)
+    h, _ = _run_stages(cfg, params, h, positions, use_kernel)
     h = apply_norm(cfg, params, h, "final_norm")
     return output_logits(cfg, params, h)
 
@@ -172,16 +181,15 @@ def loss_fn(cfg, params: Params, batch, remat: bool = True,
 
     ``batch``: ``tokens`` and ``labels`` (B, S), labels -100 ignored,
     moved to ``device``, where ``params`` must lie. ``loss = ce + aux``;
-    ``aux`` (the MoE router's loss in the reference) is 0 for the block
-    kinds ported. ``remat`` rematerialises each layer in the backward;
+    ``aux`` is the sum of the MoE layers' router losses (0 without MoE
+    layers). ``remat`` rematerialises each layer in the backward;
     ``use_kernel`` as in :func:`forward_logits`."""
     dev = resolve_device(device)
     h, positions = _embed_batch(cfg, params, batch, dev)
-    h = _run_stages(cfg, params, h, positions, use_kernel, remat)
+    h, aux = _run_stages(cfg, params, h, positions, use_kernel, remat)
     h = apply_norm(cfg, params, h, "final_norm")
     logits = output_logits(cfg, params, h)
     ce = cross_entropy(logits, torch.as_tensor(batch["labels"], device=dev))
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
     return ce + aux, {"ce": ce, "aux": aux}
 
 

@@ -106,6 +106,34 @@ def test_scan_covers_the_lm_slice():
             "kernels/selective_scan.py"} <= names
 
 
+def test_scan_covers_the_moe_slice():
+    pkg = ROOT / "src" / "repro_torch"
+    names = {p.relative_to(pkg).as_posix() for p in FILES
+             if pkg in p.parents}
+    assert {"models/moe.py", "configs/llama4_scout_17b_a16e.py",
+            "configs/deepseek_v2_236b.py"} <= names
+
+
+def test_moe_entry_points_need_cuda_or_an_explicit_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card")
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import forward_logits, init_params
+    for arch in ("llama4-scout-17b-a16e", "deepseek-v2-236b"):
+        cfg = get_reduced(arch)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init_params(0, cfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve.main(["--arch", arch, "--gen", "1", "--prompt-len", "2"])
+        params = init_params(0, cfg, device="cpu")
+        tokens = {"tokens": torch.zeros((1, 4), dtype=torch.int64)}
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            forward_logits(cfg, params, tokens)
+        assert forward_logits(cfg, params, tokens, device="cpu").shape == \
+            (1, 4, cfg.vocab_size)
+
+
 def test_scan_covers_the_async_slice():
     pkg = ROOT / "src" / "repro_torch"
     names = {p.relative_to(pkg).as_posix() for p in FILES
@@ -546,7 +574,8 @@ def test_chip_probes_edits_occur_once(table):
                                    "ds_tile_unswizzled", "lse_in_base_2",
                                    "qk_columns_64_95_dropped",
                                    "scale_of_v_width",
-                                   "dv_from_do_at_qk_width"])
+                                   "dv_from_do_at_qk_width",
+                                   "qk_third_box_dropped"])
 def test_chip_faults_plant_into_the_training_attention(fault):
     """Each planted fault of the training path's attention (and of both
     attention kernels at their width pairs) edits text that occurs once
@@ -555,7 +584,7 @@ def test_chip_faults_plant_into_the_training_attention(fault):
     an edit of a kernel cannot leave a fault unplanted."""
     _chip_smoke()
     cf = _load("chip_faults")
-    lib, edits = {**cf.BWD_FAULTS, **cf.WIDTH_FAULTS}[fault]
+    lib, edits = {**cf.BWD_FAULTS, **cf.WIDTH_FAULTS, **cf.WIDE_FAULTS}[fault]
     fn = {"flash_attention_bwd": "flash_bwd_wgmma(",
           "flash_attention": "flash_fwd_wgmma("}[lib]
     src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" /
@@ -1005,3 +1034,69 @@ def test_chip_faults_plant_into_the_scan_backward(fault):
         assert src.count(old) == 1 and old != new
         assert src.index(old) > src.index(fn)
     assert hasattr(smoke, faults.SCAN_BWD_PHASES[lib])
+
+
+def test_chip_smoke_moe_serving_plan():
+    """The MoE phases: each serving cut keeps the arch's width and at most
+    its depth, its f32 weights at most 57 GB (the reckoning beside
+    ``MOE_SERVE_CUT``), and its first two layers hold an MoE layer (the
+    f32 route comparison); phase 32's shapes are the pair the forward
+    alone is built for, deepseek's prefill among them."""
+    smoke = _chip_smoke()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS, HEAD_DIMS
+    assert set(smoke.MOE_SERVE_CUT) == set(smoke.MOE_ARCHS)
+    for arch, layers in smoke.MOE_SERVE_CUT.items():
+        cfg = get_config(arch)
+        cut = cfg.with_(n_layers=layers)
+        assert layers <= cfg.n_layers and smoke.moe_layers(cut) >= 1
+        assert 4 * cut.param_count() <= 57e9
+        assert smoke.moe_layers(cut.with_(n_layers=smoke.ROUTE_DEPTH)) >= 1
+    assert {(D, Dv) for *_, D, Dv in smoke.WIDE_SHAPES} == {(192, 128)}
+    assert (192, 128) in HEAD_DIMS and (192, 128) not in BWD_HEAD_DIMS
+    ds = get_config("deepseek-v2-236b")
+    assert (smoke.PREFILL_BATCH, smoke.PREFILL_LEN, ds.n_heads, ds.n_heads,
+            ds.qk_nope_dim + ds.qk_rope_dim, ds.v_head_dim) \
+        in smoke.WIDE_SHAPES
+
+
+def test_chip_smoke_logit_diff_by_parts():
+    """The logits' readings, taken a few positions at a time, equal the
+    whole tensors' (the MoE phases' f32 logits pass 6 GB a copy)."""
+    smoke = _chip_smoke()
+    g = torch.Generator().manual_seed(0)
+    exp = torch.randn(2, 37, 50, generator=g)
+    got = (exp + 0.01 * torch.randn(2, 37, 50, generator=g)).bfloat16()
+    d = got.float() - exp
+    for rows in (8, 256):
+        parts = smoke.logit_diff(torch, got, exp, "x", rows=rows)
+        assert parts["max_abs"] == float(d.abs().max())
+        assert parts["argmax_agree"] == float(
+            (got.float().argmax(-1) == exp.argmax(-1)).double().mean())
+        assert abs(parts["rel_l2"] - float(d.norm() / exp.norm())) \
+            <= 1e-6 * parts["rel_l2"]
+    with pytest.raises(smoke.SmokeFailure, match="non-finite"):
+        smoke.logit_diff(torch, got.float().log(), exp, "x", rows=8)
+
+
+def test_chip_smoke_records_each_moe_layers_routing():
+    """The routes the MoE phases compare: one record a MoE layer, in
+    order; the same forward twice routes alike; the first two layers of a
+    cut (``first_layers``) are the stages' first layers, not copies."""
+    smoke = _chip_smoke()
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import forward_logits, init_params
+    cfg = get_reduced("deepseek-v2-236b").with_(n_layers=3)
+    params = init_params(0, cfg, device="cpu")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 16))}
+    runs = []
+    for margins in (False, True):
+        with smoke.recorded_routes(torch, margins=margins) as calls:
+            forward_logits(cfg, params, batch, device="cpu")
+        runs.append(calls)
+    assert len(runs[0]) == len(runs[1]) == smoke.moe_layers(cfg) == 2
+    assert smoke.flipped_share(*runs) == [0.0, 0.0]
+    assert all(r["margin"] >= 0 for r in runs[1])
+    cut, p2 = smoke.first_layers(cfg, params, 2)
+    assert cut.n_layers == 2 and [len(st) for st in p2["stages"]] == [1, 1]
+    assert p2["stages"][1][0] is params["stages"][1][0]

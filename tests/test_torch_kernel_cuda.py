@@ -589,6 +589,50 @@ def test_attention_rejects_an_unbuilt_width_pair(D, Dv):
     assert ops.LAUNCHES == before
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KH,layout", [
+    (1, 32, 4, 4, "dense"), (2, 333, 8, 8, "mla"), (1, 1000, 16, 16, "mla"),
+    (1, 129, 4, 2, "dense")])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_forward_at_192_128(B, S, H, KH, layout, dtype, causal):
+    """The forward at deepseek-v2-236b's MLA pair (q.k 192 = three
+    64-column boxes, v 128) against its plain version, ragged S and the
+    MLA layout (v a strided slice of the packed k_nope / v projection);
+    bf16 also by the tight check. The backward is not built for the pair:
+    under grad the forward launches and the backward raises, naming its
+    roadmap item, and launches nothing."""
+    dev = _card()
+    D, Dv = 192, 128
+    g = torch.Generator(device="cpu").manual_seed(S + H)
+    q = torch.randn(B, S, H, D, generator=g).to(dtype).to(dev)
+    k = torch.randn(B, S, KH, D, generator=g).to(dtype).to(dev)
+    if layout == "mla":
+        kv = torch.randn(B, S, KH, 128 + Dv, generator=g).to(dtype).to(dev)
+        v = kv[..., 128:]
+    else:
+        v = torch.randn(B, S, KH, Dv, generator=g).to(dtype).to(dev)
+    before = dict(ops.LAUNCHES)
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] - before["flash_attention"] == 1
+    assert out.shape == (B, S, H, Dv) and out.dtype == dtype
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.flash_attention(
+        q, k, v, causal=causal).float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        exact = ref.flash_attention(q.float(), k.float(), v.float(),
+                                    causal=causal)
+        assert float((out.float() - exact).norm() / exact.norm()) \
+            <= ATTN_BF16_REL_L2
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    o = ops.flash_attention(*leaves, causal=causal)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="queue 1 item 16"):
+        o.sum().backward()
+    assert ops.LAUNCHES == before
+
+
 def _launched(names, before):
     return {n: ops.LAUNCHES[n] - before[n] for n in names}
 

@@ -94,7 +94,7 @@ def test_config_matches_reference(arch):
     assert get_config(arch).compute_dtype == torch.bfloat16
     assert len(ARCH_IDS) == 10
     with pytest.raises(NotImplementedError, match="queue 1 item 16"):
-        get_config("deepseek-v2-236b")
+        get_config("internvl2-2b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

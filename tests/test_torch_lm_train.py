@@ -265,7 +265,7 @@ def test_train_cohort_cli(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "step 9: loss=" in out and "[cohort:olmo-1b]" in out
     with pytest.raises(NotImplementedError, match="queue 1 item 16"):
-        train.main_cohort(_cohort_args(arch="llama4-scout-17b-a16e"))
+        train.main_cohort(_cohort_args(arch="internvl2-2b"))
 
 
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "falcon-mamba-7b"])

@@ -15,7 +15,8 @@ on the CPU.
   ``repro.models.attention.multihead_attention`` and ``jax.vjp`` of it,
   within 2e-5 (the JAX package's attention tolerance, f32).
 - The wrapper's checks (``kernels/flash_attention.py``): the built (q.k,
-  v) pairs pass, an unbuilt pair and mismatched shapes raise."""
+  v) pairs pass, an unbuilt pair and mismatched shapes raise; the
+  backward's check refuses (192, 128), built for the forward only."""
 import numpy as np
 import pytest
 
@@ -37,9 +38,9 @@ TOL = 2e-5
 MLA_TOL = 2e-4
 B, S = 2, 40
 # B, S, H, KH, Dqk, Dv: the reduced MLA pair, the full one with GQA, and
-# a ragged S
+# a ragged S, and deepseek-v2-236b's full pair (192, 128) ragged
 CASES = [(2, 64, 4, 4, 48, 32), (1, 37, 4, 2, 96, 64),
-         (2, 70, 2, 2, 96, 64)]
+         (2, 70, 2, 2, 96, 64), (1, 33, 4, 4, 192, 128)]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -157,6 +158,9 @@ def test_attention_at_two_widths_matches_reference(case, causal):
 
 @pytest.mark.parametrize("widths", fa.HEAD_DIMS)
 def test_wrapper_takes_the_built_pairs(widths):
+    """The forward's check takes every pair of ``HEAD_DIMS``; the
+    backward's every pair of ``BWD_HEAD_DIMS`` and refuses the one pair
+    only the forward is built for, (192, 128), naming its roadmap item."""
     D, Dv = widths
     for dtype in fa.DTYPES:
         q = torch.zeros(1, 8, 4, D, dtype=dtype)
@@ -165,10 +169,19 @@ def test_wrapper_takes_the_built_pairs(widths):
         fa.check_inputs(q, k, v)
         o = torch.zeros(1, 8, 4, Dv, dtype=dtype)
         lse = torch.zeros(1, 4, 8)
+        if widths not in fa.BWD_HEAD_DIMS:
+            with pytest.raises(ValueError, match="queue 1 item 16"):
+                fa.check_bwd_inputs(q, k, v, o, lse, o)
+            continue
         fa.check_bwd_inputs(q, k, v, o, lse, o)
         with pytest.raises(ValueError, match="output's shape"):
             fa.check_bwd_inputs(q, k, v, q if D != Dv else o[..., :8], lse,
                                 o)
+
+
+def test_backward_pairs_are_the_forwards_but_192_128():
+    assert set(fa.HEAD_DIMS) - set(fa.BWD_HEAD_DIMS) == {(192, 128)}
+    assert set(fa.BWD_HEAD_DIMS) < set(fa.HEAD_DIMS)
 
 
 @pytest.mark.parametrize("D,Dv", [(96, 48), (80, 80), (64, 32), (32, 32)])

@@ -4,8 +4,9 @@ subcommand and the example twins (``repro_torch.examples``).
 ``train fl`` must write the history ``run_fl`` returns for the same
 arguments, exactly; ``train cohort`` parses its arguments and, for an arch
 not ported yet, raises (ROADMAP.md queue 1 item 16); without ``--device``
-both need a card. The examples run at a small size with ``--device cpu``:
-the quickstart's histories equal ``run_fl`` of its configs, the
+both need a card. ``train cohort`` and ``launch.serve`` run the MoE archs
+(llama4-scout-17b-a16e, deepseek-v2-236b) at their reduced configs. The
+examples run at a small size with ``--device cpu``: the quickstart's histories equal ``run_fl`` of its configs, the
 million-client example's own assertions (kernel == plain, ``select`` ==
 ``select_host``) hold, the FedBuff example's parity leg holds, and the
 serving example decodes in-range tokens at its defaults.
@@ -39,12 +40,34 @@ def test_train_fl_writes_the_run_fl_history(tmp_path):
 
 
 def test_train_cohort_parses_and_names_its_item():
-    """The dense and SSM archs train (tests/test_torch_lm_train.py,
-    tests/test_torch_lm_dense.py); an arch not ported yet (MoE) parses and
-    raises, naming its roadmap item."""
-    with pytest.raises(NotImplementedError, match="item 16"):
-        train.main(["cohort", "--arch", "deepseek-v2-236b", "--steps", "2",
+    """The dense, SSM and MoE archs train (tests/test_torch_lm_train.py,
+    tests/test_torch_lm_dense.py, the MoE cases below); an arch not ported
+    yet (the vision frontend) parses and raises, naming its roadmap item
+    and what it lacks."""
+    with pytest.raises(NotImplementedError, match="vision frontend.*item 16"):
+        train.main(["cohort", "--arch", "internvl2-2b", "--steps", "2",
                     "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e",
+                                  "deepseek-v2-236b"])
+def test_train_cohort_runs_an_moe_arch(arch, capsys):
+    """``train cohort`` at the reference's defaults (10 AdamW steps of
+    4 x 64 tokens); it raises unless its loss falls."""
+    losses = train.main(["cohort", "--device", "cpu", "--arch", arch])
+    assert len(losses) == 10 and np.isfinite(losses).all()
+    assert f"[cohort:{arch}]" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b",
+                                  "llama4-scout-17b-a16e"])
+def test_serve_runs_an_moe_arch(arch, capsys):
+    """``python -m repro_torch.launch.serve --arch ARCH --device cpu`` at
+    its defaults (batch 4, prompt 32, gen 16): in-range tokens."""
+    from repro_torch.launch import serve
+    out = serve.main(["--arch", arch, "--device", "cpu"])
+    assert out.tokens.shape == (4, 16)
+    assert f"[{arch}] batch=4 prompt=32 gen=16" in capsys.readouterr().out
 
 
 def test_train_needs_cuda_or_an_explicit_cpu(tmp_path):
