@@ -255,9 +255,12 @@ weights are freed first):
    falcon-mamba-7b``) and ``python -m
    repro_torch.examples.federated_llm_cohort``, each in its own process;
    then, each in its own process and all at once, ``train cohort`` of
-   ``--arch phi4-mini-3.8b``, ``phi3-mini-3.8b`` and ``minicpm3-4b`` and
-   ``python -m repro_torch.examples.serve_decode`` (reduced
-   phi3-mini-3.8b at the example's defaults): each exits 0.
+   ``--arch phi4-mini-3.8b``, ``phi3-mini-3.8b``, ``minicpm3-4b``,
+   ``internvl2-2b`` and ``musicgen-large``, the federated LLM cohort
+   example of the last two, ``python -m
+   repro_torch.examples.serve_decode`` (reduced phi3-mini-3.8b at the
+   example's defaults) and ``python -m repro_torch.launch.dev_smoke`` (the
+   ten reduced archs): each exits 0.
 20. Timing, on the inputs the train step gave the backward kernel: the
    kernel, its plain version and ``scaled_dot_product_attention``'s
    backward (its forward and backward less its forward) in turns, beside
@@ -368,6 +371,33 @@ full width, random weights from ``--seed``, cut in depth by
 36. The attention forward timed at both prefills' inputs beside the plain
    version, one ``scaled_dot_product_attention`` call (``enable_gqa`` for
    llama4) and the bound.
+
+The vision frontend and the multi-codebook heads (internvl2-2b: 1,024
+precomputed patch embeddings before the text, GQA 16 over 8 at hd 128;
+musicgen-large: 4 codebook streams, their embeddings summed, a head a
+codebook, 32 heads of 64; full width, random weights from ``--seed``; each
+arch's weights freed before the next's):
+
+37, 38. ``make_prefill_step`` of each at full width and depth on 2 x 4096
+   positions (internvl: 1,024 patches of ``vision_embeds`` and 3,072 text
+   tokens; musicgen: a token a codebook a position): one forward must
+   launch the attention kernel 24 and 48 times; its first call held
+   against its plain version and by the tight check; the logits against
+   the plain route (f32, and bf16 by ``BF16_ROUTE_RATIO``). Then
+   ``generate`` at the serve defaults (musicgen's prompt and tokens a
+   token a codebook): the replay against a forward of the same tokens (for
+   internvl with an empty patch block: serving carries text tokens only),
+   in f32 at every position.
+39. ``make_train_step`` of each at full width and depth
+   (``FRONTEND_TRAIN_CUT``: internvl's 24 layers, musicgen's 48, on 4 x
+   4096), 3 steps: each launches the attention forward twice a layer
+   and its backward once; the losses finite; the first backward call
+   against its plain version and by the tight check; the routes (f32 at
+   depth 2, bf16 at the step's depth; internvl's 2 x 1024 text tokens
+   behind its 1,024 patches).
+40. Both kernels timed on the inputs phases 37-39 gave them, beside the
+   plain version, one ``scaled_dot_product_attention`` call
+   (``enable_gqa`` for internvl) and the bound.
 
 Each phase's wall time is logged. The last two lines of standard output
 are the kernels' JSON summary and ``{"ok": true, "device": {...}}``.
@@ -2827,6 +2857,41 @@ def logit_diff(torch, got, exp, what, rows=256):
             "argmax_agree": agree / g2.shape[0]}
 
 
+def codebooks(cfg):
+    """The trailing token shape of ``cfg``: ``(n_codebooks,)`` for the
+    multi-codebook heads, else ``()``."""
+    return (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+
+
+def lm_inputs(torch, cfg, g, rows, length):
+    """A batch of ``rows`` x ``length`` positions for ``cfg`` on the host,
+    drawn from the CPU generator ``g``: tokens (rows, length), or (rows,
+    length, ncb) with codebooks; with the vision frontend the first
+    ``cfg.n_patches`` positions are ``vision_embeds`` (0.02 N(0, 1), as
+    ``lm_batch`` draws them) and the other ``length - n_patches`` text
+    tokens. For the other archs the draw is ``randint`` alone, as
+    before."""
+    text = length - cfg.n_patches
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (rows, text) + codebooks(cfg),
+                                     generator=g)}
+    if cfg.frontend == "vision":
+        batch["vision_embeds"] = 0.02 * torch.randn(
+            (rows, cfg.n_patches, cfg.d_model), generator=g)
+    return batch
+
+
+def text_only(cfg, tokens):
+    """A forward's batch of ``tokens`` alone: with the vision frontend an
+    empty patch block, as the serving path (text tokens, no patches in the
+    cache) sees it."""
+    batch = {"tokens": tokens}
+    if cfg.frontend == "vision":
+        batch["vision_embeds"] = tokens.new_zeros(
+            (tokens.shape[0], 0, cfg.d_model), dtype=cfg.compute_dtype)
+    return batch
+
+
 ZAMBA_PREFILL_LAUNCHES = {"flash_attention": 6, "ssd_chunk": 38}
 
 
@@ -2842,9 +2907,8 @@ def phase_prefill(torch, ops, ref, dev, cfg, params, seed,
     from repro_torch.models.transformer import forward_logits
 
     g = torch.Generator(device="cpu").manual_seed(seed)
-    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN),
-                           generator=g).to(dev)
-    batch = {"tokens": tokens}
+    batch = to_device(lm_inputs(torch, cfg, g, PREFILL_BATCH, PREFILL_LEN),
+                      dev)
     step = make_prefill_step(cfg, device=dev)
     step(params, batch)
     torch.cuda.synchronize()
@@ -2861,8 +2925,8 @@ def phase_prefill(torch, ops, ref, dev, cfg, params, seed,
     peak = torch.cuda.max_memory_allocated() / 2**30
     check(launches == expect,
           f"one {cfg.name} prefill launched {launches}; expected {expect}")
-    check(logits.shape == (PREFILL_BATCH, PREFILL_LEN, cfg.vocab_size),
-          f"logits shape {tuple(logits.shape)}")
+    check(logits.shape == (PREFILL_BATCH, PREFILL_LEN) + codebooks(cfg)
+          + (cfg.vocab_size,), f"logits shape {tuple(logits.shape)}")
     # the recorded first call of each kernel against its plain version
     errs = {}
     (q, k, v), kw, out = seen["flash_attention"]
@@ -2908,7 +2972,9 @@ def phase_prefill(torch, ops, ref, dev, cfg, params, seed,
     tok_s = PREFILL_BATCH * PREFILL_LEN / secs
     log(f"phase {phase}: {cfg.name} full width ({cfg.param_count():,} "
         f"params, {cfg.n_layers} layers) prefill of {PREFILL_BATCH} x "
-        f"{PREFILL_LEN} tokens (a cut of prefill_32k's 32 x 32,768) on "
+        f"{PREFILL_LEN} positions ({cfg.n_patches} of them patch "
+        f"embeddings, token shape {codebooks(cfg)} a position; a cut of "
+        f"prefill_32k's 32 x 32,768) on "
         f"{card_name_power()}: {secs:.4f} s ({tok_s:.0f} tokens/s), "
         f"launches {launches}, peak memory {peak:.2f} GiB; the plain route "
         f"on the card {plain_secs:.4f} s; logits {agree}; first recorded "
@@ -2940,16 +3006,19 @@ def phase_serve(torch, ops, dev, cfg, params, seed, expect, phase,
     from repro_torch.models.transformer import forward_logits, init_cache
 
     g = torch.Generator(device="cpu").manual_seed(seed + 1)
-    prompt = torch.randint(0, cfg.vocab_size, (4, 32), generator=g).to(dev)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 32) + codebooks(cfg),
+                           generator=g).to(dev)
     torch.cuda.reset_peak_memory_stats()
     out = generate(cfg, params, prompt, 16, device=dev)
     peak = torch.cuda.max_memory_allocated() / 2**30
     toks = out.tokens
-    check(toks.shape == (4, 16), f"generated {tuple(toks.shape)}")
+    check(toks.shape == (4, 16) + codebooks(cfg),
+          f"generated {tuple(toks.shape)}")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           "generated tokens out of range")
     before = dict(ops.LAUNCHES)
-    full = forward_logits(replay_cfg, params, {"tokens": prompt}, device=dev)
+    full = forward_logits(replay_cfg, params, text_only(replay_cfg, prompt),
+                          device=dev)
     fwd_launches = {n: ops.LAUNCHES[n] - before[n] for n in expect}
     check(fwd_launches == expect,
           f"the prompt forward launched {fwd_launches}, expected {expect}")
@@ -2963,7 +3032,8 @@ def phase_serve(torch, ops, dev, cfg, params, seed, expect, phase,
     for t in range(P):
         logits, cache = step(params, {"tokens": prompt[:, t:t + 1]}, cache, t)
         steps.append(logits)
-    full32 = forward_logits(cfg32, params, {"tokens": prompt}, device=dev)
+    full32 = forward_logits(cfg32, params, text_only(cfg32, prompt),
+                            device=dev)
     agree["f32_replay_vs_forward"] = logit_diff(
         torch, torch.cat(steps, dim=1), full32, "f32 replay")
     check(agree["f32_replay_vs_forward"]["max_abs"] <= F32_LOGIT_ATOL,
@@ -3694,7 +3764,9 @@ def train_steps(torch, ops, cfg, dev, seed, want, record,
 
 def train_routes(torch, cfg, seed, dev, route_len):
     """One step's loss and gradients on ``ROUTE_BATCH`` x ``route_len``
-    tokens, kernel route against plain route: in f32 (TF32 off) at depth
+    tokens (behind ``cfg.n_patches`` patch embeddings with the vision
+    frontend; a token a codebook with codebooks), kernel route against
+    plain route: in f32 (TF32 off) at depth
     ``ROUTE_DEPTH`` (``F32_LOSS_RTOL`` on the loss, ``F32_GRAD_REL_L2`` a
     leaf), and in bf16 at ``cfg``'s depth, where the kernel route's
     gradient may lie no further from the f32 gradient than
@@ -3703,9 +3775,10 @@ def train_routes(torch, cfg, seed, dev, route_len):
     from repro_torch.models.transformer import init_params
 
     g = torch.Generator(device="cpu").manual_seed(seed + 2)
-    tokens = torch.randint(0, cfg.vocab_size, (ROUTE_BATCH, route_len + 1),
-                           generator=g).to(dev)
-    rbatch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    drawn = to_device(lm_inputs(torch, cfg, g, ROUTE_BATCH,
+                                cfg.n_patches + route_len + 1), dev)
+    tokens = drawn.pop("tokens")
+    rbatch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:], **drawn}
     cfg2 = cfg.with_(n_layers=ROUTE_DEPTH, compute_dtype=torch.float32)
     p2 = init_params(seed + 1, cfg2, device=dev)
     kl, kg = loss_and_grads(torch, cfg2, p2, rbatch, dev, True)
@@ -3822,11 +3895,14 @@ def phase_cohort_cli(torch):
     ``--arch falcon-mamba-7b`` (through the scan kernels' backward
     kernels), and the federated LLM cohort example, each in its own
     process on the card, one after another; then, together, ``train
-    cohort`` of phi4-mini-3.8b, phi3-mini-3.8b and minicpm3-4b and
-    ``python -m repro_torch.examples.serve_decode`` (reduced
-    phi3-mini-3.8b), each in its own process; each must exit 0 (``train
-    cohort`` raises unless its loss falls, the serving driver on tokens
-    out of range)."""
+    cohort`` of phi4-mini-3.8b, phi3-mini-3.8b, minicpm3-4b,
+    internvl2-2b and musicgen-large, the federated LLM cohort example of
+    the last two, ``python -m repro_torch.examples.serve_decode``
+    (reduced phi3-mini-3.8b) and ``python -m repro_torch.launch.dev_smoke``
+    (all ten reduced archs: a train forward/backward and a decode step
+    each), each in its own process; each must exit 0 (``train cohort``
+    raises unless its loss falls, the serving driver on tokens out of
+    range, the dev smoke on a non-finite value)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
     cohort = ["-m", "repro_torch.launch.train", "cohort", "--steps", "10"]
@@ -3849,8 +3925,12 @@ def phase_cohort_cli(torch):
         ("federated_llm_cohort",
          ["-m", "repro_torch.examples.federated_llm_cohort"])))
     together = [(f"train_cohort_{arch}", cohort + ["--arch", arch])
-                for arch in DENSE_ARCHS] + [
-        ("serve_decode", ["-m", "repro_torch.examples.serve_decode"])]
+                for arch in DENSE_ARCHS + FRONTEND_ARCHS] + [
+        (f"federated_llm_cohort_{arch}",
+         ["-m", "repro_torch.examples.federated_llm_cohort", "--arch", arch])
+        for arch in FRONTEND_ARCHS] + [
+        ("serve_decode", ["-m", "repro_torch.examples.serve_decode"]),
+        ("dev_smoke", ["-m", "repro_torch.launch.dev_smoke"])]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(together)) as pool:
         row.update(pool.map(lambda job: run(*job), together))
@@ -3858,8 +3938,9 @@ def phase_cohort_cli(torch):
     log(f"phase 19: train cohort --steps 10 (olmo-1b, zamba2-1.2b, "
         f"falcon-mamba-7b) and the federated LLM cohort example on the "
         f"card, each in its own process; then train cohort of "
-        f"{', '.join(DENSE_ARCHS)} and the serve_decode example, a process "
-        f"each, together: {row}")
+        f"{', '.join(DENSE_ARCHS + FRONTEND_ARCHS)}, the cohort example of "
+        f"the last two, the serve_decode example and the dev smoke of the "
+        f"ten archs, a process each, together: {row}")
     return row
 
 
@@ -4053,7 +4134,7 @@ def phase_attn_widths_vs_plain(torch, ops, ref, dev, shapes=None):
 
 
 def phase_dense_serving(torch, ops, ref, dev, seed, arch, phase):
-    """27-29: ``arch`` at full width and depth, random weights from
+    """27-29 (37-38): ``arch`` at full width and depth, random weights from
     ``seed``: the prefill's main path (:func:`phase_prefill`: one forward
     of 2 x 4096 tokens must launch the attention kernel once a layer) and
     ``generate`` at the serve defaults (:func:`phase_serve`; for MLA the
@@ -4076,17 +4157,18 @@ def phase_dense_serving(torch, ops, ref, dev, seed, arch, phase):
     return prefill, serve, seen
 
 
-def phase_dense_train_step(torch, ops, ref, dev, seed, arch):
-    """30: ``make_train_step(cfg, default_optimizer())`` of ``arch`` at
-    full width on ``lm_batch``, cut to ``DENSE_TRAIN_CUT[arch]`` (layers,
-    rows of 4096 tokens) (:func:`train_steps`: each step launches the
+def phase_dense_train_step(torch, ops, ref, dev, seed, arch, phase=30,
+                           cut=None):
+    """30 (39): ``make_train_step(cfg, default_optimizer())`` of ``arch``
+    at full width on ``lm_batch``, cut to ``cut[arch]`` (default
+    ``DENSE_TRAIN_CUT``; layers, rows of 4096 positions) (:func:`train_steps`: each step launches the
     attention forward twice a layer and its backward once); the first backward call
     held against its plain version and by the tight check; the routes
     (:func:`train_routes`: f32 at depth 2, bf16 at the step's depth, on
     2 x 1024 tokens)."""
     from repro_torch.configs import get_config
 
-    layers, rows = DENSE_TRAIN_CUT[arch]
+    layers, rows = (cut or DENSE_TRAIN_CUT)[arch]
     cfg = get_config(arch).with_(n_layers=layers)
     torch.cuda.empty_cache()
     losses, secs, launches, peak, profile, seen = train_steps(
@@ -4103,7 +4185,7 @@ def phase_dense_train_step(torch, ops, ref, dev, seed, arch):
     call_rel = held(bwd_rel_l2(torch, ref, grads, q, k, v, o, lse, do,
                                kw.get("causal", True)),
                     ATTN_BWD_BF16_REL_L2,
-                    f"phase 30: {arch}'s first backward call")
+                    f"phase {phase}: {arch}'s first backward call")
     torch.cuda.empty_cache()
     tok_s = rows * TRAIN_LEN / statistics.median(secs[1:])
     f32, bf16, ratio = train_routes(torch, cfg, seed, dev, ROUTE_TOKENS)
@@ -4117,7 +4199,7 @@ def phase_dense_train_step(torch, ops, ref, dev, seed, arch):
            "max_abs_err": err, "call_rel_l2": call_rel,
            "f32_routes": f32, "bf16_routes": bf16, "bf16_route_ratio": ratio,
            "card": card_name_power()}
-    log(f"phase 30: {arch} full width, {cfg.n_layers} of "
+    log(f"phase {phase}: {arch} full width, {cfg.n_layers} of "
         f"{row['of_layers']} layers ({cfg.param_count():,} params) train "
         f"steps (make_train_step, AdamW, per-layer remat) on {rows} x "
         f"{TRAIN_LEN} tokens on {row['card']}: s a step {secs} ({tok_s:.0f} "
@@ -4183,28 +4265,13 @@ def prefill_forward_rows(torch, ops, ref, prefills, l2_bytes):
     return rows
 
 
-def log_timing(phase, name, row):
-    log(f"phase {phase}: {name} at {row['shape']} over {row['kv_heads']} KV "
-        f"heads, v width {row['v_width']}, {row['dtype']} causal, on "
-        f"{row['card']}: kernel {row['ms']:.5f} ms, plain "
-        f"{row['plain_ms']:.5f} ms, scaled_dot_product_attention "
-        f"{row['library_ms']:.5f} ms (backend {row['sdpa_backend']}), bound "
-        f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
-
-
-def phase_dense_timing(torch, ops, ref, dev, prefills, steps, l2_bytes):
-    """31: both attention kernels on the inputs the new archs' prefills
-    (``prefills``: each arch's first forward call) and train steps
-    (``steps``: each first backward call) gave them, in turns (two turns),
-    beside the plain version, one ``scaled_dot_product_attention`` call
-    (``enable_gqa`` where the query heads outnumber the KV heads; its
-    backward as forward and backward less forward) and the bound; the
-    backend each SDPA call ran. Then what the padding
-    of a width of 96 to two 64-column boxes costs: both kernels at
-    phi3-mini-3.8b's shapes with hd 96 and 128, in turns."""
-    from repro_torch.kernels import flash_attention as fa
-
-    rows = prefill_forward_rows(torch, ops, ref, prefills, l2_bytes)
+def train_backward_rows(torch, ops, ref, steps, l2_bytes):
+    """The attention backward on each arch's first train-step call
+    (``steps``), in turns (two turns), beside the plain version, SDPA's
+    backward (forward and backward less forward; ``enable_gqa`` where the
+    query heads outnumber the KV heads) and the bound, with the backend
+    SDPA ran: ``{"<arch> train backward": row}``."""
+    rows = {}
     for arch, seen in steps.items():
         (q, k, v, o, lse, do), kw, _ = seen["flash_attention_bwd"]
         causal = kw.get("causal", True)
@@ -4234,6 +4301,32 @@ def phase_dense_timing(torch, ops, ref, dev, prefills, steps, l2_bytes):
         rows[f"{arch} train backward"] = row
         del sets
         torch.cuda.empty_cache()
+    return rows
+
+
+def log_timing(phase, name, row):
+    log(f"phase {phase}: {name} at {row['shape']} over {row['kv_heads']} KV "
+        f"heads, v width {row['v_width']}, {row['dtype']} causal, on "
+        f"{row['card']}: kernel {row['ms']:.5f} ms, plain "
+        f"{row['plain_ms']:.5f} ms, scaled_dot_product_attention "
+        f"{row['library_ms']:.5f} ms (backend {row['sdpa_backend']}), bound "
+        f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+
+
+def phase_dense_timing(torch, ops, ref, dev, prefills, steps, l2_bytes):
+    """31: both attention kernels on the inputs the new archs' prefills
+    (``prefills``: each arch's first forward call) and train steps
+    (``steps``: each first backward call) gave them, in turns (two turns),
+    beside the plain version, one ``scaled_dot_product_attention`` call
+    (``enable_gqa`` where the query heads outnumber the KV heads; its
+    backward as forward and backward less forward) and the bound; the
+    backend each SDPA call ran. Then what the padding
+    of a width of 96 to two 64-column boxes costs: both kernels at
+    phi3-mini-3.8b's shapes with hd 96 and 128, in turns."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rows = {**prefill_forward_rows(torch, ops, ref, prefills, l2_bytes),
+            **train_backward_rows(torch, ops, ref, steps, l2_bytes)}
     card = card_name_power()
     for name, row in rows.items():
         row["card"] = card
@@ -4734,6 +4827,41 @@ def phase_moe_timing(torch, ops, ref, dev, prefills, l2_bytes):
     for name, row in rows.items():
         row["card"] = card
         log_timing(36, name, row)
+    return rows
+
+# ---------- the vision frontend and the codebook heads (phases 37-40)
+# internvl2-2b attends at (128, 128) with GQA 16 over 8, musicgen-large
+# at (64, 64) with 32 heads: widths both attention kernels are built for.
+FRONTEND_ARCHS = ("internvl2-2b", "musicgen-large")
+# Their train steps at full width, cut to (layers, batch rows of 4096
+# positions) as DENSE_TRAIN_CUT's, at the 34.3 bytes a parameter AdamW's
+# functional update peaked at in falcon-mamba-7b's step:
+# - internvl2-2b at full depth, 24 layers (1,699,497,984 parameters, 58.3
+#   GB), on 4 x 4096: its tied 92,553-token head makes 3.0 GB of bf16
+#   logits and 6.1 GB each f32 copy that cross-entropy and its gradient
+#   hold, about 18 GB beside the 58 of the update, of the card's 85 GB;
+# - musicgen-large: that rate gives 84.0 GB for all 48 layers
+#   (2,449,473,536 parameters) and 56.4 GB for 32 (1,644,167,168); its
+#   four 2,048-token heads make only 0.27 GB of bf16 logits. On an H100
+#   80GB HBM3 (700 W) its step at 32 layers peaked at 49.63 GiB and at all
+#   48 at 73.63 GiB (32.3 bytes a parameter) of the card's 79.1, so it
+#   runs at full depth on 4 x 4096; internvl2-2b's step peaked at 51.31
+#   GiB there.
+FRONTEND_TRAIN_CUT = {"internvl2-2b": (24, TRAIN_BATCH),
+                      "musicgen-large": (48, TRAIN_BATCH)}
+
+
+def phase_frontend_timing(torch, ops, ref, prefills, steps, l2_bytes):
+    """40: both attention kernels on the inputs the prefills
+    (``prefills``) and train steps (``steps``) of internvl2-2b and
+    musicgen-large gave them, as phase 31 times the dense archs'
+    (:func:`prefill_forward_rows`, :func:`train_backward_rows`)."""
+    rows = {**prefill_forward_rows(torch, ops, ref, prefills, l2_bytes),
+            **train_backward_rows(torch, ops, ref, steps, l2_bytes)}
+    card = card_name_power()
+    for name, row in rows.items():
+        row["card"] = card
+        log_timing(40, name, row)
     return rows
 
 # ------------------------------------ scan training (phases 21-25)
@@ -5422,6 +5550,29 @@ def main(argv=None) -> int:
                        to_device(moe_seen, dev), l2)
     del moe_seen
 
+    # the vision frontend and the codebook heads: each arch's prefill and
+    # serving path at full width and depth (counts set to 0 just before
+    # the prefill, read just after), its weights freed before the next
+    # arch's; each one's train steps (counts set to 0 just before each
+    # step, read just after); both kernels timed on the first calls
+    frontend, fwd_seen, bwd_seen = {}, {}, {}
+    for phase, arch in zip((37, 38), FRONTEND_ARCHS):
+        prefill_row, serve_row, seen = timed(
+            f"phase {phase}", phase_dense_serving, torch, ops, ref, dev,
+            seed, arch, phase)
+        frontend[arch] = {"prefill": prefill_row, "serve": serve_row}
+        fwd_seen[arch] = to_device(seen, "cpu")
+    for arch in FRONTEND_ARCHS:
+        frontend[arch]["train"], seen = timed(
+            f"phase 39 {arch}", phase_dense_train_step, torch, ops, ref, dev,
+            seed, arch, 39, FRONTEND_TRAIN_CUT)
+        bwd_seen[arch] = to_device(seen, "cpu")
+    del seen
+    frontend_timing = timed(
+        "phase 40", phase_frontend_timing, torch, ops, ref,
+        to_device(fwd_seen, dev), to_device(bwd_seen, dev), l2)
+    del fwd_seen, bwd_seen
+
     summary = {"kernels": [{
         "name": "topk_reward", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "checked": True,
@@ -5626,7 +5777,22 @@ def main(argv=None) -> int:
                                "limit": ATTN_BF16_REL_L2},
         "timing": moe_timing, "backward": "not built (ROADMAP.md queue 1 "
                                           "item 16)"}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        row = next(k for k in summary["kernels"] if k["name"] == name)
+        for arch in FRONTEND_ARCHS:
+            if name == "flash_attention":
+                row["launches_by_phase"][f"{arch}_prefill_2x4096"] = \
+                    frontend[arch]["prefill"]["launches"][name]
+                row["launches_by_phase"][f"{arch}_serve_prompt_forward"] = \
+                    frontend[arch]["serve"]["prompt_forward_launches"][name]
+            row["launches_by_phase"][f"{arch}_train_step_by_step"] = [
+                n[name] for n in frontend[arch]["train"]["launches"]]
+        row["frontend_archs_timing"] = {
+            k: v for k, v in frontend_timing.items()
+            if k.endswith("forward" if name == "flash_attention"
+                          else "backward")}
     summary["dense_archs"] = dense
+    summary["frontend_archs"] = frontend
     summary["moe_archs"] = {**moe_rows, "llama4_f32_layer_grads": moe_grads}
     summary["olmo_1b"] = {"train": train_row, "cohort_cli": cohort_row}
     summary["zamba2_1_2b"] = {"train": zamba_train}

@@ -95,15 +95,30 @@ def markov_lm_tokens(key: torch.Tensor, batch: int, seq_len: int,
 def lm_batch(key: torch.Tensor, cfg, batch: int,
              seq_len: int) -> Dict[str, torch.Tensor]:
     """Train batch ``{"tokens", "labels"}``, each ``(batch, seq_len)``
-    int64 (labels are the next-token shift), on ``key``'s device. The
-    vision and multi-codebook batches raise until their models are
-    ported."""
+    int64 (labels are the next-token shift), on ``key``'s device, for any
+    architecture, as the reference's:
+
+    - vision frontend: ``seq_len - cfg.n_patches`` text tokens a row from
+      ``key`` (the patches fill the rest of ``seq_len``) and
+      ``vision_embeds`` ``0.02 * normal(fold_in(key, 1))``
+      (batch, n_patches, d_model) f32 (``normal``'s caveat: close to the
+      reference's, not bit for bit);
+    - codebooks: one stream a key of ``split(key, n_codebooks)``, stacked
+      on the last axis: tokens and labels ``(batch, seq_len, ncb)``.
+
+    The token streams equal the reference's bit for bit."""
     if cfg.frontend == "vision":
-        raise NotImplementedError(
-            "vision batches are not ported yet (ROADMAP.md queue 1 item 16)")
+        text_len = seq_len - cfg.n_patches
+        toks = markov_lm_tokens(key, batch, text_len + 1, cfg.vocab_size)
+        ve = prng.normal(prng.fold_in(key, 1),
+                         (batch, cfg.n_patches, cfg.d_model))
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                "vision_embeds": 0.02 * ve}
     if cfg.n_codebooks > 1:
-        raise NotImplementedError(
-            "multi-codebook batches are not ported yet (ROADMAP.md queue 1 "
-            "item 16)")
+        toks = torch.stack([markov_lm_tokens(k, batch, seq_len + 1,
+                                             cfg.vocab_size)
+                            for k in prng.split(key, cfg.n_codebooks)],
+                           dim=-1)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     toks = markov_lm_tokens(key, batch, seq_len + 1, cfg.vocab_size)
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -10,10 +10,12 @@ does) with random weights from ``--seed``, on the CUDA card unless
 The prefill replays the prompt through ``decode_step`` token by token, as
 the reference's ``serve.py`` does (a production prefill runs
 ``forward_logits``, ``make_prefill_step``). :func:`generate` holds the loop
-so that other callers run it on any config. ``--arch`` takes the ported
-architectures (phi3-mini-3.8b, phi4-mini-3.8b, minicpm3-4b, olmo-1b,
-zamba2-1.2b, falcon-mamba-7b, llama4-scout-17b-a16e, deepseek-v2-236b)
-and defaults to phi3-mini-3.8b, as the reference's.
+so that other callers run it on any config. ``--arch`` takes any of the
+ten architectures and defaults to phi3-mini-3.8b, as the reference's.
+musicgen-large's prompt and tokens carry its codebooks on a last axis
+(greedy choice a codebook). internvl2-2b serves its text tokens only: the
+reference's driver draws ``vision_embeds`` that reach no decode step, and
+the port draws none.
 """
 from __future__ import annotations
 
@@ -32,8 +34,9 @@ from repro_torch.models.transformer import init_cache, init_params
 
 @dataclasses.dataclass
 class Generation:
-    tokens: torch.Tensor          # (B, gen) greedy tokens, int64
-    prompt_logits: torch.Tensor   # (B, 1, V) after the last prompt token
+    tokens: torch.Tensor          # (B, gen) or (B, gen, ncb) greedy, int64
+    prompt_logits: torch.Tensor   # (B, 1, V) or (B, 1, ncb, V) after the
+    #                               last prompt token
     prefill_s: float
     decode_s: float
 
@@ -45,11 +48,13 @@ def _sync(dev: torch.device) -> None:
 
 def generate(cfg, params, prompt: torch.Tensor, gen: int, window: int = 0,
              device: DeviceLike = None) -> Generation:
-    """Replay ``prompt`` (B, P) through the cached decode step, then decode
-    ``gen`` tokens greedily. ``window > 0`` uses a sliding-window ring
-    cache of that length, else a cache of ``P + gen`` slots."""
+    """Replay ``prompt`` (B, P), or (B, P, ncb) with codebooks, through
+    the cached decode step, then decode ``gen`` tokens greedily (argmax
+    over the vocabulary: a token a codebook). ``window > 0`` uses a
+    sliding-window ring cache of that length, else a cache of ``P + gen``
+    slots."""
     dev = resolve_device(device)
-    B, P = prompt.shape
+    B, P = prompt.shape[:2]
     L = window or (P + gen)
     ring = bool(window)
     prompt = prompt.to(dev)
@@ -75,7 +80,8 @@ def generate(cfg, params, prompt: torch.Tensor, gen: int, window: int = 0,
     _sync(dev)
     t_gen = time.perf_counter() - t0
     tokens = (torch.cat(out_tokens, dim=1) if out_tokens else
-              torch.zeros((B, 0), dtype=torch.int64, device=dev))
+              torch.zeros((B, 0) + prompt.shape[2:], dtype=torch.int64,
+                          device=dev))
     return Generation(tokens, prompt_logits, t_prefill, t_gen)
 
 
@@ -97,7 +103,8 @@ def main(argv: Optional[list] = None) -> Generation:
     params = init_params(args.seed, cfg, device=dev)
     g = torch.Generator(device=dev).manual_seed(args.seed + 1)
     B, P = args.batch, args.prompt_len
-    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+    books = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    prompt = torch.randint(0, cfg.vocab_size, (B, P) + books, generator=g,
                            device=dev)
 
     out = generate(cfg, params, prompt, args.gen, args.window, device=dev)

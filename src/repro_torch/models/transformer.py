@@ -18,14 +18,20 @@ CPU):
   loss_fn(cfg, params, batch, remat=True, device=None) -> (loss, metrics)
   init_cache(cfg, batch, cache_len, dtype, device=None)
   decode_step(cfg, params, batch, cache, cache_index, ring, device=None)
-The dense GQA and MLA stacks (olmo-1b, phi3-mini-3.8b, phi4-mini-3.8b,
-minicpm3-4b), the SSM ones (zamba2-1.2b, falcon-mamba-7b) and the
-mixture-of-experts ones (llama4-scout-17b-a16e; deepseek-v2-236b, MLA with
-a leading dense layer) run; the vision frontend and multi-codebook heads
-raise. ``loss_fn`` is differentiable by autograd on both routes and adds
-the MoE routers' aux loss to the cross-entropy: the attention, SSD and
-selective-scan kernels each have a backward kernel (``kernels/ops.py``),
-built for every attention width pair but deepseek-v2-236b's (192, 128).
+All ten of the reference's archs run: the dense GQA and MLA stacks
+(olmo-1b, phi3-mini-3.8b, phi4-mini-3.8b, minicpm3-4b), the SSM ones
+(zamba2-1.2b, falcon-mamba-7b), the mixture-of-experts ones
+(llama4-scout-17b-a16e; deepseek-v2-236b, MLA with a leading dense layer),
+the vision frontend (internvl2-2b: the batch's precomputed
+``vision_embeds`` (B, P, D) go before the text, positions run over P + T,
+and the loss ignores the P patch positions) and the multi-codebook heads
+(musicgen-large: tokens (B, S, ncb), their ``(ncb, V, D)`` embeddings
+summed on the way in, one ``(D, V)`` head per codebook on the way out,
+logits (B, S, ncb, V)). ``loss_fn`` is differentiable by autograd on both
+routes and adds the MoE routers' aux loss to the cross-entropy: the
+attention, SSD and selective-scan kernels each have a backward kernel
+(``kernels/ops.py``), built for every attention width pair but
+deepseek-v2-236b's (192, 128).
 """
 from __future__ import annotations
 
@@ -42,17 +48,6 @@ from repro_torch.models.common import (apply_norm, cross_entropy, init_norm,
                                        normal_init)
 
 Params = Dict[str, Any]
-
-
-def _check_supported(cfg) -> None:
-    if cfg.frontend == "vision":
-        raise NotImplementedError(
-            "the vision frontend is not ported yet (ROADMAP.md queue 1 "
-            "item 16)")
-    if cfg.n_codebooks > 1:
-        raise NotImplementedError(
-            "multi-codebook heads are not ported yet (ROADMAP.md queue 1 "
-            "item 16)")
 
 
 # ------------------------------------------------------------------ stages
@@ -82,12 +77,12 @@ def init_params(seed: int, cfg, device: DeviceLike = None) -> Params:
     """Random parameters from ``torch.Generator(device).manual_seed(seed)``
     (f32 master weights in ``cfg.param_dtype``). They are not the
     reference's numbers: carry those across with ``convert.lm_params``."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     D = cfg.d_model
-    p: Params = {"embed": normal_init(gen, (cfg.vocab_size, D), D ** -0.5,
-                                      cfg.param_dtype)}
+    books = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    p: Params = {"embed": normal_init(gen, books + (cfg.vocab_size, D),
+                                      D ** -0.5, cfg.param_dtype)}
     p["stages"] = [None if kind == "shared_attn"  # weights: p["shared_attn"]
                    else [init_block(gen, cfg, kind) for _ in range(n)]
                    for kind, n in build_stages(cfg)]
@@ -97,20 +92,33 @@ def init_params(seed: int, cfg, device: DeviceLike = None) -> Params:
     if fn is not None:
         p["final_norm"] = fn
     if not cfg.tie_embeddings:
-        p["lm_head"] = normal_init(gen, (D, cfg.vocab_size), D ** -0.5,
-                                   cfg.param_dtype)
+        p["lm_head"] = normal_init(gen, books + (D, cfg.vocab_size),
+                                   D ** -0.5, cfg.param_dtype)
     return p
 
 
 # ------------------------------------------------------------------ embed
 def embed_tokens(cfg, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    _check_supported(cfg)
-    return params["embed"][tokens.long()].to(cfg.compute_dtype)
+    """Tokens (B, S), or (B, S, ncb) with codebooks, whose lookups are
+    summed in the embedding's dtype in codebook order (the reference's
+    ``sum``), then cast to the compute dtype."""
+    tokens = tokens.long()
+    if cfg.n_codebooks > 1:
+        h = params["embed"][0][tokens[..., 0]]
+        for c in range(1, cfg.n_codebooks):
+            h = h + params["embed"][c][tokens[..., c]]
+        return h.to(cfg.compute_dtype)
+    return params["embed"][tokens].to(cfg.compute_dtype)
 
 
 def output_logits(cfg, params: Params, h: torch.Tensor) -> torch.Tensor:
-    _check_supported(cfg)
+    """Logits (B, S, V), or (B, S, ncb, V) with codebooks: one product a
+    codebook against its head (or, tied, its embedding)."""
     cd = cfg.compute_dtype
+    if cfg.n_codebooks > 1:
+        if cfg.tie_embeddings:
+            return torch.einsum("bsd,cvd->bscv", h, params["embed"].to(cd))
+        return torch.einsum("bsd,cdv->bscv", h, params["lm_head"].to(cd))
     if cfg.tie_embeddings:
         return h @ params["embed"].to(cd).T
     return h @ params["lm_head"].to(cd)
@@ -152,9 +160,14 @@ def _run_stages(cfg, params: Params, h, positions,
 
 
 def _embed_batch(cfg, params: Params, batch, device: torch.device):
-    """Returns (h, positions)."""
+    """Returns (h, positions); with the vision frontend the batch's
+    ``vision_embeds`` (B, P, D), cast to the compute dtype, go before the
+    text, and the positions run over P + T."""
     tokens = torch.as_tensor(batch["tokens"], device=device)
     h = embed_tokens(cfg, params, tokens)
+    if cfg.frontend == "vision":
+        ve = torch.as_tensor(batch["vision_embeds"], device=device)
+        h = torch.cat([ve.to(cfg.compute_dtype), h], dim=1)
     B, S = h.shape[0], h.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
     return h, positions
@@ -162,10 +175,13 @@ def _embed_batch(cfg, params: Params, batch, device: torch.device):
 
 def forward_logits(cfg, params: Params, batch, device: DeviceLike = None,
                    use_kernel: Optional[bool] = None):
-    """Prefill / eval forward: logits (B, S, V) for every position.
+    """Prefill / eval forward: logits (B, S, V) for every position
+    ((B, S, ncb, V) with codebooks; S counts the patches first with the
+    vision frontend).
 
-    ``batch["tokens"]`` (B, S) is moved to ``device``, where ``params``
-    must lie. ``use_kernel`` (default: on CUDA) picks the Hopper kernels
+    ``batch["tokens"]`` (B, T) or (B, T, ncb), and ``vision_embeds`` (B,
+    P, D) with the vision frontend, are moved to ``device``, where
+    ``params`` must lie. ``use_kernel`` (default: on CUDA) picks the Hopper kernels
     over the plain routes in every layer. The reference's ``remat`` is a
     training-memory knob and has no counterpart in a forward."""
     dev = resolve_device(device)
@@ -179,7 +195,9 @@ def loss_fn(cfg, params: Params, batch, remat: bool = True,
             device: DeviceLike = None, use_kernel: Optional[bool] = None):
     """Train forward: ``(loss, {"ce", "aux"})``, f32 0-d tensors.
 
-    ``batch``: ``tokens`` and ``labels`` (B, S), labels -100 ignored,
+    ``batch``: ``tokens`` and ``labels`` (B, T) or (B, T, ncb), labels
+    -100 ignored, and ``vision_embeds`` with the vision frontend, whose
+    ``cfg.n_patches`` positions the labels are padded over with -100;
     moved to ``device``, where ``params`` must lie. ``loss = ce + aux``;
     ``aux`` is the sum of the MoE layers' router losses (0 without MoE
     layers). ``remat`` rematerialises each layer in the backward;
@@ -189,7 +207,12 @@ def loss_fn(cfg, params: Params, batch, remat: bool = True,
     h, aux = _run_stages(cfg, params, h, positions, use_kernel, remat)
     h = apply_norm(cfg, params, h, "final_norm")
     logits = output_logits(cfg, params, h)
-    ce = cross_entropy(logits, torch.as_tensor(batch["labels"], device=dev))
+    labels = torch.as_tensor(batch["labels"], device=dev)
+    if cfg.frontend == "vision":
+        pad = labels.new_full((labels.shape[0], cfg.n_patches)
+                              + labels.shape[2:], -100)
+        labels = torch.cat([pad, labels], dim=1)
+    ce = cross_entropy(logits, labels)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -198,7 +221,6 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
                device: DeviceLike = None) -> List[Any]:
     """One entry per stage: a list of per-layer caches for a run of layers,
     one cache dict for a ``shared_attn`` call."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     caches: List[Any] = []
     for kind, n in build_stages(cfg):
@@ -214,9 +236,11 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
 def decode_step(cfg, params: Params, batch, cache: List[Any],
                 cache_index: int, ring: bool = False,
                 device: DeviceLike = None):
-    """One-token decode. ``batch["tokens"]``: (B, 1). Returns
-    ``(logits (B, 1, V), new cache)``; the given cache is not modified,
-    as in the reference."""
+    """One-token decode. ``batch["tokens"]``: (B, 1), or (B, 1, ncb) with
+    codebooks. Returns ``(logits (B, 1, V) or (B, 1, ncb, V), new
+    cache)``; the given cache is not modified, as in the reference. The
+    vision frontend decodes text tokens only: no patch block enters the
+    cache (the reference's serving replays text tokens alone)."""
     dev = resolve_device(device)
     h = embed_tokens(cfg, params, torch.as_tensor(batch["tokens"],
                                                   device=dev))

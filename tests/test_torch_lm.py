@@ -93,8 +93,8 @@ def test_config_matches_reference(arch):
     assert get_config(arch).param_count() == PARAM_COUNTS[arch]
     assert get_config(arch).compute_dtype == torch.bfloat16
     assert len(ARCH_IDS) == 10
-    with pytest.raises(NotImplementedError, match="queue 1 item 16"):
-        get_config("internvl2-2b")
+    assert [get_config(a).name for a in ARCH_IDS] == list(ARCH_IDS)
+    assert [get_reduced(a).name for a in ARCH_IDS] == list(ARCH_IDS)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

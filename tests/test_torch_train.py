@@ -2,9 +2,9 @@
 subcommand and the example twins (``repro_torch.examples``).
 
 ``train fl`` must write the history ``run_fl`` returns for the same
-arguments, exactly; ``train cohort`` parses its arguments and, for an arch
-not ported yet, raises (ROADMAP.md queue 1 item 16); without ``--device``
-both need a card. ``train cohort`` and ``launch.serve`` run the MoE archs
+arguments, exactly; ``train cohort`` parses its arguments and runs every
+arch (here the vision frontend's); without ``--device`` both need a
+card. ``train cohort`` and ``launch.serve`` run the MoE archs
 (llama4-scout-17b-a16e, deepseek-v2-236b) at their reduced configs. The
 examples run at a small size with ``--device cpu``: the quickstart's histories equal ``run_fl`` of its configs, the
 million-client example's own assertions (kernel == plain, ``select`` ==
@@ -39,14 +39,18 @@ def test_train_fl_writes_the_run_fl_history(tmp_path):
     assert saved["round"] == [1, 2] == hist.round
 
 
-def test_train_cohort_parses_and_names_its_item():
-    """The dense, SSM and MoE archs train (tests/test_torch_lm_train.py,
-    tests/test_torch_lm_dense.py, the MoE cases below); an arch not ported
-    yet (the vision frontend) parses and raises, naming its roadmap item
-    and what it lacks."""
-    with pytest.raises(NotImplementedError, match="vision frontend.*item 16"):
-        train.main(["cohort", "--arch", "internvl2-2b", "--steps", "2",
-                    "--device", "cpu"])
+def test_train_cohort_parses_and_names_its_item(capsys):
+    """Every arch trains (tests/test_torch_lm_train.py,
+    tests/test_torch_lm_dense.py, tests/test_torch_lm_frontends.py, the
+    MoE cases below): the vision frontend's ``--arch`` parses, runs its
+    steps on batches that carry patch embeddings, and the summary line
+    names it."""
+    args = train.parser().parse_args(["cohort", "--arch", "internvl2-2b",
+                                      "--steps", "3", "--device", "cpu"])
+    assert (args.arch, args.steps, args.device) == ("internvl2-2b", 3, "cpu")
+    losses = train.main_cohort(args)
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    assert "[cohort:internvl2-2b]" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e",
