@@ -25,9 +25,14 @@ forward's Q K^T without the q.k columns 64-95 at a width of 96, the
 forward's scale taken from v's width instead of the q.k width, and the
 backward's dV summed over dO's stage tiles laid out at the q.k width;
 phase 26 must pass with the sound libraries and fail with each.
-``WIDE_FAULTS`` (1) edits the forward at deepseek-v2-236b's (192, 128):
-Q K^T without the third 64-column box of q and k; phase 32 must pass
-with the sound library and fail with it.
+``WIDE_FAULTS`` (4) edit both kernels at deepseek-v2-236b's (192, 128):
+the forward's Q K^T without the third 64-column box of q and k, and in
+the backward's ``flash_bwd_wgmma_wide`` dK's third box never accumulated,
+the two consumer warpgroups' dV columns swapped, and the P^T and dS^T
+tiles stored without their swizzle; phase 32 must pass with the sound
+libraries and fail with each, and the backward's tight check alone
+(``WIDE_TIGHT_SHAPES``) must pass the sound kernel and reject each
+backward fault.
 ``SCAN_BWD_FAULTS`` (15)
 edit the scan backward kernels: in the f32 route's ``ssd_bwd``
 (``ssd_chunk_bwd.cu``) the gradient carried into the chunk before not
@@ -267,15 +272,32 @@ WIDTH_FAULTS = {
         "                                           T::kQBox, 1024));")]),
 }
 
-# Faults of the attention forward at deepseek-v2-236b's pair (192, 128),
-# in the same form; phase 32 of chip_smoke.py (the forward against its
-# plain version and by the tight check at WIDE_SHAPES) must fail on each
+# Faults of both attention kernels at deepseek-v2-236b's pair (192, 128),
+# in the same form; phase 32 of chip_smoke.py (both kernels against their
+# plain versions and by the tight checks at WIDE_SHAPES) must fail on each
 WIDE_FAULTS = {
     # the third q.k box never read: Q K^T runs 8 of its 12 k-steps at a
     # q.k width of 192 (columns 128-191 dropped)
     "qk_third_box_dropped": ("flash_attention", [(
         "      for (int kk = 0; kk < DQK / 16; ++kk) {",
         "      for (int kk = 0; kk < (DQK == 192 ? 8 : DQK / 16); ++kk) {")]),
+    # the backward's own design (flash_bwd_wgmma_wide): dK's third 64-column
+    # box never accumulated (each warpgroup's part of it stays 0)
+    "dk_third_box_dropped": ("flash_attention_bwd", [(
+        "      for (int i = 0; i < 2; ++i)\n"
+        "        wgmma_rs_n64(dk2, sa[i],",
+        "      for (int i = 0; i < 0; ++i)\n"
+        "        wgmma_rs_n64(dk2, sa[i],")]),
+    # the two warpgroups' dV columns swapped: each stores its box at the
+    # other's columns
+    "dv_boxes_swapped": ("flash_attention_bwd", [(
+        "bf16* dvr = dv + row * DV + 64 * wg + 2 * c;",
+        "bf16* dvr = dv + row * DV + 64 * (1 - wg) + 2 * c;")]),
+    # P^T and dS^T stored without the 128-byte swizzle that the descriptors
+    # of dV, dK and dQ read
+    "pt_ds_tiles_unswizzled": ("flash_attention_bwd", [(
+        "key * 128 + (((4 * wg + j) ^ (key & 7)) << 4) + 4 * c;",
+        "key * 128 + ((4 * wg + j) << 4) + 4 * c;")]),
 }
 
 # Faults of the scan backward kernels, in the same form; phase 21 of
@@ -632,6 +654,46 @@ def bwd_readings(torch, ops, ref, dev, faulty, phase=None,
     return out
 
 
+# the backward's tight check alone at (192, 128) (phase 32 fails the
+# faults on its elementwise check first): B, S, H, KH, Dqk, Dv, bf16,
+# causal and not
+WIDE_TIGHT_SHAPES = [(1, 32, 4, 4, 192, 128), (2, 333, 8, 4, 192, 128)]
+
+
+def wide_tight_readings(torch, ops, ref, dev, faulty):
+    """The tight check of the backward at (192, 128) (chip_smoke.py's
+    ``bwd_rel_l2``: each gradient's relative L2 from the f32 backward of
+    the same inputs) on ``WIDE_TIGHT_SHAPES`` with the sound library and
+    with each backward fault of ``faulty`` (``WIDE_FAULTS``): ``{name:
+    {"tight": {case: readings}, "tight_fails"}}``, failing above
+    ``ATTN_BWD_BF16_REL_L2`` (a NaN fails)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    fwd = ops.load_library("flash_attention")
+    out = {}
+    for name, (lib, bound) in [("sound", (None, None)), *faulty.items()]:
+        if lib not in (None, "flash_attention_bwd"):
+            continue
+        bwd = bound or ops.load_library("flash_attention_bwd")
+        tight = {}
+        for i, (B, S, H, KH, D, Dv) in enumerate(WIDE_TIGHT_SHAPES):
+            q, k, v, do = cs.attn_bwd_inputs(torch, B, S, H, KH, D,
+                                             torch.bfloat16, dev, 700 + i,
+                                             dv=Dv)
+            for causal in (True, False):
+                o, lse = fa.launch(fwd, q, k, v, causal=causal,
+                                   with_lse=True)
+                grads = fa.launch_bwd(bwd, q, k, v, o, lse, do,
+                                      causal=causal)
+                tight[f"{B}x{S}x{H}x{KH} causal={causal}"] = cs.bwd_rel_l2(
+                    torch, ref, grads, q, k, v, o, lse, do, causal)
+        out[name] = {"tight": tight, "tight_fails": not all(
+            x <= cs.ATTN_BWD_BF16_REL_L2 for r in tight.values()
+            for x in r.values())}
+        cs.log(json.dumps({"attention_192_tight": {name: out[name]}}))
+    return out
+
+
 def scan_bwd_readings(torch, ops, ref, dev, faulty):
     """Phases 21 and 23 of chip_smoke.py with the sound libraries (both
     phases) and with each of ``SCAN_BWD_FAULTS`` swapped in (the phase of
@@ -851,11 +913,14 @@ def main(argv=None) -> int:
     widths = bwd_readings(torch, ops, ref, dev, {
         n: v for n, v in bwd_libs.items() if n in WIDTH_FAULTS},
         cs.phase_attn_widths_vs_plain, "attention_widths")
-    # the forward at (192, 128): the sound library passes phase 32, each
+    # both kernels at (192, 128): the sound libraries pass phase 32, each
     # fault fails it
     wide = bwd_readings(torch, ops, ref, dev, {
         n: v for n, v in bwd_libs.items() if n in WIDE_FAULTS},
         cs.phase_attn_wide_vs_plain, "attention_192")
+    # and the backward's faults by its tight check alone
+    wide_tight = wide_tight_readings(torch, ops, ref, dev, {
+        n: v for n, v in bwd_libs.items() if n in WIDE_FAULTS})
     # the scans' backward: the sound libraries pass phases 21 and 23, each
     # fault fails its library's phase
     scan_bwd = scan_bwd_readings(torch, ops, ref, dev, {
@@ -869,7 +934,7 @@ def main(argv=None) -> int:
     readings = {"topk_reward": topk, "flash_attention": attn,
                 "ssd_chunk": ssd, "selective_scan": scan,
                 "flash_attention_bwd": bwd, "attention_widths": widths,
-                "attention_192": wide,
+                "attention_192": wide, "attention_192_tight": wide_tight,
                 "scan_bwd": scan_bwd, "async": asyn}
     limits = {"topk_reward": {"bitwise": "indices exact, values bitwise"},
               "flash_attention": {"tight": cs.ATTN_BF16_REL_L2,
@@ -891,10 +956,12 @@ def main(argv=None) -> int:
                         f"checks ({cs.ATTN_BF16_REL_L2} forward, "
                         f"{cs.ATTN_BWD_BF16_REL_L2} backward)"},
               "attention_192": {
-                  "32": "the forward at (192, 128) on WIDE_SHAPES against "
-                        "its plain version (tolerance "
+                  "32": "both kernels at (192, 128) on WIDE_SHAPES against "
+                        "their plain versions (tolerance "
                         + json.dumps(cs.ATTN_TOL) + ") and by the tight "
-                        f"check ({cs.ATTN_BF16_REL_L2})"},
+                        f"checks ({cs.ATTN_BF16_REL_L2} forward, "
+                        f"{cs.ATTN_BWD_BF16_REL_L2} backward)"},
+              "attention_192_tight": {"tight": cs.ATTN_BWD_BF16_REL_L2},
               "scan_bwd": {
                   "21": "the SSD backward against its plain version "
                         "(tolerance " + json.dumps(cs.SSD_TOL) + "; bf16 "

@@ -62,8 +62,15 @@ backward (``SCAN_BWD_CASES``) likewise: the sound kernel, each of
 falcon-mamba-7b's train-step shape (4, 4096, 8192, ds 16, bf16) and two
 of phase 23's cases (4,096 slowly decaying steps; a ragged last tile at
 ds 8), whether they hold phase 23's limits, and their times at the step
-shape in four turns. ``--only scans``, ``--only attention_bwd``, ``--only
-ssd_bwd`` or ``--only scan_bwd`` runs one part.
+shape in four turns. The attention backward's own design at (192, 128),
+``flash_bwd_wgmma_wide``, is read at deepseek-v2-236b's train-step shape
+(4, 4096, 128 heads, 192 / 128, bf16, causal): the sound kernel and each
+of ``WIDE_BWD_PROBES`` (the grid with heads as its fast axis, S^T and dP^T
+aliased with dQ's accumulators, and, timing only, dQ's reduce-adds taken
+out), their tight readings and their times in four turns, beside SDPA's
+backward. ``--only scans``, ``--only attention_bwd``, ``--only
+ssd_bwd``, ``--only scan_bwd`` or ``--only attention_bwd_wide`` runs one
+part.
 
 The last line is one JSON object with all the readings; without a CUDA
 device it exits 2.
@@ -211,11 +218,41 @@ SCAN_BWD_PROBES = {
         "      for (int grp = kSub / 4 - 1; grp >= 0; --grp) {",
         "      for (int grp = kSub / 4 - 1; grp >= kSub; --grp) {"),
 }
-# the libraries each part of the probes builds from a parent checkout
+# probes of the attention backward's own design at (192, 128),
+# flash_bwd_wgmma_wide: the grid with heads as its fast axis (as
+# flash_bwd_wgmma's), S^T and dP^T in one array with dQ's accumulators (as
+# flash_bwd_wgmma's), and, for timing only (dq is then wrong), dQ's
+# reduce-adds taken out
+WIDE_BWD_PROBES = {
+    "heads_fast_axis": ([
+        ("  const int b = blockIdx.y / KH, kh = blockIdx.y % KH, G = H / KH;\n"
+         "  const int k0 = blockIdx.x * T::kBK;",
+         "  const int b = blockIdx.x / KH, kh = blockIdx.x % KH, G = H / KH;\n"
+         "  const int k0 = blockIdx.y * T::kBK;"),
+        ("kWide<DQK, DV> ? dim3(tiles, B * KH) : dim3(B * KH, tiles)",
+         "dim3(B * KH, tiles)")], None),
+    "accumulators_aliased": ([
+        ("      float s[16], dp[16];",
+         "      float acc[64];\n"
+         "      float(&s)[16] = *reinterpret_cast<float(*)[16]>(acc);\n"
+         "      float(&dp)[16] = *reinterpret_cast<float(*)[16]>(acc + 16);"),
+        ("      float dq0[32], dq1[32];",
+         "      float(&dq0)[32] = *reinterpret_cast<float(*)[32]>(acc);\n"
+         "      float(&dq1)[32] = "
+         "*reinterpret_cast<float(*)[32]>(acc + 32);")], None),
+    "dq_reduce_taken_out": (
+        "      if (tid == 0) {\n        tma_reduce_add(&dqmap, qb, 64 * wg,",
+        "      if (false) {\n        tma_reduce_add(&dqmap, qb, 64 * wg,"),
+}
+# B, S, H, KH, Dqk, Dv of the wide probes: deepseek-v2-236b's train step
+WIDE_BWD_SHAPE = (4, 4096, 128, 128, 192, 128)
+# the libraries each part of the probes builds from a parent checkout (the
+# wide part none: a parent's backward may not take (192, 128))
 PARTS = {"scans": ("ssd_chunk", "selective_scan"),
          "attention_bwd": ("flash_attention_bwd",),
          "ssd_bwd": ("ssd_chunk_bwd",),
-         "scan_bwd": ("selective_scan_bwd",)}
+         "scan_bwd": ("selective_scan_bwd",),
+         "attention_bwd_wide": ()}
 # the bf16 backward entries at hd 128, of this design and of the mma.sync
 # one before it
 BWD_ENTRIES = ("flash_bwd_wgmmaILi128E", "flash_bwd_mmaILi128E")
@@ -359,6 +396,44 @@ def attention_bwd_turns(torch, ops, ref, parent, l2_bytes):
             runs[name].append(cs.cuda_ms(torch, fns[name], sets, reps=5))
     out["ms_by_turn"] = runs
     out["ms"] = {name: statistics.median(ms) for name, ms in runs.items()}
+    return out
+
+
+def wide_bwd_turns(torch, ops, ref, libs, l2_bytes):
+    """The backward at (192, 128), the sound kernel and each of
+    ``WIDE_BWD_PROBES`` (``libs``), at ``WIDE_BWD_SHAPE`` (bf16, causal; o
+    and the log-sum-exp from the forward kernel): each one's tight
+    readings, then each timed in four turns (order, reversed, order,
+    reversed), beside SDPA's backward (its backend named) and the
+    bound."""
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    B, S, H, KH, D, Dv = WIDE_BWD_SHAPE
+    q, k, v, do = cs.attn_bwd_inputs(torch, B, S, H, KH, D, torch.bfloat16,
+                                     dev, 9, dv=Dv)
+    o, lse = fa.launch(ops.load_library("flash_attention"), q, k, v,
+                       causal=True, with_lse=True)
+    args = (q, k, v, o, lse, do)
+    fns = {n: (lambda lb: lambda *a: fa.launch_bwd(lb, *a, causal=True))(lb)
+           for n, lb in libs.items()}
+    out = {"shape": list(WIDE_BWD_SHAPE), "card": cs.card_name_power(),
+           "bound_ms": cs.bwd_bound(q, k, v, True), "tight": {}}
+    for name, fn in fns.items():
+        out["tight"][name] = cs.bwd_rel_l2(torch, ref, fn(*args), *args, True)
+        torch.cuda.empty_cache()
+    sets, _ = cs.copies(args, l2_bytes)
+    runs = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1], list(fns), list(fns)[::-1]):
+        for name in order:
+            runs[name].append(cs.cuda_ms(torch, fns[name], sets, reps=3,
+                                         trials=3))
+    out["ms_by_turn"] = runs
+    out["ms"] = {name: statistics.median(ms) for name, ms in runs.items()}
+    out["sdpa_fwd_bwd_and_fwd_ms"] = cs.sdpa_bwd_ms(
+        torch, [(q, k, v, do)], True, reps=3, trials=3)
+    out["sdpa_backend"] = cs.sdpa_backend(
+        torch, *(t.transpose(1, 2) for t in (q, k, v)), True, False)
     return out
 
 
@@ -607,12 +682,17 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     cs.log(f"card {cs.card_name_power()}")
-    scans, attn, ssd_bwd, scan_bwd = (opts.only in (None, part)
-                                      for part in PARTS)
+    scans, attn, ssd_bwd, scan_bwd, wide = (opts.only in (None, part)
+                                            for part in PARTS)
     parts = tuple(n for part in PARTS if opts.only in (None, part)
                   for n in PARTS[part])
     parent, sass, libs, ssd_bwd_libs, scan_bwd_libs = {}, {}, {}, {}, {}
+    wide_libs = {}
     with tempfile.TemporaryDirectory() as tmp:
+        if wide:
+            ops.load_library("flash_attention")
+            wide_libs = build_bwd_probes(ops, "flash_attention_bwd",
+                                         WIDE_BWD_PROBES, tmp)
         if ssd_bwd:
             ops.load_library("ssd_chunk")
             ssd_bwd_libs = build_bwd_probes(ops, "ssd_chunk_bwd",
@@ -666,6 +746,11 @@ def main(argv=None) -> int:
             torch, ops, ref, parent.get("flash_attention_bwd"), l2)
         cs.log(json.dumps({"flash_attention_bwd":
                            readings["flash_attention_bwd"]}))
+    if wide:
+        readings["flash_attention_bwd_wide"] = wide_bwd_turns(
+            torch, ops, ref, wide_libs, l2)
+        cs.log(json.dumps({"flash_attention_bwd_wide":
+                           readings["flash_attention_bwd_wide"]}))
     if ssd_bwd:
         readings["ssd_chunk_bwd"] = bwd_turns(
             torch, ops, ref, "ssd_chunk_bwd", ssd_bwd_libs,

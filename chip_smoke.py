@@ -341,13 +341,14 @@ The mixture-of-experts archs (llama4-scout-17b-a16e, deepseek-v2-236b,
 full width, random weights from ``--seed``, cut in depth by
 ``MOE_SERVE_CUT``; each arch's weights freed before the next's):
 
-32. The attention forward at deepseek's MLA widths (q.k 192, three
-   64-column boxes; v 128) against its plain version on ``WIDE_SHAPES``:
-   deepseek's prefill (2, 4096, 128 heads), a small, a ragged and a GQA
-   case, bf16 and f32, causal and not: the output and the log-sum-exp at
-   the JAX package's attention tolerances, bf16 also by the tight check;
-   every case runs, a failure names each. The backward is not built for
-   the pair (it raises, ROADMAP.md queue 1 item 16).
+32. Both attention kernels at deepseek's MLA widths (q.k 192, three
+   64-column boxes; v 128) against their plain versions on
+   ``WIDE_SHAPES``: deepseek's prefill (2, 4096, 128 heads), a small, a
+   ragged and a GQA case, bf16 and f32, causal and not: the output and the
+   log-sum-exp at the JAX package's attention tolerances, then dq, dk and
+   dv of the backward kernel on them (the plain version a few heads at a
+   time, :func:`plain_bwd`), bf16 also by the tight checks; every case
+   runs, a failure names each.
 33, 34. ``make_prefill_step`` on 2 x 4096 tokens of llama4 (6 of 48
    layers) and deepseek (1 dense + 3 MoE of 60): one forward must launch
    the attention kernel once a layer; the share of choices capacity
@@ -365,9 +366,10 @@ full width, random weights from ``--seed``, cut in depth by
    against its plain version and by the tight check.
 35. One full-width llama4 MoE layer in f32 on 1 x 1024 tokens, no
    optimizer: ``loss_fn``'s loss and every gradient leaf on the kernel
-   route against the plain route, the aux loss above 0 and the router's
-   gradient not zero, the first attention backward call (GQA 40 over 8)
-   against its plain version.
+   route against the plain route, both routes choosing the same experts,
+   the aux loss above 0 and the router's gradient not zero, the first
+   attention backward call (GQA 40 over 8) against its plain version
+   (:func:`moe_grad_routes`).
 36. The attention forward timed at both prefills' inputs beside the plain
    version, one ``scaled_dot_product_attention`` call (``enable_gqa`` for
    llama4) and the bound.
@@ -398,6 +400,22 @@ arch's weights freed before the next's):
 40. Both kernels timed on the inputs phases 37-39 gave them, beside the
    plain version, one ``scaled_dot_product_attention`` call
    (``enable_gqa`` for internvl) and the bound.
+
+deepseek-v2-236b trains (full width, random weights from ``--seed``):
+
+41. ``make_train_step`` at its dense first layer (``MOE_TRAIN_CUT``: an
+   AdamW step over a full-width MoE layer passes one card) on 4 x 4096,
+   3 steps: each launches the attention forward twice and its backward
+   (at (192, 128)) once; the losses finite, s a step, tokens/s, peak
+   memory and one profiled step; the first backward call against its
+   plain version and by the tight check; the routes: f32 at depth 2 (the
+   dense layer and the first MoE layer, 160 experts, top 6) on 2 x 1024
+   tokens by :func:`moe_grad_routes` (the same experts on both routes,
+   the loss and every gradient leaf, the aux loss, the router's
+   gradient), bf16 at the step's depth.
+42. The backward kernel timed on the step's first call beside the plain
+   version, one ``scaled_dot_product_attention`` forward and backward
+   less its forward (its backend named) and the bound.
 
 Each phase's wall time is logged. The last two lines of standard output
 are the kernels' JSON summary and ``{"ok": true, "device": {...}}``.
@@ -3436,6 +3454,26 @@ BWD_SASS_OPS = ("HGMMA", "UTMALDG", "UTMAREDG", "HMMA", "REDG", "ATOMG")
 BWD_DESIGN = ("flash_bwd_wgmma: TMA loads, warp-specialised wgmma (a "
               "producer and two consumer warpgroups over 128-key tiles), dQ "
               "by TMA bulk reduce-add")
+BWD_WIDE_DESIGN = ("flash_bwd_wgmma_wide at (192, 128): 64-key tiles, both "
+                   "consumer warpgroups on the same keys, S^T and dP^T split "
+                   "by query columns, P^T and dS^T through shared memory, dK "
+                   "and dV split by column boxes (dK's third box by queries), "
+                   "dQ by TMA bulk reduce-add, heads the grid's outer axis")
+
+
+def bf16_entry(name, dqk):
+    """The bf16 kernel of library ``name`` at q.k width ``dqk``: the
+    backward's own design past two 64-column boxes."""
+    if name == "flash_attention_bwd" and dqk > 128:
+        return "flash_bwd_wgmma_wide"
+    return MAIN_ENTRIES[name]
+
+
+def wgmma_serialized(text, fragment):
+    """Whether ptxas's report says it serialized the wgmmas (C7511) of an
+    entry whose name holds ``fragment``."""
+    return any("C7511" in line and fragment in line
+               for line in text.splitlines())
 
 
 def sass_ops(sass, fragment):
@@ -3566,12 +3604,36 @@ def attn_bwd_inputs(torch, B, S, H, KH, D, dtype, dev, seed, dv=None):
             for h, w in ((H, D), (KH, D), (KH, dv), (H, dv))]
 
 
+# the most f32 scores (B x query heads x S x S) one call of the plain
+# backward makes: at deepseek-v2-236b's (4, 4096, 128 heads) they would be
+# 34 GB, each with the probabilities' and dS's tensors beside them
+PLAIN_BWD_SCORES = 3 * 2**30
+
+
+def plain_bwd(torch, ref, q, k, v, o, lse, do, causal=True):
+    """``ref.flash_attention_bwd`` over slices of the KV heads (each with
+    its query heads), each slice's scores at most ``PLAIN_BWD_SCORES``
+    floats: the same arithmetic a head at a time (heads are independent),
+    in one call where the whole fits."""
+    B, S, H, _ = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    step = max(1, min(KH, PLAIN_BWD_SCORES // (B * G * S * S)))
+    if step == KH:
+        return ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    parts = [ref.flash_attention_bwd(
+        q[:, :, a * G:b * G], k[:, :, a:b], v[:, :, a:b], o[:, :, a * G:b * G],
+        lse[:, a * G:b * G], do[:, :, a * G:b * G], causal=causal)
+        for a, b in ((a, min(a + step, KH)) for a in range(0, KH, step))]
+    return tuple(torch.cat(g, dim=2) for g in zip(*parts))
+
+
 def bwd_rel_l2(torch, ref, grads, q, k, v, o, lse, do, causal):
     """Each gradient's relative L2 distance from the f32 backward (the
     plain version, TF32 off) of the same inputs: q, k, v, o, lse and do as
     the kernel read them."""
-    exact = ref.flash_attention_bwd(*(t.float() for t in (q, k, v, o)),
-                                    lse, do.float(), causal=causal)
+    exact = plain_bwd(torch, ref, *(t.float() for t in (q, k, v, o)), lse,
+                      do.float(), causal=causal)
     return {name: rel_l2(torch, g, e)
             for name, g, e in zip(("dq", "dk", "dv"), grads, exact)}
 
@@ -3768,7 +3830,9 @@ def train_routes(torch, cfg, seed, dev, route_len):
     frontend; a token a codebook with codebooks), kernel route against
     plain route: in f32 (TF32 off) at depth
     ``ROUTE_DEPTH`` (``F32_LOSS_RTOL`` on the loss, ``F32_GRAD_REL_L2`` a
-    leaf), and in bf16 at ``cfg``'s depth, where the kernel route's
+    leaf; where those layers hold an MoE layer, by :func:`moe_grad_routes`,
+    the same experts on both routes first), and in bf16 at ``cfg``'s
+    depth, where the kernel route's
     gradient may lie no further from the f32 gradient than
     ``BF16_ROUTE_RATIO`` times the plain route's. Returns the readings
     ``(f32, bf16, ratio)``."""
@@ -3781,14 +3845,21 @@ def train_routes(torch, cfg, seed, dev, route_len):
     rbatch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:], **drawn}
     cfg2 = cfg.with_(n_layers=ROUTE_DEPTH, compute_dtype=torch.float32)
     p2 = init_params(seed + 1, cfg2, device=dev)
-    kl, kg = loss_and_grads(torch, cfg2, p2, rbatch, dev, True)
-    pl, pg = loss_and_grads(torch, cfg2, p2, rbatch, dev, False)
-    f32 = {"loss_rel": abs(kl - pl) / abs(pl), **grad_diff(torch, kg, pg)}
-    del p2, kg, pg
-    check(f32["loss_rel"] <= F32_LOSS_RTOL
-          and f32["worst_leaf_rel_l2"] <= F32_GRAD_REL_L2,
-          f"f32 {cfg.name} depth {ROUTE_DEPTH}, kernel vs plain route: {f32} "
-          f"(limits {F32_LOSS_RTOL} loss, {F32_GRAD_REL_L2} a leaf)")
+    if moe_layers(cfg2):
+        f32 = moe_grad_routes(torch, cfg2, p2, rbatch, dev,
+                              f"f32 {cfg.name} depth {ROUTE_DEPTH}")
+        del p2
+    else:
+        kl, kg = loss_and_grads(torch, cfg2, p2, rbatch, dev, True)
+        pl, pg = loss_and_grads(torch, cfg2, p2, rbatch, dev, False)
+        f32 = {"loss_rel": abs(kl - pl) / abs(pl),
+               **grad_diff(torch, kg, pg)}
+        del p2, kg, pg
+        check(f32["loss_rel"] <= F32_LOSS_RTOL
+              and f32["worst_leaf_rel_l2"] <= F32_GRAD_REL_L2,
+              f"f32 {cfg.name} depth {ROUTE_DEPTH}, kernel vs plain route: "
+              f"{f32} (limits {F32_LOSS_RTOL} loss, {F32_GRAD_REL_L2} a "
+              f"leaf)")
     params = init_params(seed + 1, cfg, device=dev)
     _, exact = loss_and_grads(torch, cfg.with_(compute_dtype=torch.float32),
                               params, rbatch, dev, False)
@@ -4177,7 +4248,7 @@ def phase_dense_train_step(torch, ops, ref, dev, seed, arch, phase=30,
     (q, k, v, o, lse, do), kw, grads = seen["flash_attention_bwd"]
     check(q.dtype == torch.bfloat16 and q.shape[:2] == (rows, TRAIN_LEN),
           f"the {arch} step's backward call: {q.dtype} {tuple(q.shape)}")
-    exp = ref.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    exp = plain_bwd(torch, ref, q, k, v, o, lse, do, **kw)
     err = max(close(torch, g, e, ATTN_TOL["bfloat16"],
                     f"the {arch} step's first backward call, {n}")
               for n, g, e in zip(("dq", "dk", "dv"), grads, exp))
@@ -4284,7 +4355,7 @@ def train_backward_rows(torch, ops, ref, steps, l2_bytes):
                 torch, lambda *a: ops.flash_attention_bwd(*a, causal=causal),
                 sets, reps=5))
             runs["plain_ms"].append(cuda_ms(
-                torch, lambda *a: ref.flash_attention_bwd(*a, causal=causal),
+                torch, lambda *a: plain_bwd(torch, ref, *a, causal=causal),
                 sets[:1], reps=1, trials=3))
             lib.append(sdpa_bwd_ms(
                 torch, [(st[0], st[1], st[2], st[5]) for st in sets[:4]],
@@ -4486,22 +4557,26 @@ def first_layers(cfg, params, depth):
 
 
 def phase_attn_wide_vs_plain(torch, ops, ref, dev, shapes=None):
-    """32: the attention forward at (Dqk, Dv) = (192, 128) against its
-    plain version on ``WIDE_SHAPES``, bf16 and f32, causal and not: the
+    """32: both attention kernels at (Dqk, Dv) = (192, 128) against their
+    plain versions on ``WIDE_SHAPES``, bf16 and f32, causal and not: the
     output (the serving call, no log-sum-exp) and the log-sum-exp (the
     call that writes it) at the JAX package's attention tolerance, the
-    two calls' outputs equal, bf16 also by the tight check. Every case
-    runs; a failure names each case that failed. The backward is not
-    built for the pair."""
+    two calls' outputs equal, bf16 also by the tight check; then the
+    backward kernel on that o and log-sum-exp: dq, dk and dv against
+    :func:`plain_bwd` at the same tolerance, bf16 also by the tight check
+    (``ATTN_BWD_BF16_REL_L2``). Every case runs; a failure names each case
+    that failed."""
     from repro_torch.kernels import flash_attention as fa
 
     lib = ops.load_library("flash_attention")
     errs, rel, failed, run = {}, {}, {}, []
+    bwd_errs, bwd_rel = {}, {}
     for i, (B, S, H, KH, D, Dv) in enumerate(shapes or WIDE_SHAPES):
         for dt in (torch.bfloat16, torch.float32):
             name = dtype_name(dt)
             q, k, v = attn_inputs(torch, B, S, H, KH, D, dt, dev, 700 + i,
                                   dv=Dv)
+            do = output_grad(torch, (B, S, H, Dv), dt, dev, 750 + i)
             for causal in (True, False):
                 case = f"{B}x{S}x{H}x{KH} ({D}, {Dv}) {name} causal={causal}"
                 try:
@@ -4520,26 +4595,44 @@ def phase_attn_wide_vs_plain(torch, ops, ref, dev, shapes=None):
                                     f"output, {case}"),
                               close(torch, lse, plain_lse, ATTN_TOL[name],
                                     f"log-sum-exp, {case}"))
-                    del plain_o, plain_lse, lse
+                    del plain_o, plain_lse
                     if dt == torch.bfloat16:
                         rel[case] = tight(torch, ref, o, q, k, v, causal,
                                           case)
                     errs[name] = max(errs.get(name, 0.0), err)
-                    del o
+                    grads = ops.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    causal=causal)
+                    exp = plain_bwd(torch, ref, q, k, v, o, lse, do,
+                                    causal=causal)
+                    for gname, g, e in zip(("dq", "dk", "dv"), grads, exp):
+                        check(g.dtype == dt and g.shape == e.shape,
+                              f"{gname} {g.dtype} {tuple(g.shape)}: {case}")
+                        bwd_errs[name] = max(bwd_errs.get(name, 0.0), close(
+                            torch, g, e, ATTN_TOL[name],
+                            f"{gname} of the backward, {case}"))
+                    del exp
+                    if dt == torch.bfloat16:
+                        bwd_rel[case] = held(
+                            bwd_rel_l2(torch, ref, grads, q, k, v, o, lse,
+                                       do, causal),
+                            ATTN_BWD_BF16_REL_L2, f"the backward, {case}")
+                    del o, lse, grads
                 except SmokeFailure as e:
                     failed[case] = str(e)[:300]
                 run.append([B, S, H, KH, D, Dv, name, causal])
                 torch.cuda.empty_cache()
-            del q, k, v
+            del q, k, v, do
     torch.cuda.synchronize()
     if failed:
         raise CaseFailures(f"phase 32 ({len(run)} cases)", failed)
-    log(f"phase 32: flash_attention at (q.k, v) = (192, 128) == plain on "
-        f"{len(run)} cases (B,S,H,KH,Dqk,Dv) in {shapes or WIDE_SHAPES}, "
-        f"bf16 and f32, causal and not: max abs err {errs} (tol "
-        f"{ATTN_TOL}, TF32 off); bf16 vs the f32 computation of its inputs, "
-        f"relative L2 {rel} (limit {ATTN_BF16_REL_L2})")
-    return errs, run, max(rel.values())
+    log(f"phase 32: flash_attention and flash_attention_bwd at (q.k, v) = "
+        f"(192, 128) == plain on {len(run)} cases (B,S,H,KH,Dqk,Dv) in "
+        f"{shapes or WIDE_SHAPES}, bf16 and f32, causal and not: max abs err "
+        f"forward {errs}, backward {bwd_errs} (tol {ATTN_TOL}, TF32 off); "
+        f"bf16 vs the f32 computation of its inputs, relative L2 forward "
+        f"{rel} (limit {ATTN_BF16_REL_L2}), backward {bwd_rel} (limit "
+        f"{ATTN_BWD_BF16_REL_L2})")
+    return errs, run, max(rel.values()), bwd_errs, max(bwd_rel.values())
 
 
 def moe_f32_routes(torch, cfg, params, tokens, dev):
@@ -4724,38 +4817,33 @@ def phase_moe_serving(torch, ops, ref, dev, seed, arch, phase):
     return row, seen
 
 
-def phase_moe_grads(torch, ops, ref, dev, seed):
-    """35: one full-width llama4-scout-17b-a16e MoE layer in f32 (TF32 off)
-    on 1 x ``MOE_GRAD_TOKENS`` tokens, no optimizer: ``loss_fn``'s loss
-    and every gradient leaf by autograd on the kernel route (the attention
-    forward twice under remat, its backward once, counted) against the
-    plain route (``F32_LOSS_RTOL``, ``F32_GRAD_REL_L2`` a leaf); the
-    router's aux loss above 0 and the router's gradient not zero on both;
-    the first backward call (GQA, 40 query heads over 8) against its plain
-    version."""
+def moe_grad_routes(torch, cfg, params, batch, dev, what):
+    """f32 (TF32 off) ``loss_fn``'s loss and every gradient leaf of ``cfg``
+    on ``batch``, no optimizer, by autograd on the kernel route (the
+    attention forward twice a layer under remat, its backward once,
+    counted) against the plain route (none launched): each route's MoE
+    layers recorded (:func:`recorded_routes`), every token's experts and
+    kept slots the same on both (a flip fails, naming the smallest top-k
+    margin); the loss within ``F32_LOSS_RTOL``, every leaf within
+    ``F32_GRAD_REL_L2``; the routers' aux loss above 0 and each router's
+    gradient not zero on both; the first backward call against its plain
+    version. Returns the readings."""
     from torch.utils._pytree import tree_flatten, tree_unflatten
 
-    from repro_torch.configs import get_config
-    from repro_torch.models.transformer import init_params, loss_fn
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.transformer import loss_fn
 
-    cfg = get_config(MOE_GRAD_ARCH).with_(n_layers=1,
-                                          compute_dtype=torch.float32)
-    torch.cuda.empty_cache()
-    params = init_params(seed + 3, cfg, device=dev)
-    g = torch.Generator(device="cpu").manual_seed(seed + 4)
-    toks = torch.randint(0, cfg.vocab_size, (1, MOE_GRAD_TOKENS + 1),
-                         generator=g).to(dev)
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     leaves, spec = tree_flatten(params)
+    n_moe = moe_layers(cfg)
     router = [i for i, t in enumerate(leaves)
               if t.shape == (cfg.d_model, cfg.n_experts)]
-    check(len(router) == 1, f"router leaves {router}")
+    check(len(router) == n_moe >= 1, f"router leaves {router}")
+    want = attention_step_plan(cfg)
     out = {}
-    torch.cuda.reset_peak_memory_stats()
     for use_kernel in (True, False):
-        want = ("flash_attention", "flash_attention_bwd")
         leaves = [t.detach().requires_grad_(True) for t in leaves]
-        with first_calls(ops, ("flash_attention_bwd",)) as seen:
+        with first_calls(ops, ("flash_attention_bwd",)) as seen, \
+                recorded_routes(torch, margins=True) as routes:
             before = {n: ops.LAUNCHES[n] for n in want}
             loss, metrics = loss_fn(cfg, tree_unflatten(leaves, spec), batch,
                                     device=dev, use_kernel=use_kernel)
@@ -4765,68 +4853,103 @@ def phase_moe_grads(torch, ops, ref, dev, seed):
         out[use_kernel] = {"loss": float(loss.detach()),
                            "ce": float(metrics["ce"].detach()),
                            "aux": float(metrics["aux"].detach()),
-                           "grads": grads,
-                           "launches": launches, "seen": seen}
+                           "grads": grads, "launches": launches,
+                           "seen": seen, "routes": routes[:n_moe]}
         del loss, metrics
-    leaves = [t.detach() for t in leaves]
     kern, plain = out[True], out[False]
-    check(kern["launches"] == {"flash_attention": 2,
-                               "flash_attention_bwd": 1}
-          and plain["launches"] == {"flash_attention": 0,
-                                    "flash_attention_bwd": 0},
-          f"launches: kernel route {kern['launches']}, plain route "
-          f"{plain['launches']}")
+    check(kern["launches"] == want
+          and plain["launches"] == dict.fromkeys(want, 0),
+          f"{what}: launches: kernel route {kern['launches']} (expected "
+          f"{want}), plain route {plain['launches']}")
+    margin = min(r["margin"] for r in kern["routes"] + plain["routes"])
+    flips = flipped_share(kern["routes"], plain["routes"])
+    same_keep = all(torch.equal(a["keep"], b["keep"])
+                    for a, b in zip(kern["routes"], plain["routes"]))
+    check(len(kern["routes"]) == len(plain["routes"]) == n_moe
+          and not any(flips) and same_keep,
+          f"{what}: the kernel and plain routes chose other experts for a "
+          f"share {flips} of the choices (slots kept alike: {same_keep}); "
+          f"smallest top-k margin {margin:.3e}")
     loss_rel = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
     diff = grad_diff(torch, kern["grads"], plain["grads"])
-    router_norm = {r: float(out[r]["grads"][router[0]].norm())
+    router_norm = {r: [float(out[r]["grads"][i].norm()) for i in router]
                    for r in (True, False)}
     check(loss_rel <= F32_LOSS_RTOL and diff["worst_leaf_rel_l2"]
           <= F32_GRAD_REL_L2,
-          f"f32 {cfg.name} one layer, kernel vs plain route: loss rel "
-          f"{loss_rel}, gradients {diff} (limits {F32_LOSS_RTOL} loss, "
-          f"{F32_GRAD_REL_L2} a leaf)")
+          f"{what}, kernel vs plain route: loss rel {loss_rel}, gradients "
+          f"{diff} (limits {F32_LOSS_RTOL} loss, {F32_GRAD_REL_L2} a leaf)")
     check(kern["aux"] > 0 and plain["aux"] > 0
-          and all(n > 0 for n in router_norm.values()),
-          f"aux {kern['aux']} / {plain['aux']}, router gradient norms "
-          f"{router_norm}")
+          and all(n > 0 for ns in router_norm.values() for n in ns),
+          f"{what}: aux {kern['aux']} / {plain['aux']}, router gradient "
+          f"norms {router_norm}")
     (q, k, v, o, lse, do), kw, got = kern["seen"]["flash_attention_bwd"]
-    exp = ref.flash_attention_bwd(q, k, v, o, lse, do, **kw)
-    err = max(close(torch, gr, e, ATTN_TOL["float32"],
-                    f"phase 35's first backward call, {n}")
+    exp = plain_bwd(torch, ref, q, k, v, o, lse, do, **kw)
+    err = max(close(torch, gr, e, ATTN_TOL[dtype_name(q.dtype)],
+                    f"{what}: the first backward call, {n}")
               for n, gr, e in zip(("dq", "dk", "dv"), got, exp))
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    row = {"arch": cfg.name, "layers": 1, "params": cfg.param_count(),
-           "tokens": [1, MOE_GRAD_TOKENS], "loss": kern["loss"],
-           "ce": kern["ce"], "aux": kern["aux"],
-           "plain_loss": plain["loss"], "loss_rel": loss_rel,
-           "grads": diff, "router_grad_norm": router_norm[True],
-           "launches": kern["launches"],
+    row = {"tokens": list(batch["tokens"].shape), "layers": cfg.n_layers,
+           "moe_layers": n_moe, "loss": kern["loss"], "ce": kern["ce"],
+           "aux": kern["aux"], "plain_loss": plain["loss"],
+           "loss_rel": loss_rel, "grads": diff,
+           "router_grad_norm": router_norm[True], "flipped": flips,
+           "smallest_topk_margin": margin, "launches": kern["launches"],
            "bwd_call": [list(q.shape), int(k.shape[2]), int(v.shape[3])],
-           "bwd_max_abs_err": err, "peak_gib": peak,
-           "card": card_name_power()}
-    del out, kern, plain, params, leaves, exp, got
+           "bwd_max_abs_err": err}
+    del out, kern, plain, leaves, exp, got
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_moe_grads(torch, ops, ref, dev, seed):
+    """35: one full-width llama4-scout-17b-a16e MoE layer in f32 (TF32 off)
+    on 1 x ``MOE_GRAD_TOKENS`` tokens, no optimizer: both routes' loss,
+    gradients and routing by :func:`moe_grad_routes` (the first backward
+    call: GQA, 40 query heads over 8)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_config(MOE_GRAD_ARCH).with_(n_layers=1,
+                                          compute_dtype=torch.float32)
+    torch.cuda.empty_cache()
+    params = init_params(seed + 3, cfg, device=dev)
+    g = torch.Generator(device="cpu").manual_seed(seed + 4)
+    toks = torch.randint(0, cfg.vocab_size, (1, MOE_GRAD_TOKENS + 1),
+                         generator=g).to(dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    torch.cuda.reset_peak_memory_stats()
+    row = {"arch": cfg.name, "params": cfg.param_count(),
+           **moe_grad_routes(torch, cfg, params, batch, dev, "phase 35")}
+    row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    row["card"] = card_name_power()
+    del params
     torch.cuda.empty_cache()
     log(f"phase 35: {cfg.name} full width, one MoE layer ("
         f"{cfg.param_count():,} params with the embedding) in f32 on 1 x "
         f"{MOE_GRAD_TOKENS} tokens on {row['card']}: loss {row['loss']} (ce "
-        f"{row['ce']}, aux {row['aux']}), kernel vs plain route: loss rel "
-        f"{loss_rel}, gradients {diff} (limits {F32_LOSS_RTOL}, "
-        f"{F32_GRAD_REL_L2} a leaf); router gradient norm "
+        f"{row['ce']}, aux {row['aux']}), kernel vs plain route: the same "
+        f"experts (smallest top-k margin {row['smallest_topk_margin']:.3e}), "
+        f"loss rel {row['loss_rel']}, gradients {row['grads']} (limits "
+        f"{F32_LOSS_RTOL}, {F32_GRAD_REL_L2} a leaf); router gradient norm "
         f"{row['router_grad_norm']}; launches {row['launches']}; the first "
         f"backward call (q, KV heads, v width {row['bwd_call']}) == plain, "
-        f"max abs err {err}; peak memory {peak:.2f} GiB")
+        f"max abs err {row['bwd_max_abs_err']}; peak memory "
+        f"{row['peak_gib']:.2f} GiB")
     return row
 
 
-def phase_moe_timing(torch, ops, ref, dev, prefills, l2_bytes):
-    """36: the attention forward on the inputs the MoE prefills gave it
-    (``prefills``: each arch's first call), as phase 31 times the dense
-    archs' (:func:`prefill_forward_rows`)."""
-    rows = prefill_forward_rows(torch, ops, ref, prefills, l2_bytes)
+def phase_kernel_timing(torch, ops, ref, prefills, steps, l2_bytes,
+                        phase):
+    """36, 40, 42: both attention kernels on the inputs the prefills
+    (``prefills``: each arch's first forward call) and train steps
+    (``steps``: each first backward call) gave them, as phase 31 times the
+    dense archs' (:func:`prefill_forward_rows`,
+    :func:`train_backward_rows`)."""
+    rows = {**prefill_forward_rows(torch, ops, ref, prefills, l2_bytes),
+            **train_backward_rows(torch, ops, ref, steps, l2_bytes)}
     card = card_name_power()
     for name, row in rows.items():
         row["card"] = card
-        log_timing(36, name, row)
+        log_timing(phase, name, row)
     return rows
 
 # ---------- the vision frontend and the codebook heads (phases 37-40)
@@ -4851,18 +4974,27 @@ FRONTEND_TRAIN_CUT = {"internvl2-2b": (24, TRAIN_BATCH),
                       "musicgen-large": (48, TRAIN_BATCH)}
 
 
-def phase_frontend_timing(torch, ops, ref, prefills, steps, l2_bytes):
-    """40: both attention kernels on the inputs the prefills
-    (``prefills``) and train steps (``steps``) of internvl2-2b and
-    musicgen-large gave them, as phase 31 times the dense archs'
-    (:func:`prefill_forward_rows`, :func:`train_backward_rows`)."""
-    rows = {**prefill_forward_rows(torch, ops, ref, prefills, l2_bytes),
-            **train_backward_rows(torch, ops, ref, steps, l2_bytes)}
-    card = card_name_power()
-    for name, row in rows.items():
-        row["card"] = card
-        log_timing(40, name, row)
-    return rows
+# ------------------ deepseek-v2-236b's train step (phases 41-42)
+# Its AdamW step at full width, cut to (layers, batch rows of 4096
+# positions). AdamW's f32 parameters, gradients, m and v take 16 bytes a
+# parameter before any transient; falcon-mamba-7b's step peaked at 34.3
+# bytes a parameter, musicgen-large's at 32.3 (H100 80GB HBM3):
+# - its dense first layer with the tied 102,400 x 5,120 embedding:
+#   862,257,152 parameters, 13.80 GB steady (16 bytes), about 30 GB at the
+#   update, plus the 4 x 4096 x 102,400 logits (3.4 GB in bf16, 6.7 GB
+#   each f32 copy that cross-entropy and its gradient hold): under 50 GB
+#   of the card's 85;
+# - with its first MoE layer (3,972,104,192 parameters: 160 experts of 3 x
+#   5120 x 1536, 2 shared, the router, MLA with 128 heads): 4,834,361,344
+#   parameters, 77.3 GB steady, and no step over a full-width MoE layer
+#   fits one card (llama4-scout-17b-a16e's one layer 3,236,577,280, 51.8
+#   GB steady, about 110 GB at the update).
+# So the step trains the dense layer; the f32 routes run at depth 2 (the
+# dense layer and the first MoE layer, 19.3 GB of f32 weights and as much
+# again for each route's gradients, no optimizer) on 2 x 1024 tokens.
+MOE_TRAIN_CUT = {"deepseek-v2-236b": (1, TRAIN_BATCH)}
+MOE_TRAIN_ARCH = "deepseek-v2-236b"
+
 
 # ------------------------------------ scan training (phases 21-25)
 SSD_BWD_SOURCE = "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu"
@@ -5329,9 +5461,16 @@ def main(argv=None) -> int:
                         ("flash_attention_bwd", BWD_HEAD_DIMS)):
         usage = ptxas_usage(ops.ptxas_log(name).read_text())
         regs[name]["by_head_size"] = {
-            f"{dqk}/{dv}": entry_usage(usage, f"{MAIN_ENTRIES[name]}"
+            f"{dqk}/{dv}": entry_usage(usage, f"{bf16_entry(name, dqk)}"
                                               f"ILi{dqk}ELi{dv}E")
             for dqk, dv in pairs}
+    wide = regs["flash_attention_bwd"]["by_head_size"]["192/128"]
+    serialized = wgmma_serialized(
+        ops.ptxas_log("flash_attention_bwd").read_text(),
+        bf16_entry("flash_attention_bwd", 192))
+    check(wide["spill_bytes"] == 0 and not serialized,
+          f"{bf16_entry('flash_attention_bwd', 192)}: {wide}, ptxas "
+          f"serialized its wgmmas: {serialized}")
     sass["flash_attention_bwd"] = bwd_sass_counts(
         ops, paths[names.index("flash_attention_bwd")])
     if sass["flash_attention_bwd"] != "no cuobjdump":
@@ -5536,7 +5675,7 @@ def main(argv=None) -> int:
     # depth (counts set to 0 just before the prefill, read just after),
     # its weights freed before the next arch's; llama4's loss and
     # gradients in f32; the forward timed at both prefills' inputs
-    wide_errs, wide_cases, wide_rel = timed(
+    wide_errs, wide_cases, wide_rel, wide_bwd_errs, wide_bwd_rel = timed(
         "phase 32", phase_attn_wide_vs_plain, torch, ops, ref, dev)
     moe_rows, moe_seen = {}, {}
     for phase, arch in zip((33, 34), MOE_ARCHS):
@@ -5546,8 +5685,8 @@ def main(argv=None) -> int:
     del seen
     moe_grads = timed("phase 35", phase_moe_grads, torch, ops, ref, dev,
                       seed)
-    moe_timing = timed("phase 36", phase_moe_timing, torch, ops, ref, dev,
-                       to_device(moe_seen, dev), l2)
+    moe_timing = timed("phase 36", phase_kernel_timing, torch, ops, ref,
+                       to_device(moe_seen, dev), {}, l2, 36)
     del moe_seen
 
     # the vision frontend and the codebook heads: each arch's prefill and
@@ -5569,9 +5708,21 @@ def main(argv=None) -> int:
         bwd_seen[arch] = to_device(seen, "cpu")
     del seen
     frontend_timing = timed(
-        "phase 40", phase_frontend_timing, torch, ops, ref,
-        to_device(fwd_seen, dev), to_device(bwd_seen, dev), l2)
+        "phase 40", phase_kernel_timing, torch, ops, ref,
+        to_device(fwd_seen, dev), to_device(bwd_seen, dev), l2, 40)
     del fwd_seen, bwd_seen
+
+    # deepseek-v2-236b trains: its AdamW steps at full width, cut to its
+    # dense first layer (counts set to 0 just before each step, read just
+    # after), the f32 routes over the dense and the first MoE layer; the
+    # backward at (192, 128) timed on the step's first call
+    moe_train, seen = timed(
+        "phase 41", phase_dense_train_step, torch, ops, ref, dev, seed,
+        MOE_TRAIN_ARCH, 41, MOE_TRAIN_CUT)
+    moe_train_timing = timed(
+        "phase 42", phase_kernel_timing, torch, ops, ref, {},
+        {MOE_TRAIN_ARCH: seen}, l2, 42)
+    del seen
 
     summary = {"kernels": [{
         "name": "topk_reward", "route": "cuda", "source": KERNEL_SOURCE,
@@ -5775,8 +5926,27 @@ def main(argv=None) -> int:
         "checked_shapes": wide_cases, "max_abs_err_by_dtype": wide_errs,
         "bf16_rel_l2_vs_f32": {"phase32_max": wide_rel,
                                "limit": ATTN_BF16_REL_L2},
-        "timing": moe_timing, "backward": "not built (ROADMAP.md queue 1 "
-                                          "item 16)"}
+        "timing": moe_timing}
+    # deepseek-v2-236b's train step (41) and its timing (42): the launches
+    # a step of both kernels and of the f32 routes' kernel route
+    for name in ("flash_attention", "flash_attention_bwd"):
+        row = next(k for k in summary["kernels"] if k["name"] == name)
+        row["launches_by_phase"][f"{MOE_TRAIN_ARCH}_train_step_by_step"] = [
+            n[name] for n in moe_train["launches"]]
+        row["launches_by_phase"][
+            f"{MOE_TRAIN_ARCH}_f32_depth{ROUTE_DEPTH}_loss_and_grads"] = \
+            moe_train["f32_routes"]["launches"][name]
+    row = next(k for k in summary["kernels"]
+               if k["name"] == "flash_attention_bwd")
+    row["pair_192_128"] = {
+        "design": BWD_WIDE_DESIGN, "checked_shapes": wide_cases,
+        "max_abs_err_by_dtype": wide_bwd_errs,
+        "bf16_rel_l2_vs_f32": {"phase32_max": wide_bwd_rel,
+                               "train_call": moe_train["call_rel_l2"],
+                               "limit": ATTN_BWD_BF16_REL_L2},
+        "timing": moe_train_timing}
+    row["max_abs_err"] = max(row["max_abs_err"], *wide_bwd_errs.values(),
+                             moe_train["max_abs_err"])
     for name in ("flash_attention", "flash_attention_bwd"):
         row = next(k for k in summary["kernels"] if k["name"] == name)
         for arch in FRONTEND_ARCHS:
@@ -5793,7 +5963,8 @@ def main(argv=None) -> int:
                           else "backward")}
     summary["dense_archs"] = dense
     summary["frontend_archs"] = frontend
-    summary["moe_archs"] = {**moe_rows, "llama4_f32_layer_grads": moe_grads}
+    summary["moe_archs"] = {**moe_rows, "llama4_f32_layer_grads": moe_grads,
+                            f"{MOE_TRAIN_ARCH}_train": moe_train}
     summary["olmo_1b"] = {"train": train_row, "cohort_cli": cohort_row}
     summary["zamba2_1_2b"] = {"train": zamba_train}
     summary["falcon_mamba_7b"] = {"train": falcon_train}

@@ -110,8 +110,8 @@ constexpr float kNegInf = -1e30f;   // the reference's mask value
 // olmo-1b, phi4-mini-3.8b, llama4-scout-17b-a16e), (96, 96) for
 // phi3-mini-3.8b, (96, 64) and (48, 32) for the MLA of minicpm3-4b (full
 // width) and of minicpm3-4b and deepseek-v2-236b (reduced), and (192, 128)
-// for deepseek-v2-236b's MLA at full width (the forward only: the
-// backward library does not take it)
+// for deepseek-v2-236b's MLA at full width (the backward library takes
+// the same pairs)
 #define FA_PAIRS(X) \
   X(64, 64) X(128, 128) X(96, 96) X(96, 64) X(48, 32) X(192, 128)
 

@@ -20,9 +20,9 @@
 // sequence / head strides (the last dimension contiguous); dq (B, S, H,
 // Dqk), dk (B, S, KH, Dqk) and dv (B, S, KH, Dv) written contiguous. The
 // q.k width Dqk and the v width Dv differ under multi-head latent attention
-// (minicpm3-4b: 96 and 64); the scale is Dqk^-0.5, and D = rowsum(dO o O)
-// runs over Dv. The library is built for the forward's (Dqk, Dv) pairs
-// (FA_PAIRS).
+// (minicpm3-4b: 96 and 64; deepseek-v2-236b: 192 and 128); the scale is
+// Dqk^-0.5, and D = rowsum(dO o O) runs over Dv. The library is built for
+// the forward's (Dqk, Dv) pairs (FA_PAIRS).
 //
 // Bound on an H100 SXM, at the olmo-1b train step's shape B = 4, S = 4096,
 // H = KH = 16, D = 128, causal: five products over the B*H*S^2/2 pairs the
@@ -104,6 +104,55 @@
 //     its Q and dO are complete (wgmma.wait_group 1: dQ reads K and dS
 //     only).
 
+// flash_bwd_wgmma_wide (bf16 at (192, 128), deepseek-v2-236b's MLA: q.k
+// 128 nope + 64 rope, three 64-column boxes a q / k row, v two). At the
+// train step's B = 4, S = 4096, H = KH = 128, causal: five products over
+// 4,296,015,872 kept pairs at 2 x (192 + 128 + 128 + 192 + 192) FLOP a
+// pair, 7.149 TFLOP, 7.228 ms at 989 TFLOP/s; the bytes take about 2.6 ms:
+// bound by operations. flash_bwd_wgmma's layout does not fit: a consumer
+// warpgroup's 64 keys would hold dK (64 x 192 f32, 96 registers a thread),
+// dV (64) and S^T, dP^T (32 each), 224 of setmaxnreg's 240 before any
+// address, descriptor or A fragment. So:
+//   - a CTA takes 64 keys, 384 threads: the producer warpgroup as in
+//     flash_bwd_wgmma (K 3 boxes, V 2, each stage Q 3 and dO 2, 64 rows a
+//     box), and two consumer warpgroups on the same 64 keys.
+//   - S^T and dP^T are split by query columns: warpgroup w computes the 64
+//     keys x queries 32 w .. 32 w + 31 of the stage, wgmma m64n32k16 with
+//     K (V) and Q's (dO's) 32 rows as K-major operands, 12 and 8 k-steps,
+//     16 + 16 registers. P^T and dS^T go to shared memory in bf16 (64 keys
+//     x 64 queries, 8 KB each, 128-byte swizzled, two of each alternating
+//     by stage), the warpgroup's 32 queries each, then a named barrier.
+//   - dV and dK are split by column boxes over all 64 queries: warpgroup w
+//     holds dV's box w and dK's box w (wgmma m64n64k16 with P^T / dS^T as
+//     K-major A operands from the tiles and dO's / Q's box w MN-major),
+//     32 + 32 registers; dK's box 2 is split by queries instead: each
+//     warpgroup adds its own dS^T (its registers, as A fragments) times its
+//     32 rows of Q's box 2, 32 registers, and the two parts are summed
+//     through shared memory at the end (an MN-major operand of 32 columns,
+//     half a swizzle atom, is not taken).
+//   - dQ (64 queries x 192) = dS K, dS^T read M-major and K N-major:
+//     warpgroup w computes dQ's box w over the 64 keys and box 2 over keys
+//     32 w .. 32 w + 31, 32 + 32 registers, and sends them as four 32-column
+//     f32 boxes by TMA bulk reduce-add, where the two box-2 parts add.
+//   - registers a consumer thread: 96 held (dK box, dK box-2 part, dV box)
+//     + 64 (dQ's parts, or S^T and dP^T) + 8 (dS^T's A fragments) = 168
+//     besides addresses, under setmaxnreg's 240. ptxas -v (sm_90a) for
+//     flash_bwd_wgmma_wide<192, 128>: 168 registers (the launch's 65,536 /
+//     384; the consumers raise theirs to 240), 0 bytes spill stores, 0
+//     bytes spill loads, and no C7511 (wgmma serialized) report.
+//   - shared memory: K 24,576 + V 16,384 + two Q stages 49,152 + two dO
+//     stages 32,768 + P^T and dS^T, two each, 32,768 + the dQ parts, 4
+//     boxes of 8 KB a warpgroup, 65,536 + lse and D 1,024 + 5 mbarriers 40
+//     + 1,024 to align = 223,272 bytes of the 232,448 allowed.
+//   - grid (key tiles, B * KH): the 132 CTAs in flight work on one or two
+//     heads, so that each head's Q, dO and dq accumulator (3 MB at S 4096)
+//     stay in L2 while its 64 key tiles read and add into them. In the
+//     other order (heads fastest, as flash_bwd_wgmma's grid) they leave
+//     L2 between key tiles: 71.8 against 27.1 ms at deepseek's step.
+//   - dQ's reduce-adds move 64 KB a stage (the box-2 parts twice): 24.3 ms
+//     without them against 27.1 with.
+//   (chip_probes.py --only attention_bwd_wide, H100 80GB HBM3 at 700 W)
+//
 // flash_bwd (f32): scalar f32 FMAs, 256 threads: each thread a 4 x 4 block
 // of S^T and dP^T (one pass over d for both) and a 4 x D/16 block of dK,
 // dV and dQ; P^T and dS^T through shared memory. At most 67 TFLOP/s of
@@ -118,10 +167,10 @@ namespace {
 
 using namespace hopper;
 
-// the (Dqk, Dv) pairs the library is built for: the forward's but
-// (192, 128), where a consumer warpgroup's dK would pass the register
-// budget (the wrapper's BWD_HEAD_DIMS)
-#define FA_PAIRS(X) X(64, 64) X(128, 128) X(96, 96) X(96, 64) X(48, 32)
+// the (Dqk, Dv) pairs the library is built for: the forward's (the
+// wrapper's BWD_HEAD_DIMS); in bf16, (192, 128) takes flash_bwd_wgmma_wide
+#define FA_PAIRS(X) \
+  X(64, 64) X(128, 128) X(96, 96) X(96, 64) X(48, 32) X(192, 128)
 
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;           // query rows a tile
@@ -719,6 +768,367 @@ flash_bwd_wgmma(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// ------------------------------------ the wide pair (192, 128), bf16
+template <int DQK, int DV>
+struct WideTraits {
+  static constexpr int kBK = 64;              // keys a CTA, both consumers'
+  static constexpr int kBQ = 64;              // query rows a stage
+  static constexpr int kWGs = 2;              // consumer warpgroups
+  static constexpr int kThreads = 128 * (kWGs + 1);
+  static constexpr int kConsumerRegs = 240;
+  static constexpr int kStages = 2;           // Q / dO ring depth
+  static constexpr int kQKBlocks = DQK / kBox;   // 3 boxes a q / k row
+  static constexpr int kVBlocks = DV / kBox;     // 2 a v / dO row
+  static constexpr int kBoxBytes = 64 * 128;     // 64 rows of 128 bytes
+  static constexpr int kKTile = kQKBlocks * kBoxBytes;  // K, or a Q stage
+  static constexpr int kVTile = kVBlocks * kBoxBytes;   // V, or a dO stage
+  static constexpr int kPS = kBK * kBQ * 2;   // P^T or dS^T, keys x queries
+  static constexpr int kDQBox = 64 * 32 * 4;  // 64 rows x 32 f32 columns
+  static constexpr int kDQ = 4 * kDQBox;      // a consumer's two dQ parts
+  // byte offsets from the 1 KB-aligned base: K, V, the Q and dO stages,
+  // two P^T and two dS^T tiles, the consumers' dQ parts, each stage's
+  // lse * log2 e and D, the mbarriers; + 1 KB to align the base
+  static constexpr int kK = 0;
+  static constexpr int kV = kKTile;
+  static constexpr int kQ = kV + kVTile;
+  static constexpr int kDO = kQ + kStages * kKTile;
+  static constexpr int kPT = kDO + kStages * kVTile;
+  static constexpr int kDST = kPT + 2 * kPS;
+  static constexpr int kDQOff = kDST + 2 * kPS;
+  static constexpr int kVec = kDQOff + kWGs * kDQ;
+  static constexpr int kBar = kVec + kStages * 2 * kBQ * 4;
+  static constexpr int kSmemBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
+  static_assert(DQK == 3 * kBox && DV == 2 * kBox && kSmemBytes <= 232448,
+                "the wide design takes three q.k boxes and two v boxes");
+};
+
+// grid (key tiles of 64, B * KH): the CTAs in flight share a head or two,
+// whose Q, dO and dq accumulator stay in L2; blockIdx.x = 0 holds the
+// first keys
+template <int DQK, int DV>
+__global__ void __launch_bounds__((WideTraits<DQK, DV>::kThreads), 1)
+flash_bwd_wgmma_wide(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap domap,
+                     const __grid_constant__ CUtensorMap dqmap,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int S, int H, int KH, float scale,
+                     int causal) {
+  using T = WideTraits<DQK, DV>;
+  constexpr int kStages = T::kStages, kBB = T::kBoxBytes;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gen = smem_raw + (base - raw);  // base, generic address
+  float* vec = reinterpret_cast<float*>(gen + T::kVec);
+  const uint32_t sk = base + T::kK, sv = base + T::kV, sq = base + T::kQ;
+  const uint32_t sdo = base + T::kDO, spt = base + T::kPT;
+  const uint32_t sdst = base + T::kDST, bars = base + T::kBar;
+  const uint32_t full_kv = bars;
+  auto full = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + kStages + s); };
+
+  const int b = blockIdx.y / KH, kh = blockIdx.y % KH, G = H / KH;
+  const int k0 = blockIdx.x * T::kBK;
+  const int qt0 = causal ? k0 / T::kBQ : 0;  // query tiles above it see no key
+  const int n_qt = (S + T::kBQ - 1) / T::kBQ - qt0;  // a head's query tiles
+  const int n_it = G * n_qt;                          // stages of the CTA
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 33);  // the copies' expect_tx + the producer lanes
+      mbar_init(empty(s), 4 * T::kWGs);  // each consumer warp arrives
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(full_kv, T::kKTile + T::kVTile);
+        for (int c = 0; c < T::kQKBlocks; ++c)
+          tma_load(sk + c * kBB, &kmap, full_kv, c * kBox, kh, k0, b);
+        for (int c = 0; c < T::kVBlocks; ++c)
+          tma_load(sv + c * kBB, &vmap, full_kv, c * kBox, kh, k0, b);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int st = it % kStages;
+        const int h = kh * G + it / n_qt, q0 = (qt0 + it % n_qt) * T::kBQ;
+        if (it >= kStages)
+          mbar_wait_bounded(empty(st), ((it / kStages) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(full(st), T::kKTile + T::kVTile);
+          for (int c = 0; c < T::kQKBlocks; ++c)
+            tma_load(sq + st * T::kKTile + c * kBB, &qmap, full(st),
+                     c * kBox, h, q0, b);
+          for (int c = 0; c < T::kVBlocks; ++c)
+            tma_load(sdo + st * T::kVTile + c * kBB, &domap, full(st),
+                     c * kBox, h, q0, b);
+        }
+        // the tile's log-sum-exp (times log2 e) and D; rows past S as 0
+        const long long row = ((long long)b * H + h) * S;
+        float* sl = vec + st * 2 * T::kBQ;
+        for (int r = lane; r < T::kBQ; r += 32) {
+          const int t = q0 + r;
+          sl[r] = t < S ? lse[row + t] * kLog2e : 0.f;
+          sl[T::kBQ + r] = t < S ? delta[row + t] : 0.f;
+        }
+        mbar_arrive(full(st));
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+                     T::kConsumerRegs)
+                 : "memory");
+    // uniform across the warp (see flash_bwd_wgmma)
+    const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0) - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, c = lane % 4;        // fragment row, col pair
+    const int key0 = 16 * warp + g;              // rows key0, key0 + 8
+    const float scale_log2 = scale * kLog2e;
+    const uint32_t qrows = wg * 32 * 128;        // the warpgroup's 32 queries
+    const uint32_t qb = base + T::kDQOff + wg * T::kDQ;
+
+    // dK's box wg and dV's box wg over all queries; dK's box 2 over the
+    // warpgroup's own 32 queries of each stage (the two parts summed at
+    // the end)
+    float dka[32], dk2[32], dva[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[i] = dk2[i] = dva[i] = 0.f;
+    mbar_wait_bounded(full_kv, 0);
+
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % kStages;
+      const uint32_t ph = (it / kStages) & 1;
+      const int h = kh * G + it / n_qt, q0 = (qt0 + it % n_qt) * T::kBQ;
+      const int qw = q0 + 32 * wg;               // the warpgroup's queries
+      const uint32_t qa = sq + st * T::kKTile, da = sdo + st * T::kVTile;
+      // opaque each stage (see flash_bwd_wgmma)
+      uint32_t kas = sk, vas = sv;
+      asm volatile("" : "+r"(kas), "+r"(vas));
+      mbar_wait_bounded(full(st), ph);  // Q and dO of the stage
+
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x the warpgroup's 32
+      // queries, 12 and 8 k-steps of 32 bytes over the boxes (arrays of
+      // their own: aliased with dQ's, as flash_bwd_wgmma's are, ptxas
+      // serialized the wgmmas, 31.2 against 27.1 ms at deepseek's step)
+      float s[16], dp[16];
+      pin(s);
+      pin(dp);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DQK / 16; ++kk) {
+        const uint32_t col = (kk % 4) * 32;  // bytes into the 128-byte row
+        wgmma_ss_n32(s, wg_desc(kas + (kk / 4) * kBB + col, 16, 1024),
+                     wg_desc(qa + (kk / 4) * kBB + qrows + col, 16, 1024),
+                     kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DV / 16; ++kk) {
+        const uint32_t col = (kk % 4) * 32;
+        wgmma_ss_n32(dp, wg_desc(vas + (kk / 4) * kBB + col, 16, 1024),
+                     wg_desc(da + (kk / 4) * kBB + qrows + col, 16, 1024),
+                     kk > 0);
+      }
+      wg_commit();
+      wg_wait0();
+      pin(s);
+      pin(dp);
+
+      // P^T and dS^T in base 2 as in flash_bwd_wgmma, on the warpgroup's
+      // queries u = 8 j + 2 c (+1) of qw: keep bit u - 2 c of row hr for
+      // u - 2 c in [lo, hi) on a tile that straddles the diagonal or
+      // passes S
+      const float* sl = vec + st * 2 * T::kBQ + 32 * wg;
+      const bool edge = (causal && k0 + T::kBK - 1 > qw) ||
+                        k0 + T::kBK > S || qw + 32 > S;
+      uint64_t keep[2] = {~0ull, ~0ull};
+      if (edge) {
+        const int dkr = k0 + key0 - qw - 2 * c;  // key - query at u = 2 c
+        const int rlim = S - qw - 2 * c;          // query < S: u - 2 c < rlim
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          keep[hr] = bit_range(causal ? dkr + 8 * hr : 0,
+                               key0 + 8 * hr < S - k0 ? rlim : 0);
+      }
+      // both rounded to bf16 into this stage's P^T and dS^T tiles (64 key
+      // rows of 64 queries, 128 bytes; 16-byte chunk j of row r at chunk j
+      // ^ (r % 8), the 128-byte swizzle), the warpgroup's chunks 4 wg ..
+      // 4 wg + 3; dS^T also kept as the A fragments of dK's box-2 part
+      const uint32_t pt = spt + (it & 1) * T::kPS;
+      const uint32_t dst = sdst + (it & 1) * T::kPS;
+      uint32_t sa[2][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float* lj = sl + 8 * j + 2 * c;
+        const float2 l2 = *reinterpret_cast<const float2*>(lj);
+        const float2 dl = *reinterpret_cast<const float2*>(lj + T::kBQ);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e, col = e & 1;
+          float x = fmaf(s[i], scale_log2, -(col ? l2.y : l2.x));
+          if (edge) x = keep_or_neg_inf(x, keep[e >> 1], 8 * j + col);
+          const float pv = ex2(x);
+          s[i] = pv;
+          dp[i] = pv * (dp[i] - (col ? dl.y : dl.x));
+        }
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int key = key0 + 8 * hr;
+          const uint32_t off =
+              key * 128 + (((4 * wg + j) ^ (key & 7)) << 4) + 4 * c;
+          sa[j / 2][2 * (j & 1) + hr] =
+              pack_bf16(dp[4 * j + 2 * hr], dp[4 * j + 2 * hr + 1]);
+          st_shared(pt + off,
+                    pack_bf16(s[4 * j + 2 * hr], s[4 * j + 2 * hr + 1]));
+          st_shared(dst + off, sa[j / 2][2 * (j & 1) + hr]);
+        }
+      }
+      fence_async_smem();
+      bar_sync(1, 128 * T::kWGs);  // both halves of both tiles written
+
+      // dV's box wg += P^T dO and dK's box wg += dS^T Q over the 64
+      // queries (P^T, dS^T K-major A from the tiles; dO, Q MN-major), dK's
+      // box 2 += the warpgroup's dS^T (registers) x its 32 rows of Q's box
+      // 2; the scale at the end
+      pin(dva);
+      pin(dka);
+      pin(dk2);
+      pin(sa[0]);
+      pin(sa[1]);
+      wg_fence();
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq) {
+        const uint32_t row = kq * 16 * 128;
+        wgmma_ss_n64<0, 1>(dva, wg_desc(pt + kq * 32, 16, 1024),
+                           wg_desc(da + wg * kBB + row, kBB, 1024), 1);
+        wgmma_ss_n64<0, 1>(dka, wg_desc(dst + kq * 32, 16, 1024),
+                           wg_desc(qa + wg * kBB + row, kBB, 1024), 1);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wgmma_rs_n64(dk2, sa[i],
+                     wg_desc(qa + 2 * kBB + qrows + i * 16 * 128, kBB, 1024));
+      wg_commit();
+
+      // dQ (64 queries) = dS K: box wg over the 64 keys and box 2 over the
+      // warpgroup's keys 32 wg .. 32 wg + 31 (dS M-major, K N-major); both
+      // parts go to dq's accumulator, where the two box-2 parts add
+      float dq0[32], dq1[32];
+      pin(dq0);
+      pin(dq1);
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_ss_n64<1, 1>(dq0, wg_desc(dst + ks * 2048, T::kPS, 1024),
+                           wg_desc(kas + wg * kBB + ks * 2048, kBB, 1024),
+                           ks > 0);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint32_t ks = (2 * wg + i) * 2048;
+        wgmma_ss_n64<1, 1>(dq1, wg_desc(dst + ks, T::kPS, 1024),
+                           wg_desc(kas + 2 * kBB + ks, kBB, 1024), i > 0);
+      }
+      wg_commit();
+      wg_wait1();  // dV and dK done: the stage's Q and dO are free
+      pin(dva);
+      pin(dka);
+      pin(dk2);
+      if (lane == 0) mbar_arrive(empty(st));
+      wg_wait0();
+      pin(dq0);
+      pin(dq1);
+
+      // both parts (times the scale) into the warpgroup's buffer, once the
+      // last reduce-adds have read it: four boxes of 64 rows x 32 f32
+      // (128-byte rows, 16-byte chunk k of row r at k ^ (r % 8))
+      if (tid == 0) bulk_wait_read0();
+      bar_sync(2 + wg, 128);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = 16 * warp + g + 8 * hr;
+          const uint32_t off = (j / 4) * T::kDQBox + r * 128 +
+                               (((2 * (j % 4) + (c >> 1)) ^ g) << 4) +
+                               8 * (c & 1);
+          st_shared(qb + off, dq0[4 * j + 2 * hr] * scale,
+                    dq0[4 * j + 2 * hr + 1] * scale);
+          st_shared(qb + 2 * T::kDQBox + off, dq1[4 * j + 2 * hr] * scale,
+                    dq1[4 * j + 2 * hr + 1] * scale);
+        }
+      fence_async_smem();
+      bar_sync(2 + wg, 128);
+      if (tid == 0) {
+        tma_reduce_add(&dqmap, qb, 64 * wg, h, q0, b);
+        tma_reduce_add(&dqmap, qb + T::kDQBox, 64 * wg + 32, h, q0, b);
+        tma_reduce_add(&dqmap, qb + 2 * T::kDQBox, 2 * kBox, h, q0, b);
+        tma_reduce_add(&dqmap, qb + 3 * T::kDQBox, 2 * kBox + 32, h, q0, b);
+        bulk_commit();
+      }
+    }
+    if (tid == 0) bulk_wait0();
+    bar_sync(2 + wg, 128);  // the warpgroup's dQ buffer is free
+
+    // dK's box 2: each warpgroup stores its columns 128 + 32 wg .. 159 +
+    // 32 wg (fragment groups j = 4 wg .. 4 wg + 3), its part plus the other
+    // warpgroup's, passed through the dQ buffers (float2 slot (j % 4, hr)
+    // of thread tid)
+    float2* mine = reinterpret_cast<float2*>(gen + T::kDQOff + wg * T::kDQ);
+    const float2* theirs =
+        reinterpret_cast<const float2*>(gen + T::kDQOff + (1 - wg) * T::kDQ);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        if (j / 4 != wg)
+          mine[((j % 4) * 2 + hr) * 128 + tid] =
+              make_float2(dk2[4 * j + 2 * hr], dk2[4 * j + 2 * hr + 1]);
+    bar_sync(1, 128 * T::kWGs);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        if (j / 4 == wg) {
+          const float2 o = theirs[((j % 4) * 2 + hr) * 128 + tid];
+          dk2[4 * j + 2 * hr] += o.x;
+          dk2[4 * j + 2 * hr + 1] += o.y;
+        }
+
+    // dk: contiguous (B, S, KH, DQK), dv: (B, S, KH, DV); rows key0 and
+    // key0 + 8, the warpgroup's columns
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int key = k0 + key0 + 8 * hr;
+      if (key >= S) continue;
+      const long long row = ((long long)b * S + key) * KH + kh;
+      bf16* dkr = dk + row * DQK + 2 * c;
+      bf16* dvr = dv + row * DV + 64 * wg + 2 * c;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dkr + 64 * wg + 8 * j) =
+            pack_bf16(dka[4 * j + 2 * hr] * scale,
+                      dka[4 * j + 2 * hr + 1] * scale);
+        if (j / 4 == wg)
+          *reinterpret_cast<uint32_t*>(dkr + 2 * kBox + 8 * j) =
+              pack_bf16(dk2[4 * j + 2 * hr] * scale,
+                        dk2[4 * j + 2 * hr + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dvr + 8 * j) =
+            pack_bf16(dva[4 * j + 2 * hr], dva[4 * j + 2 * hr + 1]);
+      }
+    }
+  }
+}
+
 __global__ void cast_dq(const float* __restrict__ acc,
                         __nv_bfloat16* __restrict__ dq, long long n) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -739,6 +1149,20 @@ cudaError_t allow_smem(K kernel, int bytes, bool (&ready)[64]) {
   return err;
 }
 
+// the bf16 design of a pair: flash_bwd_wgmma_wide past two q.k boxes
+template <int DQK, int DV>
+constexpr bool kWide = DQK > 2 * kBox;
+template <int DQK, int DV>
+using BwdTraits = std::conditional_t<kWide<DQK, DV>, WideTraits<DQK, DV>,
+                                     WgTraits<DQK, DV>>;
+template <int DQK, int DV>
+constexpr auto bwd_kernel() {
+  if constexpr (kWide<DQK, DV>)
+    return flash_bwd_wgmma_wide<DQK, DV>;
+  else
+    return flash_bwd_wgmma<DQK, DV>;
+}
+
 template <int DQK, int DV>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const void* dO, const float* lse,
@@ -746,10 +1170,10 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* dv, int B, int S, int H, int KH, int causal,
                          float scale, Strides qs, Strides ks, Strides vs,
                          Strides dos, cudaStream_t stream) {
-  using T = WgTraits<DQK, DV>;
+  using T = BwdTraits<DQK, DV>;
+  constexpr auto kernel = bwd_kernel<DQK, DV>();
   static bool ready[64] = {false};
-  cudaError_t err =
-      allow_smem(flash_bwd_wgmma<DQK, DV>, T::kSmemBytes, ready);
+  cudaError_t err = allow_smem(kernel, T::kSmemBytes, ready);
   if (err != cudaSuccess) return err;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
@@ -762,8 +1186,9 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
       !make_map(&dom, encode, dO, B, S, H, DV, T::kBQ, dos) ||
       !make_map(&dqm, encode, dq_acc, B, S, H, DQK, T::kBQ, acc, true))
     return cudaErrorInvalidValue;
-  const dim3 grid(B * KH, (S + T::kBK - 1) / T::kBK);
-  flash_bwd_wgmma<DQK, DV><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
+  const int tiles = (S + T::kBK - 1) / T::kBK;
+  const dim3 grid = kWide<DQK, DV> ? dim3(tiles, B * KH) : dim3(B * KH, tiles);
+  kernel<<<grid, T::kThreads, T::kSmemBytes, stream>>>(
       qm, km, vm, dom, dqm, lse, delta, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), S, H, KH, scale, causal);
   return cudaGetLastError();

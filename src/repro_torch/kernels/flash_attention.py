@@ -45,11 +45,11 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # reduced deepseek-v2-236b's too), and deepseek-v2-236b's at full width
 HEAD_DIMS = ((64, 64), (128, 128), (96, 96), (96, 64), (48, 32), (192, 128))
 # the pairs of the backward library (FA_PAIRS in
-# csrc/flash_attention_bwd.cu): all but (192, 128), where a consumer
-# warpgroup's dK (96 registers a thread) beside dV's 64 passes the
-# design's 240 before S^T and dP^T; that pair needs a layout of its own
-# (ROADMAP.md queue 1 item 16)
-BWD_HEAD_DIMS = tuple(p for p in HEAD_DIMS if p != (192, 128))
+# csrc/flash_attention_bwd.cu): the forward's; in bf16 (192, 128) runs a
+# design of its own (flash_bwd_wgmma_wide: 64-key tiles, S^T and dP^T split
+# by query columns between the two consumer warpgroups, dK and dV by
+# column boxes)
+BWD_HEAD_DIMS = HEAD_DIMS
 MAX_GRID_Y = 65535        # one CTA row per (batch, head)
 
 __all__ = ["BWD_HEAD_DIMS", "DTYPES", "HEAD_DIMS", "bind", "bind_bwd",
@@ -132,11 +132,9 @@ def check_bwd_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rules; lse a contiguous f32 ``(B, H, S)``."""
     check_inputs(q, k, v)
     if (q.shape[3], v.shape[3]) not in BWD_HEAD_DIMS:
-        raise ValueError(
-            f"the attention backward kernel is not built for the (q.k, v) "
-            f"widths {(q.shape[3], v.shape[3])}: the forward takes them, the "
-            f"backward waits for a register layout of its own (ROADMAP.md "
-            f"queue 1 item 16); built: {BWD_HEAD_DIMS}")
+        raise ValueError(f"the attention backward kernel is not built for "
+                         f"the (q.k, v) widths {(q.shape[3], v.shape[3])}; "
+                         f"built: {BWD_HEAD_DIMS}")
     out_shape = q.shape[:3] + v.shape[3:]
     for name, t in (("o", o), ("do", do)):
         if t.shape != out_shape:

@@ -247,9 +247,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     inputs' dtypes, from the forward's inputs, its output ``o``, its f32
     log-sum-exp ``lse`` ``(B, H, S)`` and the output's gradient ``do``.
     CPU tensors take the plain version; CUDA tensors the Hopper kernel,
-    built for the ``(Dqk, Dv)`` pairs of ``flash_attention.BWD_HEAD_DIMS``
-    (it raises on (192, 128), which only the forward takes; a ``do``
-    whose layout the kernel does not take is made contiguous first)."""
+    built for the ``(Dqk, Dv)`` pairs of ``flash_attention.BWD_HEAD_DIMS``,
+    the forward's (a ``do`` whose layout the kernel does not take is made
+    contiguous first)."""
     if q.device.type == "cpu":
         return ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     if not _fa.kernel_ready(do):

@@ -7,8 +7,7 @@
           reduced config (as the reference): ``make_train_step``'s AdamW
           steps on ``lm_batch`` token streams, on one device; the loss
           must decrease; ``--out`` writes ``cohort.msgpack``. All ten
-          archs train (on the card deepseek-v2-236b's attention backward
-          at (192, 128) raises); internvl2-2b's batches carry its patch
+          archs train; internvl2-2b's batches carry its patch
           embeddings, musicgen-large's its codebook streams.
 
 Runs on the CUDA card unless ``--device cpu`` is given:

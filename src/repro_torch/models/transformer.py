@@ -30,8 +30,8 @@ summed on the way in, one ``(D, V)`` head per codebook on the way out,
 logits (B, S, ncb, V)). ``loss_fn`` is differentiable by autograd on both
 routes and adds the MoE routers' aux loss to the cross-entropy: the
 attention, SSD and selective-scan kernels each have a backward kernel
-(``kernels/ops.py``), built for every attention width pair but
-deepseek-v2-236b's (192, 128).
+(``kernels/ops.py``), built for every attention width pair,
+deepseek-v2-236b's (192, 128) included.
 """
 from __future__ import annotations
 

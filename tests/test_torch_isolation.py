@@ -552,7 +552,8 @@ def test_chip_probes_builds_another_checkouts_kernels(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("table", ["SSD_PROBES", "SCAN_PROBES",
-                                   "SSD_BWD_PROBES", "SCAN_BWD_PROBES"])
+                                   "SSD_BWD_PROBES", "SCAN_BWD_PROBES",
+                                   "WIDE_BWD_PROBES"])
 def test_chip_probes_edits_occur_once(table):
     """Each design probe of chip_probes.py edits text that occurs once in
     its source (a stale edit would stop the script on the card)."""
@@ -561,7 +562,8 @@ def test_chip_probes_edits_occur_once(table):
     probes = _load("chip_probes")
     lib = {"SSD_PROBES": "ssd_chunk", "SCAN_PROBES": "selective_scan",
            "SSD_BWD_PROBES": "ssd_chunk_bwd",
-           "SCAN_BWD_PROBES": "selective_scan_bwd"}[table]
+           "SCAN_BWD_PROBES": "selective_scan_bwd",
+           "WIDE_BWD_PROBES": "flash_attention_bwd"}[table]
     src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" /
            f"{lib}.cu").read_text()
     for name, (old, new) in getattr(probes, table).items():
@@ -575,18 +577,24 @@ def test_chip_probes_edits_occur_once(table):
                                    "qk_columns_64_95_dropped",
                                    "scale_of_v_width",
                                    "dv_from_do_at_qk_width",
-                                   "qk_third_box_dropped"])
+                                   "qk_third_box_dropped",
+                                   "dk_third_box_dropped",
+                                   "dv_boxes_swapped",
+                                   "pt_ds_tiles_unswizzled"])
 def test_chip_faults_plant_into_the_training_attention(fault):
     """Each planted fault of the training path's attention (and of both
     attention kernels at their width pairs) edits text that occurs once
     in its source, after the tensor-core kernel's definition (the
-    backward's ``flash_bwd_wgmma``, the forward's ``flash_fwd_wgmma``), so
-    an edit of a kernel cannot leave a fault unplanted."""
+    backward's ``flash_bwd_wgmma``, at (192, 128) its
+    ``flash_bwd_wgmma_wide``, the forward's ``flash_fwd_wgmma``), so an
+    edit of a kernel cannot leave a fault unplanted."""
     _chip_smoke()
     cf = _load("chip_faults")
     lib, edits = {**cf.BWD_FAULTS, **cf.WIDTH_FAULTS, **cf.WIDE_FAULTS}[fault]
     fn = {"flash_attention_bwd": "flash_bwd_wgmma(",
           "flash_attention": "flash_fwd_wgmma("}[lib]
+    if fault in cf.WIDE_FAULTS and lib == "flash_attention_bwd":
+        fn = "flash_bwd_wgmma_wide("
     src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" /
            f"{lib}.cu").read_text()
     for old, new in edits:
@@ -1040,8 +1048,11 @@ def test_chip_smoke_moe_serving_plan():
     """The MoE phases: each serving cut keeps the arch's width and at most
     its depth, its f32 weights at most 57 GB (the reckoning beside
     ``MOE_SERVE_CUT``), and its first two layers hold an MoE layer (the
-    f32 route comparison); phase 32's shapes are the pair the forward
-    alone is built for, deepseek's prefill among them."""
+    f32 route comparison); phase 32's shapes are the pair (192, 128), which
+    both libraries are built for, deepseek's prefill among them; the train
+    cut (``MOE_TRAIN_CUT``) keeps deepseek's dense first layer alone, its
+    AdamW state (16 bytes a parameter) within the 13.80 GB of its
+    reckoning, and the routes' depth reaches its first MoE layer."""
     smoke = _chip_smoke()
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS, HEAD_DIMS
@@ -1053,11 +1064,61 @@ def test_chip_smoke_moe_serving_plan():
         assert 4 * cut.param_count() <= 57e9
         assert smoke.moe_layers(cut.with_(n_layers=smoke.ROUTE_DEPTH)) >= 1
     assert {(D, Dv) for *_, D, Dv in smoke.WIDE_SHAPES} == {(192, 128)}
-    assert (192, 128) in HEAD_DIMS and (192, 128) not in BWD_HEAD_DIMS
+    assert (192, 128) in HEAD_DIMS and (192, 128) in BWD_HEAD_DIMS
     ds = get_config("deepseek-v2-236b")
     assert (smoke.PREFILL_BATCH, smoke.PREFILL_LEN, ds.n_heads, ds.n_heads,
             ds.qk_nope_dim + ds.qk_rope_dim, ds.v_head_dim) \
         in smoke.WIDE_SHAPES
+    assert set(smoke.MOE_TRAIN_CUT) == {smoke.MOE_TRAIN_ARCH}
+    layers, rows = smoke.MOE_TRAIN_CUT[smoke.MOE_TRAIN_ARCH]
+    cut = ds.with_(n_layers=layers)
+    assert smoke.moe_layers(cut) == 0 and rows == smoke.TRAIN_BATCH
+    assert cut.param_count() == 862_257_152
+    assert 16 * cut.param_count() <= 13.80e9
+    assert smoke.moe_layers(ds.with_(n_layers=smoke.ROUTE_DEPTH)) == 1
+
+
+@pytest.mark.parametrize("B,S,H,KH,budget", [
+    (1, 40, 6, 6, 10**9), (2, 37, 6, 3, 2 * 2 * 37 * 37),
+    (1, 33, 8, 8, 3 * 33 * 33), (2, 20, 4, 1, 1)])
+def test_chip_smoke_plain_backward_by_head_slices(monkeypatch, B, S, H, KH,
+                                                  budget):
+    """``plain_bwd`` over slices of the KV heads (each with its query
+    heads) equals one call of the plain backward, whether the slices
+    divide the heads or not, and a budget below one slice still takes
+    one KV head at a time."""
+    smoke = _chip_smoke()
+    from repro_torch.kernels import ref
+    monkeypatch.setattr(smoke, "PLAIN_BWD_SCORES", budget)
+    g = torch.Generator().manual_seed(S + H)
+    q = torch.randn(B, S, H, 24, generator=g)
+    k = torch.randn(B, S, KH, 24, generator=g)
+    v = torch.randn(B, S, KH, 16, generator=g)
+    do = torch.randn(B, S, H, 16, generator=g)
+    o, lse = ref.flash_attention_fwd_lse(q, k, v, causal=True)
+    whole = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    parts = smoke.plain_bwd(torch, ref, q, k, v, o, lse, do, causal=True)
+    for got, exp in zip(parts, whole):
+        assert got.shape == exp.shape
+        torch.testing.assert_close(got, exp, atol=1e-6, rtol=1e-6)
+
+
+def test_chip_smoke_reads_the_wide_backward_entry():
+    """Phase 1 reads the backward's registers at (192, 128) from its own
+    design's entry and finds ptxas's report of serialized wgmmas there."""
+    smoke = _chip_smoke()
+    assert smoke.bf16_entry("flash_attention_bwd", 192) == \
+        "flash_bwd_wgmma_wide"
+    assert smoke.bf16_entry("flash_attention_bwd", 128) == "flash_bwd_wgmma"
+    assert smoke.bf16_entry("flash_attention", 192) == "flash_fwd_wgmma"
+    name = "_ZN4abcd20flash_bwd_wgmma_wideILi192ELi128EEEv"
+    report = ("ptxas info    : (C7511) Potential Performance Loss: "
+              "wgmma.mma_async instructions are serialized due to "
+              f"insufficient register resources in the function '{name}'")
+    assert smoke.wgmma_serialized(report, "flash_bwd_wgmma_wide")
+    assert not smoke.wgmma_serialized(report.replace("C7511", "C0000"),
+                                      "flash_bwd_wgmma_wide")
+    assert not smoke.wgmma_serialized(report, "flash_fwd_wgmma")
 
 
 def test_chip_smoke_logit_diff_by_parts():

@@ -599,9 +599,9 @@ def test_attention_forward_at_192_128(B, S, H, KH, layout, dtype, causal):
     """The forward at deepseek-v2-236b's MLA pair (q.k 192 = three
     64-column boxes, v 128) against its plain version, ragged S and the
     MLA layout (v a strided slice of the packed k_nope / v projection);
-    bf16 also by the tight check. The backward is not built for the pair:
-    under grad the forward launches and the backward raises, naming its
-    roadmap item, and launches nothing."""
+    bf16 also by the tight check. Under grad the forward and the backward
+    kernel each launch once and the gradients equal the plain backward's
+    (the full matrix: ``test_attention_backward_at_192_128``)."""
     dev = _card()
     D, Dv = 192, 128
     g = torch.Generator(device="cpu").manual_seed(S + H)
@@ -626,11 +626,73 @@ def test_attention_forward_at_192_128(B, S, H, KH, layout, dtype, causal):
         assert float((out.float() - exact).norm() / exact.norm()) \
             <= ATTN_BF16_REL_L2
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-    o = ops.flash_attention(*leaves, causal=causal)
+    names = ("flash_attention", "flash_attention_bwd")
     before = dict(ops.LAUNCHES)
-    with pytest.raises(ValueError, match="queue 1 item 16"):
-        o.sum().backward()
-    assert ops.LAUNCHES == before
+    o = ops.flash_attention(*leaves, causal=causal)
+    do = torch.ones_like(o)
+    grads = torch.autograd.grad(o, leaves, do, retain_graph=True)
+    torch.cuda.synchronize()
+    assert _launched(names, before) == {n: 1 for n in names}
+    _, kernel_lse = o.grad_fn.saved_tensors[3:5]
+    exp = ref.flash_attention_bwd(q, k, v, o.detach(), kernel_lse, do,
+                                  causal=causal)
+    for got, want in zip(grads, exp):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+# the tight check of the bf16 backward (chip_smoke.ATTN_BWD_BF16_REL_L2):
+# each gradient's relative L2 distance from the f32 backward of the same
+# q, k, v, o, lse and do
+ATTN_BWD_BF16_REL_L2 = 3.5e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KH,layout", [
+    (1, 32, 4, 4, "dense"), (1, 64, 2, 2, "dense"), (2, 333, 8, 4, "dense"),
+    (1, 1000, 16, 16, "mla"), (1, 129, 6, 2, "mla"),
+    (2, 1024, 8, 8, "dense")])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_backward_at_192_128(B, S, H, KH, layout, dtype, causal):
+    """The backward kernel at deepseek-v2-236b's MLA pair (q.k 192, v 128;
+    in bf16 its own design, 64-key tiles, the two consumer warpgroups
+    splitting S^T and dP^T by query columns and dK, dV by column boxes)
+    against its plain version on the forward kernel's o and log-sum-exp,
+    launched once a call: S below a tile, at a tile, ragged and a whole
+    number of tiles, 1 and 2 and 3 query heads a KV head, the MLA layout
+    (v a strided slice); bf16 also by the tight check."""
+    from repro_torch.kernels import flash_attention as fa
+    dev = _card()
+    D, Dv = 192, 128
+    g = torch.Generator(device="cpu").manual_seed(S + H + KH)
+    q = torch.randn(B, S, H, D, generator=g).to(dtype).to(dev)
+    k = torch.randn(B, S, KH, D, generator=g).to(dtype).to(dev)
+    if layout == "mla":
+        kv = torch.randn(B, S, KH, 128 + Dv, generator=g).to(dtype).to(dev)
+        v = kv[..., 128:]
+    else:
+        v = torch.randn(B, S, KH, Dv, generator=g).to(dtype).to(dev)
+    do = torch.randn(B, S, H, Dv, generator=g).to(dtype).to(dev)
+    o, lse = fa.launch(ops.load_library("flash_attention"), q, k, v,
+                       causal=causal, with_lse=True)
+    before = dict(ops.LAUNCHES)
+    grads = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert _launched(("flash_attention_bwd",), before) == {
+        "flash_attention_bwd": 1}
+    tol = ATTN_TOL[dtype]
+    exp = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    for got, want, t in zip(grads, exp, (q, k, v)):
+        assert got.shape == t.shape and got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+    if dtype == torch.bfloat16:
+        exact = ref.flash_attention_bwd(*(t.float() for t in (q, k, v, o)),
+                                        lse, do.float(), causal=causal)
+        for got, want in zip(grads, exact):
+            assert float((got.float() - want).norm() / want.norm()) \
+                <= ATTN_BWD_BF16_REL_L2
 
 
 def _launched(names, before):

@@ -7,7 +7,9 @@ with ``convert.lm_params``, tokens from numpy with a seed:
   expert), GQA with 4 query heads over 2 KV heads of 64;
 - deepseek-v2-236b: 1 dense layer, then 1 MoE layer (4 experts, top 2, a
   shared expert), MLA with q.k width 32 + 16 and v width 32 (the kernel
-  pair (48, 32); (192, 128) at full width).
+  pair (48, 32); (192, 128) at full width). The loss and gradients also
+  at the full config's MLA widths, q.k 128 + 64 and v 128 (the pair
+  (192, 128), whose backward kernel trains deepseek on the card).
 
 Before any logits are compared, the test asserts that both packages
 routed every token of every MoE layer to the same experts and slots (the
@@ -193,11 +195,20 @@ def test_forward_logits_matches_reference(arch, weights, tokens, use_kernel,
                                rtol=LOGIT_TOL)
 
 
-@pytest.fixture(scope="module")
-def reference(arch):
+# the loss-and-gradient cases: each arch's reduced config, and reduced
+# deepseek-v2-236b at the full config's MLA widths
+FULL_MLA = {"qk_nope_dim": 128, "qk_rope_dim": 64, "v_head_dim": 128}
+GRAD_CASES = {**{a: (a, {}) for a in ARCHS},
+              "deepseek-v2-236b-full-mla": ("deepseek-v2-236b", FULL_MLA)}
+
+
+@pytest.fixture(scope="module", params=list(GRAD_CASES))
+def reference(request):
     """The reference's weights, one batch, its loss, ce, aux and
-    gradients, and its routing of the batch's tokens."""
-    jcfg, tcfg = _cfgs(arch)
+    gradients, and its routing of the batch's tokens, for a case of
+    ``GRAD_CASES``."""
+    arch, widths = GRAD_CASES[request.param]
+    jcfg, tcfg = _cfgs(arch, **widths)
     jp = jinit_params(jax.random.PRNGKey(1), jcfg)
     batch = jlm_batch(jax.random.PRNGKey(2), jcfg, B, S)
     (loss, metrics), grads = jax.jit(jax.value_and_grad(

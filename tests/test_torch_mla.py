@@ -15,8 +15,9 @@ on the CPU.
   ``repro.models.attention.multihead_attention`` and ``jax.vjp`` of it,
   within 2e-5 (the JAX package's attention tolerance, f32).
 - The wrapper's checks (``kernels/flash_attention.py``): the built (q.k,
-  v) pairs pass, an unbuilt pair and mismatched shapes raise; the
-  backward's check refuses (192, 128), built for the forward only."""
+  v) pairs pass, in the backward's check too (the backward library is
+  built for every forward pair, deepseek-v2-236b's (192, 128) included);
+  an unbuilt pair and mismatched shapes raise."""
 import numpy as np
 import pytest
 
@@ -158,9 +159,8 @@ def test_attention_at_two_widths_matches_reference(case, causal):
 
 @pytest.mark.parametrize("widths", fa.HEAD_DIMS)
 def test_wrapper_takes_the_built_pairs(widths):
-    """The forward's check takes every pair of ``HEAD_DIMS``; the
-    backward's every pair of ``BWD_HEAD_DIMS`` and refuses the one pair
-    only the forward is built for, (192, 128), naming its roadmap item."""
+    """The forward's check and the backward's take every pair of
+    ``HEAD_DIMS`` (the backward's output shape still checked)."""
     D, Dv = widths
     for dtype in fa.DTYPES:
         q = torch.zeros(1, 8, 4, D, dtype=dtype)
@@ -169,10 +169,6 @@ def test_wrapper_takes_the_built_pairs(widths):
         fa.check_inputs(q, k, v)
         o = torch.zeros(1, 8, 4, Dv, dtype=dtype)
         lse = torch.zeros(1, 4, 8)
-        if widths not in fa.BWD_HEAD_DIMS:
-            with pytest.raises(ValueError, match="queue 1 item 16"):
-                fa.check_bwd_inputs(q, k, v, o, lse, o)
-            continue
         fa.check_bwd_inputs(q, k, v, o, lse, o)
         with pytest.raises(ValueError, match="output's shape"):
             fa.check_bwd_inputs(q, k, v, q if D != Dv else o[..., :8], lse,
@@ -180,8 +176,10 @@ def test_wrapper_takes_the_built_pairs(widths):
 
 
 def test_backward_pairs_are_the_forwards_but_192_128():
-    assert set(fa.HEAD_DIMS) - set(fa.BWD_HEAD_DIMS) == {(192, 128)}
-    assert set(fa.BWD_HEAD_DIMS) < set(fa.HEAD_DIMS)
+    """The backward library is built for the forward's pairs, (192, 128)
+    included: no pair is forward-only."""
+    assert fa.BWD_HEAD_DIMS == fa.HEAD_DIMS
+    assert (192, 128) in fa.BWD_HEAD_DIMS
 
 
 @pytest.mark.parametrize("D,Dv", [(96, 48), (80, 80), (64, 32), (32, 32)])
