@@ -251,10 +251,10 @@ weights are freed first):
    falcon: the loss and every gradient under grad on the card, finite,
    through each scan's forward (twice a layer) and backward kernel.
 19. ``python -m repro_torch.launch.train cohort --steps 10`` (reduced
-   olmo-1b, as the reference; then ``--arch zamba2-1.2b`` and ``--arch
+   olmo-1b, as the reference; also ``--arch zamba2-1.2b`` and ``--arch
    falcon-mamba-7b``) and ``python -m
-   repro_torch.examples.federated_llm_cohort``, each in its own process;
-   then, each in its own process and all at once, ``train cohort`` of
+   repro_torch.examples.federated_llm_cohort``, and with them, each in its
+   own process and all at once, ``train cohort`` of
    ``--arch phi4-mini-3.8b``, ``phi3-mini-3.8b``, ``minicpm3-4b``,
    ``internvl2-2b`` and ``musicgen-large``, the federated LLM cohort
    example of the last two, ``python -m
@@ -416,6 +416,24 @@ deepseek-v2-236b trains (full width, random weights from ``--seed``):
 42. The backward kernel timed on the step's first call beside the plain
    version, one ``scaled_dot_product_attention`` forward and backward
    less its forward (its backend named) and the bound.
+
+The dry-run against the card:
+
+43. ``launch/dryrun.py::trace_one`` of each train step timed above
+   (olmo-1b, zamba2-1.2b, falcon-mamba-7b at 16 layers, the
+   ``DENSE_TRAIN_CUT``, ``FRONTEND_TRAIN_CUT`` and ``MOE_TRAIN_CUT``
+   cases) and of the 2 x 4096 prefills (phases 9, 13, 27-29, 33-34 at
+   ``MOE_SERVE_CUT``, 37-38), on fake tensors of the card at the same
+   config, cut and shape: the memory allocated and the launch counts
+   unchanged across each trace; olmo-1b's and zamba2-1.2b's count equal
+   on fake CPU tensors; for each case the counted and model TFLOP,
+   t_compute, t_memory, the dominant term, the phase's measured step,
+   ``roofline_share`` (max(t_compute, t_memory) / measured) and ``mfu``
+   (model FLOPs / (measured x peak)), also at the fastest step, each at
+   most 1.05, and the
+   estimated peak within 0.5-1.5 x the phase's ``max_memory_allocated``.
+   It fails first if ``H100_SXM`` does not describe the card (a name
+   without "H100", or other than 132 SMs). It launches no kernel.
 
 Each phase's wall time is logged. The last two lines of standard output
 are the kernels' JSON summary and ``{"ok": true, "device": {...}}``.
@@ -3964,16 +3982,15 @@ def phase_cohort_cli(torch):
     """19: ``python -m repro_torch.launch.train cohort --steps 10`` (reduced
     olmo-1b, as the reference), the same for ``--arch zamba2-1.2b`` and
     ``--arch falcon-mamba-7b`` (through the scan kernels' backward
-    kernels), and the federated LLM cohort example, each in its own
-    process on the card, one after another; then, together, ``train
-    cohort`` of phi4-mini-3.8b, phi3-mini-3.8b, minicpm3-4b,
-    internvl2-2b and musicgen-large, the federated LLM cohort example of
-    the last two, ``python -m repro_torch.examples.serve_decode``
+    kernels), of phi4-mini-3.8b, phi3-mini-3.8b, minicpm3-4b,
+    internvl2-2b and musicgen-large, the federated LLM cohort example
+    (and of the last two), ``python -m repro_torch.examples.serve_decode``
     (reduced phi3-mini-3.8b) and ``python -m repro_torch.launch.dev_smoke``
     (all ten reduced archs: a train forward/backward and a decode step
-    each), each in its own process; each must exit 0 (``train cohort``
-    raises unless its loss falls, the serving driver on tokens out of
-    range, the dev smoke on a non-finite value)."""
+    each), each in its own process on the card, all together (each
+    process spends most of its time starting); each must exit 0 (``train
+    cohort`` raises unless its loss falls, the serving driver on tokens
+    out of range, the dev smoke on a non-finite value)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
     cohort = ["-m", "repro_torch.launch.train", "cohort", "--steps", "10"]
@@ -3989,14 +4006,14 @@ def phase_cohort_cli(torch):
         return name, {"s": secs,
                       "last_line": proc.stdout.strip().splitlines()[-1]}
 
-    row = dict(run(name, cmd) for name, cmd in (
+    together = [
         ("train_cohort", cohort),
         ("train_cohort_zamba2", cohort + ["--arch", "zamba2-1.2b"]),
         ("train_cohort_falcon", cohort + ["--arch", "falcon-mamba-7b"]),
         ("federated_llm_cohort",
-         ["-m", "repro_torch.examples.federated_llm_cohort"])))
-    together = [(f"train_cohort_{arch}", cohort + ["--arch", arch])
-                for arch in DENSE_ARCHS + FRONTEND_ARCHS] + [
+         ["-m", "repro_torch.examples.federated_llm_cohort"])] + [
+        (f"train_cohort_{arch}", cohort + ["--arch", arch])
+        for arch in DENSE_ARCHS + FRONTEND_ARCHS] + [
         (f"federated_llm_cohort_{arch}",
          ["-m", "repro_torch.examples.federated_llm_cohort", "--arch", arch])
         for arch in FRONTEND_ARCHS] + [
@@ -4004,14 +4021,13 @@ def phase_cohort_cli(torch):
         ("dev_smoke", ["-m", "repro_torch.launch.dev_smoke"])]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(together)) as pool:
-        row.update(pool.map(lambda job: run(*job), together))
+        row = dict(pool.map(lambda job: run(*job), together))
     row["together_s"] = time.perf_counter() - t0
-    log(f"phase 19: train cohort --steps 10 (olmo-1b, zamba2-1.2b, "
-        f"falcon-mamba-7b) and the federated LLM cohort example on the "
-        f"card, each in its own process; then train cohort of "
-        f"{', '.join(DENSE_ARCHS + FRONTEND_ARCHS)}, the cohort example of "
-        f"the last two, the serve_decode example and the dev smoke of the "
-        f"ten archs, a process each, together: {row}")
+    log(f"phase 19: train cohort --steps 10 of olmo-1b, zamba2-1.2b, "
+        f"falcon-mamba-7b, {', '.join(DENSE_ARCHS + FRONTEND_ARCHS)}, the "
+        f"federated LLM cohort example (and of the last two), the "
+        f"serve_decode example and the dev smoke of the ten archs on the "
+        f"card, a process each, together: {row}")
     return row
 
 
@@ -5365,6 +5381,154 @@ def phase_scan_bwd_timing(torch, ops, ref, seen, l2_bytes, sms, clock_hz):
     return rows
 
 
+# ------------------------------ the dry-run against the card (phase 43)
+# The H100_SXM spec is for this card: the name must hold "H100" and the
+# card 132 SMs (the SXM5 part; the PCIe part has 114)
+SPEC_SMS = 132
+# no reading can pass the card's peak: a share above this is a fault of
+# the count or of the spec, not a fast card
+SHARE_LIMIT = 1.05
+# the dry-run's peak of live bytes against the phase's
+# max_memory_allocated; the measured peak also holds the copies of the
+# first recorded call (first_calls) and the allocator's rounding
+PEAK_RATIO = (0.5, 1.5)
+# the cases whose count is also traced on fake CPU tensors: both routes
+# must give the same count
+CPU_TWINS = ("olmo-1b", "zamba2-1.2b")
+
+
+def dryrun_case(label, cfg, mode, rows, length, measured_s, peak_gib,
+                best_s=None):
+    """One phase-43 case: ``cfg`` (cut as the phase ran it), the step's
+    mode and (rows, positions), the phase's measured seconds (and its
+    fastest step) and peak."""
+    return {"label": label, "cfg": cfg, "mode": mode, "rows": rows,
+            "len": length, "measured_s": measured_s,
+            "best_s": measured_s if best_s is None else best_s,
+            "measured_peak_gib": peak_gib}
+
+
+def dryrun_train_case(label, cfg, row, rows=TRAIN_BATCH):
+    """A train phase's row: its median step (steps 2 on), its fastest,
+    and its peak."""
+    return dryrun_case(label, cfg, "train", rows, TRAIN_LEN,
+                       statistics.median(row["step_s"][1:]),
+                       row["peak_gib"], min(row["step_s"][1:]))
+
+
+def dryrun_prefill_case(label, cfg, row):
+    """A prefill phase's row: its one timed forward and its peak."""
+    return dryrun_case(label, cfg, "prefill", PREFILL_BATCH, PREFILL_LEN,
+                       row["secs"], row["peak_gib"])
+
+
+def dryrun_cases_from(rows):
+    """The cases of phase 43's rows (the summary's ``dryrun`` entry), to
+    run the phase again without the phases it reads."""
+    from repro_torch.configs import get_config
+
+    return [dryrun_case(r["label"], get_config(r["arch"]).with_(
+        n_layers=r["layers"]), r["mode"], r["rows"], r["len"],
+        r["measured_s"], r["measured_peak_gib"], r["best_s"])
+        for r in rows]
+
+
+def phase_dryrun(torch, ops, dev, cases):
+    """43: ``launch/dryrun.py::trace_one`` of each case on fake tensors of
+    the card (the config, cut and shape its phase ran), held against that
+    phase's measured step: across each trace the memory allocated on the
+    card and the kernels' launch counts (``LAUNCHES``, ``CAPTURED``) stay
+    as they were; for ``CPU_TWINS`` the count on fake CPU tensors equals
+    the card's; the roofline's share of the measured step
+    (max(t_compute, t_memory) / measured) and the MFU (model FLOPs /
+    (measured x peak)) are at most ``SHARE_LIMIT``; the dry-run's peak of
+    live bytes lies within ``PEAK_RATIO`` of the phase's. Fails first if
+    ``H100_SXM`` does not describe the card."""
+    from repro_torch.configs.base import H100_SXM, InputShape
+    from repro_torch.launch import dryrun
+
+    props = torch.cuda.get_device_properties(dev)
+    card = card_name_power()
+    log(f"phase 43: {props.name}, {props.multi_processor_count} SMs, "
+        f"{props.total_memory / 2**30:.2f} GiB; nvidia-smi: {card}; spec "
+        f"H100_SXM {H100_SXM}")
+    check("H100" in props.name and props.multi_processor_count == SPEC_SMS,
+          f"H100_SXM does not describe the card {props.name} "
+          f"({props.multi_processor_count} SMs, {card})")
+    rows = []
+    for case in cases:
+        cfg = case["cfg"]
+        shape = InputShape(f"{case['mode']}_{case['rows']}x{case['len']}",
+                           case["len"], case["rows"], case["mode"])
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated(dev)
+        counts0 = (dict(ops.LAUNCHES), dict(ops.CAPTURED))
+        report, count = dryrun.trace_one(cfg, shape, dev)
+        torch.cuda.synchronize()
+        check(torch.cuda.memory_allocated(dev) == mem0
+              and (dict(ops.LAUNCHES), dict(ops.CAPTURED)) == counts0,
+              f"phase 43: the dry-run of {case['label']} allocated "
+              f"{torch.cuda.memory_allocated(dev) - mem0} bytes or launched "
+              f"a kernel ({counts0} -> {ops.LAUNCHES}, {ops.CAPTURED})")
+        cpu_flops = None
+        if case["label"] in CPU_TWINS:
+            _, on_cpu = dryrun.trace_one(cfg, shape, "cpu")
+            cpu_flops = on_cpu.dot_flops
+            check(on_cpu.dot_flops == count.dot_flops
+                  and on_cpu.flops_by_op == count.flops_by_op,
+                  f"phase 43: {case['label']} counts {count.flops_by_op} "
+                  f"on fake CUDA tensors, {on_cpu.flops_by_op} on fake CPU "
+                  f"tensors")
+        measured, best = case["measured_s"], case["best_s"]
+        bound = max(report.t_compute, report.t_memory)
+        share = bound / measured
+        mfu = report.model_flops_total / (measured * H100_SXM.peak_flops)
+        best_mfu = report.model_flops_total / (best * H100_SXM.peak_flops)
+        est_gib = report.peak_mem_bytes / 2**30
+        ratio = est_gib / case["measured_peak_gib"]
+        row = {"label": case["label"], "arch": cfg.name,
+               "layers": cfg.n_layers, "mode": case["mode"],
+               "rows": case["rows"], "len": case["len"],
+               "counted_tflop": count.dot_flops / 1e12,
+               "model_tflop": report.model_flops_total / 1e12,
+               "flops_by_op": count.flops_by_op, "cpu_flops": cpu_flops,
+               "t_compute": report.t_compute, "t_memory": report.t_memory,
+               "dominant": report.dominant, "measured_s": measured,
+               "roofline_share": share, "mfu": mfu, "best_s": best,
+               "best_roofline_share": bound / best, "best_mfu": best_mfu,
+               "useful_ratio": report.useful_ratio,
+               "est_peak_gib": est_gib,
+               "argument_gib": report.argument_bytes / 2**30,
+               "measured_peak_gib": case["measured_peak_gib"],
+               "peak_ratio": ratio, "trace_s": count.trace_s}
+        rows.append(row)
+        log(f"phase 43: {case['label']} {case['mode']} {case['rows']} x "
+            f"{case['len']} ({cfg.n_layers} layers): counted "
+            f"{row['counted_tflop']:.4f} TFLOP, model "
+            f"{row['model_tflop']:.4f} TFLOP; t_compute "
+            f"{report.t_compute:.6f} s, t_memory {report.t_memory:.6f} s, "
+            f"dominant {report.dominant}; measured {measured:.6f} s; "
+            f"roofline_share {share:.4f}, mfu {mfu:.4f} (fastest step "
+            f"{best:.6f} s: {bound / best:.4f}, {best_mfu:.4f}); estimated "
+            f"peak "
+            f"{est_gib:.2f} GiB (arguments {row['argument_gib']:.2f}) vs "
+            f"measured max_memory_allocated "
+            f"{case['measured_peak_gib']:.2f} GiB (x{ratio:.3f}); trace "
+            f"{count.trace_s:.1f} s on {card}")
+        check(max(share, mfu, bound / best, best_mfu) <= SHARE_LIMIT,
+              f"phase 43: {case['label']} reads roofline_share {share}, "
+              f"mfu {mfu} (fastest step {bound / best}, {best_mfu}; limit "
+              f"{SHARE_LIMIT}): no card passes its peak")
+        check(PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1],
+              f"phase 43: {case['label']}'s estimated peak {est_gib:.2f} "
+              f"GiB is x{ratio:.3f} the measured "
+              f"{case['measured_peak_gib']:.2f} GiB (limits {PEAK_RATIO})")
+    return {"card": card, "device": {
+        "name": props.name, "sms": props.multi_processor_count,
+        "total_memory": props.total_memory}, "spec": dataclasses.asdict(
+            H100_SXM), "cases": rows}
+
+
 def to_device(tree, dev):
     """``tree`` (tuples, lists, dicts of tensors and other values) with
     every tensor moved to ``dev``: the first calls of a phase kept off the
@@ -5724,6 +5888,42 @@ def main(argv=None) -> int:
         {MOE_TRAIN_ARCH: seen}, l2, 42)
     del seen
 
+    # the dry-run of each train step (and the 2 x 4096 prefills) the phases
+    # above timed, on fake tensors of the card: nothing allocated or
+    # launched; its roofline and peak held against the measured ones
+    from repro_torch.configs import get_config
+    cases = [dryrun_train_case("olmo-1b", get_config("olmo-1b"),
+                               train_row),
+             dryrun_train_case("zamba2-1.2b", get_config("zamba2-1.2b"),
+                               zamba_train),
+             dryrun_train_case("falcon-mamba-7b", get_config(
+                 "falcon-mamba-7b").with_(n_layers=FALCON_TRAIN_DEPTH),
+                 falcon_train)]
+    for cut, rows_of in ((DENSE_TRAIN_CUT, dense), (FRONTEND_TRAIN_CUT,
+                                                    frontend)):
+        for arch, (layers, rows) in cut.items():
+            cases.append(dryrun_train_case(
+                arch, get_config(arch).with_(n_layers=layers),
+                rows_of[arch]["train"], rows))
+    layers, rows = MOE_TRAIN_CUT[MOE_TRAIN_ARCH]
+    cases.append(dryrun_train_case(
+        MOE_TRAIN_ARCH, get_config(MOE_TRAIN_ARCH).with_(n_layers=layers),
+        moe_train, rows))
+    cases += [dryrun_prefill_case("zamba2-1.2b", get_config("zamba2-1.2b"),
+                                  prefill),
+              dryrun_prefill_case("falcon-mamba-7b",
+                                  get_config("falcon-mamba-7b"),
+                                  falcon_prefill)]
+    cases += [dryrun_prefill_case(arch, get_config(arch),
+                                  rows_of[arch]["prefill"])
+              for rows_of, archs in ((dense, DENSE_ARCHS),
+                                     (frontend, FRONTEND_ARCHS))
+              for arch in archs]
+    cases += [dryrun_prefill_case(arch, get_config(arch).with_(
+        n_layers=MOE_SERVE_CUT[arch]), moe_rows[arch]["prefill"])
+        for arch in MOE_ARCHS]
+    dryrun_row = timed("phase 43", phase_dryrun, torch, ops, dev, cases)
+
     summary = {"kernels": [{
         "name": "topk_reward", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "checked": True,
@@ -5969,6 +6169,7 @@ def main(argv=None) -> int:
     summary["zamba2_1_2b"] = {"train": zamba_train}
     summary["falcon_mamba_7b"] = {"train": falcon_train}
     summary["sass"] = sass
+    summary["dryrun"] = dryrun_row
     summary["zamba2_1_2b"].update(prefill=prefill, serve=serve)
     summary["falcon_mamba_7b"].update(prefill=falcon_prefill, routes=routes,
                                       serve=falcon_serve)

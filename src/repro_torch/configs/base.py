@@ -2,8 +2,11 @@
 
 The port's copy of ``repro/configs/base.py`` with torch dtypes
 (``param_dtype=torch.float32`` master weights, ``compute_dtype=
-torch.bfloat16``). ``MeshConfig``, ``HardwareSpec`` and ``TPU_V5E``
-describe the TPU mesh and chip and have no counterpart here.
+torch.bfloat16``). ``HardwareSpec`` keeps the reference's fields
+(``peak_flops``, ``hbm_bw``, ``ici_bw``) and has no defaults: its one
+instance, :data:`H100_SXM`, describes the card the port runs on, in place
+of the reference's ``TPU_V5E``. ``MeshConfig`` and the pod meshes have no
+counterpart yet: the dry-run runs on the one-device host mesh.
 """
 from __future__ import annotations
 
@@ -180,3 +183,19 @@ INPUT_SHAPES: Dict[str, InputShape] = {
     "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
     "long_500k": InputShape("long_500k", 524_288, 1, "decode", sliding_window=8_192),
 }
+
+
+@dataclass(frozen=True)
+class HardwareSpec:
+    """The rates the roofline divides by (``launch/roofline.py``)."""
+
+    peak_flops: float                # dense bf16 FLOP/s per device
+    hbm_bw: float                    # bytes/s of device memory
+    ici_bw: float                    # bytes/s a direction between devices
+
+
+# NVIDIA H100 80GB HBM3 (SXM5), power limit 700 W, from NVIDIA's H100
+# Tensor Core GPU datasheet: 989 TFLOP/s of dense bf16 tensor-core work,
+# 3.35 TB/s of HBM3, and NVLink 4's 900 GB/s a GPU, 450 GB/s a direction.
+# A card set below 700 W runs slower under load than these rates.
+H100_SXM = HardwareSpec(peak_flops=989e12, hbm_bw=3.35e12, ici_bw=450e9)

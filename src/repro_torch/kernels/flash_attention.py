@@ -37,6 +37,7 @@ import ctypes
 import torch
 
 from repro_torch.device import stream_handle
+from repro_torch.kernels import counting
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the (q.k width, v width) pairs the forward library is built for
 # (FA_PAIRS in csrc/flash_attention.cu): the GQA head sizes 64 and 128
@@ -53,8 +54,8 @@ BWD_HEAD_DIMS = HEAD_DIMS
 MAX_GRID_Y = 65535        # one CTA row per (batch, head)
 
 __all__ = ["BWD_HEAD_DIMS", "DTYPES", "HEAD_DIMS", "bind", "bind_bwd",
-           "check_inputs", "check_bwd_inputs", "launch", "launch_bwd",
-           "kernel_ready"]
+           "check_inputs", "check_bwd_inputs", "fake", "fake_bwd", "launch",
+           "launch_bwd", "kernel_ready"]
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -208,4 +209,46 @@ def launch_bwd(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
                            f"CUDA error {err}")
+    return dq, dk, dv
+
+
+def fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool = True, with_lse: bool = False):
+    """The fake route (``kernels/counting.py``): what :func:`launch`
+    returns, on q's fake device, with the plain version's dot FLOPs
+    reported (``counting.attention_flops``); nothing is launched. Raises on
+    a width pair the library is not built for, as the launch would."""
+    B, S, H, D = q.shape
+    Dv = v.shape[3]
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"head size (q.k, v widths) {(D, Dv)} not built; "
+                         f"built: {HEAD_DIMS}")
+    out = torch.empty((B, S, H, Dv), dtype=q.dtype, device=q.device)
+    counting.report("flash_attention",
+                    counting.attention_flops(B, S, H, D, Dv))
+    if not with_lse:
+        return out
+    return out, torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+
+
+def fake_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+             causal: bool = True):
+    """The backward's fake route: :func:`launch_bwd`'s outputs and f32
+    scratch on q's fake device, the plain version's dot FLOPs reported
+    (``counting.attention_bwd_flops``); nothing is launched."""
+    B, S, H, D = q.shape
+    KH, Dv = k.shape[2], v.shape[3]
+    if (D, Dv) not in BWD_HEAD_DIMS:
+        raise ValueError(f"the attention backward kernel is not built for "
+                         f"the (q.k, v) widths {(D, Dv)}; built: "
+                         f"{BWD_HEAD_DIMS}")
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, S, KH, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, S, KH, Dv), dtype=q.dtype, device=q.device)
+    if q.dtype != torch.float32:
+        torch.empty((B, S, H, D), dtype=torch.float32, device=q.device)
+    torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    counting.report("flash_attention_bwd",
+                    counting.attention_bwd_flops(B, S, H, D, Dv))
     return dq, dk, dv

@@ -2,7 +2,11 @@
 
 A wrapper takes the plain PyTorch version (``kernels/ref.py``) only for
 tensors on the CPU. For CUDA tensors it launches the kernel or raises;
-nothing falls back. Each wrapper counts its kernel launches in
+nothing falls back. A ``FakeTensor`` input, on any device, takes the
+kernel's fake route (``kernels/counting.py``): fake outputs of the
+kernel's shapes, its dot FLOPs reported to the counter, no build and no
+launch (a dry-run's trace, ``launch/dryrun.py``). Each wrapper counts its
+kernel launches in
 :data:`LAUNCHES`, a plain integer per kernel, so a run can show that its
 main path went through the kernel (a call under CUDA graph capture counts
 in :data:`CAPTURED` instead, and each replay of the graph adds it).
@@ -37,6 +41,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels import counting
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import selective_scan as _ss
@@ -167,10 +172,13 @@ def topk_reward(a: torch.Tensor, b: torch.Tensor, valid: torch.Tensor, *,
     masked clients score ``SENTINEL``. ``k`` must lie in ``[1, min(block_n,
     N)]`` on both devices (beyond it the reference kernel re-emits index
     0).
-    CPU tensors take the plain version; CUDA tensors the Hopper kernel."""
+    CPU tensors take the plain version; CUDA tensors the Hopper kernel;
+    fake tensors the fake route."""
     bn = min(int(block_n), int(a.shape[0]))
     if not 1 <= k <= bn:
         raise ValueError(f"k={k} must lie in [1, min(block_n, N)={bn}]")
+    if counting.is_fake(a):
+        return _tk.fake(a, k=k)
     if a.device.type == "cpu":
         return ref.topk_reward(a, b, valid, f=f, k=k, ucb=ucb, mode=mode,
                                index_offset=index_offset)
@@ -197,6 +205,8 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(q, k, v, causal):
+        if counting.is_fake(q):
+            return _fa.fake(q, k, v, causal=causal, with_lse=True)
         if q.device.type == "cpu":
             return ref.flash_attention_fwd_lse(q, k, v, causal=causal)
         out = _fa.launch(load_library("flash_attention"), q, k, v,
@@ -233,6 +243,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     then also writes the log-sum-exp the backward reads."""
     if _needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, causal)[0]
+    if counting.is_fake(q):
+        return _fa.fake(q, k, v, causal=causal)
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal)
     out = _fa.launch(load_library("flash_attention"), q, k, v, causal=causal)
@@ -250,6 +262,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     built for the ``(Dqk, Dv)`` pairs of ``flash_attention.BWD_HEAD_DIMS``,
     the forward's (a ``do`` whose layout the kernel does not take is made
     contiguous first)."""
+    if counting.is_fake(q):
+        return _fa.fake_bwd(q, k, v, o, lse, do, causal=causal)
     if q.device.type == "cpu":
         return ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     if not _fa.kernel_ready(do):
@@ -267,6 +281,8 @@ class _SSDChunk(torch.autograd.Function):
 
     @staticmethod
     def forward(x, Bm, Cm, dt, A):
+        if counting.is_fake(x):
+            return _sc.fake(x, Bm, Cm, dt, A, with_states=True)
         if x.device.type == "cpu":
             return ref.ssd_chunk(x, Bm, Cm, dt, A), x.new_empty(0)
         out = _sc.launch(load_library("ssd_chunk"), x, Bm, Cm, dt, A,
@@ -297,6 +313,8 @@ def ssd_chunk(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     the backward kernel reads."""
     if _needs_grad(x, Bm, Cm, dt, A):
         return _SSDChunk.apply(x, Bm, Cm, dt, A)[0]
+    if counting.is_fake(x):
+        return _sc.fake(x, Bm, Cm, dt, A)
     if x.device.type == "cpu":
         return ref.ssd_chunk(x, Bm, Cm, dt, A)
     out = _sc.launch(load_library("ssd_chunk"), x, Bm, Cm, dt, A)
@@ -314,6 +332,8 @@ def ssd_chunk_bwd(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     with_states=True)``). CPU tensors take the plain version (which
     recomputes the states); CUDA tensors the Hopper kernel (a ``dy`` whose
     last dimension is strided is made contiguous first)."""
+    if counting.is_fake(x):
+        return _sc.fake_bwd(x, Bm, Cm, dt, A, dy)
     if x.device.type == "cpu":
         return ref.ssd_chunk_bwd(x, Bm, Cm, dt, A, dy)
     if states is None:
@@ -334,6 +354,8 @@ class _SelectiveScan(torch.autograd.Function):
 
     @staticmethod
     def forward(x, dt, Bm, Cm, A, D):
+        if counting.is_fake(x):
+            return _ss.fake(x, dt, Bm, Cm, A, D, with_states=True)
         if x.device.type == "cpu":
             return ref.selective_scan(x, dt, Bm, Cm, A, D), x.new_empty(0)
         out = _ss.launch(load_library("selective_scan"), x, dt, Bm, Cm, A, D,
@@ -366,6 +388,8 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     the backward kernel reads."""
     if _needs_grad(x, dt, Bm, Cm, A, D):
         return _SelectiveScan.apply(x, dt, Bm, Cm, A, D)[0]
+    if counting.is_fake(x):
+        return _ss.fake(x, dt, Bm, Cm, A, D)
     if x.device.type == "cpu":
         return ref.selective_scan(x, dt, Bm, Cm, A, D)
     out = _ss.launch(load_library("selective_scan"), x, dt, Bm, Cm, A, D)
@@ -383,6 +407,8 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     ..., with_states=True)``). CPU tensors take the plain version (which
     recomputes the states); CUDA tensors the Hopper kernel (a ``dy`` whose
     last dimension is strided is made contiguous first)."""
+    if counting.is_fake(x):
+        return _ss.fake_bwd(x, dt, Bm, Cm, A, D, dy)
     if x.device.type == "cpu":
         return ref.selective_scan_bwd(x, dt, Bm, Cm, A, D, dy)
     if states is None:

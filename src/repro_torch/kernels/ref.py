@@ -206,7 +206,10 @@ def ssd_chunk_bwd(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
         g = g + Cf[:, t, None, :, None] * dyf[:, t, :, None, :]
         z = torch.einsum("bhsd,bs->bhd", g, Bf[:, t])             # B_t^T g
         dx[:, t] = dtf[:, t, :, None] * z
-        dB[:, t] = torch.einsum("bhsd,bh,bhd->bs", g, dtf[:, t], xf[:, t])
+        # two operands: a three-operand einsum's contraction order, and
+        # so its count of FLOPs, would depend on the shapes
+        dB[:, t] = torch.einsum("bhsd,bhd->bs", g,
+                                dtf[:, t, :, None] * xf[:, t])
         dC[:, t] = torch.einsum("bhsd,bhd->bs", h, dyf[:, t])
         gh = (g * before[t]).sum((-2, -1))              # <g_t, h_{t-1}>
         ddt[:, t] = A * a * gh + (z * xf[:, t]).sum(-1)

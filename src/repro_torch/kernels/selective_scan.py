@@ -39,15 +39,20 @@ import ctypes
 import torch
 
 from repro_torch.device import stream_handle
+from repro_torch.kernels import counting
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 STATE_DIMS = (8, 16)        # ds the library is built for
 MAX_GRID_Y = 65535          # one CTA row per batch element
 TILE = 64                   # the kernels' tile: one state written each
 
 CHUNK = 16                  # bytes the backward kernel stages at once
+# channels a part of dB and dC sums over: a cluster's, as the library's
+# selective_scan_bwd_part_channels() returns it (kChannels * kCluster)
+BWD_PART_CHANNELS = 128
 
-__all__ = ["CHUNK", "DTYPES", "STATE_DIMS", "TILE", "bind", "bind_bwd",
-           "bwd_buffers", "chunked", "launch", "launch_bwd"]
+__all__ = ["BWD_PART_CHANNELS", "CHUNK", "DTYPES", "STATE_DIMS", "TILE",
+           "bind", "bind_bwd", "bwd_buffers", "chunked", "fake", "fake_bwd",
+           "launch", "launch_bwd"]
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -165,7 +170,8 @@ def bwd_buffers(x: torch.Tensor, Bm: torch.Tensor, part_channels: int):
     DS = Bm.shape[-1]
     f32 = dict(dtype=torch.float32, device=x.device)
     dx, ddt = (torch.empty((B, S, _row(DI, x)), dtype=x.dtype,
-                           device=x.device)[..., :DI] for _ in range(2))
+                           device=x.device).narrow(-1, 0, DI)
+               for _ in range(2))
     parts = -(-DI // part_channels)
     return (dx, ddt, torch.empty((B, parts, S, DS), **f32),
             torch.empty((B, parts, S, DS), **f32),
@@ -212,5 +218,36 @@ def launch_bwd(lib: ctypes.CDLL, x: torch.Tensor, dt: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"selective_scan_bwd kernel launch failed: CUDA "
                            f"error {err}")
+    return (dx, ddt, dBp.sum(1).to(Bm.dtype), dCp.sum(1).to(Cm.dtype),
+            dAp.sum(0), dDp.sum(0))
+
+
+def fake(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
+         Cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor, *,
+         with_states: bool = False):
+    """The fake route (``kernels/counting.py``): what :func:`launch`
+    returns, on x's fake device, with the plain version's dot FLOPs
+    reported (``counting.scan_flops``); nothing is launched."""
+    B, S, DI = x.shape
+    DS = Bm.shape[-1]
+    y = torch.empty((B, S, DI), dtype=x.dtype, device=x.device)
+    counting.report("selective_scan", counting.scan_flops(B, S, DI, DS))
+    if not with_states:
+        return y
+    return y, torch.empty((B, -(-S // TILE), DI, DS), dtype=torch.float32,
+                          device=x.device)
+
+
+def fake_bwd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
+             Cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+             dy: torch.Tensor):
+    """The backward's fake route: :func:`launch_bwd`'s buffers
+    (:func:`bwd_buffers` at :data:`BWD_PART_CHANNELS`) on x's fake device
+    and its outputs, the parts summed as there, the plain version's dot
+    FLOPs reported (``counting.scan_bwd_flops``); nothing is launched."""
+    B, S, DI = x.shape
+    dx, ddt, dBp, dCp, dAp, dDp = bwd_buffers(x, Bm, BWD_PART_CHANNELS)
+    counting.report("selective_scan_bwd",
+                    counting.scan_bwd_flops(B, S, DI, Bm.shape[-1]))
     return (dx, ddt, dBp.sum(1).to(Bm.dtype), dCp.sum(1).to(Cm.dtype),
             dAp.sum(0), dDp.sum(0))

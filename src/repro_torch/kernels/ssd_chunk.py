@@ -36,6 +36,7 @@ import ctypes
 import torch
 
 from repro_torch.device import stream_handle
+from repro_torch.kernels import counting
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64,)          # hd the library is built for
 STATE_DIMS = (16, 64, 128)  # ds the library is built for
@@ -43,7 +44,8 @@ MAX_GRID_Z = 65535          # the batch is the grid's z axis
 CHUNK = 64                  # the kernels' chunk: one state written each
 
 __all__ = ["CHUNK", "DTYPES", "HEAD_DIMS", "STATE_DIMS", "bind",
-           "bind_bwd", "launch", "launch_bwd", "launch_carry"]
+           "bind_bwd", "fake", "fake_bwd", "launch", "launch_bwd",
+           "launch_carry"]
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -216,3 +218,42 @@ def launch_carry(lib: ctypes.CDLL, Cm: torch.Tensor, dt: torch.Tensor,
         raise RuntimeError(f"ssd_chunk_bwd carry launch failed: CUDA error "
                            f"{err}")
     return carry
+
+
+def fake(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+         dt: torch.Tensor, A: torch.Tensor, *, with_states: bool = False):
+    """The fake route (``kernels/counting.py``): what :func:`launch`
+    returns, on x's fake device, with the plain version's dot FLOPs
+    reported (``counting.ssd_flops``); nothing is launched."""
+    B, S, NH, HD = x.shape
+    DS = Bm.shape[-1]
+    y = torch.empty((B, S, NH, HD), dtype=x.dtype, device=x.device)
+    counting.report("ssd_chunk", counting.ssd_flops(B, S, NH, HD, DS))
+    if not with_states:
+        return y
+    return y, torch.empty((B, -(-S // CHUNK), NH, DS, HD),
+                          dtype=torch.float32, device=x.device)
+
+
+def fake_bwd(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+             dt: torch.Tensor, A: torch.Tensor, dy: torch.Tensor):
+    """The backward's fake route: :func:`launch_bwd`'s outputs, f32 parts
+    and (bf16) carry buffer on x's fake device, the plain version's dot
+    FLOPs reported (``counting.ssd_bwd_flops``); nothing is launched."""
+    B, S, NH, HD = x.shape
+    DS = Bm.shape[-1]
+    n_chunks = -(-S // CHUNK)
+    dev = x.device
+    bf16 = x.dtype == torch.bfloat16
+    dx = torch.empty((B, S, NH, HD), dtype=x.dtype, device=dev)
+    dBf = torch.empty((B, S, DS), dtype=torch.float32, device=dev)
+    dCf = torch.empty_like(dBf)
+    ddt = torch.empty((B, S, NH), dtype=torch.float32, device=dev)
+    if bf16:
+        torch.empty((B, n_chunks, NH, DS, HD), dtype=torch.float32,
+                    device=dev)
+    dA = torch.empty((B * n_chunks, NH) if bf16 else (NH,),
+                     dtype=torch.float32, device=dev)
+    counting.report("ssd_chunk_bwd", counting.ssd_bwd_flops(B, S, NH, HD, DS))
+    return (dx, dBf.to(Bm.dtype), dCf.to(Cm.dtype), ddt,
+            dA.sum(0) if bf16 else dA)

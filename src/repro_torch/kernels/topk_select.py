@@ -22,6 +22,7 @@ import ctypes
 import torch
 
 from repro_torch.device import stream_handle
+from repro_torch.kernels import counting
 from repro_torch.kernels.ref import MODES, SENTINEL
 
 DEFAULT_BLOCK_N = 4096
@@ -32,7 +33,7 @@ MASK_DTYPES = (torch.bool, torch.uint8)   # the kernel reads one byte a client
 _READY = set()   # (library, device) pairs with raised shared-memory limits
 
 __all__ = ["DEFAULT_BLOCK_N", "MAX_BLOCK_N", "MODES", "SENTINEL", "TILE",
-           "bind", "launch", "scratch_words"]
+           "bind", "fake", "launch", "scratch_words"]
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -119,3 +120,15 @@ def launch(lib: ctypes.CDLL, a: torch.Tensor, b: torch.Tensor,
         raise RuntimeError(f"topk_reward kernel launch failed: CUDA error "
                            f"{err}")
     return out_v, out_i
+
+
+def fake(a: torch.Tensor, *, k: int):
+    """The fake route (``kernels/counting.py``): :func:`launch`'s outputs
+    on ``a``'s fake device, and its scratch; no dot FLOPs (a selection,
+    no products); nothing is launched."""
+    words = scratch_words(int(a.shape[0]), k)
+    if words:
+        torch.empty(words, dtype=torch.int32, device=a.device)
+    counting.report("topk_reward", 0)
+    return (torch.empty(k, dtype=torch.float32, device=a.device),
+            torch.empty(k, dtype=torch.int32, device=a.device))

@@ -7,7 +7,7 @@ at datacenter scale: the FedAvg sum over the cohort is the batch mean).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
@@ -19,13 +19,17 @@ from repro_torch.optim import Optimizer, adamw, apply_updates
 
 
 def make_train_step(cfg, optimizer: Optimizer, remat: bool = True,
-                    device: DeviceLike = None) -> Callable:
+                    device: DeviceLike = None,
+                    use_kernel: Optional[bool] = None) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state, loss,
     metrics)``, functional as the reference's: the gradient of
     :func:`~repro_torch.models.transformer.loss_fn` by autograd, then the
     optimizer's update and ``apply_updates``; the given params and state
     are not modified. ``loss`` and ``metrics`` are detached 0-d tensors on
-    the device (reading them is the caller's host sync)."""
+    the device (reading them is the caller's host sync). ``use_kernel``
+    as in :func:`~repro_torch.models.transformer.loss_fn` (the dry-run
+    sets it, so fake tensors on any device trace the kernels' fake
+    routes)."""
     def train_step(params, opt_state, batch):
         leaves, spec = tree_flatten(params)
         live = [i for i, t in enumerate(leaves) if t is not None]
@@ -33,7 +37,8 @@ def make_train_step(cfg, optimizer: Optimizer, remat: bool = True,
         for i in live:
             leaves[i] = leaves[i].detach().requires_grad_(True)
         loss, metrics = loss_fn(cfg, tree_unflatten(leaves, spec), batch,
-                                remat=remat, device=device)
+                                remat=remat, device=device,
+                                use_kernel=use_kernel)
         grads = torch.autograd.grad(loss, [leaves[i] for i in live])
         for i, g in zip(live, grads):
             leaves[i] = g
@@ -48,9 +53,11 @@ def make_train_step(cfg, optimizer: Optimizer, remat: bool = True,
     return train_step
 
 
-def make_prefill_step(cfg, device: DeviceLike = None) -> Callable:
+def make_prefill_step(cfg, device: DeviceLike = None,
+                      use_kernel: Optional[bool] = None) -> Callable:
     def prefill_step(params, batch):
-        return forward_logits(cfg, params, batch, device=device)
+        return forward_logits(cfg, params, batch, device=device,
+                              use_kernel=use_kernel)
 
     return prefill_step
 

@@ -1161,3 +1161,47 @@ def test_chip_smoke_records_each_moe_layers_routing():
     cut, p2 = smoke.first_layers(cfg, params, 2)
     assert cut.n_layers == 2 and [len(st) for st in p2["stages"]] == [1, 1]
     assert p2["stages"][1][0] is params["stages"][1][0]
+
+
+def test_scan_covers_the_dryrun_slice():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for mod in ("kernels/counting.py", "launch/specs.py",
+                "launch/roofline.py", "launch/dryrun.py"):
+        assert f"src/repro_torch/{mod}" in names
+
+
+def test_dryrun_needs_cuda_or_an_explicit_cpu_and_sets_nothing():
+    """Importing the dry-run sets no environment variable (the
+    reference's forces 512 host devices); tracing without ``device=``
+    means the card, and raises with none."""
+    import importlib
+    import os
+
+    before = dict(os.environ)
+    dryrun = importlib.reload(importlib.import_module(
+        "repro_torch.launch.dryrun"))
+    assert dict(os.environ) == before
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card")
+    from repro_torch.configs import INPUT_SHAPES, get_reduced
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.trace_one(get_reduced("olmo-1b"), INPUT_SHAPES["decode_32k"])
+
+
+def test_chip_smoke_phase43_cases_round_trip():
+    """Phase 43's rows rebuild its cases (to run it again alone), and the
+    spec check names the card it refuses."""
+    smoke = _chip_smoke()
+    from repro_torch.configs import get_config
+    case = smoke.dryrun_train_case("phi3-mini-3.8b", get_config(
+        "phi3-mini-3.8b").with_(n_layers=16), {"step_s": [9.0, 0.75, 0.25, 0.5],
+                                               "peak_gib": 57.0})
+    assert (case["measured_s"], case["best_s"], case["rows"]) == (
+        0.5, 0.25, smoke.TRAIN_BATCH)
+    row = {"label": case["label"], "arch": "phi3-mini-3.8b", "layers": 16,
+           **{k: case[k] for k in ("mode", "rows", "len", "measured_s",
+                                   "best_s", "measured_peak_gib")}}
+    (back,) = smoke.dryrun_cases_from([row])
+    assert back["cfg"] == case["cfg"] and {
+        k: v for k, v in back.items() if k != "cfg"} == {
+        k: v for k, v in case.items() if k != "cfg"}
