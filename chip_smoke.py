@@ -435,6 +435,22 @@ The dry-run against the card:
    It fails first if ``H100_SXM`` does not describe the card (a name
    without "H100", or other than 132 SMs). It launches no kernel.
 
+The correctness tooling (``repro_torch/analysis/runtime.py``) on the card:
+
+44. The FLConfig defaults at full width (200 clients, k = 10), cuDNN's
+   deterministic algorithms: ``run_fl_scanned`` and
+   ``run_fl_async_scanned`` (buffer 4, concurrency 10), 6 rounds in 3
+   checkpoint segments, each under ``strict_mode(debug_nans=True)`` and
+   ``retrace_guard(watch=("round", "eval"))``: exactly one capture of
+   each step across the segments, the trajectory bitwise the unguarded
+   uninterrupted run's, and the top-k launches one a replay plus the
+   warm-up (and the async fill's). Then 3 rounds of a hand-built
+   ``StepGraphs`` replay under ``torch.cuda.set_sync_debug_mode("error")``
+   (which must refuse a probe ``.item()``), and two planted faults must
+   each be caught: a step that calls ``.item()`` raises under
+   ``strict_mode``, and a second ``StepGraphs`` over the same step shows
+   two captures of "round".
+
 Each phase's wall time is logged. The last two lines of standard output
 are the kernels' JSON summary and ``{"ok": true, "device": {...}}``.
 """
@@ -5529,6 +5545,157 @@ def phase_dryrun(torch, ops, dev, cases):
             H100_SXM), "cases": rows}
 
 
+# ------------------------------ the runtime sanitizers (phase 44)
+SANITIZER_ROUNDS = 6               # 3 segments of checkpoint_every=2
+SANITIZER_ASYNC = dict(buffer_size=4, max_concurrency=10)
+
+
+def same_bits(a, b):
+    """Two trees of tensors (dicts) equal bit for bit: names, shapes,
+    dtypes and bytes."""
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and a[k].cpu().numpy().tobytes() == b[k].cpu().numpy().tobytes()
+        for k in a)
+
+
+def phase_sanitizers(torch, ops, dev, cfg):
+    """44: the port's runtime sanitizers (``analysis/runtime.py``) on the
+    fused engines at ``cfg`` (the FLConfig defaults, full width), under
+    cuDNN's deterministic algorithms. ``run_fl_scanned`` and
+    ``run_fl_async_scanned`` run ``cfg.rounds`` rounds in segments of 2
+    under ``strict_mode(debug_nans=True)`` and ``retrace_guard``: one
+    capture of "round" and of "eval" across the segments, the trajectory
+    bitwise the unguarded uninterrupted run's, and the top-k launches one
+    a replay plus the warm-up (and the async fill's). Then 3 rounds of a
+    hand-built ``StepGraphs`` replay under
+    ``torch.cuda.set_sync_debug_mode("error")``, and two planted faults
+    must each be caught: a step that calls ``.item()`` under
+    ``strict_mode``, and a second ``StepGraphs`` over the same step (two
+    captures of "round")."""
+    from repro_torch.analysis.runtime import (HostTransferError,
+                                              retrace_guard, strict_mode)
+    from repro_torch.federated import replay
+    from repro_torch.federated.async_server import run_fl_async_scanned
+    from repro_torch.federated.server import _fused_engine, run_fl_scanned
+
+    row = {"card": card_name_power(), "rounds": cfg.rounds}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, run, c, eager in (
+                ("run_fl_scanned", run_fl_scanned, cfg, 1),
+                ("run_fl_async_scanned", run_fl_async_scanned,
+                 dataclasses.replace(cfg, **SANITIZER_ASYNC), 2)):
+            with graphs_made(replay) as made:
+                plain = run(c, device=dev)
+            plain_traj = {k: v.clone() for k, v in made[0].traj.items()}
+            with tempfile.TemporaryDirectory() as tmp, \
+                    graphs_made(replay) as made:
+                seg = dataclasses.replace(
+                    c, checkpoint_path=str(Path(tmp) / "s-{round}.ckpt"),
+                    checkpoint_every=2)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with strict_mode(debug_nans=True), \
+                        retrace_guard(watch=("round", "eval")) as caps:
+                    ops.LAUNCHES["topk_reward"] = 0
+                    guarded = run(seg, device=dev)
+                    launches = ops.LAUNCHES["topk_reward"]
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            captures = {s: caps.compiles_of(s) for s in ("round", "eval")}
+            check(captures == {"round": 1, "eval": 1} and len(made) == 1,
+                  f"phase 44 {name}: captures {captures} over "
+                  f"{len(made)} StepGraphs, expected one of each step "
+                  f"across the segments: {caps.records}")
+            caps.assert_compiled_once("round", "eval")
+            check(same_bits(made[0].traj, plain_traj)
+                  and same_history(guarded, plain),
+                  f"phase 44 {name}: the guarded segmented trajectory "
+                  f"differs from the unguarded run's")
+            per = made[0].launches.get("round", {}).get("topk_reward", 0)
+            check(per == 1 and launches == c.rounds * per + eager,
+                  f"phase 44 {name}: {launches} top-k launches, {per} a "
+                  f"replay: expected {c.rounds} replays and {eager} eager")
+            row[name] = {"launches": launches, "eager_launches": eager,
+                         "captures": captures, "s": secs,
+                         "capture_s": dict(made[0].capture_s)}
+
+        steps, carry0 = _fused_engine(cfg, dev)
+        with retrace_guard(watch=("round",)) as caps:
+            graphs = replay.StepGraphs(carry0, 4)
+            graphs.add("round", steps[0], advance=True)
+            graphs.add("eval", steps[1], row=-1)
+            graphs.run("round")         # the captures, before the mode
+            graphs.run("eval")
+            # planted: a second StepGraphs over the same step
+            twice = replay.StepGraphs(carry0, 2)
+            twice.add("round", steps[0], advance=True)
+            twice.run("round")
+        check(caps.compiles_of("round") == 2 and caps.retraced(),
+              f"phase 44: a second StepGraphs over one step was not seen: "
+              f"{caps.records}")
+        del twice
+        torch.cuda.synchronize()
+        probe = torch.ones(4, device=dev)
+        ops.LAUNCHES["topk_reward"] = 0
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                graphs.run("round")
+                graphs.run("eval")
+            armed = False
+            try:
+                probe.sum().item()      # a sync: the mode must refuse it
+            except RuntimeError:
+                armed = True
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        replays = ops.LAUNCHES["topk_reward"]
+        traj = graphs.fetch(0, 4)
+        check(armed, "phase 44: set_sync_debug_mode('error') let .item() "
+              "synchronise")
+        check(replays == 3 and np.isfinite(traj["test_acc"]).all(),
+              f"phase 44: {replays} top-k launches in 3 replays under "
+              f"sync debug, test_acc {traj['test_acc']}")
+        row["sync_debug_replays"] = {"rounds": 3, "launches": replays}
+
+        def reads_the_host(carry, ctr):
+            carry, outs = steps[1](carry, ctr)
+            return carry, dict(outs, acc=torch.full(
+                (), outs["test_acc"].item(), device=dev))
+
+        planted = replay.StepGraphs(carry0, 2)
+        planted.add("eval", reads_the_host)
+        caught = None
+        try:
+            with strict_mode():
+                planted.run("eval")
+        except HostTransferError as e:
+            caught = str(e)
+        check(caught is not None, "phase 44: a step's .item() ran under "
+              "strict_mode")
+        row["planted"] = {"item_in_step": caught,
+                          "second_capture": caps.compiles_of("round")}
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.backends.cudnn.deterministic = deterministic
+    log(f"phase 44: the sanitizers on the fused engines, {cfg.n_clients} "
+        f"clients, k={cfg.selector.k}, full width, {cfg.rounds} rounds in 3 "
+        f"segments under strict_mode(debug_nans=True) on {row['card']}: "
+        f"run_fl_scanned {row['run_fl_scanned']['s']:.3f} s, "
+        f"run_fl_async_scanned {row['run_fl_async_scanned']['s']:.3f} s, "
+        f"one capture a step, trajectories bitwise the unguarded runs'; "
+        f"top-k launches {row['run_fl_scanned']['launches']} / "
+        f"{row['run_fl_async_scanned']['launches']} (one a replay, plus "
+        f"the warm-up and the async fill); 3 replays under sync debug "
+        f"'error' ({replays} launches); planted .item() caught "
+        f"({caught}), planted second capture seen: {row}")
+    return row
+
+
 def to_device(tree, dev):
     """``tree`` (tuples, lists, dicts of tensors and other values) with
     every tensor moved to ``dev``: the first calls of a phase kept off the
@@ -5923,6 +6090,10 @@ def main(argv=None) -> int:
         n_layers=MOE_SERVE_CUT[arch]), moe_rows[arch]["prefill"])
         for arch in MOE_ARCHS]
     dryrun_row = timed("phase 43", phase_dryrun, torch, ops, dev, cases)
+    # the sanitizers on the fused engines; each path's count set to 0 just
+    # before it and read just after (inside the phase)
+    sanitizer_row = timed("phase 44", phase_sanitizers, torch, ops, dev,
+                          fl_config(200, 10, SANITIZER_ROUNDS))
 
     summary = {"kernels": [{
         "name": "topk_reward", "route": "cuda", "source": KERNEL_SOURCE,
@@ -6170,6 +6341,14 @@ def main(argv=None) -> int:
     summary["falcon_mamba_7b"] = {"train": falcon_train}
     summary["sass"] = sass
     summary["dryrun"] = dryrun_row
+    summary["sanitizers"] = sanitizer_row
+    summary["kernels"][0]["launches_by_phase"].update({
+        "sanitized_run_fl_scanned_200":
+            sanitizer_row["run_fl_scanned"]["launches"],
+        "sanitized_run_fl_async_scanned_200":
+            sanitizer_row["run_fl_async_scanned"]["launches"],
+        "sync_debug_replays_200":
+            sanitizer_row["sync_debug_replays"]["launches"]})
     summary["zamba2_1_2b"].update(prefill=prefill, serve=serve)
     summary["falcon_mamba_7b"].update(prefill=falcon_prefill, routes=routes,
                                       serve=falcon_serve)

@@ -48,10 +48,13 @@ def to_file(t: torch.Tensor) -> np.ndarray:
     elif a.ndim == 5 and a.is_floating_point():
         a = a.permute(0, 3, 4, 2, 1)       # SOIHW -> SHWIO
     if a.dtype == torch.int64:
-        if bool(((a < 0) | (a > 0xFFFFFFFF)).any()):
+        # checked on the host copy: saving mid-run reads nothing from the
+        # device but the copy (legal under analysis.runtime.strict_mode)
+        n = a.numpy()
+        if ((n < 0) | (n > 0xFFFFFFFF)).any():
             raise CheckpointError("an int64 tensor that is not a PRNG key "
                                   "(values outside uint32) has no file form")
-        return a.numpy().astype(np.uint32)
+        return n.astype(np.uint32)
     return a.contiguous().numpy()
 
 

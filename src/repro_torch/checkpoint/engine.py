@@ -105,7 +105,11 @@ def load_engine_checkpoint(path: str, templates: Dict[str, Any],
     resuming run would have built fresh. Returns ``(round, state, data,
     meta)``. Raises :class:`CheckpointError` on framing or CRC failure,
     missing or mismatched state components, or an ``expect_meta``
-    disagreement."""
+    disagreement. Its leaves are tensors of host data copied to the
+    device, so it runs inside the caller's
+    ``analysis.runtime.setup_transfers()`` window (legal under
+    ``strict_mode``); saving copies with ``.cpu()`` and reads nothing
+    else (``checkpoint.to_file``)."""
     payload = _read_verified(path)
     if not isinstance(payload, dict) or payload.get("kind") != "engine-carry":
         kind = payload.get("kind") if isinstance(payload, dict) else None

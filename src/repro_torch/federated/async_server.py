@@ -44,6 +44,7 @@ import torch
 from torch.utils._pytree import tree_leaves, tree_map
 
 from repro_torch import prng
+from repro_torch.analysis.runtime import setup_transfers
 from repro_torch.checkpoint import load_engine_checkpoint
 from repro_torch.core.clients import scatter_stat_util
 from repro_torch.core.fairness import jains_index
@@ -377,8 +378,9 @@ def run_fl_async(cfg: FLConfig, verbose: bool = False,
                      "slot_rank": torch.zeros(n, dtype=torch.int32,
                                               device=dev),
                      "krech": kloop, "kloop": kloop}
-        start, state, saved, _ = load_engine_checkpoint(
-            cfg.resume_from, templates, expect_meta=meta)
+        with setup_transfers():     # checkpoint leaves move to the device
+            start, state, saved, _ = load_engine_checkpoint(
+                cfg.resume_from, templates, expect_meta=meta)
         params, opt_state, pop = (state["params"], state["opt_state"],
                                   state["pop"])
         sel_state, astate, ring = state["st"], state["astate"], state["ring"]
@@ -733,17 +735,20 @@ def _async_fused_engine(cfg: FLConfig, dev: torch.device, mesh):
     ``dev`` over the ``clients`` ``mesh``: ``((agg_fn, eval_fn), carry0)``,
     the population and the clients' data in shard blocks."""
     _check_async_cfg(cfg)
-    (kloop, data, test, params, opt, opt_state, pop, sim_steps, up_bytes,
-     energy_model, model_bytes) = _fused_setup(cfg, dev)
-    if "t" in opt_state:          # the step count rides in the graph too
-        opt_state = dict(opt_state, t=opt_state["t"].to(dev))
-    fill, agg_fn, eval_fn = _async_fused_runner(
-        cfg, energy_model, sim_steps, model_bytes, up_bytes, opt, mesh,
-        shard_clients(data["x"], mesh), shard_clients(data["y"], mesh),
-        test["x"], test["y"])
-    acc0 = _accuracy_fn(cfg.model, test)(params)
-    carry0 = fill(kloop, params, opt_state, population_sharding(mesh)(pop),
-                  SelectorState.create(cfg.selector).canonical(dev), acc0)
+    with setup_transfers():     # one-time host-to-device materialisation
+        (kloop, data, test, params, opt, opt_state, pop, sim_steps,
+         up_bytes, energy_model, model_bytes) = _fused_setup(cfg, dev)
+        if "t" in opt_state:      # the step count rides in the graph too
+            opt_state = dict(opt_state, t=opt_state["t"].to(dev))
+        fill, agg_fn, eval_fn = _async_fused_runner(
+            cfg, energy_model, sim_steps, model_bytes, up_bytes, opt, mesh,
+            shard_clients(data["x"], mesh), shard_clients(data["y"], mesh),
+            test["x"], test["y"])
+        acc0 = _accuracy_fn(cfg.model, test)(params)
+        carry0 = fill(kloop, params, opt_state,
+                      population_sharding(mesh)(pop),
+                      SelectorState.create(cfg.selector).canonical(dev),
+                      acc0)
     return (agg_fn, eval_fn), carry0
 
 

@@ -19,17 +19,27 @@ every later call is a replay. A failed capture raises: there is no eager
 fallback on the card. The warm-up's kernel launches are real and count
 in ``kernels.ops.LAUNCHES``; the capture's launch nothing, and each replay
 adds them.
+
+The first run of each step logs one INFO record to this module's logger,
+"Capturing <name> with carry shapes and types [...]": the capture on the
+card, the first eager run on the CPU. Later runs log nothing, so one
+record a step a run, whatever the segments, is the contract that
+``analysis.runtime.retrace_guard`` checks on both devices.
 """
 from __future__ import annotations
 
+import logging
 import time
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Set, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.analysis.runtime import device_get
 from repro_torch.checkpoint import tree_flatten, tree_unflatten
 from repro_torch.kernels import ops
+
+_log = logging.getLogger(__name__)
 
 StepFn = Callable[[Any, torch.Tensor], Tuple[Any, Dict[str, torch.Tensor]]]
 
@@ -54,6 +64,7 @@ class StepGraphs:
         self.capture_s: Dict[str, float] = {}
         self._steps: Dict[str, Tuple[StepFn, int, bool]] = {}
         self._graphs: Dict[str, torch.cuda.CUDAGraph] = {}
+        self._eager: Set[str] = set()      # steps run eagerly (the CPU)
         # hand-written kernel launches each graph holds (kernels.ops)
         self.launches: Dict[str, Dict[str, int]] = {}
 
@@ -86,8 +97,21 @@ class StepGraphs:
         if advance:
             self.ctr += 1
 
+    def _log_capture(self, name: str) -> None:
+        """The step's one INFO record, from the carry's shapes and dtypes
+        alone (it reads nothing from the device)."""
+        if _log.isEnabledFor(logging.INFO):
+            specs = ", ".join(
+                f"{str(s.dtype).removeprefix('torch.')}"
+                f"[{','.join(map(str, s.shape))}]" for s in self.static)
+            _log.info("Capturing %s with carry shapes and types [%s]", name,
+                      specs)
+
     def run(self, name: str) -> None:
         if self.device.type != "cuda":
+            if name not in self._eager:
+                self._eager.add(name)
+                self._log_capture(name)
             self._body(name)
             return
         if name not in self._graphs:
@@ -97,6 +121,7 @@ class StepGraphs:
             ops.LAUNCHES[kernel] += n
 
     def _capture(self, name: str) -> None:
+        self._log_capture(name)
         # the capture waits for the work queued before it: not its cost
         torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
@@ -124,6 +149,7 @@ class StepGraphs:
         self.capture_s[name] = time.perf_counter() - t0
 
     def fetch(self, a: int, b: int) -> Dict[str, np.ndarray]:
-        """Trajectory rows ``[a, b)`` on the host (one transfer per
-        buffer, at the end of a segment)."""
-        return {key: v[a:b].cpu().numpy() for key, v in self.traj.items()}
+        """Trajectory rows ``[a, b)`` on the host: the named read
+        (``analysis.runtime.device_get``), one copy a buffer at the end of
+        a segment."""
+        return device_get({key: v[a:b] for key, v in self.traj.items()})

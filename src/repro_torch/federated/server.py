@@ -37,6 +37,7 @@ from torch.func import grad_and_value, vmap
 from torch.utils._pytree import tree_leaves, tree_map
 
 from repro_torch import prng
+from repro_torch.analysis.runtime import device_get, setup_transfers
 from repro_torch.checkpoint import load_engine_checkpoint, segment_bounds
 from repro_torch.compression import compress_delta, wire_bytes
 from repro_torch.configs.paper_resnet_speech import CONFIG as RESNET_CONFIG
@@ -930,15 +931,16 @@ def _run_fused_elastic(cfg: FLConfig, steps, carry0: Dict[str, Any],
                             cfg.rounds, meta)
     parts: List[Dict[str, Any]] = []
     if cfg.resume_from:
-        start, carry, saved, _ = load_engine_checkpoint(
-            cfg.resume_from, to_file(carry0), expect_meta=meta)
-        if mesh is not None:
-            carry = from_file(carry)
+        with setup_transfers():     # checkpoint leaves move to the device
+            start, carry, saved, _ = load_engine_checkpoint(
+                cfg.resume_from, to_file(carry0), expect_meta=meta)
+            if mesh is not None:
+                carry = from_file(carry)
         parts.append(saved["traj"])
         init_acc = float(saved["init_acc"])
     else:
         start, carry = 0, carry0
-        init_acc = float(carry0["last_acc"])
+        init_acc = float(device_get(carry0["last_acc"]))
     graphs = StepGraphs(carry, cfg.rounds, start)
     graphs.add("round", steps[0], advance=True)
     graphs.add("eval", steps[1], row=-1)
@@ -956,7 +958,8 @@ def _run_fused_elastic(cfg: FLConfig, steps, carry0: Dict[str, Any],
     traj = _concat_traj(parts)
     if capture is not None:
         capture["traj"] = traj
-    return history_fn(cfg, init_acc, traj)
+    with setup_transfers():     # host reductions make tensors of the rows
+        return history_fn(cfg, init_acc, traj)
 
 
 def run_fl_scanned(cfg: FLConfig, verbose: bool = False,
@@ -999,25 +1002,26 @@ def _fused_engine(cfg: FLConfig, dev: torch.device, mesh=None):
         shard_clients
 
     mesh = ClientMesh(1) if mesh is None else mesh
-    (kloop, data, test, params, opt, opt_state, pop, sim_steps, up_bytes,
-     energy_model, model_bytes) = _fused_setup(cfg, dev)
-    if "t" in opt_state:          # the step count rides in the graph too
-        opt_state = dict(opt_state, t=opt_state["t"].to(dev))
-    n_pick = int(np.ceil(cfg.selector.k * cfg.overcommit))
-    sel_cfg = cfg.selector if n_pick == cfg.selector.k else \
-        replace_selector_k(cfg.selector, n_pick)
-    pop = population_sharding(mesh)(pop)
-    t_total, cost = round_cost_table(pop, energy_model, model_bytes,
-                                     sim_steps, cfg.batch_size, up_bytes)
-    steps = _fused_runner(
-        cfg, sel_cfg, int(cfg.selector.k), energy_model, opt, mesh,
-        shard_clients(data["x"], mesh), shard_clients(data["y"], mesh),
-        test["x"], test["y"], t_total, cost)
-    acc0 = _accuracy_fn(cfg.model, test)(params)
-    carry0 = dict(params=params, opt_state=opt_state, pop=pop,
-                  st=SelectorState.create(cfg.selector).canonical(dev),
-                  kloop=kloop, last_acc=acc0,
-                  ledger=BudgetLedger.create(dev))
+    with setup_transfers():     # one-time host-to-device materialisation
+        (kloop, data, test, params, opt, opt_state, pop, sim_steps,
+         up_bytes, energy_model, model_bytes) = _fused_setup(cfg, dev)
+        if "t" in opt_state:      # the step count rides in the graph too
+            opt_state = dict(opt_state, t=opt_state["t"].to(dev))
+        n_pick = int(np.ceil(cfg.selector.k * cfg.overcommit))
+        sel_cfg = cfg.selector if n_pick == cfg.selector.k else \
+            replace_selector_k(cfg.selector, n_pick)
+        pop = population_sharding(mesh)(pop)
+        t_total, cost = round_cost_table(pop, energy_model, model_bytes,
+                                         sim_steps, cfg.batch_size, up_bytes)
+        steps = _fused_runner(
+            cfg, sel_cfg, int(cfg.selector.k), energy_model, opt, mesh,
+            shard_clients(data["x"], mesh), shard_clients(data["y"], mesh),
+            test["x"], test["y"], t_total, cost)
+        acc0 = _accuracy_fn(cfg.model, test)(params)
+        carry0 = dict(params=params, opt_state=opt_state, pop=pop,
+                      st=SelectorState.create(cfg.selector).canonical(dev),
+                      kloop=kloop, last_acc=acc0,
+                      ledger=BudgetLedger.create(dev))
     return steps, carry0
 
 

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.analysis.runtime import setup_transfers
 from repro_torch.checkpoint import (CarryCheckpointer, load_engine_checkpoint,
                                     segment_bounds)
 from repro_torch.core.clients import ClientPopulation, round_times
@@ -511,30 +512,31 @@ def _run_selection_engine(key: torch.Tensor, sel_cfg: SelectorConfig,
     from repro_torch.launch.sharding import population_sharding
 
     n_real = pop.n
-    keys = prng.split(key, rounds)
-    st = sel_state.canonical(pop.device)
     meta = _engine_meta("sync", sel_cfg, n_real, rounds, deadline_s, faults)
     start, parts = 0, []
-    if resume_from is not None:
-        start, state, data, _ = load_engine_checkpoint(
-            resume_from, {"pop": pop, "st": st}, expect_meta=meta)
-        pop, st = state["pop"], state["st"]
-        if data.get("traj"):
-            parts.append(data["traj"])
-    if mesh is not None:
-        pop = population_sharding(mesh)(pop)
+    with setup_transfers():     # one-time host-to-device materialisation
+        keys = prng.split(key, rounds)
+        st = sel_state.canonical(pop.device)
+        if resume_from is not None:
+            start, state, data, _ = load_engine_checkpoint(
+                resume_from, {"pop": pop, "st": st}, expect_meta=meta)
+            pop, st = state["pop"], state["st"]
+            if data.get("traj"):
+                parts.append(data["traj"])
+        if mesh is not None:
+            pop = population_sharding(mesh)(pop)
+        step = make_round_engine(
+            sel_cfg, energy_model, float(model_bytes), int(local_steps),
+            int(batch_size), None if deadline_s is None else float(deadline_s),
+            None if up_bytes is None else float(up_bytes), faults, mesh,
+            n_real)
+        graphs = _selection_graphs(step, keys, pop, st, rounds, start, mesh,
+                                   n_real)
 
     def whole(p):
         return p if mesh is None else mesh.gather(p, n_real)
 
-    step = make_round_engine(sel_cfg, energy_model, float(model_bytes),
-                             int(local_steps), int(batch_size),
-                             None if deadline_s is None else float(deadline_s),
-                             None if up_bytes is None else float(up_bytes),
-                             faults, mesh, n_real)
     ck = _make_checkpointer(checkpoint_path, checkpoint_every, rounds, meta)
-    graphs = _selection_graphs(step, keys, pop, st, rounds, start, mesh,
-                               n_real)
     for a, b in segment_bounds(start, rounds,
                                ck.every if ck is not None else None):
         for _ in range(a, b):
@@ -1011,25 +1013,33 @@ def _run_async_engine(key: torch.Tensor, sel_cfg: SelectorConfig,
         None if up_bytes is None else float(up_bytes), mesh=mesh,
         n_real=n_real)
     b, c, _, _ = _async_knobs(sel_cfg, buffer_size, max_concurrency)
-    key0, keys, refill = _async_xs(key, rounds)
     dev = pop.device
-    st = sel_state.canonical(dev)
     meta = _engine_meta("async", sel_cfg, n_real, rounds, deadline_s, faults,
                         buffer_size=b, max_concurrency=c,
                         staleness_power=float(staleness_power))
     start, parts = 0, []
-    astate = AsyncEventState.create(n_real, dev)
-    if resume_from is not None:
-        start, state, data, _ = load_engine_checkpoint(
-            resume_from, {"pop": pop, "st": st, "astate": astate},
-            expect_meta=meta)
-        pop, st, astate = state["pop"], state["st"], state["astate"]
-        idx0, chosen0 = data["fill_selected"], data["fill_chosen"]
-        if data.get("traj"):
-            parts.append(data["traj"])
-    if mesh is not None:
-        pop = population_sharding(mesh)(pop)
-        astate = _astate_put(astate, mesh)
+    with setup_transfers():     # one-time host-to-device materialisation
+        key0, keys, refill = _async_xs(key, rounds)
+        st = sel_state.canonical(dev)
+        astate = AsyncEventState.create(n_real, dev)
+        if resume_from is not None:
+            start, state, data, _ = load_engine_checkpoint(
+                resume_from, {"pop": pop, "st": st, "astate": astate},
+                expect_meta=meta)
+            pop, st, astate = state["pop"], state["st"], state["astate"]
+            idx0, chosen0 = data["fill_selected"], data["fill_chosen"]
+            if data.get("traj"):
+                parts.append(data["traj"])
+        if mesh is not None:
+            pop = population_sharding(mesh)(pop)
+            astate = _astate_put(astate, mesh)
+        if resume_from is None:
+            st, astate, idx0, chosen0 = init_fill(key0, pop, st, astate)
+            idx0 = idx0.to(torch.int32).cpu().numpy()
+            chosen0 = chosen0.cpu().numpy()
+        graphs = _async_graphs(step, keys, refill,
+                               {"pop": pop, "st": st, "astate": astate},
+                               rounds, start, mesh, n_real)
 
     def to_file(carry):
         if mesh is None:
@@ -1037,14 +1047,7 @@ def _run_async_engine(key: torch.Tensor, sel_cfg: SelectorConfig,
         return dict(carry, pop=mesh.gather(carry["pop"], n_real),
                     astate=_astate_gather(carry["astate"], mesh, n_real))
 
-    if resume_from is None:
-        st, astate, idx0, chosen0 = init_fill(key0, pop, st, astate)
-        idx0 = idx0.to(torch.int32).cpu().numpy()
-        chosen0 = chosen0.cpu().numpy()
     ck = _make_checkpointer(checkpoint_path, checkpoint_every, rounds, meta)
-    graphs = _async_graphs(step, keys, refill,
-                           {"pop": pop, "st": st, "astate": astate}, rounds,
-                           start, mesh, n_real)
     for a, e in segment_bounds(start, rounds,
                                ck.every if ck is not None else None):
         for _ in range(a, e):

@@ -18,6 +18,8 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.runtime import setup_transfers
+
 
 def f32(x, like: torch.Tensor) -> torch.Tensor:
     """A 0-d float32 tensor on ``like``'s device: a Python float rounded
@@ -36,7 +38,9 @@ def constant(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     write to it."""
     key = (values, dtype, torch.device(device))
     if key not in _CONSTANTS:
-        _CONSTANTS[key] = torch.tensor(values, dtype=dtype, device=device)
+        with setup_transfers():     # copied once, outside any capture
+            _CONSTANTS[key] = torch.tensor(values, dtype=dtype,
+                                           device=device)
     return _CONSTANTS[key]
 
 
@@ -76,7 +80,8 @@ def _powf_table(exponent: float, device: torch.device) -> torch.Tensor:
         powf.restype, powf.argtypes = ctypes.c_float, [ctypes.c_float] * 2
         table = np.array([powf(1.0 + s, exponent)
                           for s in range(_POWF_TABLE)], np.float32)
-        _DAMPING[key] = torch.from_numpy(table).to(device)
+        with setup_transfers():     # copied once, outside any capture
+            _DAMPING[key] = torch.from_numpy(table).to(device)
     return _DAMPING[key]
 
 

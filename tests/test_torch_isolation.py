@@ -154,6 +154,32 @@ def test_scan_covers_the_front_doors():
             "examples/million_client_selection.py"} <= names
 
 
+def test_scan_covers_the_analysis_slice():
+    pkg = ROOT / "src" / "repro_torch"
+    names = {p.relative_to(pkg).as_posix() for p in FILES
+             if pkg in p.parents}
+    assert {"analysis/__init__.py", "analysis/__main__.py",
+            "analysis/engine.py", "analysis/callgraph.py",
+            "analysis/rules.py", "analysis/runtime.py"} <= names
+
+
+def test_the_lint_imports_no_torch():
+    """``import repro_torch.analysis`` (and its rules and CLI) loads no
+    torch until a runtime name is asked for."""
+    import subprocess
+    import sys
+    code = ("import sys\n"
+            "import repro_torch.analysis as a\n"
+            "import repro_torch.analysis.rules, repro_torch.analysis.__main__\n"
+            "assert 'torch' not in sys.modules, 'torch loaded early'\n"
+            "a.strict_mode\n"
+            "assert 'torch' in sys.modules\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=ROOT,
+                       env={"PYTHONPATH": "src", "PATH": "/usr/bin:/bin"})
+    assert r.returncode == 0, r.stderr
+
+
 def test_async_entry_points_need_cuda_or_an_explicit_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is the card")

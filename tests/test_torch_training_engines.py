@@ -19,10 +19,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
-
 from test_torch_server import (_cfgs, _patch_reference_draws,  # noqa: E402
                                _reference, one_thread)  # noqa: F401
+from repro_torch.analysis.runtime import strict_mode  # noqa: E402
 from repro_torch.configs.paper_resnet_speech import reduced  # noqa: E402
 from repro_torch.core.selection import SelectorConfig  # noqa: E402
 from repro_torch.federated import server as tserver  # noqa: E402
@@ -132,21 +131,11 @@ def test_segmented_and_resumed_runs_are_bitwise(tmp_path):
         _assert_bitwise(whole, resumed)
 
 
-class NoHostRead(TorchDispatchMode):
-    """Raises on every operator that reads a device value on the host,
-    sizes its output from the data, or makes a tensor of host data (a
-    copy from the host on the card, which a CUDA graph cannot capture)."""
-    BANNED = ("_local_scalar_dense", "nonzero", "masked_select",
-              "lift_fresh")
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = func.overloadpacket.__name__
-        if name in self.BANNED:
-            raise AssertionError(f"host read: {func}")
-        if func is torch.ops.aten.index.Tensor and any(
-                i is not None and i.dtype == torch.bool for i in args[1]):
-            raise AssertionError("indexing with a bool mask")
-        return func(*args, **(kwargs or {}))
+#: Raises on every operator that reads a device value on the host, sizes
+#: its output from the data, or makes a tensor of host data (a copy from
+#: the host on the card, which a CUDA graph cannot capture): the port's
+#: runtime sanitizer, whose HostTransferError is an AssertionError.
+NoHostRead = strict_mode
 
 
 def test_no_host_read_mode_catches_reads():
